@@ -1,0 +1,141 @@
+"""Typed configuration of the PyTorch/CUDA DegNorm engine.
+
+``NMFConfig`` is this package's own copy of the algorithm parameters
+(reference ``degnorm/nmf.py:12-53``); ``EngineConfig`` holds the execution
+knobs of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class NMFConfig:
+    """Parameters of the NMF-over-approximation algorithm.
+
+    Defaults mirror reference ``degnorm/nmf.py:12-13`` exactly.
+    """
+
+    degnorm_iter: int = 5          # outer DegNorm iterations
+    nmf_iter: int = 100            # Lagrangian fixed-point iterations per NMF call
+    downsample_rate: int = 1       # systematic "take every r-th" column sample
+    min_high_coverage: int = 50    # min # of high-coverage positions to attempt NMF
+    bins: int = 20                 # baseline-selection trim bins
+    skip_baseline_selection: bool = False
+    random_state: int = 123
+    # Systematic-downsample offset source (only meaningful when
+    # downsample_rate > 1):
+    #   "keyed"     (default) — per-(seed, iteration, gene) PRNG keys.
+    #   "reference" — reproduce the reference's EXACT offset stream: one
+    #               np.random.choice(rate) per gene per iteration in gene
+    #               order from np.random.seed(123) (nmf.py:422,556).
+    ds_compat: str = "keyed"
+
+    def __post_init__(self):
+        object.__setattr__(self, "degnorm_iter", abs(int(self.degnorm_iter)))
+        object.__setattr__(self, "nmf_iter", abs(int(self.nmf_iter)))
+        object.__setattr__(self, "bins", abs(int(self.bins)))
+        object.__setattr__(self, "downsample_rate", abs(int(self.downsample_rate)))
+
+    @property
+    def effective_min_high_coverage(self) -> int:
+        # Reference forces this to 2 whenever downsampling (nmf.py:34,51-53),
+        # otherwise max(2, min_high_coverage).
+        if self.downsample_rate > 1:
+            return 2
+        return max(2, abs(int(self.min_high_coverage)))
+
+    @property
+    def min_bins(self) -> int:
+        # ceil(bins * 0.2)  (nmf.py:35)
+        return int(math.ceil(self.bins * 0.2))
+
+    @property
+    def min_gene_len(self) -> int:
+        # max(2, ceil(200 / downsample_rate))  (nmf.py:261)
+        return max(2, int(math.ceil(200.0 / self.downsample_rate)))
+
+    def kernel_key(self) -> "NMFConfig":
+        """Normalized copy with the fields that do not reach the device
+        kernels (outer-iteration count, RNG seed, offset source) zeroed."""
+        return dataclasses.replace(self, degnorm_iter=0, random_state=0,
+                                   ds_compat="keyed")
+
+    @property
+    def max_trim_rounds(self) -> int:
+        """Upper bound on baseline-selection trim-loop rounds.
+
+        Each round drops exactly one bin and the loop halts at ``min_bins``
+        bins (nmf.py:323), so at most ``bins - min_bins`` drops occur — 16 at
+        the defaults.
+        """
+        return max(self.bins - self.min_bins, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Execution knobs of the PyTorch/CUDA engine."""
+
+    # Where the engine runs.  The default is the GPU and the engine raises
+    # when none is present; only a caller that asks for "cpu" gets the CPU.
+    device: str = "cuda"
+    # Route the NMF loop, the ratio-SVD row sums and the trim loop through
+    # the hand-written CUDA kernels (ops/).  On CPU tensors the wrappers take
+    # their plain PyTorch versions whatever this says; on CUDA tensors
+    # False selects the plain versions (the parity reference on the card).
+    use_kernels: bool = True
+    # Power-iteration steps for the dominant eigenpair of the p x p Gram
+    # matrix on a cold start and when warm-started from the previous
+    # Lagrangian iteration's vector (squared-operator scheme: effectively
+    # 4 * max(1, n // 4) plain steps).
+    power_iters_cold: int = 128
+    power_iters_warm: int = 24
+    # Cold-start power iterations for trim rounds >= 1, which resume from
+    # the previous round's left vector (0 = use power_iters_cold).
+    power_iters_resume: int = 32
+    # Warm-restart power steps per Lagrangian iteration: > 0 replaces the
+    # squared-operator scheme with this many plain matvecs.  The kernels'
+    # default (1) follows the JAX package's fused kernels; 0 matches its
+    # XLA twin, which always runs the squared scheme at power_iters_warm.
+    power_warm_plain: int = 1
+    # Run the whole baseline-selection trim loop in one kernel launch per
+    # bucket (ops/cuda_trim.py).  The unfused form (a Python loop around
+    # per-round NMF kernel launches) is not ported: with the kernels on, a
+    # CUDA device accepts only True.  The plain versions are the Python loop
+    # whatever this says.
+    fuse_trim: bool = True
+    # Computation dtype of the bucket kernels.  The CUDA kernels are
+    # float32; float64 runs the plain versions (CPU parity tests).
+    dtype: str = "float32"
+    # Length-bucket widths used by the packer (positions).
+    bucket_widths: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192, 16384, 65536)
+    # Cap on genes per device batch within one bucket; 0 = unbounded.
+    max_genes_per_batch: int = 0
+    # Opt-in modes of the JAX package that this port does not carry yet:
+    # only their default is accepted.
+    rank1_method: str = "power"
+    trim_fast: bool = False
+    nmf_tol: float = 0.0
+    stream_nmf: bool = True
+
+    def __post_init__(self):
+        pending = []
+        if self.rank1_method != "power":
+            pending.append(f"rank1_method={self.rank1_method!r}")
+        if self.trim_fast:
+            pending.append("trim_fast=True")
+        if self.nmf_tol != 0.0:
+            pending.append(f"nmf_tol={self.nmf_tol}")
+        if not self.stream_nmf:
+            pending.append("stream_nmf=False")
+        if (not self.fuse_trim and self.use_kernels
+                and str(self.device).startswith("cuda")):
+            pending.append("fuse_trim=False with the kernels on")
+        if pending:
+            raise NotImplementedError(
+                "not ported yet (only the default is accepted): "
+                + ", ".join(pending))
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError(f"dtype must be float32 or float64, got {self.dtype!r}")

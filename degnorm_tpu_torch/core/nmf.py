@@ -1,0 +1,68 @@
+"""Batched masked NMF-over-approximation inner loop.
+
+Counterpart of ``degnorm_tpu/core/nmf.py``: the clipped-Lagrangian fixed
+point of reference ``GeneNMFOA.nmf`` (``degnorm/nmf.py:78-107``) for a whole
+(G, p, W) gene bucket.  With ``use_kernels`` the work goes to the CUDA kernel
+wrappers of ``ops/cuda_nmf.py`` (which run their plain versions on CPU
+tensors); otherwise to the plain versions directly.
+
+The final over-approximation clip is intentionally NOT applied here: the
+reference clips selectively at call sites.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from degnorm_tpu_torch.ops import cuda_nmf
+
+
+def nmf_masked(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int = 30,
+    power_iters_warm: int = 6,
+    power_warm_plain: int = 0,
+    gene_active: Optional[torch.Tensor] = None,
+    u0: Optional[torch.Tensor] = None,
+    use_kernels: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the NMF-OA loop on a masked gene bucket.
+
+    Args:
+      F: (G, p, W) nonnegative coverage batch (already scale-adjusted).
+      mask: (G, W) active-column mask.
+      nmf_iter: number of Lagrangian iterations (reference ``nmf_iter``).
+      power_warm_plain: 0 = squared warm power scheme at
+        ``power_iters_warm``; > 0 = that many plain warm matvecs.
+      gene_active: optional (G,) bool; genes outside it are skipped and
+        return zeros — callers gate every consumer on their own masks.
+      u0: optional (G, p) warm start for the initial cold rank-1.
+
+    Returns (K, E, u): rank-1 factors (G,p), (G,W) and the final unit left
+    vector for warm starts.
+    """
+    fn = cuda_nmf.nmf_masked_cuda if use_kernels else cuda_nmf.nmf_masked_plain
+    return fn(F, mask, nmf_iter=nmf_iter,
+              power_iters_cold=power_iters_cold,
+              power_iters_warm=power_iters_warm,
+              power_warm_plain=power_warm_plain,
+              gene_active=gene_active, u0=u0)
+
+
+def ratio_svd_rowsums(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    power_iters: int = 30,
+    use_kernels: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row sums of the one-shot clipped rank-1 over-approximation
+    (reference ``ratio_svd``, nmf.py:109-121): per-sample sums of F and of
+    max(K·E, F), both over active columns.  Returns (cov_sums, est_sums)."""
+    fn = (cuda_nmf.ratio_rowsums_cuda if use_kernels
+          else cuda_nmf.ratio_rowsums_plain)
+    return fn(F, mask, power_iters=power_iters)

@@ -1,0 +1,346 @@
+"""DegNormEngine — the PyTorch/CUDA equivalent of reference ``GeneNMFOA``.
+
+Counterpart of ``degnorm_tpu/engine.py`` for one device.  Public API mirrors
+``GeneNMFOA.run(cov_dat, reads_dat)`` (nmf.py:483-601): an ordered
+{gene: (p x L_i) coverage matrix} mapping plus an (n x p) read count matrix
+in, DI scores / adjusted counts / coverage estimates out.
+
+Execution model:
+  * genes are packed into padded length buckets (data/buckets.py) and
+    uploaded once (int16 where the coverage is integral);
+  * per DegNorm iteration, each bucket runs ``_bucket_step`` (scale-adjust,
+    then core/baseline.py: the NMF kernel, the fused trim kernel, the
+    envelope refit), bucket arrays staying resident across iterations;
+  * the cross-gene reductions (medians, column sums) run on the device in
+    float64 (core/degnorm.py).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from degnorm_tpu_torch.config import EngineConfig, NMFConfig
+from degnorm_tpu_torch.core import degnorm as outer
+from degnorm_tpu_torch.core.baseline import (BucketResult,
+                                             baseline_select_bucket,
+                                             materialize_estimate)
+from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums
+from degnorm_tpu_torch.data.buckets import (GeneBucket, int16able,
+                                            integral_int16able, pack_buckets)
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; raises when a GPU is asked for and none is
+    present (the engine never moves to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "degnorm_tpu_torch runs on a CUDA device and none is available; "
+            "set EngineConfig(device='cpu') to run the plain versions on the "
+            "CPU")
+    return dev
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return torch.float64 if name == "float64" else torch.float32
+
+
+def _data_fingerprint(cov_mats, n) -> tuple:
+    """Content-derived dataset fingerprint for the reuse_device_data guard:
+    shapes plus edge-column sums of the first/last matrices (cheap, and not
+    fooled by recycled object ids)."""
+    if not cov_mats:
+        return (n, 0)
+    f0, f1 = cov_mats[0], cov_mats[-1]
+    total_w = sum(int(F.shape[1]) for F in cov_mats)
+    return (n, len(cov_mats), total_w, f0.shape, f1.shape,
+            float(np.asarray(f0[:, 0]).sum()),
+            float(np.asarray(f0[:, -1]).sum()),
+            float(np.asarray(f1[:, 0]).sum()),
+            float(np.asarray(f1[:, -1]).sum()))
+
+
+def _bucket_step(F: torch.Tensor, len_mask: torch.Tensor,
+                 scale_factors: torch.Tensor, ds_start: Optional[torch.Tensor],
+                 nmf_cfg: NMFConfig, eng_cfg: EngineConfig,
+                 with_estimates: bool = True) -> BucketResult:
+    """One DegNorm iteration's device work for one bucket: scale-adjust the
+    coverage (nmf.py:142-146,563) then run batched baseline selection.
+    ``F`` may arrive as int16 (integral coverage uploads at half the bytes):
+    it is cast to the compute dtype first, then divided, in that order."""
+    Ff = F.to(scale_factors.dtype)
+    F_adj = Ff / scale_factors[None, :, None]
+    return baseline_select_bucket(F_adj, len_mask, nmf_cfg, eng_cfg,
+                                  ds_start=ds_start,
+                                  with_estimates=with_estimates)
+
+
+def _bucket_init(F: torch.Tensor, len_mask: torch.Tensor,
+                 eng_cfg: EngineConfig):
+    """Initialization: ratio-SVD row sums on the raw coverage
+    (nmf.py:522-526)."""
+    Ff = F.to(_torch_dtype(eng_cfg.dtype))
+    return ratio_svd_rowsums(Ff, len_mask,
+                             power_iters=eng_cfg.power_iters_cold,
+                             use_kernels=eng_cfg.use_kernels)
+
+
+def _device_scatter(parts: Sequence[torch.Tensor],
+                    idx_parts: Sequence[torch.Tensor], n: int, fill):
+    """Scatter per-bucket per-gene rows into a global (n, ...) tensor on the
+    device (padding slots land in a dropped n-th row)."""
+    shape = (n + 1,) + tuple(parts[0].shape[1:])
+    out = torch.full(shape, fill, dtype=parts[0].dtype, device=parts[0].device)
+    for part, idx in zip(parts, idx_parts):
+        safe = torch.where(idx >= 0, idx, torch.full_like(idx, n))
+        out[safe] = part
+    return out[:n]
+
+
+class DegNormResult:
+    """Fit outputs; attribute names follow the reference's GeneNMFOA state."""
+
+    def __init__(self, genes, rho, x_adj, scale_factors, norm_factors,
+                 ran_baseline_selection, x_weighted, engine):
+        self.genes = genes
+        self.rho = rho
+        self.x_adj = x_adj
+        self.scale_factors = scale_factors
+        self.norm_factors = norm_factors
+        self.ran_baseline_selection = ran_baseline_selection
+        self.x_weighted = x_weighted
+        self._engine = engine
+
+    def estimates(self) -> List[np.ndarray]:
+        """Materialize per-gene estimated coverage matrices (p x L_i), in
+        input gene order — the reference's ``run()`` return value."""
+        return self._engine._materialize_estimates()
+
+
+class DegNormEngine:
+    def __init__(self, nmf_cfg: Optional[NMFConfig] = None,
+                 eng_cfg: Optional[EngineConfig] = None):
+        """Runs on ``eng_cfg.device`` (default "cuda"); a CUDA device that
+        is absent raises here."""
+        self.nmf_cfg = nmf_cfg or NMFConfig()
+        self.eng_cfg = eng_cfg or EngineConfig()
+        self.device = resolve_device(self.eng_cfg.device)
+        self.timings: Dict[str, float] = {}
+        self._buckets: List[GeneBucket] = []
+        self._device_F: List[torch.Tensor] = []
+        self._device_mask: List[torch.Tensor] = []
+        self._device_idx: List[torch.Tensor] = []
+        self._last_results: List[BucketResult] = []
+        self._final_scale: Optional[np.ndarray] = None
+        self._packed_fp = None
+        self._ds_ref_draws = None
+        self._ds_zero_cache: Dict[int, torch.Tensor] = {}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- setup -----------------------------------------------------------
+    def _pack(self, cov_mats: Sequence[np.ndarray]):
+        dtype = _torch_dtype(self.eng_cfg.dtype)
+        itemsize = 8 if dtype == torch.float64 else 4
+        # Device-memory guard: a bucket's compute-dtype form plus the
+        # iteration's transients (cast, scale-adjust, the kernels' X
+        # scratch) must coexist, so cap each padded bucket at ~1/8 of the
+        # device's memory.
+        total = 16 << 30
+        if self.device.type == "cuda":
+            total = int(torch.cuda.mem_get_info(self.device)[1])
+        t0 = time.perf_counter()
+        # Integral small-valued coverage (read pileups) packs and uploads
+        # as int16: half the float32 bytes; _bucket_step casts it back.
+        as_i16 = dtype == torch.float32 and integral_int16able(cov_mats)
+        pack_dtype = np.int16 if as_i16 else np.dtype(self.eng_cfg.dtype)
+        self.timings["pack_scan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._buckets = pack_buckets(
+            cov_mats,
+            bucket_widths=self.eng_cfg.bucket_widths,
+            dtype=pack_dtype,
+            max_genes_per_bucket=self.eng_cfg.max_genes_per_batch,
+            max_bucket_bytes=max(total // 8, 512 << 20),
+            budget_itemsize=itemsize,
+        )
+        self.timings["pack_host"] = time.perf_counter() - t0
+
+        def upload_form(F):
+            if F.dtype == np.int16:
+                return F
+            if dtype == torch.float32 and int16able(F):
+                return F.astype(np.int16)
+            return F
+
+        t0 = time.perf_counter()
+        self._device_F = [torch.from_numpy(upload_form(b.F)).to(self.device)
+                          for b in self._buckets]
+        self._device_mask = [torch.from_numpy(b.len_mask()).to(self.device)
+                             for b in self._buckets]
+        self._device_idx = [
+            torch.from_numpy(np.asarray(b.gene_indices, np.int64))
+            .to(self.device) for b in self._buckets]
+        self._sync()
+        self.timings["upload"] = time.perf_counter() - t0
+
+    def _ds_starts(self, bucket: GeneBucket, iteration: int) -> torch.Tensor:
+        """Per-gene systematic-sampling offsets.  Without downsampling:
+        zeros.  With it, only ``ds_compat="reference"`` is ported: the
+        reference's exact stream, one ``RandomState(seed).choice(rate)`` per
+        gene per iteration in input order (nmf.py:422,556), looked up by
+        gene id.  Genes shorter than the rate diverge from the reference
+        exactly as in the JAX package (its engine.py:532)."""
+        G = bucket.F.shape[0]
+        if self.nmf_cfg.downsample_rate <= 1:
+            if G not in self._ds_zero_cache:
+                self._ds_zero_cache[G] = torch.zeros(
+                    G, dtype=torch.int32, device=self.device)
+            return self._ds_zero_cache[G]
+        if self.nmf_cfg.ds_compat != "reference":
+            raise NotImplementedError(
+                "downsample offsets with ds_compat='keyed' are not ported "
+                "yet; use ds_compat='reference'")
+        if self._ds_ref_draws is None:
+            self._ds_ref_draws = []
+            self._ds_ref_rs = np.random.RandomState(self.nmf_cfg.random_state)
+        draws = self._ds_ref_draws
+        while len(draws) <= iteration:
+            rs = self._ds_ref_rs
+            draws.append(np.array(
+                [rs.choice(self.nmf_cfg.downsample_rate)
+                 for _ in range(self._n_genes)], np.int32))
+        starts = draws[iteration][np.maximum(bucket.gene_indices, 0)]
+        return torch.from_numpy(starts).to(self.device)
+
+    # -- main loop -------------------------------------------------------
+    def run(self, cov_dat: Mapping[str, np.ndarray],
+            reads_dat: np.ndarray,
+            reuse_device_data: bool = False) -> DegNormResult:
+        """Fit DegNorm.
+
+        ``reuse_device_data``: opt-in refit on the previous ``run``'s
+        device-resident buckets — the packer and the upload are skipped.
+        The CALLER asserts the coverage contents are unchanged; a cheap
+        content-derived fingerprint guards against a different dataset, but
+        changed values inside the same arrays are not fully detected.
+        """
+        genes = list(cov_dat.keys())
+        cov_mats = [np.asarray(cov_dat[g]) for g in genes]
+        n = len(cov_mats)
+        self._n_genes = n
+        if n == 0:
+            raise ValueError("no coverage matrices supplied")
+        if self.nmf_cfg.degnorm_iter < 1:
+            raise ValueError("degnorm_iter must be >= 1")
+        x_np = np.asarray(reads_dat, dtype=np.float64)
+        if x_np.shape[0] != n:
+            raise ValueError(
+                "read count matrix rows != number of coverage matrices")
+        if any(F.ndim != 2 for F in cov_mats):
+            raise ValueError("all coverage matrices must be 2-d")
+        p = cov_mats[0].shape[0]
+        if self.nmf_cfg.downsample_rate > 1:
+            if min(F.shape[1] for F in cov_mats) < self.nmf_cfg.downsample_rate:
+                raise ValueError(
+                    "downsample_rate exceeds the shortest gene length")
+
+        t0 = time.perf_counter()
+        self.timings = {}
+        self._ds_ref_draws = None      # fresh offset stream per fit
+        fingerprint = _data_fingerprint(cov_mats, n)
+        reuse = (reuse_device_data and self._buckets
+                 and self._packed_fp == fingerprint
+                 and len(self._device_F) == len(self._buckets))
+        if not reuse:
+            self._pack(cov_mats)
+            self._packed_fp = fingerprint
+        self.timings["pack"] = time.perf_counter() - t0
+        dtype = _torch_dtype(self.eng_cfg.dtype)
+        dev = self.device
+        idx_parts = self._device_idx
+
+        # ---- initialization (nmf.py:512-535), float64 on the device ----
+        t0 = time.perf_counter()
+        x = torch.from_numpy(x_np).to(dev)
+        init_out = [_bucket_init(F_d, m_d, self.eng_cfg)
+                    for F_d, m_d in zip(self._device_F, self._device_mask)]
+        cov_sums = _device_scatter([cs for cs, _ in init_out], idx_parts, n, 0.0)
+        est_sums = _device_scatter([es for _, es in init_out], idx_parts, n, 0.0)
+        x_weighted, norm, _ = outer.device_init_state(cov_sums, est_sums, x)
+        scale = norm
+        # the per-phase timings are host clocks closed by a device sync;
+        # next to a bucket step the sync costs nothing
+        self._sync()
+        self.timings["init"] = time.perf_counter() - t0
+
+        # ---- DegNorm iterations (nmf.py:556-596) ----
+        ran_cols = []
+        rho = x_adj = None
+        results: List[BucketResult] = []
+        kernel_cfg = self.nmf_cfg.kernel_key()
+        t0 = time.perf_counter()
+        for it in range(self.nmf_cfg.degnorm_iter):
+            t_it = time.perf_counter()
+            final = it == self.nmf_cfg.degnorm_iter - 1
+            sf = scale.to(dtype)
+            results = [
+                _bucket_step(F_d, m_d, sf, self._ds_starts(b, it),
+                             kernel_cfg, self.eng_cfg, with_estimates=final)
+                for b, F_d, m_d in zip(self._buckets, self._device_F,
+                                       self._device_mask)]
+            rho_raw = _device_scatter([r.rho for r in results], idx_parts,
+                                      n, 0.0)
+            rho, x_adj, x_weighted, norm, scale = outer.device_iteration_math(
+                rho_raw, x_weighted, scale)
+            ran_cols.append(_device_scatter([r.ran_bs for r in results],
+                                            idx_parts, n, False))
+            self._sync()
+            self.timings[f"iter_{it}"] = time.perf_counter() - t_it
+        self.timings["iterations"] = time.perf_counter() - t0
+
+        self._last_results = results
+        self._genes = genes
+        self._cov_mats = cov_mats
+
+        def f64(t):
+            return t.detach().cpu().numpy().astype(np.float64)
+
+        rho64, xadj64, xw64 = f64(rho), f64(x_adj), f64(x_weighted)
+        norm64, scale64 = f64(norm), f64(scale)
+        # estimates are computed on coverage scaled by the PRE-update scale
+        # factors of the final iteration
+        self._final_scale = scale64 / norm64
+        ran_bs = np.stack([c.cpu().numpy().astype(bool) for c in ran_cols],
+                          axis=1)
+        return DegNormResult(
+            genes=genes, rho=rho64, x_adj=xadj64, scale_factors=scale64,
+            norm_factors=norm64, ran_baseline_selection=ran_bs,
+            x_weighted=xw64, engine=self)
+
+    # -- estimates -------------------------------------------------------
+    def _materialize_estimates(self) -> List[np.ndarray]:
+        """Reference ``run()`` returns the final iteration's estimated
+        coverage matrices (nmf.py:601), computed on coverage scaled by the
+        *pre-update* scale factors of that iteration."""
+        if not self._last_results:
+            raise ValueError("run() has not been called")
+        n = len(self._genes)
+        out: List[Optional[np.ndarray]] = [None] * n
+        for b, res in zip(self._buckets, self._last_results):
+            est_K = res.est_K.cpu().numpy().astype(np.float64)
+            est_E = res.est_E.cpu().numpy().astype(np.float64)
+            kinds = res.est_kind.cpu().numpy()
+            for slot, gi in enumerate(b.gene_indices):
+                if gi < 0:
+                    continue
+                F_adj = self._cov_mats[gi] / self._final_scale[:, None]
+                out[gi] = materialize_estimate(
+                    F_adj, int(b.lengths[slot]), est_K[slot], est_E[slot],
+                    int(kinds[slot]))
+        return out

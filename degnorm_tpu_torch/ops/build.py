@@ -1,0 +1,142 @@
+"""Builds the CUDA kernels of ``csrc/`` into one shared library and loads it.
+
+The sources have a plain C interface (no PyTorch headers), so ``nvcc``
+compiles them in seconds.  Each ``.cu`` file is compiled to an object by its
+own ``nvcc`` process, all started together, then the objects are linked into
+``_build/libdegnorm_<hash>.so``; the hash covers every source and header, so
+an edited source rebuilds and an unchanged one is reused.  The library is
+loaded with ``ctypes`` and every entry point gets its ``argtypes`` here.
+
+Nothing runs at import time: ``get_lib()`` builds on first use and raises if
+``nvcc`` is missing or a compile fails.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Optional
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_lib: Optional[ctypes.CDLL] = None
+build_info: Dict[str, object] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# name -> argtypes; every pointer and the stream are c_void_p (a bare Python
+# int would be passed as a 32-bit C int and cut the pointer).
+_SIGNATURES = {
+    # F, mask, act, u0, X, K, E, u, G, p, W, nmf_iter, power_cold,
+    # power_warm, warm_plain, threads, stream
+    "dn_nmf_masked": [_P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # F, mask, cov_sums, est_sums, G, p, W, power_cold, threads, stream
+    "dn_ratio_rowsums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # Fm, bin_id, bin_count, K0, E, rho0, u0, n_hi, n_bins, active0,
+    # X, colmask, K, rho, ran_bs, rounds_active,
+    # G, p, W, B, nmf_iter, power_resume, power_warm, warm_plain,
+    # max_rounds, min_bins, min_gene_len, threads, stream
+    "dn_trim_loop": [_P] * 16 + [_I] * 12 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of degnorm_tpu_torch are compiled "
+        "on first use and need the CUDA toolkit")
+
+
+def _sources():
+    names = sorted(os.listdir(CSRC_DIR))
+    cu = [n for n in names if n.endswith(".cu")]
+    hdr = [n for n in names if n.endswith(".cuh")]
+    return cu, hdr
+
+
+def _source_hash(cu, hdr) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for n in cu + hdr:
+        h.update(n.encode())
+        with open(os.path.join(CSRC_DIR, n), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Start every command at once, wait for all, raise on the first
+    failure with the compiler's output."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    logs = []
+    failed = None
+    for c, pr in procs:
+        out, _ = pr.communicate()
+        logs.append(out)
+        if pr.returncode != 0 and failed is None:
+            failed = (c, out)
+    if failed is not None:
+        raise RuntimeError("kernel build failed: %s\n%s"
+                           % (" ".join(failed[0]), failed[1]))
+    return logs
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the sources if no library with their hash exists; returns the
+    library's path."""
+    cu, hdr = _sources()
+    tag = _source_hash(cu, hdr)
+    so_path = os.path.join(BUILD_DIR, f"libdegnorm_{tag}.so")
+    if os.path.isfile(so_path):
+        build_info.update(path=so_path, seconds=0.0, cached=True)
+        return so_path
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    objs = [os.path.join(BUILD_DIR, f"{n[:-3]}_{tag}.o") for n in cu]
+    logs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c",
+                      os.path.join(CSRC_DIR, n), "-o", o]
+                     for n, o in zip(cu, objs)])
+    tmp = so_path + f".tmp{os.getpid()}"
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    os.replace(tmp, so_path)
+    for o in objs:
+        os.remove(o)
+    build_info.update(path=so_path, seconds=time.perf_counter() - t0,
+                      cached=False, nvcc=nvcc, log="\n".join(logs))
+    return so_path
+
+
+def get_lib(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build(verbose=verbose))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_launch(code: int, name: str) -> None:
+    """Raise when a C entry point reports a CUDA error for its launch."""
+    if code != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {code})")

@@ -1,0 +1,214 @@
+"""The Lagrangian NMF-OA loop and the ratio-SVD row sums: CUDA kernel
+wrappers and their plain PyTorch versions.
+
+Counterpart of ``degnorm_tpu/ops/pallas_nmf.py`` (``nmf_masked_pallas`` and
+``ratio_rowsums_pallas``).  Each wrapper takes its plain version only for a
+tensor that lies on the CPU; for a CUDA tensor it launches the kernel
+(``csrc/nmf.cu``, ``csrc/ratio.cu``) or raises.  Each wrapper counts its
+launches in a module-level int.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from degnorm_tpu_torch.core.linalg import (finish_rank_one, masked_rank_one,
+                                           masked_rank_one_uv, outer_product)
+
+# Launch counters (plain ints): one is added where a kernel is launched and
+# nowhere else.
+nmf_launches = 0
+ratio_launches = 0
+
+# Shape gate of the resident kernels: one gene's X scratch and coverage
+# (2 * p * W * 4 bytes) must stay small enough that the blocks in flight keep
+# their working sets in the L2 cache, and the trim kernel's per-column
+# residual buffer (4 * W bytes) must fit static-size shared memory.
+MAX_P = 32
+MAX_W = 8192
+MAX_PW = 65536
+
+
+def kernels_supported(shape, dtype) -> bool:
+    """True when a (G, p, W) bucket of this dtype is inside the gate of the
+    resident CUDA kernels."""
+    _, p, W = shape
+    return (dtype == torch.float32 and 2 <= p <= MAX_P and W <= MAX_W
+            and p * W <= MAX_PW)
+
+
+def check_kernel_input(F: torch.Tensor, name: str) -> None:
+    """Raise on what the kernels do not take; never fall back."""
+    if F.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernels are float32, got {F.dtype}")
+    if not F.is_contiguous():
+        raise ValueError(f"{name}: coverage tensor must be contiguous")
+    _, p, W = F.shape
+    if p > MAX_P or p < 2:
+        raise ValueError(f"{name}: p={p} outside the kernels' range 2..{MAX_P}")
+    if W > MAX_W or p * W > MAX_PW:
+        raise NotImplementedError(
+            f"{name}: bucket p={p}, W={W} is too wide for the resident "
+            f"kernels (W <= {MAX_W}, p*W <= {MAX_PW}); the streamed wide-"
+            "bucket kernel (counterpart of ops/pallas_stream.py) is not "
+            "ported yet")
+
+
+def pick_threads(W: int) -> int:
+    """Threads per block (one block per gene): about 8 columns a thread."""
+    return int(min(256, max(64, (W // 8 + 31) // 32 * 32)))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _as_u8(mask: torch.Tensor) -> torch.Tensor:
+    m = mask if mask.dtype == torch.bool else (mask != 0)
+    return m.contiguous().view(torch.uint8)
+
+
+# --------------------------------------------------------------------------
+# kernel 1: Lagrangian NMF-OA loop
+# --------------------------------------------------------------------------
+
+def nmf_masked_plain(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int = 30,
+    power_iters_warm: int = 6,
+    power_warm_plain: int = 0,
+    gene_active: Optional[torch.Tensor] = None,
+    u0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the NMF-OA loop (X-form update, scale-free (u, v)
+    carry): A0 = F·mask, cold rank-1, then ``nmf_iter`` times
+    X <- max(X - (u⊗v - A0)/sqrt(nmf_iter), A0) with a warm refit of u and
+    v = Xᵀu; finally K = u·s, E = v/s.
+
+    ``power_warm_plain`` = 0 runs the squared warm scheme at
+    ``power_iters_warm`` (the JAX package's XLA twin); > 0 runs that many
+    plain matvecs (its fused kernels).  ``gene_active``: genes outside it
+    return zeros, as the kernel does.  Returns (K, E, u).
+    """
+    A0 = F * mask.to(F.dtype)[:, None, :]
+    step = 1.0 / (nmf_iter ** 0.5) if nmf_iter else 0.0
+    u, v = masked_rank_one_uv(F, mask, n_iters=power_iters_cold, u0=u0)
+    # X is updated in place: the loop holds one (G, p, W) state, not one
+    # per iteration.
+    X = A0.clone()
+    for _ in range(nmf_iter):
+        est = outer_product(u, v)
+        est.sub_(A0).mul_(step)
+        torch.maximum(X.sub_(est), A0, out=X)
+        u, v = masked_rank_one_uv(X, mask, n_iters=power_iters_warm, u0=u,
+                                  warm_plain=power_warm_plain)
+    K, E = finish_rank_one(X, mask, u, v)
+    if gene_active is not None:
+        act = gene_active.to(F.dtype)[:, None]
+        K, E, u = K * act, E * act, u * act
+    return K, E, u
+
+
+def nmf_masked_cuda(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int = 30,
+    power_iters_warm: int = 6,
+    power_warm_plain: int = 0,
+    gene_active: Optional[torch.Tensor] = None,
+    u0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel wrapper with ``nmf_masked_plain``'s signature: one thread
+    block per gene runs the whole loop (csrc/nmf.cu).  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
+                  power_iters_warm=power_iters_warm,
+                  power_warm_plain=power_warm_plain,
+                  gene_active=gene_active, u0=u0)
+    if F.device.type == "cpu":
+        return nmf_masked_plain(F, mask, **kwargs)
+    global nmf_launches
+    from degnorm_tpu_torch.ops.build import check_launch, get_lib
+    check_kernel_input(F, "nmf_masked_cuda")
+    G, p, W = F.shape
+    m8 = _as_u8(mask)
+    act8 = None if gene_active is None else _as_u8(gene_active)
+    u0c = None if u0 is None else u0.to(torch.float32).contiguous()
+    dev = F.device
+    # Scratch and converted inputs may be dropped as soon as this returns:
+    # the caching allocator reuses a block only for work queued later on
+    # this same stream, after the kernel.
+    X = torch.empty((G, p, W), dtype=torch.float32, device=dev)   # scratch
+    K = torch.empty((G, p), dtype=torch.float32, device=dev)
+    E = torch.empty((G, W), dtype=torch.float32, device=dev)
+    u = torch.empty((G, p), dtype=torch.float32, device=dev)
+    if G == 0:
+        return K, E, u
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = get_lib().dn_nmf_masked(
+            F.data_ptr(), m8.data_ptr(), _ptr(act8), _ptr(u0c),
+            X.data_ptr(), K.data_ptr(), E.data_ptr(), u.data_ptr(),
+            G, p, W, int(nmf_iter), int(power_iters_cold),
+            int(power_iters_warm), int(power_warm_plain), pick_threads(W),
+            stream)
+    check_launch(code, "dn_nmf_masked")
+    nmf_launches += 1
+    return K, E, u
+
+
+# --------------------------------------------------------------------------
+# kernel 2: ratio-SVD row sums
+# --------------------------------------------------------------------------
+
+def ratio_rowsums_plain(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    power_iters: int = 30,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: one cold rank-1 of A0 = F·mask, est = max(K⊗E, A0),
+    and the row sums over active columns of F and of est (reference
+    ``ratio_svd``, nmf.py:109-121,522-526).  Returns (cov_sums, est_sums)."""
+    m = mask.to(F.dtype)
+    K, E, _ = masked_rank_one(F, mask, n_iters=power_iters)
+    est = torch.maximum(outer_product(K, E), F * m[:, None, :])
+    est_sums = torch.einsum("gpw,gw->gp", est, m)
+    cov_sums = torch.einsum("gpw,gw->gp", F, m)
+    return cov_sums, est_sums
+
+
+def ratio_rowsums_cuda(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    power_iters: int = 30,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper with ``ratio_rowsums_plain``'s signature
+    (csrc/ratio.cu).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if F.device.type == "cpu":
+        return ratio_rowsums_plain(F, mask, power_iters=power_iters)
+    global ratio_launches
+    from degnorm_tpu_torch.ops.build import check_launch, get_lib
+    check_kernel_input(F, "ratio_rowsums_cuda")
+    G, p, W = F.shape
+    m8 = _as_u8(mask)
+    cov = torch.empty((G, p), dtype=torch.float32, device=F.device)
+    est = torch.empty((G, p), dtype=torch.float32, device=F.device)
+    if G == 0:
+        return cov, est
+    with torch.cuda.device(F.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = get_lib().dn_ratio_rowsums(
+            F.data_ptr(), m8.data_ptr(), cov.data_ptr(), est.data_ptr(),
+            G, p, W, int(power_iters), pick_threads(W), stream)
+    check_launch(code, "dn_ratio_rowsums")
+    ratio_launches += 1
+    return cov, est

@@ -1,0 +1,229 @@
+"""The baseline-selection trim loop: CUDA kernel wrapper and its plain
+PyTorch version.
+
+Counterpart of ``degnorm_tpu/ops/pallas_trim.py`` (``trim_loop_pallas``).
+The plain version is a Python ``while`` over tensors with the semantics of
+the JAX package's ``lax.while_loop`` (``core/baseline.py``); the kernel
+(``csrc/trim.cu``) runs the same loop per gene in one launch.  The trim
+state's E factor is never consumed after the loop, so neither returns it.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from degnorm_tpu_torch.core.linalg import masked_rowsum, outer_product
+from degnorm_tpu_torch.ops import cuda_nmf
+
+# Launch counter (plain int): one is added where the kernel is launched.
+trim_launches = 0
+
+MAX_BINS = 64          # the kernel keeps per-bin state in shared memory
+
+
+def _col_active_from(bin_active: torch.Tensor, bin_id: torch.Tensor) -> torch.Tensor:
+    """(G, B) bin flags -> (G, W) column flags; padding columns carry the
+    sentinel id B and stay inactive."""
+    pad = torch.zeros_like(bin_active[:, :1])
+    return torch.gather(torch.cat([bin_active, pad], dim=1), 1, bin_id.long())
+
+
+def _per_bin_sums(res: torch.Tensor, bin_id: torch.Tensor, B: int) -> torch.Tensor:
+    """Per-bin sums of a (G, W) array as B masked reductions: a fixed
+    summation order (a scatter-add on the GPU would use atomics)."""
+    return torch.stack(
+        [(res * (bin_id == b)).sum(dim=1) for b in range(B)], dim=1)
+
+
+def trim_loop_plain(
+    Fm: torch.Tensor,
+    bin_id: torch.Tensor,
+    bin_count: torch.Tensor,
+    K0: torch.Tensor,
+    E0: torch.Tensor,
+    rho0: torch.Tensor,
+    u0: torch.Tensor,
+    n_hi: torch.Tensor,
+    n_bins: torch.Tensor,
+    active0: torch.Tensor,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int,
+    power_iters_warm: int,
+    power_warm_plain: int = 0,
+    power_iters_resume: int = 0,
+    max_rounds: int,
+    min_bins: int,
+    min_gene_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the whole trim loop (reference nmf.py:273-324).
+
+    Args mirror the loop state:
+      Fm: (G, p, W) length-masked scale-adjusted coverage.
+      bin_id: (G, W) int32 trim-bin id per column (B = padding sentinel).
+      bin_count: (G, B) column count per bin.
+      K0/E0/rho0/u0: initial NMF factors, DI scores and left vectors.
+      n_hi/n_bins: (G,) int32 surviving column / bin counts.
+      active0: (G,) bool — genes entering the loop.
+
+    Returns (K, rho, ran_bs, rounds_active).  A gene that never enters keeps
+    K0, rho0, False, 0.
+    """
+    G, p, W = Fm.shape
+    B = bin_count.shape[1]
+    dtype = Fm.dtype
+    bin_ids = torch.arange(B, dtype=torch.int32, device=Fm.device)
+    neg_inf = torch.tensor(float("-inf"), dtype=dtype, device=Fm.device)
+    power_resume = power_iters_resume or power_iters_cold
+
+    K, E, rho, u = K0, E0, rho0, u0
+    n_hi = n_hi.to(torch.int32)
+    n_bins = n_bins.to(torch.int32)
+    bin_active = bin_ids[None, :] < n_bins[:, None]
+    active = active0.bool()
+    ran_bs = torch.zeros(G, dtype=torch.bool, device=Fm.device)
+    clipped = torch.zeros(G, dtype=torch.bool, device=Fm.device)
+    rounds_active = torch.zeros(G, dtype=torch.int32, device=Fm.device)
+    rounds = 0
+
+    while rounds < max_rounds and bool(active.any()):
+        ran_bs = ran_bs | active                            # nmf.py:276
+        ca_f = _col_active_from(bin_active, bin_id).to(dtype)
+
+        # worst squared relative residual per column (nmf.py:280-283);
+        # round 1 uses the unclipped estimate, later rounds the clipped one.
+        KE = outer_product(K, E)
+        KE = torch.where(clipped[:, None, None], torch.maximum(KE, Fm), KE)
+        z = (KE - Fm) / (Fm + 1)
+        res = (z * z).amax(dim=1) * ca_f
+        ss_r = _per_bin_sums(res, bin_id, B) / torch.clamp_min(bin_count, 1.0)
+        ss_masked = torch.where(bin_active, ss_r, neg_inf)
+
+        perfect = ss_masked.amax(dim=1) == 0.0              # nmf.py:286-287
+        proceed = active & ~perfect
+
+        # first maximum, like nanargmax: the lowest index among the maxima
+        is_max = ss_masked == ss_masked.amax(dim=1, keepdim=True)
+        drop = torch.where(is_max, bin_ids[None, :], B).amin(dim=1)
+        drop_onehot = bin_ids[None, :] == drop[:, None]
+        bin_active = torch.where(proceed[:, None], bin_active & ~drop_onehot,
+                                 bin_active)
+        dropped = torch.where(drop_onehot, bin_count,
+                              torch.zeros_like(bin_count)).sum(dim=1)
+        n_hi = torch.where(proceed, n_hi - dropped.to(torch.int32), n_hi)
+        n_bins = torch.where(proceed, n_bins - 1, n_bins)
+
+        # svds would raise ValueError below 2 columns (nmf.py:306-310):
+        # stop WITHOUT refreshing factors or rho.
+        run_nmf = proceed & (n_hi >= 2)
+        can = _col_active_from(bin_active, bin_id)
+
+        # cold rank-1 resumed from the previous round's left vector at the
+        # reduced power_iters_resume count (same unique Perron target)
+        Kn, En, un = cuda_nmf.nmf_masked_plain(
+            Fm, can, nmf_iter=nmf_iter, power_iters_cold=power_resume,
+            power_iters_warm=power_iters_warm,
+            power_warm_plain=power_warm_plain, gene_active=run_nmf, u0=u)
+        est_rs = Kn * En.sum(dim=1)[:, None]
+        zero_row = est_rs.amin(dim=1) == 0.0                # nmf.py:315-316
+        update_rho = run_nmf & ~zero_row
+
+        # clip up to F, recompute DI (nmf.py:318-321)
+        can_f = can.to(dtype)
+        KE_clip = torch.maximum(outer_product(Kn, En), Fm)
+        rs_F = masked_rowsum(Fm, can_f)
+        rs_KE = masked_rowsum(KE_clip, can_f)
+        rho_new = 1 - rs_F / (rs_KE + 1)
+
+        K = torch.where(run_nmf[:, None], Kn, K)
+        E = torch.where(run_nmf[:, None], En, E)
+        u = torch.where(run_nmf[:, None], un, u)
+        rho = torch.where(update_rho[:, None], rho_new, rho)
+        clipped = clipped | update_rho
+
+        floor_hit = (n_bins <= min_bins) | (n_hi < min_gene_len)  # nmf.py:323-324
+        rounds_active = rounds_active + active.to(torch.int32)
+        active = update_rho & ~floor_hit & (rho_new.amax(dim=1) > 0.1)
+        rounds += 1
+
+    return K, rho, ran_bs, rounds_active
+
+
+def trim_loop_cuda(
+    Fm: torch.Tensor,
+    bin_id: torch.Tensor,
+    bin_count: torch.Tensor,
+    K0: torch.Tensor,
+    E0: torch.Tensor,
+    rho0: torch.Tensor,
+    u0: torch.Tensor,
+    n_hi: torch.Tensor,
+    n_bins: torch.Tensor,
+    active0: torch.Tensor,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int,
+    power_iters_warm: int,
+    power_warm_plain: int = 0,
+    power_iters_resume: int = 0,
+    max_rounds: int,
+    min_bins: int,
+    min_gene_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel wrapper with ``trim_loop_plain``'s signature: one thread block
+    per gene runs the whole loop while its own gene is active
+    (csrc/trim.cu).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
+                  power_iters_warm=power_iters_warm,
+                  power_warm_plain=power_warm_plain,
+                  power_iters_resume=power_iters_resume,
+                  max_rounds=max_rounds, min_bins=min_bins,
+                  min_gene_len=min_gene_len)
+    if Fm.device.type == "cpu":
+        return trim_loop_plain(Fm, bin_id, bin_count, K0, E0, rho0, u0,
+                               n_hi, n_bins, active0, **kwargs)
+    global trim_launches
+    from degnorm_tpu_torch.ops.build import check_launch, get_lib
+    cuda_nmf.check_kernel_input(Fm, "trim_loop_cuda")
+    G, p, W = Fm.shape
+    B = bin_count.shape[1]
+    if B > MAX_BINS:
+        raise ValueError(f"trim_loop_cuda: bins={B} exceeds {MAX_BINS}")
+    dev = Fm.device
+    f32, i32 = torch.float32, torch.int32
+    bin_id_c = bin_id.to(i32).contiguous()
+    bin_count_c = bin_count.to(f32).contiguous()
+    K0c, rho0c, u0c = (t.to(f32).contiguous() for t in (K0, rho0, u0))
+    # E is read for the first round's residuals and rewritten by every
+    # round's NMF: the kernel works on a copy so the caller's E0 survives.
+    E = E0.to(f32).clone(memory_format=torch.contiguous_format)
+    n_hi_c = n_hi.to(i32).contiguous()
+    n_bins_c = n_bins.to(i32).contiguous()
+    act8 = cuda_nmf._as_u8(active0)
+    X = torch.empty((G, p, W), dtype=f32, device=dev)            # scratch
+    colmask = torch.empty((G, W), dtype=torch.uint8, device=dev)  # scratch
+    K = torch.empty((G, p), dtype=f32, device=dev)
+    rho = torch.empty((G, p), dtype=f32, device=dev)
+    ran_bs = torch.empty((G,), dtype=torch.uint8, device=dev)
+    rounds_active = torch.empty((G,), dtype=i32, device=dev)
+    if G == 0:
+        return K, rho, ran_bs.bool(), rounds_active
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = get_lib().dn_trim_loop(
+            Fm.data_ptr(), bin_id_c.data_ptr(), bin_count_c.data_ptr(),
+            K0c.data_ptr(), E.data_ptr(), rho0c.data_ptr(), u0c.data_ptr(),
+            n_hi_c.data_ptr(), n_bins_c.data_ptr(), act8.data_ptr(),
+            X.data_ptr(), colmask.data_ptr(),
+            K.data_ptr(), rho.data_ptr(), ran_bs.data_ptr(),
+            rounds_active.data_ptr(),
+            G, p, W, B, int(nmf_iter),
+            int(power_iters_resume or power_iters_cold),
+            int(power_iters_warm), int(power_warm_plain),
+            int(max_rounds), int(min_bins), int(min_gene_len),
+            cuda_nmf.pick_threads(W), stream)
+    check_launch(code, "dn_trim_loop")
+    trim_launches += 1
+    return K, rho, ran_bs.bool(), rounds_active

@@ -1,0 +1,185 @@
+"""PyTorch port, core/baseline.py + the plain trim loop (ops/cuda_trim.py) vs
+the JAX package.
+
+  * float64 vs the XLA ``lax.while_loop`` (``use_pallas=False``), with the
+    port at ``power_warm_plain=0``: rho rtol 1e-7, every flag exact.
+  * float32 vs the fused trim kernel in interpret mode (``gram_mode="vpu"``,
+    plain warm matvec), with the port at ``power_warm_plain=1``: rho
+    rtol 5e-4 / atol 5e-5, flags exact (tests/test_pallas.py:240).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from degnorm_tpu.config import EngineConfig as JEng, NMFConfig as JNmf
+from degnorm_tpu.core import baseline as jb
+from degnorm_tpu.ops.pallas_trim import trim_loop_pallas
+from degnorm_tpu_torch.config import EngineConfig, NMFConfig
+from degnorm_tpu_torch.core import baseline as tb
+from degnorm_tpu_torch.ops import cuda_trim
+from tests.torch_port_util import (degraded_bucket, make_bucket_np,
+                                   random_coverage, to_np)
+
+torch.set_num_threads(1)
+
+LENGTHS = (200, 256, 180, 230, 140, 250, 210, 160)
+FLAGS = ("ran_bs", "est_kind", "bailed", "n_hi", "rounds_active")
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _port(F, mask, nmf_kw, eng_kw, ds_start=None):
+    return tb.baseline_select_bucket(
+        _t(F), _t(mask), NMFConfig(**nmf_kw),
+        EngineConfig(device="cpu", use_kernels=False, **eng_kw),
+        ds_start=None if ds_start is None else _t(ds_start))
+
+
+def _assert_flags_equal(rt, rj):
+    for name in FLAGS:
+        np.testing.assert_array_equal(to_np(getattr(rt, name)),
+                                      np.asarray(getattr(rj, name)),
+                                      err_msg=name)
+
+
+def test_baseline_matches_xla_loop_f64():
+    F, mask = degraded_bucket(46, 4, LENGTHS, 256, np.float64)
+    rj = jb.baseline_select_bucket(
+        jnp.asarray(F), jnp.asarray(mask), JNmf(nmf_iter=12),
+        JEng(use_pallas=False, dtype="float64"))
+    rt = _port(F, mask, dict(nmf_iter=12),
+               dict(dtype="float64", power_warm_plain=0))
+    assert int(to_np(rt.ran_bs).sum()) > 0, "trim loop never ran"
+    _assert_flags_equal(rt, rj)
+    np.testing.assert_allclose(to_np(rt.rho), np.asarray(rj.rho), rtol=1e-7,
+                               atol=1e-12)
+    live = ~to_np(rt.bailed)
+    np.testing.assert_allclose(to_np(rt.est_K)[live],
+                               np.asarray(rj.est_K)[live], rtol=1e-7)
+    np.testing.assert_allclose(to_np(rt.est_E)[live],
+                               np.asarray(rj.est_E)[live], rtol=1e-7,
+                               atol=1e-12)
+
+
+def test_baseline_matches_fused_interpret_kernel_f32():
+    F, mask = degraded_bucket(46, 4, LENGTHS, 256, np.float32)
+    rj = jb.baseline_select_bucket(
+        jnp.asarray(F), jnp.asarray(mask), JNmf(nmf_iter=12),
+        JEng(use_pallas=True, pallas_interpret=True, fuse_trim=True,
+             gram_mode="vpu"))
+    rt = _port(F, mask, dict(nmf_iter=12), dict(power_warm_plain=1))
+    assert int(to_np(rt.ran_bs).sum()) > 0, "trim loop never ran"
+    _assert_flags_equal(rt, rj)
+    np.testing.assert_allclose(to_np(rt.rho), np.asarray(rj.rho), rtol=5e-4,
+                               atol=5e-5)
+    np.testing.assert_allclose(to_np(rt.est_K), np.asarray(rj.est_K),
+                               rtol=5e-4, atol=5e-4)
+
+
+def test_plain_trim_loop_matches_trim_loop_pallas_interpret():
+    """The plain trim function against the TPU kernel called directly, on
+    the same loop inputs (made by the port, handed over as numpy)."""
+    F, mask = degraded_bucket(46, 4, LENGTHS, 256, np.float32)
+    nmf_cfg = NMFConfig(nmf_iter=12)
+    eng_cfg = EngineConfig(device="cpu", use_kernels=False)
+    ti = tb.trim_inputs(_t(F), _t(mask), nmf_cfg, eng_cfg)
+    kw = tb.trim_kwargs(nmf_cfg, eng_cfg)
+    Kt, rhot, rant, roundst = cuda_trim.trim_loop_plain(
+        ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+        ti.n_hi, ti.n_bins0, ti.active0, **kw)
+    j = [jnp.asarray(to_np(x)) for x in (
+        ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+        ti.n_hi, ti.n_bins0, ti.active0)]
+    Kj, rhoj, ranj, roundsj = trim_loop_pallas(
+        *j, gram_mode="vpu", interpret=True, **kw)
+    assert int(to_np(rant).sum()) > 0
+    np.testing.assert_array_equal(to_np(rant), np.asarray(ranj))
+    np.testing.assert_array_equal(to_np(roundst), np.asarray(roundsj))
+    np.testing.assert_allclose(to_np(rhot), np.asarray(rhoj), rtol=5e-4,
+                               atol=5e-5)
+    np.testing.assert_allclose(to_np(Kt), np.asarray(Kj), rtol=5e-4,
+                               atol=5e-4)
+    # a gene that never enters keeps K0, rho0, False, 0
+    out = ~to_np(ti.active0)
+    np.testing.assert_array_equal(to_np(Kt)[out], to_np(ti.K0)[out])
+    np.testing.assert_array_equal(to_np(rhot)[out], to_np(ti.rho0)[out])
+    assert not to_np(rant)[out].any() and to_np(roundst)[out].sum() == 0
+
+
+def test_trim_wrapper_on_cpu_is_the_plain_version():
+    F, mask = degraded_bucket(50, 3, LENGTHS[:4], 256, np.float32)
+    nmf_cfg = NMFConfig(nmf_iter=6)
+    before = cuda_trim.trim_launches
+    a = tb.baseline_select_bucket(_t(F), _t(mask), nmf_cfg,
+                                  EngineConfig(device="cpu", use_kernels=True))
+    b = tb.baseline_select_bucket(_t(F), _t(mask), nmf_cfg,
+                                  EngineConfig(device="cpu", use_kernels=False))
+    c = tb.baseline_select_bucket(_t(F), _t(mask), nmf_cfg,
+                                  EngineConfig(device="cpu", fuse_trim=False))
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert cuda_trim.trim_launches == before
+    # the unfused kernel path is not ported: the GPU accepts only the default
+    with pytest.raises(NotImplementedError):
+        EngineConfig(device="cuda", fuse_trim=False)
+    EngineConfig(device="cuda", fuse_trim=False, use_kernels=False)
+
+
+def test_baseline_downsample_matches_xla_loop_f64():
+    F, mask = degraded_bucket(51, 3, (400, 512, 300, 480), 512, np.float64)
+    ds = np.array([0, 2, 1, 2], np.int32)
+    rj = jb.baseline_select_bucket(
+        jnp.asarray(F), jnp.asarray(mask),
+        JNmf(nmf_iter=8, downsample_rate=3),
+        JEng(use_pallas=False, dtype="float64"), ds_start=jnp.asarray(ds))
+    rt = _port(F, mask, dict(nmf_iter=8, downsample_rate=3),
+               dict(dtype="float64", power_warm_plain=0), ds_start=ds)
+    _assert_flags_equal(rt, rj)
+    np.testing.assert_allclose(to_np(rt.rho), np.asarray(rj.rho), rtol=1e-7,
+                               atol=1e-12)
+    with pytest.raises(ValueError):
+        _port(F, mask, dict(nmf_iter=8, downsample_rate=3),
+              dict(dtype="float64"))
+
+
+def test_baseline_skip_baseline_selection():
+    """tests/test_core_parity.py::test_baseline_bucket_skip_baseline."""
+    rng = np.random.default_rng(12)
+    mats = [random_coverage(rng, 4, L, degraded=True) for L in (260, 400)]
+    F, mask = make_bucket_np(mats, 512)
+    rj = jb.baseline_select_bucket(
+        jnp.asarray(F), jnp.asarray(mask),
+        JNmf(nmf_iter=8, skip_baseline_selection=True),
+        JEng(use_pallas=False, dtype="float64"))
+    rt = _port(F, mask, dict(nmf_iter=8, skip_baseline_selection=True),
+               dict(dtype="float64", power_warm_plain=0))
+    assert not to_np(rt.ran_bs).any()
+    _assert_flags_equal(rt, rj)
+    np.testing.assert_allclose(to_np(rt.rho), np.asarray(rj.rho), rtol=1e-7)
+    for i, m in enumerate(mats):
+        est_t = tb.materialize_estimate(
+            F[i], m.shape[1], to_np(rt.est_K)[i], to_np(rt.est_E)[i],
+            int(to_np(rt.est_kind)[i]))
+        est_j = jb.materialize_estimate(
+            F[i], m.shape[1], np.asarray(rj.est_K)[i],
+            np.asarray(rj.est_E)[i], int(np.asarray(rj.est_kind)[i]))
+        np.testing.assert_allclose(est_t, est_j, rtol=1e-7, atol=1e-10)
+
+
+def test_baseline_tiny_and_padding_genes_bail():
+    """Genes below min_high_coverage and all-zero padding genes (length 1)
+    bail with rho = 0 and estimate = F, never reaching a NaN
+    (tests/test_core_parity.py::test_baseline_bucket_tiny_genes_bail)."""
+    rng = np.random.default_rng(13)
+    mats = [random_coverage(rng, 3, 30), random_coverage(rng, 3, 40)]
+    F, mask = make_bucket_np(mats + [np.zeros((3, 1))], 64)
+    for dtype in ("float64", "float32"):
+        rt = _port(F.astype(dtype), mask, dict(nmf_iter=5), dict(dtype=dtype))
+        assert to_np(rt.bailed).all()
+        np.testing.assert_array_equal(to_np(rt.rho), 0.0)
+        assert (to_np(rt.est_kind) == tb.EST_INPUT).all()
+        for t in rt:
+            assert torch.isfinite(t.double()).all()

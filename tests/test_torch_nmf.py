@@ -1,0 +1,184 @@
+"""PyTorch port, core/nmf.py (+ the plain versions in ops/cuda_nmf.py) vs the
+JAX package.
+
+Which JAX function each test matches:
+  * ``power_warm_plain=0``  -> the XLA twin ``core.nmf.nmf_masked`` (it always
+    runs the squared warm scheme).  float64 rtol 1e-8 (same op order; the
+    einsum summation order differs); float32 rtol 1e-4 / atol 1e-4.
+  * ``power_warm_plain=1``  -> the fused kernel ``nmf_masked_pallas`` in
+    interpret mode with ``gram_mode="vpu"``.  float32 rtol 1e-4 / atol 1e-4
+    (the tolerance of tests/test_pallas.py).
+Inactive genes: the port returns zeros (as the kernels do), the XLA twin
+computes them anyway, so only active genes are compared against it.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from degnorm_tpu.core import nmf as jn
+from degnorm_tpu.ops import pallas_nmf as jp
+from degnorm_tpu_torch.core import nmf as tn
+from degnorm_tpu_torch.ops import cuda_nmf
+from tests.torch_port_util import degraded_bucket, to_np
+
+torch.set_num_threads(1)
+
+KW = dict(nmf_iter=12, power_iters_cold=60, power_iters_warm=12)
+LENGTHS = (150, 256, 90, 200, 231, 64)
+TOL = {np.float64: dict(rtol=1e-8, atol=1e-10),
+       np.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+def _bucket(dtype, seed=44, p=4):
+    return degraded_bucket(seed, p, LENGTHS, 256, dtype)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_nmf_masked_matches_xla_twin(dtype):
+    F, mask = _bucket(dtype)
+    Kj, Ej, uj = jn.nmf_masked(jnp.asarray(F), jnp.asarray(mask), **KW)
+    Kt, Et, ut = tn.nmf_masked(_t(F), _t(mask), power_warm_plain=0,
+                               use_kernels=False, **KW)
+    assert Kt.dtype == _t(F).dtype
+    for a, b in ((Kt, Kj), (Et, Ej), (ut, uj)):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_nmf_masked_resume_and_gene_active_match_xla_twin(dtype):
+    """u0 resume at a reduced cold count, with some genes switched off."""
+    F, mask = _bucket(dtype, seed=45)
+    _, _, u_prev = jn.nmf_masked(jnp.asarray(F), jnp.asarray(mask), **KW)
+    u0 = np.asarray(u_prev)
+    act = np.array([True, False, True, True, False, True])
+    kw = dict(KW, power_iters_cold=8)
+    Kj, Ej, uj = jn.nmf_masked(jnp.asarray(F), jnp.asarray(mask),
+                               u0=jnp.asarray(u0), **kw)
+    Kt, Et, ut = tn.nmf_masked(_t(F), _t(mask), u0=_t(u0),
+                               gene_active=_t(act), power_warm_plain=0,
+                               use_kernels=False, **kw)
+    for a, b in ((Kt, Kj), (Et, Ej), (ut, uj)):
+        np.testing.assert_allclose(to_np(a)[act], np.asarray(b)[act],
+                                   **TOL[dtype])
+        assert np.all(to_np(a)[~act] == 0)        # the kernels' contract
+
+
+def test_nmf_masked_matches_pallas_interpret():
+    F, mask = _bucket(np.float32)
+    Kj, Ej, uj = jp.nmf_masked_pallas(
+        jnp.asarray(F), jnp.asarray(mask), interpret=True, gram_mode="vpu",
+        power_warm_plain=1, **KW)
+    Kt, Et, ut = tn.nmf_masked(_t(F), _t(mask), power_warm_plain=1,
+                               use_kernels=False, **KW)
+    for a, b in ((Kt, Kj), (Et, Ej), (ut, uj)):
+        np.testing.assert_allclose(to_np(a), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_nmf_masked_resume_gene_active_match_pallas_interpret():
+    F, mask = _bucket(np.float32, seed=46)
+    rng = np.random.default_rng(9)
+    u0 = (np.abs(rng.standard_normal(F.shape[:2])) + 0.2).astype(np.float32)
+    u0 /= np.linalg.norm(u0, axis=1, keepdims=True)
+    act = np.array([True, True, False, True, True, True])
+    kw = dict(KW, power_iters_cold=32)
+    Kj, Ej, uj = jp.nmf_masked_pallas(
+        jnp.asarray(F), jnp.asarray(mask), interpret=True, gram_mode="vpu",
+        power_warm_plain=1, u0=jnp.asarray(u0),
+        gene_active=jnp.asarray(act), **kw)
+    Kt, Et, ut = tn.nmf_masked(_t(F), _t(mask), power_warm_plain=1,
+                               u0=_t(u0), gene_active=_t(act),
+                               use_kernels=False, **kw)
+    # the TPU kernel still computes an inactive gene inside an active
+    # block; callers consume active genes only
+    for a, b in ((Kt, Kj), (Et, Ej), (ut, uj)):
+        np.testing.assert_allclose(to_np(a)[act], np.asarray(b)[act],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("wp", [0, 1, 2])
+def test_warm_schemes_agree_within_convergence_class(wp):
+    """Both warm schemes chase the same Perron vector (tolerance of
+    tests/test_pallas.py::test_packed_and_plain_warm_modes)."""
+    F, mask = _bucket(np.float32, seed=48, p=8)
+    ref = tn.nmf_masked(_t(F), _t(mask), power_warm_plain=4,
+                        use_kernels=False, **KW)
+    got = tn.nmf_masked(_t(F), _t(mask), power_warm_plain=wp,
+                        use_kernels=False, **KW)
+    np.testing.assert_allclose(to_np(got[0]), to_np(ref[0]), rtol=5e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(to_np(got[1]), to_np(ref[1]), rtol=5e-3,
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ratio_svd_rowsums_matches_xla_twin(dtype):
+    F, mask = _bucket(dtype, seed=47)
+    cj, ej = jn.ratio_svd_rowsums(jnp.asarray(F), jnp.asarray(mask),
+                                  power_iters=60)
+    ct, et = tn.ratio_svd_rowsums(_t(F), _t(mask), power_iters=60,
+                                  use_kernels=False)
+    tol = dict(rtol=1e-8) if dtype == np.float64 else dict(rtol=1e-4,
+                                                            atol=1e-3)
+    np.testing.assert_allclose(to_np(ct), np.asarray(cj), **tol)
+    np.testing.assert_allclose(to_np(et), np.asarray(ej), **tol)
+
+
+def test_ratio_svd_rowsums_matches_pallas_interpret():
+    F, mask = _bucket(np.float32, seed=47)
+    cj, ej = jp.ratio_rowsums_pallas(jnp.asarray(F), jnp.asarray(mask),
+                                     power_iters=60, interpret=True)
+    ct, et = tn.ratio_svd_rowsums(_t(F), _t(mask), power_iters=60,
+                                  use_kernels=False)
+    np.testing.assert_allclose(to_np(ct), np.asarray(cj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(et), np.asarray(ej), rtol=1e-4,
+                               atol=1e-3)
+
+
+def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    """On a CPU tensor a wrapper runs its plain version (bit-identical) and
+    its launch counter stays where it was."""
+    F, mask = _bucket(np.float32)
+    before = (cuda_nmf.nmf_launches, cuda_nmf.ratio_launches)
+    a = tn.nmf_masked(_t(F), _t(mask), power_warm_plain=1, use_kernels=True,
+                      **KW)
+    b = cuda_nmf.nmf_masked_plain(_t(F), _t(mask), power_warm_plain=1, **KW)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    c = tn.ratio_svd_rowsums(_t(F), _t(mask), power_iters=16,
+                             use_kernels=True)
+    d = cuda_nmf.ratio_rowsums_plain(_t(F), _t(mask), power_iters=16)
+    for x, y in zip(c, d):
+        assert torch.equal(x, y)
+    assert (cuda_nmf.nmf_launches, cuda_nmf.ratio_launches) == before
+
+
+@pytest.mark.parametrize("shape,dtype,ok", [
+    ((64, 8, 1024), torch.float32, True),
+    ((64, 8, 4096), torch.float32, True),
+    ((64, 32, 2048), torch.float32, True),
+    ((64, 8, 16384), torch.float32, False),     # streamed kernel: pending
+    ((64, 33, 256), torch.float32, False),
+    ((64, 8, 1024), torch.float64, False),
+])
+def test_kernel_shape_gate(shape, dtype, ok):
+    assert cuda_nmf.kernels_supported(shape, dtype) is ok
+
+
+def test_kernel_input_check_names_the_pending_kernel():
+    wide = torch.zeros((1, 8, 16384), dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="streamed"):
+        cuda_nmf.check_kernel_input(wide, "nmf_masked_cuda")
+    with pytest.raises(TypeError):
+        cuda_nmf.check_kernel_input(torch.zeros((1, 4, 64), dtype=torch.float64),
+                                    "nmf_masked_cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_nmf.check_kernel_input(
+            torch.zeros((2, 64, 4), dtype=torch.float32).permute(0, 2, 1),
+            "nmf_masked_cuda")
