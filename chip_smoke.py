@@ -1,17 +1,21 @@
 """GPU smoke test of the PyTorch/CUDA port (``degnorm_tpu_torch``).
 
 Run ``python3 chip_smoke.py`` from the repository root on a machine with one
-NVIDIA GPU (sm_90a) and the CUDA toolkit.  It builds the three CUDA kernels
+NVIDIA GPU (sm_90a) and the CUDA toolkit.  It builds the four CUDA kernels
 from ``degnorm_tpu_torch/csrc/``, holds each against its plain PyTorch
-version on the whole buckets the main path launches it at, drives the main
-path (``DegNormEngine.run`` on 20,480 genes x 8 samples, bucket widths 1024 and
-4096, ``nmf_iter=50``) and checks kernel-on against kernel-off fits.  Each
-phase prints one JSON line; any failed phase raises (non-zero exit).  There
-is no CPU fallback: without a CUDA device the script exits non-zero and
-prints no result.
+version on the whole buckets the fits launch it at, and drives two paths
+through ``DegNormEngine.run`` at ``nmf_iter=50`` and 5 DegNorm iterations:
+the narrow one (20,480 genes x 8 samples, bucket widths 1024 and 4096: the
+resident NMF kernel and the fused trim kernel) and the wide one (2,048 long
+genes x 8 samples of 8,193 to 60,000 bases, default bucket widths 16384 and
+65536: the streamed NMF kernel on raw int16 coverage, once per round of the
+unfused trim loop).  It then checks kernels-on against kernels-off fits and
+the unfused against the fused loop.  Each phase prints one JSON line; any
+failed phase raises (non-zero exit).  There is no CPU fallback: without a
+CUDA device the script exits non-zero and prints no result.
 
-Options (none needed): ``--phases env,build,kernels,fit,parity`` runs a
-subset (then no final result line is printed unless all ran);
+Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity``
+runs a subset (then no final result line is printed unless all ran);
 ``--ptxas`` prints the compiler's register/shared-memory report.
 """
 import argparse
@@ -32,12 +36,18 @@ DEGNORM_ITER = 5            # full depth of the bench workload; not cut
 BUCKET_WIDTHS = (1024, 4096)
 PARITY_GENES = 512
 SEED = 7
+DEVICE = "cuda"             # the script runs nowhere else
+# the long tail of a human-scale annotation: genes past the resident gate
+WIDE_GENES = 2048
+WIDE_MIN_LEN, WIDE_MAX_LEN = 8193, 60000
+WIDE_WIDTHS = (16384, 65536)       # where the default bucket_widths put them
+PARITY_WIDE_GENES = (96, 32)       # of either width
 
 # NVIDIA H100 SXM data-sheet peaks used for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-ALL_PHASES = ("env", "build", "kernels", "fit", "parity")
+ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity")
 
 
 def synth_lengths(n, rng):
@@ -45,11 +55,19 @@ def synth_lengths(n, rng):
     return np.clip((rng.pareto(1.7, n) + 1) * 220, 200, 4000).astype(int)
 
 
-def synth_dataset(n, p, seed=SEED, profile="dense"):
+def synth_long_lengths(n, rng):
+    """Lengths of the long genes of an annotation: a heavy head just past
+    8,192 bases (about 85% fit a 16,384 bucket), a tail to 60,000."""
+    return np.clip(WIDE_MIN_LEN * (1 + rng.pareto(2.7, n)), WIDE_MIN_LEN,
+                   WIDE_MAX_LEN).astype(int)
+
+
+def synth_dataset(n, p, seed=SEED, profile="dense", lengths_fn=synth_lengths):
     """Synthetic pileup-like dataset (own copy of the bench workload's
-    generator): "dense" degrades every gene, "sparse" about 20%."""
+    generator): "dense" degrades every gene, "sparse" about 20%.  Values
+    are integral, so the engine uploads them as int16."""
     rng = np.random.default_rng(seed)
-    lengths = synth_lengths(n, rng)
+    lengths = lengths_fn(n, rng)
     degraded = (np.ones(n, bool) if profile == "dense"
                 else rng.random(n) < 0.2)
     base_scale = 2 + 10 * rng.random(n)
@@ -58,8 +76,14 @@ def synth_dataset(n, p, seed=SEED, profile="dense"):
     mats = [None] * n
     odd = (np.arange(p) % 2 == 1)[None, :, None]
     order = np.argsort(lengths, kind="stable")
-    for s in range(0, n, 512):
-        idx = order[s:s + 512]
+    s = 0
+    while s < n:
+        # genes sorted by length, at most 512 a step and about 2M columns
+        k = 512
+        while k > 1 and k * lengths[order[min(s + k, n) - 1]] > 2_100_000:
+            k //= 2
+        idx = order[s:s + k]
+        s += k
         Lk = lengths[idx][:, None].astype(np.float64)
         Lmax = int(lengths[idx].max())
         j = np.arange(Lmax, dtype=np.float64)[None, :]
@@ -150,6 +174,18 @@ def bound_nmf(F, mask, act, nmf_iter):
     ga = int(act.sum())
     cols = int(mask[act].sum())
     byts = ga * (p * W * 4 + W) + G * (W * 4 + 2 * p * 4) + G
+    return bound(byts, cols * nmf_ops_per_column(p, nmf_iter))
+
+
+def bound_stream(F, mask, act, nmf_iter):
+    """Kernel 4: kernel 1's operations on the active columns; each active
+    gene's coverage read once in the type it arrives in (2 bytes an element
+    for int16) with its mask row, E and the two p-vectors written."""
+    G, p, W = F.shape
+    ga = int(act.sum())
+    cols = int(mask[act].sum())
+    byts = (ga * (p * W * F.element_size() + W)
+            + G * (W * 4 + 2 * p * 4) + G)
     return bound(byts, cols * nmf_ops_per_column(p, nmf_iter))
 
 
@@ -346,19 +382,161 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, timed=True):
     return out
 
 
-def phase_kernels(cov):
-    """Each kernel against its plain version at the shapes the main path
-    launches it at: the two whole buckets the engine packs from this
-    dataset (p=8; W=1024 and W=4096; every slot, with inactive genes and a
-    u0-resume case), after two small odd shapes for the other template
-    instances.  Tolerances: K, E, u and row sums rtol 1e-3 / atol 1e-3
+STREAM_RTOL = 1e-5
+
+
+def assert_rel(got, want, what, sel=None):
+    """|got - want| <= STREAM_RTOL * max(|want|, 1): the float32
+    reduction-order level (the Gram is summed over threads, warps and the
+    cluster's blocks in another order than the plain version's einsum)."""
+    abs_err, rel_err = err_stats(got, want, sel)
+    if not rel_err <= STREAM_RTOL:
+        raise AssertionError(f"{what}: relative error {rel_err:.3e} exceeds "
+                             f"{STREAM_RTOL} (max abs err {abs_err:.3e})")
+    return abs_err, rel_err
+
+
+def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
+    """Kernel 4 against its plain version on one wide bucket as the engine
+    holds it: ``raw`` the int16 upload, the mask the high-coverage columns
+    the initial NMF of a bucket step sees.  (a) float32 pre-adjusted input;
+    (b) raw int16 + scale, equal to (a) bit for bit; (c) every 7th gene and
+    the bailed ones inactive (zeros out), then a u0 resume at the resume
+    count.  Also kernel 2 on the same bucket.  Returns measurements."""
+    import torch
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    G, p, W = raw.shape
+    assert raw.dtype == torch.int16
+    scale = torch.linspace(0.8, 1.25, p, device=raw.device)
+    F_adj = (raw.to(torch.float32) / scale[None, :, None]).contiguous()
+    colmax = (F_adj * lm[:, None, :]).amax(dim=1)
+    hi = (colmax > 0.1 * colmax.amax(dim=1, keepdim=True)) & lm
+    del colmax
+    bailed = hi.sum(dim=1) < nmf_cfg.effective_min_high_coverage
+    nkw = baseline._nmf_kwargs(nmf_cfg, eng_cfg)
+    names = ("K", "E", "u")
+    errs = []
+
+    # (a) float32 input, every gene
+    got_a = cuda_stream.nmf_masked_streamed_cuda(F_adj, hi, **nkw)
+    want = cuda_stream.nmf_masked_streamed_plain(F_adj, hi, **nkw)
+    torch.cuda.synchronize()
+    for g_, w_, nm in zip(got_a, want, names):
+        errs.append(assert_rel(g_, w_, f"nmf_streamed {nm} p={p} W={W} (f32)"))
+    # (b) raw int16 + scale: the same bits, and the same bits again
+    got_b = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale, **nkw)
+    again = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale, **nkw)
+    torch.cuda.synchronize()
+    for a_, b_, c_, nm in zip(got_a, got_b, again, names):
+        if not (torch.equal(a_, b_) and torch.equal(b_, c_)):
+            raise AssertionError(
+                f"nmf_streamed {nm} p={p} W={W}: raw int16 + scale differs "
+                f"from the float32 input ({int((a_ != b_).sum())} values) or "
+                f"between two runs ({int((b_ != c_).sum())})")
+    # (c) inactive genes return zeros, active ones are untouched by them
+    act = ~bailed
+    act[::7] = False
+    got_c = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                 gene_active=act, **nkw)
+    torch.cuda.synchronize()
+    for b_, c_, nm in zip(got_b, got_c, names):
+        if bool((c_[~act] != 0).any()):
+            raise AssertionError(f"nmf_streamed {nm}: inactive gene not zero")
+        if not torch.equal(b_[act], c_[act]):
+            raise AssertionError(f"nmf_streamed {nm}: gene_active changed an "
+                                 "active gene's result")
+    # ... and the resume case of the trim rounds, on fewer columns
+    rkw = dict(nkw, power_iters_cold=eng_cfg.power_iters_resume)
+    hi2 = hi.clone()
+    hi2[:, : W // 16] = False
+    got_r = cuda_stream.nmf_masked_streamed_cuda(
+        raw, hi2, scale=scale, gene_active=act, u0=want[2], **rkw)
+    want_r = cuda_stream.nmf_masked_streamed_plain(
+        raw, hi2, scale=scale, gene_active=act, u0=want[2], **rkw)
+    torch.cuda.synchronize()
+    for g_, w_, nm in zip(got_r, want_r, names):
+        errs.append(assert_rel(g_, w_, f"nmf_streamed {nm} p={p} W={W} "
+                                        "(u0 resume)"))
+    del got_a, got_b, again, got_c, got_r, want_r, hi2
+    all_on = torch.ones_like(act)
+    b_ms, b_by = bound_stream(raw, hi, all_on, nmf_cfg.nmf_iter)
+
+    def run_raw():
+        return cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                    **nkw)
+
+    out = dict(
+        shape=[G, p, W], max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs), raw_equals_f32=True,
+        inactive_genes=int((~act).sum()), active_columns=int(hi.sum()),
+        bound_ms=b_ms, bound_by=b_by, threads=cuda_stream.pick_threads(W),
+        ms=time_ms(run_raw, reps),
+        f32_input_ms=time_ms(
+            lambda: cuda_stream.nmf_masked_streamed_cuda(F_adj, hi, **nkw),
+            reps),
+        plain_ms=time_ms(
+            lambda: cuda_stream.nmf_masked_streamed_plain(F_adj, hi, **nkw),
+            1, warm=False))
+    if with_ratio:
+        kw = dict(power_iters=eng_cfg.power_iters_cold)
+        Ff = raw.to(torch.float32)
+        got = cuda_nmf.ratio_rowsums_cuda(Ff, lm, **kw)
+        want_q = cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw)
+        torch.cuda.synchronize()
+        qerr = []
+        for g_, w_, nm in zip(got, want_q, ("cov_sums", "est_sums")):
+            assert_close(g_, w_, 1e-3, 1e-3, f"ratio_rowsums {nm} W={W}")
+            qerr.append(err_stats(g_, w_))
+        rb_ms, rb_by = bound_ratio(Ff, lm)
+        out["ratio_rowsums"] = dict(
+            max_abs_err=max(e[0] for e in qerr),
+            max_rel_err=max(e[1] for e in qerr), bound_ms=rb_ms,
+            bound_by=rb_by,
+            ms=time_ms(lambda: cuda_nmf.ratio_rowsums_cuda(Ff, lm, **kw), reps),
+            plain_ms=time_ms(
+                lambda: cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw), reps))
+    return out
+
+
+def small_wide_bucket(G, p, W, seed, device):
+    """A few dozen genes of a shape where a larger study leaves the resident
+    gate (p = 16 or 32): int16 coverage and its length mask."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def lengths(n, r):
+        return r.integers(W // 2, W + 1, n)
+
+    small, _ = synth_dataset(G, p, seed=seed, lengths_fn=lengths)
+    F = np.zeros((G, p, W), np.int16)
+    lens = np.zeros(G, np.int64)
+    for i, m in enumerate(small.values()):
+        lens[i] = m.shape[1]
+        F[i, :, :lens[i]] = m
+    lens[int(rng.integers(G))] = 1               # a slot that must bail
+    lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(device)
+    return torch.from_numpy(F).to(device), lm
+
+
+def phase_kernels(cov, cov_wide):
+    """Each kernel against its plain version at the shapes the fits launch
+    it at.  Kernels 1-3: the two whole buckets the engine packs from the
+    narrow dataset (p=8; W=1024 and W=4096; every slot, with inactive genes
+    and a u0-resume case), after two small odd shapes for the other
+    template instances.  Kernel 4 (and kernel 2 again): the two whole
+    buckets of the long genes (p=8; W=16384 and W=65536), after p=32,
+    W=4096 and p=16, W=8192 at 48 genes and p=2, W=40000 at 12.
+    Tolerances: kernels 1-3 K, E, u and row sums rtol 1e-3 / atol 1e-3
     (float32 reduction order over W differs); trim loop ran_bs and
-    rounds_active equal on >= 99% of genes, rho atol 5e-4 on >= 99%."""
+    rounds_active equal on >= 99% of genes, rho atol 5e-4 on >= 99%;
+    kernel 4 K, E, u within 1e-5 of max(|value|, 1), raw int16 input equal
+    to float32 input bit for bit."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.data.buckets import pack_buckets
-    from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
-    dev = torch.device("cuda")
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    dev = torch.device(DEVICE)
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
     eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
     res = {}
@@ -385,13 +563,36 @@ def phase_kernels(cov):
         res[b.width]["shape"] = list(F_adj.shape)
         del F_adj, lm
         torch.cuda.empty_cache()
+    # kernel 4: the shapes where p = 32 and p = 16 leave the resident gate,
+    # and a width that is no multiple of the column chunk (p <= 4 instance)
+    wide_cfg = EngineConfig()
+    for G, p, W in ((48, 32, 4096), (48, 16, 8192), (12, 2, 40000)):
+        raw, lm = small_wide_bucket(G, p, W, SEED + p, dev)
+        assert not cuda_nmf.kernels_supported(raw.shape, torch.float32)
+        res[f"stream_p{p}_W{W}"] = check_stream_at(
+            raw, lm, nmf_cfg, wide_cfg, with_ratio=False)
+    # ... and the two whole buckets of the long genes
+    buckets = pack_buckets(list(cov_wide.values()),
+                           bucket_widths=wide_cfg.bucket_widths,
+                           dtype=np.int16)
+    assert sorted(b.width for b in buckets) == sorted(WIDE_WIDTHS)
+    for b in buckets:
+        raw = torch.from_numpy(b.F).to(dev)
+        lm = torch.from_numpy(b.len_mask()).to(dev)
+        res[f"stream_{b.width}"] = check_stream_at(raw, lm, nmf_cfg, wide_cfg)
+        res[f"stream_{b.width}"]["genes"] = b.n_real
+        del raw, lm
+        torch.cuda.empty_cache()
     emit("kernels",
-         kernels=["nmf_masked", "ratio_rowsums", "trim_loop"],
-         tolerance="K,E,u,row sums rtol 1e-3 atol 1e-3; trim flags >= 99% "
-                   "equal, rho atol 5e-4 on >= 99%",
+         kernels=["nmf_masked", "ratio_rowsums", "trim_loop", "nmf_streamed"],
+         tolerance="kernels 1-3: K,E,u,row sums rtol 1e-3 atol 1e-3; trim "
+                   "flags >= 99% equal, rho atol 5e-4 on >= 99%; kernel 4: "
+                   "K,E,u within 1e-5 of max(|value|, 1), raw int16 input "
+                   "bit-equal to float32 input",
          launches=dict(nmf_masked=cuda_nmf.nmf_launches,
                        ratio_rowsums=cuda_nmf.ratio_launches,
-                       trim_loop=cuda_trim.trim_launches),
+                       trim_loop=cuda_trim.trim_launches,
+                       nmf_streamed=cuda_stream.stream_launches),
          results={str(k): v for k, v in res.items()})
     return res
 
@@ -426,7 +627,7 @@ def profile_fit(engine, cov, X, steady_wall_s):
     rows.sort(key=lambda r: -r[1])
     ours = {}
     for tag in ("nmf_masked_kernel", "ratio_rowsums_kernel",
-                "trim_loop_kernel"):
+                "trim_loop_kernel", "nmf_streamed_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -446,7 +647,7 @@ def phase_fit(cov, X):
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.engine import DegNormEngine
-    from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
     eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
     assert eng_cfg.fuse_trim and eng_cfg.use_kernels
@@ -454,17 +655,19 @@ def phase_fit(cov, X):
     torch.cuda.reset_peak_memory_stats()
     # counts to 0 just before the main path, read just after
     cuda_nmf.nmf_launches = cuda_nmf.ratio_launches = 0
-    cuda_trim.trim_launches = 0
+    cuda_trim.trim_launches = cuda_stream.stream_launches = 0
     t0 = time.perf_counter()
     res = engine.run(cov, X)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(nmf_masked=cuda_nmf.nmf_launches,
                     ratio_rowsums=cuda_nmf.ratio_launches,
-                    trim_loop=cuda_trim.trim_launches)
+                    trim_loop=cuda_trim.trim_launches,
+                    nmf_streamed=cuda_stream.stream_launches)
     for name, cnt in launches.items():
-        if cnt < 1:
-            raise AssertionError(f"main path never launched {name}")
+        # the narrow buckets are inside the resident gate: kernels 1-3 only
+        if (cnt < 1) != (name == "nmf_streamed"):
+            raise AssertionError(f"narrow path launched {name} {cnt} times")
     timings = dict(engine.timings)
     # a second, steady fit on the resident buckets
     t0 = time.perf_counter()
@@ -504,26 +707,93 @@ def phase_fit(cov, X):
     return launches
 
 
-def phase_parity(cov, X):
-    """The first PARITY_GENES genes fitted twice on the card: kernels on and
-    use_kernels=False.  rho atol 5e-3, x_adj rtol 5e-3, ran_bs equal, each on
-    at least 99% of genes (a trim decision that flips on a float32 near-tie
-    moves that gene's DI by more than the tolerance)."""
+def phase_fit_wide(cov, X):
+    """The wide path at real size through DegNormEngine.run with the default
+    bucket widths: every NMF is a launch of the streamed kernel on the raw
+    int16 upload, one for the initial fit and one per round of the unfused
+    trim loop, per bucket and DegNorm iteration.  Nothing is cut."""
+    import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.engine import DegNormEngine
-    genes = list(cov.keys())[:PARITY_GENES]
-    sub = OrderedDict((g, cov[g]) for g in genes)
-    Xs = X[:PARITY_GENES]
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
-    fits = {}
-    secs = {}
-    for use in (True, False):
-        t0 = time.perf_counter()
-        fits[use] = DegNormEngine(nmf_cfg, EngineConfig(
-            bucket_widths=BUCKET_WIDTHS, use_kernels=use)).run(sub, Xs)
-        secs[use] = time.perf_counter() - t0
-    a, b = fits[True], fits[False]
-    n = len(genes)
+    eng_cfg = EngineConfig()
+    assert eng_cfg.fuse_trim and eng_cfg.use_kernels
+    engine = DegNormEngine(nmf_cfg, eng_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    # counts to 0 just before this path, read just after
+    cuda_nmf.nmf_launches = cuda_nmf.ratio_launches = 0
+    cuda_trim.trim_launches = cuda_stream.stream_launches = 0
+    t0 = time.perf_counter()
+    res = engine.run(cov, X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(nmf_masked=cuda_nmf.nmf_launches,
+                    ratio_rowsums=cuda_nmf.ratio_launches,
+                    trim_loop=cuda_trim.trim_launches,
+                    nmf_streamed=cuda_stream.stream_launches)
+    n_buckets = len(engine._buckets)
+    if sorted(b.width for b in engine._buckets) != sorted(WIDE_WIDTHS):
+        raise AssertionError("long genes did not pack into the wide buckets")
+    # rounds the unfused loop ran, per DegNorm iteration and bucket: every
+    # launch of the streamed kernel is a bucket step's initial NMF or one
+    # of these rounds
+    trim_rounds = [list(r) for r in engine.trim_rounds]
+    rounds_total = sum(sum(r) for r in trim_rounds)
+    if rounds_total < 1 or launches["nmf_streamed"] != (
+            n_buckets * DEGNORM_ITER + rounds_total):
+        raise AssertionError(
+            f"wide path launched the streamed kernel "
+            f"{launches['nmf_streamed']} times for {n_buckets} buckets x "
+            f"{DEGNORM_ITER} iterations and {rounds_total} trim rounds")
+    if launches["ratio_rowsums"] != n_buckets:
+        raise AssertionError("wide path: ratio kernel launches "
+                             f"{launches['ratio_rowsums']} != {n_buckets}")
+    if launches["trim_loop"] or launches["nmf_masked"]:
+        raise AssertionError(f"wide buckets reached a resident kernel: "
+                             f"{launches}")
+    upload = sorted({str(F.dtype) for F in engine._device_F})
+    if upload != ["torch.int16"]:
+        raise AssertionError(f"upload is {upload}, expected int16")
+    timings = dict(engine.timings)
+    entered = [int(r.ran_bs.sum()) for r in engine._last_results]
+    t0 = time.perf_counter()
+    res2 = engine.run(cov, X, reuse_device_data=True)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    prof = profile_fit(engine, cov, X, wall2)
+    n, p = res.rho.shape
+    assert (n, p) == (WIDE_GENES, P_SAMPLES), res.rho.shape
+    assert np.isfinite(res.rho).all() and res.rho.min() >= 0 and res.rho.max() <= 0.9
+    assert np.isfinite(res.x_adj).all() and res.x_adj.shape == (n, p)
+    n_ran = int(res.ran_baseline_selection.any(axis=1).sum())
+    assert n_ran > 0, "no gene ran baseline selection"
+    np.testing.assert_allclose(res2.rho, res.rho, rtol=0, atol=1e-6)
+    compute = timings["init"] + timings["iterations"]
+    emit("fit_wide", genes=n, samples=p, nmf_iter=NMF_ITER,
+         degnorm_iter=DEGNORM_ITER, degnorm_iter_cut=False,
+         bucket_widths=list(eng_cfg.bucket_widths),
+         buckets=[[b.width, int(b.F.shape[0]), b.n_real]
+                  for b in engine._buckets],
+         upload_dtype=upload[0], launches=launches,
+         trim_rounds=trim_rounds, trim_rounds_total=rounds_total,
+         last_iteration=dict(genes_in_trim_loop=entered),
+         wall_s=round(wall, 3), steady_wall_s=round(wall2, 3),
+         timings={k: round(v, 4) for k, v in timings.items()},
+         steady_timings={k: round(v, 4) for k, v in engine.timings.items()},
+         gene_iter_per_s=round(n * DEGNORM_ITER / compute, 1),
+         steady_gene_iter_per_s=round(n * DEGNORM_ITER / wall2, 1),
+         genes_ran_bs=n_ran, rho_mean=float(res.rho.mean()),
+         peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+         profile=prof)
+    return launches
+
+
+def compare_fits(name, a, b, secs, **extra):
+    """Two fits of the same genes: ran_bs equal, rho atol 5e-3, x_adj rtol
+    5e-3, each on at least 99% of genes (a trim decision that flips on a
+    float32 near-tie moves that gene's DI by more than the tolerance)."""
+    n = a.rho.shape[0]
     ran_same = (a.ran_baseline_selection == b.ran_baseline_selection).all(axis=1)
     rho_err = np.abs(a.rho - b.rho).max(axis=1)
     adj_err = np.abs(a.x_adj / b.x_adj - 1).max(axis=1)
@@ -533,11 +803,132 @@ def phase_parity(cov, X):
                  rho_err_max=float(rho_err.max()),
                  rho_err_median=float(np.median(rho_err)),
                  x_adj_rel_err_max=float(adj_err.max()),
-                 kernels_s=round(secs[True], 2), plain_s=round(secs[False], 2))
-    emit("parity", **stats)
+                 genes_ran_bs=int(a.ran_baseline_selection.any(axis=1).sum()),
+                 seconds=[round(t, 2) for t in secs], **extra)
+    emit(name, **stats)
     for key in ("ran_bs_equal", "rho_within_5e3", "x_adj_within_5e3"):
         if stats[key] < 0.99 * n:
-            raise AssertionError(f"parity: {key} = {stats[key]} of {n}")
+            raise AssertionError(f"{name}: {key} = {stats[key]} of {n}")
+
+
+def phase_parity(cov, X, cov_wide, X_wide):
+    """Pairs of fits on the card, each held to ``compare_fits``:
+    (narrow) the first PARITY_GENES genes, kernels on against
+    use_kernels=False; (wide) 128 long genes of both wide widths, the same
+    pair, so the streamed kernel in the unfused loop against the plain loop;
+    (unfused) the narrow genes with fuse_trim=False and the kernels on (the
+    resident NMF kernel once per round of the same Python loop) against the
+    fused fit."""
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
+
+    def fit(sub, Xs, **eng_kw):
+        t0 = time.perf_counter()
+        res = DegNormEngine(nmf_cfg, EngineConfig(**eng_kw)).run(sub, Xs)
+        return res, time.perf_counter() - t0
+
+    genes = list(cov.keys())[:PARITY_GENES]
+    sub = OrderedDict((g, cov[g]) for g in genes)
+    Xs = X[:PARITY_GENES]
+    fused, t_fused = fit(sub, Xs, bucket_widths=BUCKET_WIDTHS)
+    plain, t_plain = fit(sub, Xs, bucket_widths=BUCKET_WIDTHS,
+                         use_kernels=False)
+    compare_fits("parity", fused, plain, (t_fused, t_plain),
+                 pair="kernels on (fused) vs use_kernels=False")
+
+    before = (cuda_nmf.nmf_launches, cuda_trim.trim_launches)
+    unfused, t_unfused = fit(sub, Xs, bucket_widths=BUCKET_WIDTHS,
+                             fuse_trim=False)
+    nmf_per_round = cuda_nmf.nmf_launches - before[0]
+    if cuda_trim.trim_launches != before[1] or nmf_per_round < 1:
+        raise AssertionError("fuse_trim=False reached the fused kernel or "
+                             "launched no NMF kernel")
+    compare_fits("parity_unfused", unfused, fused, (t_unfused, t_fused),
+                 pair="fuse_trim=False (kernels on) vs fused",
+                 nmf_masked_launches=nmf_per_round)
+
+    names = list(cov_wide.keys())
+    short = [i for i, g in enumerate(names)
+             if cov_wide[g].shape[1] <= WIDE_WIDTHS[0]][:PARITY_WIDE_GENES[0]]
+    long_ = [i for i, g in enumerate(names)
+             if cov_wide[g].shape[1] > WIDE_WIDTHS[0]][:PARITY_WIDE_GENES[1]]
+    pick = sorted(short + long_)
+    sub = OrderedDict((names[i], cov_wide[names[i]]) for i in pick)
+    Xs = X_wide[pick]
+    before = cuda_stream.stream_launches
+    on, t_on = fit(sub, Xs)
+    streamed = cuda_stream.stream_launches - before
+    off, t_off = fit(sub, Xs, use_kernels=False)
+    if streamed < 1:
+        raise AssertionError("wide parity fit launched no streamed kernel")
+    compare_fits("parity_wide", on, off, (t_on, t_off),
+                 pair="kernels on (streamed, unfused) vs use_kernels=False",
+                 widths=[len(short), len(long_)],
+                 nmf_streamed_launches=streamed)
+
+
+def kernels_line(kres, launches, launches_wide):
+    """The per-kernel records of the result line: kernels 1-3 at the narrow
+    fit's main shape (W=1024) with the W=4096 one beside it, kernel 4 at the
+    wide fit's W=16384 bucket with its other shapes beside it."""
+    main_shape = kres[1024]
+    replaces = {
+        "nmf_masked": "degnorm_tpu/ops/pallas_nmf.py:687",
+        "ratio_rowsums": "degnorm_tpu/ops/pallas_nmf.py:562",
+        "trim_loop": "degnorm_tpu/ops/pallas_trim.py:324",
+        "nmf_streamed": "degnorm_tpu/ops/pallas_stream.py:266",
+    }
+    source = {
+        "nmf_masked": "degnorm_tpu_torch/csrc/nmf.cu",
+        "ratio_rowsums": "degnorm_tpu_torch/csrc/ratio.cu",
+        "trim_loop": "degnorm_tpu_torch/csrc/trim.cu",
+        "nmf_streamed": "degnorm_tpu_torch/csrc/stream.cu",
+    }
+    kernels = []
+    for name in ("nmf_masked", "ratio_rowsums", "trim_loop"):
+        m, wide = main_shape[name], kres[4096][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source[name],
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": max(m["max_abs_err"], wide["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None,
+            "shape": main_shape["shape"],
+            **({"bound_note": TRIM_BOUND_NOTE} if name == "trim_loop" else {}),
+            "wide": {"shape": kres[4096]["shape"], "ms": wide["ms"],
+                     "plain_ms": wide["plain_ms"],
+                     "bound_ms": wide["bound_ms"],
+                     "bound_by": wide["bound_by"]},
+            "launches_fit_wide": launches_wide[name],
+        })
+    # kernel 2 also runs on the wide buckets (initialisation of fit_wide)
+    kernels[1]["fit_wide_shapes"] = [
+        dict(shape=kres[f"stream_{w}"]["shape"],
+             **kres[f"stream_{w}"]["ratio_rowsums"]) for w in WIDE_WIDTHS]
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "f32_input_ms", "threads")
+    m = kres[f"stream_{WIDE_WIDTHS[0]}"]
+    kernels.append({
+        "name": "nmf_streamed", "route": "cuda",
+        "source": source["nmf_streamed"], "replaces": replaces["nmf_streamed"],
+        # its main path is fit_wide: counts set to 0 just before that fit
+        "launches": launches_wide["nmf_streamed"],
+        "launches_fit": launches.get("nmf_streamed", 0),
+        "max_abs_err": max(v["max_abs_err"] for k, v in kres.items()
+                           if str(k).startswith("stream_")),
+        "max_rel_err": max(v["max_rel_err"] for k, v in kres.items()
+                           if str(k).startswith("stream_")),
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None, "shape": m["shape"],
+        "input": "raw int16 + scale",
+        "other_shapes": [{k: v[k] for k in keys} for name_, v in kres.items()
+                         if str(name_).startswith("stream_")
+                         and name_ != f"stream_{WIDE_WIDTHS[0]}"],
+    })
+    return kernels
 
 
 def main(argv=None):
@@ -565,42 +956,29 @@ def main(argv=None):
     cov, X = synth_dataset(N_GENES, P_SAMPLES)
     emit("data", seconds=round(time.perf_counter() - t0, 2), genes=N_GENES,
          samples=P_SAMPLES, seed=SEED, profile="dense")
-    kres = phase_kernels(cov) if "kernels" in phases else None
+    cov_wide = X_wide = None
+    if {"kernels", "fit_wide", "parity"} & set(phases):
+        t0 = time.perf_counter()
+        cov_wide, X_wide = synth_dataset(WIDE_GENES, P_SAMPLES, seed=SEED + 1,
+                                         lengths_fn=synth_long_lengths)
+        lens = np.array([m.shape[1] for m in cov_wide.values()])
+        emit("data_wide", seconds=round(time.perf_counter() - t0, 2),
+             genes=WIDE_GENES, samples=P_SAMPLES, seed=SEED + 1,
+             profile="dense", min_len=int(lens.min()), max_len=int(lens.max()),
+             per_width=[int((lens <= WIDE_WIDTHS[0]).sum()),
+                        int((lens > WIDE_WIDTHS[0]).sum())],
+             host_bytes=int(sum(m.nbytes for m in cov_wide.values())))
+    kres = phase_kernels(cov, cov_wide) if "kernels" in phases else None
     launches = phase_fit(cov, X) if "fit" in phases else None
+    launches_wide = (phase_fit_wide(cov_wide, X_wide)
+                     if "fit_wide" in phases else None)
     if "parity" in phases:
-        phase_parity(cov, X)
+        phase_parity(cov, X, cov_wide, X_wide)
     if set(ALL_PHASES) - set(phases):
         print(json.dumps({"ok": False, "partial": phases}))
         return 0
 
-    main_shape = kres[1024]
-    replaces = {
-        "nmf_masked": "degnorm_tpu/ops/pallas_nmf.py:687",
-        "ratio_rowsums": "degnorm_tpu/ops/pallas_nmf.py:562",
-        "trim_loop": "degnorm_tpu/ops/pallas_trim.py:324",
-    }
-    source = {
-        "nmf_masked": "degnorm_tpu_torch/csrc/nmf.cu",
-        "ratio_rowsums": "degnorm_tpu_torch/csrc/ratio.cu",
-        "trim_loop": "degnorm_tpu_torch/csrc/trim.cu",
-    }
-    kernels = []
-    for name in ("nmf_masked", "ratio_rowsums", "trim_loop"):
-        m, wide = main_shape[name], kres[4096][name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(m["max_abs_err"], wide["max_abs_err"]),
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": None,
-            "shape": main_shape["shape"],
-            **({"bound_note": TRIM_BOUND_NOTE} if name == "trim_loop" else {}),
-            "wide": {"shape": kres[4096]["shape"], "ms": wide["ms"],
-                     "plain_ms": wide["plain_ms"],
-                     "bound_ms": wide["bound_ms"],
-                     "bound_by": wide["bound_by"]},
-        })
+    kernels = kernels_line(kres, launches, launches_wide)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",
                       "seconds": round(time.perf_counter() - t_start, 1)}),

@@ -2,9 +2,9 @@
 
 Module names mirror the JAX package (``degnorm_tpu``) so a reader finds the
 counterpart of each file; this package imports ``torch`` and ``numpy`` only.
-The three hot kernels (Lagrangian NMF loop, ratio-SVD row sums, fused
-baseline-selection trim loop) are CUDA C++ sources under ``csrc/``, built on
-first use by ``ops/build.py``.  Entry points run on the GPU unless the caller
+The four hot kernels (Lagrangian NMF loop, ratio-SVD row sums, fused
+baseline-selection trim loop, and the streamed NMF loop of wide buckets) are
+CUDA C++ sources under ``csrc/``, built on first use by ``ops/build.py``.  Entry points run on the GPU unless the caller
 passes ``device="cpu"``.
 """
 

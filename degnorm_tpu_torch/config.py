@@ -81,8 +81,9 @@ class EngineConfig:
     # Where the engine runs.  The default is the GPU and the engine raises
     # when none is present; only a caller that asks for "cpu" gets the CPU.
     device: str = "cuda"
-    # Route the NMF loop, the ratio-SVD row sums and the trim loop through
-    # the hand-written CUDA kernels (ops/).  On CPU tensors the wrappers take
+    # Route the NMF loop (resident or, for a wide bucket, streamed), the
+    # ratio-SVD row sums and the trim loop through the hand-written CUDA
+    # kernels (ops/).  On CPU tensors the wrappers take
     # their plain PyTorch versions whatever this says; on CUDA tensors
     # False selects the plain versions (the parity reference on the card).
     use_kernels: bool = True
@@ -101,10 +102,10 @@ class EngineConfig:
     # XLA twin, which always runs the squared scheme at power_iters_warm.
     power_warm_plain: int = 1
     # Run the whole baseline-selection trim loop in one kernel launch per
-    # bucket (ops/cuda_trim.py).  The unfused form (a Python loop around
-    # per-round NMF kernel launches) is not ported: with the kernels on, a
-    # CUDA device accepts only True.  The plain versions are the Python loop
-    # whatever this says.
+    # bucket (ops/cuda_trim.py) where the bucket is inside that kernel's
+    # gate.  False, and any bucket outside the gate, takes the unfused form:
+    # a Python loop around one NMF kernel launch per round.  The plain
+    # versions are the Python loop whatever this says.
     fuse_trim: bool = True
     # Computation dtype of the bucket kernels.  The CUDA kernels are
     # float32; float64 runs the plain versions (CPU parity tests).
@@ -118,6 +119,8 @@ class EngineConfig:
     rank1_method: str = "power"
     trim_fast: bool = False
     nmf_tol: float = 0.0
+    # Not carried over: the port has no other lowering for a wide bucket
+    # than the streamed kernel, so only True is accepted.
     stream_nmf: bool = True
 
     def __post_init__(self):
@@ -130,12 +133,9 @@ class EngineConfig:
             pending.append(f"nmf_tol={self.nmf_tol}")
         if not self.stream_nmf:
             pending.append("stream_nmf=False")
-        if (not self.fuse_trim and self.use_kernels
-                and str(self.device).startswith("cuda")):
-            pending.append("fuse_trim=False with the kernels on")
         if pending:
             raise NotImplementedError(
-                "not ported yet (only the default is accepted): "
+                "not ported (only the default is accepted): "
                 + ", ".join(pending))
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32 or float64, got {self.dtype!r}")

@@ -18,8 +18,10 @@ deactivates its columns.  The residuals of round r+1 are computed against
 the estimate of round r clipped up to F, but round 1 uses the *unclipped*
 initial estimate (nmf.py:247); the trim loop carries a ``clipped`` flag.
 
-The trim loop itself lives in ``ops/cuda_trim.py``: a Python ``while`` over
-tensors (plain) or one fused CUDA kernel.
+The trim loop itself lives in ``ops/cuda_trim.py``: one fused CUDA kernel
+for a bucket inside its gate, else a Python ``while`` over tensors whose NMF
+per round is the plain version or, with the kernels on, a kernel launch (the
+unfused loop of a wide bucket).
 """
 from __future__ import annotations
 
@@ -105,9 +107,12 @@ def trim_inputs(
     nmf_cfg: NMFConfig,
     eng_cfg: EngineConfig,
     ds_start: Optional[torch.Tensor] = None,
+    F_raw: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> TrimInputs:
     """High-coverage and downsample masks, bail-outs, the initial NMF and
-    the rank bins (reference nmf.py:220-271)."""
+    the rank bins (reference nmf.py:220-271).  ``F_raw``/``scale``: see
+    ``baseline_select_bucket``."""
     G, p, W = F.shape
     dtype = F.dtype
     dev = F.device
@@ -140,6 +145,7 @@ def trim_inputs(
     # ---- initial NMF, unclipped DI scores (nmf.py:245-258) ----
     K0, E0, u0 = nmf_masked(Fm, hi, gene_active=~(bail_low | bail_zero_row),
                             use_kernels=eng_cfg.use_kernels,
+                            F_raw=F_raw, scale=scale,
                             **_nmf_kwargs(nmf_cfg, eng_cfg))
     est_rs0 = K0 * E0.sum(dim=1)[:, None]
     rho0 = 1 - rowsum_start / (est_rs0 + 1)
@@ -187,6 +193,8 @@ def baseline_select_bucket(
     eng_cfg: EngineConfig,
     ds_start: Optional[torch.Tensor] = None,
     with_estimates: bool = True,
+    F_raw: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> BucketResult:
     """Run baseline selection for every gene in a padded bucket.
 
@@ -196,15 +204,35 @@ def baseline_select_bucket(
       nmf_cfg / eng_cfg: configuration.
       ds_start: (G,) int32 systematic-sampling start offsets in
         [0, downsample_rate); required iff downsample_rate > 1.
+      F_raw/scale: the raw (unadjusted, typically int16) device coverage and
+        the per-sample scale vector with F == F_raw / scale: the streamed NMF
+        kernel of a wide bucket reads it at half the bytes (core/nmf.py).
     """
-    ti = trim_inputs(F, len_mask, nmf_cfg, eng_cfg, ds_start)
-    # the whole loop in one kernel launch (plain version on the CPU), or
-    # the Python while over tensors
-    trim_loop = (cuda_trim.trim_loop_cuda if eng_cfg.use_kernels
-                 else cuda_trim.trim_loop_plain)
-    K_t, rho_t, ran_bs, rounds_active = trim_loop(
-        ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
-        ti.n_hi, ti.n_bins0, ti.active0, **trim_kwargs(nmf_cfg, eng_cfg))
+    ti = trim_inputs(F, len_mask, nmf_cfg, eng_cfg, ds_start, F_raw, scale)
+    targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+             ti.n_hi, ti.n_bins0, ti.active0)
+    tkw = trim_kwargs(nmf_cfg, eng_cfg)
+    if (eng_cfg.use_kernels and eng_cfg.fuse_trim
+            and cuda_trim.fused_trim_supported(F.shape, F.dtype)):
+        # the whole loop in one kernel launch (plain version on the CPU)
+        K_t, rho_t, ran_bs, rounds_active = cuda_trim.trim_loop_cuda(
+            *targs, **tkw)
+    else:
+        # the unfused loop: a Python while over tensors with one NMF per
+        # round through nmf_masked (a kernel launch with the kernels on),
+        # resumed from the previous round's left vector
+        resume_kwargs = dict(
+            _nmf_kwargs(nmf_cfg, eng_cfg),
+            power_iters_cold=(eng_cfg.power_iters_resume
+                              or eng_cfg.power_iters_cold))
+
+        def round_nmf(col_mask, gene_active, u_prev):
+            return nmf_masked(ti.Fm, col_mask, gene_active=gene_active,
+                              u0=u_prev, use_kernels=eng_cfg.use_kernels,
+                              F_raw=F_raw, scale=scale, **resume_kwargs)
+
+        K_t, rho_t, ran_bs, rounds_active = cuda_trim.trim_loop_plain(
+            *targs, nmf_fn=round_nmf, **tkw)
 
     return _finalize_bucket(ti.Fm, ti.lm_f, ti.hi.to(F.dtype), len_mask,
                             ti.K0, ti.E0, ti.rho0, ti.rowsum_start, ti.n_hi,

@@ -3,8 +3,8 @@
 Counterpart of ``degnorm_tpu/core/nmf.py``: the clipped-Lagrangian fixed
 point of reference ``GeneNMFOA.nmf`` (``degnorm/nmf.py:78-107``) for a whole
 (G, p, W) gene bucket.  With ``use_kernels`` the work goes to the CUDA kernel
-wrappers of ``ops/cuda_nmf.py`` (which run their plain versions on CPU
-tensors); otherwise to the plain versions directly.
+wrappers of ``ops/cuda_nmf.py`` and ``ops/cuda_stream.py`` (which run their
+plain versions on CPU tensors); otherwise to the plain versions directly.
 
 The final over-approximation clip is intentionally NOT applied here: the
 reference clips selectively at call sites.
@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from degnorm_tpu_torch.ops import cuda_nmf
+from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
 
 
 def nmf_masked(
@@ -29,8 +29,16 @@ def nmf_masked(
     gene_active: Optional[torch.Tensor] = None,
     u0: Optional[torch.Tensor] = None,
     use_kernels: bool = True,
+    F_raw: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the NMF-OA loop on a masked gene bucket.
+
+    A bucket inside the resident kernels' gate
+    (``cuda_nmf.kernels_supported``) goes to the resident NMF kernel; one
+    outside it goes to the streamed kernel, which reads the raw coverage
+    when ``F_raw`` and ``scale`` are both given.  ``use_kernels=False``
+    takes the plain versions by the same routing.
 
     Args:
       F: (G, p, W) nonnegative coverage batch (already scale-adjusted).
@@ -41,16 +49,27 @@ def nmf_masked(
       gene_active: optional (G,) bool; genes outside it are skipped and
         return zeros — callers gate every consumer on their own masks.
       u0: optional (G, p) warm start for the initial cold rank-1.
+      F_raw/scale: the engine's raw device-resident coverage (typically
+        int16) and the per-sample scale vector with F == F_raw / scale; the
+        streamed kernel then reads F_raw at half the bytes and adjusts each
+        column itself, bit-identically (ops/cuda_stream.py).
 
     Returns (K, E, u): rank-1 factors (G,p), (G,W) and the final unit left
     vector for warm starts.
     """
-    fn = cuda_nmf.nmf_masked_cuda if use_kernels else cuda_nmf.nmf_masked_plain
-    return fn(F, mask, nmf_iter=nmf_iter,
-              power_iters_cold=power_iters_cold,
-              power_iters_warm=power_iters_warm,
-              power_warm_plain=power_warm_plain,
-              gene_active=gene_active, u0=u0)
+    kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
+                  power_iters_warm=power_iters_warm,
+                  power_warm_plain=power_warm_plain,
+                  gene_active=gene_active, u0=u0)
+    if cuda_nmf.kernels_supported(F.shape, F.dtype):
+        fn = (cuda_nmf.nmf_masked_cuda if use_kernels
+              else cuda_nmf.nmf_masked_plain)
+        return fn(F, mask, **kwargs)
+    fn = (cuda_stream.nmf_masked_streamed_cuda if use_kernels
+          else cuda_stream.nmf_masked_streamed_plain)
+    use_raw = F_raw is not None and scale is not None
+    return fn(F_raw if use_raw else F, mask,
+              scale=scale if use_raw else None, **kwargs)
 
 
 def ratio_svd_rowsums(
@@ -62,7 +81,9 @@ def ratio_svd_rowsums(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row sums of the one-shot clipped rank-1 over-approximation
     (reference ``ratio_svd``, nmf.py:109-121): per-sample sums of F and of
-    max(K·E, F), both over active columns.  Returns (cov_sums, est_sums)."""
+    max(K·E, F), both over active columns.  Returns (cov_sums, est_sums).
+    The kernel takes every width, so a wide bucket's initialisation runs in
+    it too (the JAX package leaves that one to XLA)."""
     fn = (cuda_nmf.ratio_rowsums_cuda if use_kernels
           else cuda_nmf.ratio_rowsums_plain)
     return fn(F, mask, power_iters=power_iters)

@@ -3,9 +3,10 @@
 // Replaces the shared helpers of the TPU kernels in
 // degnorm_tpu/ops/pallas_nmf.py (_gram, _power, _power_warm, _rank1_uv,
 // _finish_KE, _nmf_loop), which ops/pallas_trim.py imports the same way
-// this header is included by nmf.cu, ratio.cu and trim.cu.
+// this header is included by nmf.cu, ratio.cu, trim.cu and stream.cu.
 //
-// Design: ONE THREAD BLOCK PER GENE.  Threads stride over the W columns of
+// Design: ONE THREAD BLOCK PER GENE (stream.cu, for wide genes, spreads a
+// gene over a cluster of blocks and shares the helpers below).  Threads stride over the W columns of
 // the gene's (p, W) matrix; a thread holds one column's p values in
 // registers, so one pass per Lagrangian iteration does everything that
 // touches the wide axis: v_w = sum_i X[i,w] u_i (the previous iterate's
@@ -51,12 +52,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Per-block shared workspace of the rank-1 machinery.
-template <int PMAX>
+// Per-block shared workspace of the rank-1 machinery; MAXW is the most
+// warps a block of the kernel may have.
+template <int PMAX, int MAXW = DN_MAX_WARPS>
 struct NmfSmem {
   static constexpr int NG = PMAX * (PMAX + 1) / 2;  // packed upper triangle
   static constexpr int NR = NG + 2 * PMAX;          // widest reduction
-  float part[DN_MAX_WARPS * NR];  // per-warp partial sums
+  float part[MAXW * NR];          // per-warp partial sums
   float red[NR];                  // reduced values (read by warp 0)
   float u[PMAX];                  // unit left vector
   float K[PMAX];                  // u * s
@@ -181,9 +183,10 @@ __device__ __forceinline__ float power_plain(const float (&row)[PMAX], float u,
 
 // Warp 0: refit u from the packed Gram in sm.red; with `finish`, also
 // s = sqrt(max(u^T B u, 0)) and K = u * s.
-template <int PMAX>
-__device__ __forceinline__ void warp0_refit(NmfSmem<PMAX>& sm, int n_squared,
-                                            int n_plain, bool finish) {
+template <int PMAX, int MAXW>
+__device__ __forceinline__ void warp0_refit(NmfSmem<PMAX, MAXW>& sm,
+                                            int n_squared, int n_plain,
+                                            bool finish) {
   const int lane = threadIdx.x & 31;
   float row[PMAX];
   load_gram_row<PMAX>(sm.red, lane, row);

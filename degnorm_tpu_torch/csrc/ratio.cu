@@ -7,8 +7,10 @@
 //
 // Bound on this card: bytes (each column costs about p(p+1) + 6p operations
 // against 4p bytes).  The gene is read twice (Gram pass, clip pass); the
-// second read of a <= 128 KB gene comes from L2.  Reductions as in
-// common.cuh: warp shuffles, then a fixed-order sum over warps.
+// second read of a <= 128 KB gene comes from L2.  There is no scratch and no
+// width-sized buffer, so any W is taken: a wide gene (megabytes) costs one
+// block's time and its second read may come from device memory.  Reductions
+// as in common.cuh: warp shuffles, then a fixed-order sum over warps.
 #include "common.cuh"
 
 template <int PMAX>

@@ -9,8 +9,11 @@ Execution model:
   * genes are packed into padded length buckets (data/buckets.py) and
     uploaded once (int16 where the coverage is integral);
   * per DegNorm iteration, each bucket runs ``_bucket_step`` (scale-adjust,
-    then core/baseline.py: the NMF kernel, the fused trim kernel, the
-    envelope refit), bucket arrays staying resident across iterations;
+    then core/baseline.py: the NMF kernel, the trim loop, the envelope
+    refit), bucket arrays staying resident across iterations.  A bucket
+    inside the resident kernels' gate takes the resident NMF kernel and the
+    fused trim kernel; a wider one takes the streamed NMF kernel, on the raw
+    int16 coverage where there is one, once per round of the unfused loop;
   * the cross-gene reductions (medians, column sums) run on the device in
     float64 (core/degnorm.py).
 """
@@ -44,6 +47,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _device_memory(dev: torch.device) -> int:
+    """Bytes of memory the packer's guard reckons with: the card's total, or
+    16 GiB for the CPU."""
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[1])
+    return 16 << 30
+
+
 def _torch_dtype(name: str) -> torch.dtype:
     return torch.float64 if name == "float64" else torch.float32
 
@@ -70,18 +81,21 @@ def _bucket_step(F: torch.Tensor, len_mask: torch.Tensor,
     """One DegNorm iteration's device work for one bucket: scale-adjust the
     coverage (nmf.py:142-146,563) then run batched baseline selection.
     ``F`` may arrive as int16 (integral coverage uploads at half the bytes):
-    it is cast to the compute dtype first, then divided, in that order."""
-    Ff = F.to(scale_factors.dtype)
-    F_adj = Ff / scale_factors[None, :, None]
-    return baseline_select_bucket(F_adj, len_mask, nmf_cfg, eng_cfg,
-                                  ds_start=ds_start,
-                                  with_estimates=with_estimates)
+    it is cast to the compute dtype first, then divided, in that order.  The
+    int16 original is also handed down as ``F_raw`` with the scale vector, so
+    that the streamed NMF kernel of a wide bucket reads it directly."""
+    F_raw = F if F.dtype == torch.int16 else None
+    F_adj = F.to(scale_factors.dtype) / scale_factors[None, :, None]
+    return baseline_select_bucket(
+        F_adj, len_mask, nmf_cfg, eng_cfg, ds_start=ds_start,
+        with_estimates=with_estimates, F_raw=F_raw,
+        scale=scale_factors if F_raw is not None else None)
 
 
 def _bucket_init(F: torch.Tensor, len_mask: torch.Tensor,
                  eng_cfg: EngineConfig):
     """Initialization: ratio-SVD row sums on the raw coverage
-    (nmf.py:522-526)."""
+    (nmf.py:522-526), at any bucket width."""
     Ff = F.to(_torch_dtype(eng_cfg.dtype))
     return ratio_svd_rowsums(Ff, len_mask,
                              power_iters=eng_cfg.power_iters_cold,
@@ -129,6 +143,9 @@ class DegNormEngine:
         self.eng_cfg = eng_cfg or EngineConfig()
         self.device = resolve_device(self.eng_cfg.device)
         self.timings: Dict[str, float] = {}
+        # trim rounds of the last fit: per DegNorm iteration, per bucket, the
+        # rounds its longest-running gene took (what the unfused loop ran)
+        self.trim_rounds: List[List[int]] = []
         self._buckets: List[GeneBucket] = []
         self._device_F: List[torch.Tensor] = []
         self._device_mask: List[torch.Tensor] = []
@@ -147,13 +164,18 @@ class DegNormEngine:
     def _pack(self, cov_mats: Sequence[np.ndarray]):
         dtype = _torch_dtype(self.eng_cfg.dtype)
         itemsize = 8 if dtype == torch.float64 else 4
-        # Device-memory guard: a bucket's compute-dtype form plus the
-        # iteration's transients (cast, scale-adjust, the kernels' X
-        # scratch) must coexist, so cap each padded bucket at ~1/8 of the
-        # device's memory.
-        total = 16 << 30
-        if self.device.type == "cuda":
-            total = int(torch.cuda.mem_get_info(self.device)[1])
+        # Device-memory guard.  With S the bytes of one padded bucket in the
+        # compute dtype, a bucket step holds at its peak the scale-adjusted
+        # coverage and its length-masked copy (2 S) and, beside them, either
+        # the resident kernels' X scratch and the envelope refit's
+        # temporaries (3 S) or, for a wide bucket, the (G, p, W) temporaries
+        # of a round of the unfused trim loop (under 4 S; the streamed
+        # kernel's X scratch, S, is freed before them): 6 S, beside the
+        # resident upload form of every bucket (S, or S / 2 as int16).  A padded
+        # bucket is capped at 1/12 of the device's memory, which leaves half
+        # of it to the resident forms.
+        total = _device_memory(self.device)
+        bucket_cap = max(total // 12, 512 << 20)
         t0 = time.perf_counter()
         # Integral small-valued coverage (read pileups) packs and uploads
         # as int16: half the float32 bytes; _bucket_step casts it back.
@@ -166,10 +188,20 @@ class DegNormEngine:
             bucket_widths=self.eng_cfg.bucket_widths,
             dtype=pack_dtype,
             max_genes_per_bucket=self.eng_cfg.max_genes_per_batch,
-            max_bucket_bytes=max(total // 8, 512 << 20),
+            max_bucket_bytes=bucket_cap,
             budget_itemsize=itemsize,
         )
         self.timings["pack_host"] = time.perf_counter() - t0
+        # the packer never cuts a bucket below 8 genes: one whose genes are
+        # so long that even that does not fit must not reach the device
+        for b in self._buckets:
+            need = 7 * b.F.size * itemsize
+            if need > total:
+                raise RuntimeError(
+                    f"bucket of {b.F.shape[0]} genes x {b.F.shape[1]} samples "
+                    f"x width {b.width} needs about {need / 2**30:.1f} GiB "
+                    f"for one step (7 x {b.F.size * itemsize / 2**30:.2f} "
+                    f"GiB), the device has {total / 2**30:.1f} GiB")
 
         def upload_form(F):
             if F.dtype == np.int16:
@@ -281,6 +313,7 @@ class DegNormEngine:
 
         # ---- DegNorm iterations (nmf.py:556-596) ----
         ran_cols = []
+        self.trim_rounds = []
         rho = x_adj = None
         results: List[BucketResult] = []
         kernel_cfg = self.nmf_cfg.kernel_key()
@@ -300,6 +333,8 @@ class DegNormEngine:
                 rho_raw, x_weighted, scale)
             ran_cols.append(_device_scatter([r.ran_bs for r in results],
                                             idx_parts, n, False))
+            self.trim_rounds.append(
+                torch.stack([r.rounds_active.max() for r in results]).tolist())
             self._sync()
             self.timings[f"iter_{it}"] = time.perf_counter() - t_it
         self.timings["iterations"] = time.perf_counter() - t0

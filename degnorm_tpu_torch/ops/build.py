@@ -47,6 +47,9 @@ _SIGNATURES = {
     # G, p, W, B, nmf_iter, power_resume, power_warm, warm_plain,
     # max_rounds, min_bins, min_gene_len, threads, stream
     "dn_trim_loop": [_P] * 16 + [_I] * 12 + [_P],
+    # F, f_is_i16, mask, act, scale, u0, X, K, E, u, G, p, W, nmf_iter,
+    # power_cold, power_warm, warm_plain, threads, stream
+    "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 8 + [_P],
 }
 
 

@@ -21,10 +21,19 @@ from degnorm_tpu_torch.core.linalg import (finish_rank_one, masked_rank_one,
 nmf_launches = 0
 ratio_launches = 0
 
-# Shape gate of the resident kernels: one gene's X scratch and coverage
-# (2 * p * W * 4 bytes) must stay small enough that the blocks in flight keep
-# their working sets in the L2 cache, and the trim kernel's per-column
-# residual buffer (4 * W bytes) must fit static-size shared memory.
+# Shape gate of the resident loop kernels (kernel 1, the NMF loop, and
+# kernel 3, the fused trim loop; ops/cuda_trim.py uses the same gate).  Each
+# limit belongs to one need:
+#   * p * W <= MAX_PW, kernels 1 and 3: one block owns one gene and keeps its
+#     X in a global scratch, so a gene's X and coverage (2 * p * W * 4 bytes,
+#     512 KB at the limit) must stay small enough that the blocks in flight
+#     keep their working sets in the 50 MB L2 cache;
+#   * W <= MAX_W, kernel 3 only: its per-column residual buffer (4 * W bytes)
+#     lives in shared memory;
+#   * p <= MAX_P, every kernel: the largest template instance.
+# Kernel 2 (ratio-SVD row sums) has no scratch and no width-sized buffer: it
+# takes any W (``check_coverage_input``).  A bucket outside the gate takes the
+# cluster kernel of ops/cuda_stream.py for its NMF and the unfused trim loop.
 MAX_P = 32
 MAX_W = 8192
 MAX_PW = 65536
@@ -32,27 +41,35 @@ MAX_PW = 65536
 
 def kernels_supported(shape, dtype) -> bool:
     """True when a (G, p, W) bucket of this dtype is inside the gate of the
-    resident CUDA kernels."""
+    resident loop kernels (kernels 1 and 3)."""
     _, p, W = shape
     return (dtype == torch.float32 and 2 <= p <= MAX_P and W <= MAX_W
             and p * W <= MAX_PW)
 
 
-def check_kernel_input(F: torch.Tensor, name: str) -> None:
-    """Raise on what the kernels do not take; never fall back."""
+def check_coverage_input(F: torch.Tensor, name: str) -> None:
+    """What every kernel needs of its coverage tensor (and all that kernel 2
+    needs): float32, contiguous, 2 <= p <= MAX_P.  Raises; never falls back."""
     if F.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernels are float32, got {F.dtype}")
     if not F.is_contiguous():
         raise ValueError(f"{name}: coverage tensor must be contiguous")
-    _, p, W = F.shape
+    p = F.shape[1]
     if p > MAX_P or p < 2:
         raise ValueError(f"{name}: p={p} outside the kernels' range 2..{MAX_P}")
+
+
+def check_kernel_input(F: torch.Tensor, name: str) -> None:
+    """Raise on what the resident loop kernels do not take; never fall
+    back."""
+    check_coverage_input(F, name)
+    _, p, W = F.shape
     if W > MAX_W or p * W > MAX_PW:
         raise NotImplementedError(
             f"{name}: bucket p={p}, W={W} is too wide for the resident "
-            f"kernels (W <= {MAX_W}, p*W <= {MAX_PW}); the streamed wide-"
-            "bucket kernel (counterpart of ops/pallas_stream.py) is not "
-            "ported yet")
+            f"kernels (W <= {MAX_W}, p*W <= {MAX_PW}); such a bucket goes "
+            "through the streamed kernel, ops/cuda_stream.py::"
+            "nmf_masked_streamed_cuda (core/nmf.py routes by this gate)")
 
 
 def pick_threads(W: int) -> int:
@@ -94,9 +111,19 @@ def nmf_masked_plain(
     plain matvecs (its fused kernels).  ``gene_active``: genes outside it
     return zeros, as the kernel does.  Returns (K, E, u).
     """
-    A0 = F * mask.to(F.dtype)[:, None, :]
+    return nmf_loop_plain(F * mask.to(F.dtype)[:, None, :], mask,
+                          nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
+                          power_iters_warm=power_iters_warm,
+                          power_warm_plain=power_warm_plain,
+                          gene_active=gene_active, u0=u0)
+
+
+def nmf_loop_plain(A0, mask, *, nmf_iter, power_iters_cold, power_iters_warm,
+                   power_warm_plain, gene_active, u0):
+    """The loop of ``nmf_masked_plain`` from the masked coverage A0 on; the
+    streamed kernel's plain version (ops/cuda_stream.py) shares it."""
     step = 1.0 / (nmf_iter ** 0.5) if nmf_iter else 0.0
-    u, v = masked_rank_one_uv(F, mask, n_iters=power_iters_cold, u0=u0)
+    u, v = masked_rank_one_uv(A0, mask, n_iters=power_iters_cold, u0=u0)
     # X is updated in place: the loop holds one (G, p, W) state, not one
     # per iteration.
     X = A0.clone()
@@ -108,7 +135,7 @@ def nmf_masked_plain(
                                   warm_plain=power_warm_plain)
     K, E = finish_rank_one(X, mask, u, v)
     if gene_active is not None:
-        act = gene_active.to(F.dtype)[:, None]
+        act = gene_active.to(A0.dtype)[:, None]
         K, E, u = K * act, E * act, u * act
     return K, E, u
 
@@ -191,13 +218,14 @@ def ratio_rowsums_cuda(
     power_iters: int = 30,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``ratio_rowsums_plain``'s signature
-    (csrc/ratio.cu).  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    (csrc/ratio.cu), at any width: the kernel reads a gene twice and writes
+    2p floats, so a wide bucket costs it time and no memory.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises."""
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
     global ratio_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
-    check_kernel_input(F, "ratio_rowsums_cuda")
+    check_coverage_input(F, "ratio_rowsums_cuda")
     G, p, W = F.shape
     m8 = _as_u8(mask)
     cov = torch.empty((G, p), dtype=torch.float32, device=F.device)

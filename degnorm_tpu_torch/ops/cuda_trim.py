@@ -4,12 +4,15 @@ PyTorch version.
 Counterpart of ``degnorm_tpu/ops/pallas_trim.py`` (``trim_loop_pallas``).
 The plain version is a Python ``while`` over tensors with the semantics of
 the JAX package's ``lax.while_loop`` (``core/baseline.py``); the kernel
-(``csrc/trim.cu``) runs the same loop per gene in one launch.  The trim
-state's E factor is never consumed after the loop, so neither returns it.
+(``csrc/trim.cu``) runs the same loop per gene in one launch.  The same
+Python loop is also the unfused trim loop of a bucket outside the fused
+kernel's gate: its ``nmf_fn`` hook then launches an NMF kernel per round.
+The trim state's E factor is never consumed after the loop, so neither
+returns it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -20,6 +23,12 @@ from degnorm_tpu_torch.ops import cuda_nmf
 trim_launches = 0
 
 MAX_BINS = 64          # the kernel keeps per-bin state in shared memory
+
+
+def fused_trim_supported(shape, dtype) -> bool:
+    """True when the fused trim kernel takes a (G, p, W) bucket: the gate of
+    the resident kernels (``cuda_nmf.kernels_supported``)."""
+    return cuda_nmf.kernels_supported(shape, dtype)
 
 
 def _col_active_from(bin_active: torch.Tensor, bin_id: torch.Tensor) -> torch.Tensor:
@@ -56,6 +65,7 @@ def trim_loop_plain(
     max_rounds: int,
     min_bins: int,
     min_gene_len: int,
+    nmf_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the whole trim loop (reference nmf.py:273-324).
 
@@ -66,6 +76,13 @@ def trim_loop_plain(
       K0/E0/rho0/u0: initial NMF factors, DI scores and left vectors.
       n_hi/n_bins: (G,) int32 surviving column / bin counts.
       active0: (G,) bool — genes entering the loop.
+      nmf_fn: optional ``(col_mask, gene_active, u0) -> (K, E, u)`` that runs
+        a round's NMF on ``Fm`` (resumed from ``u0`` at the resume count);
+        the default is ``cuda_nmf.nmf_masked_plain``.  The unfused loop of
+        ``core/baseline.py`` passes the kernel route here.
+
+    The loop reads ``active.any()`` on the host once a round (the
+    counterpart of ``lax.while_loop``'s condition).
 
     Returns (K, rho, ran_bs, rounds_active).  A gene that never enters keeps
     K0, rho0, False, 0.
@@ -76,6 +93,14 @@ def trim_loop_plain(
     bin_ids = torch.arange(B, dtype=torch.int32, device=Fm.device)
     neg_inf = torch.tensor(float("-inf"), dtype=dtype, device=Fm.device)
     power_resume = power_iters_resume or power_iters_cold
+    if nmf_fn is None:
+        def nmf_fn(col_mask, gene_active, u_prev):
+            return cuda_nmf.nmf_masked_plain(
+                Fm, col_mask, nmf_iter=nmf_iter,
+                power_iters_cold=power_resume,
+                power_iters_warm=power_iters_warm,
+                power_warm_plain=power_warm_plain, gene_active=gene_active,
+                u0=u_prev)
 
     K, E, rho, u = K0, E0, rho0, u0
     n_hi = n_hi.to(torch.int32)
@@ -93,10 +118,13 @@ def trim_loop_plain(
 
         # worst squared relative residual per column (nmf.py:280-283);
         # round 1 uses the unclipped estimate, later rounds the clipped one.
+        # (in place from here on: a wide bucket's (G, p, W) temporaries are
+        # gigabytes, and the loop holds at most three at a time)
         KE = outer_product(K, E)
         KE = torch.where(clipped[:, None, None], torch.maximum(KE, Fm), KE)
-        z = (KE - Fm) / (Fm + 1)
-        res = (z * z).amax(dim=1) * ca_f
+        z = KE.sub_(Fm).div_(Fm + 1)
+        res = z.mul_(z).amax(dim=1) * ca_f
+        del KE, z
         ss_r = _per_bin_sums(res, bin_id, B) / torch.clamp_min(bin_count, 1.0)
         ss_masked = torch.where(bin_active, ss_r, neg_inf)
 
@@ -121,19 +149,18 @@ def trim_loop_plain(
 
         # cold rank-1 resumed from the previous round's left vector at the
         # reduced power_iters_resume count (same unique Perron target)
-        Kn, En, un = cuda_nmf.nmf_masked_plain(
-            Fm, can, nmf_iter=nmf_iter, power_iters_cold=power_resume,
-            power_iters_warm=power_iters_warm,
-            power_warm_plain=power_warm_plain, gene_active=run_nmf, u0=u)
+        Kn, En, un = nmf_fn(can, run_nmf, u)
         est_rs = Kn * En.sum(dim=1)[:, None]
         zero_row = est_rs.amin(dim=1) == 0.0                # nmf.py:315-316
         update_rho = run_nmf & ~zero_row
 
         # clip up to F, recompute DI (nmf.py:318-321)
         can_f = can.to(dtype)
-        KE_clip = torch.maximum(outer_product(Kn, En), Fm)
+        KE_clip = outer_product(Kn, En)
+        torch.maximum(KE_clip, Fm, out=KE_clip)
         rs_F = masked_rowsum(Fm, can_f)
         rs_KE = masked_rowsum(KE_clip, can_f)
+        del KE_clip
         rho_new = 1 - rs_F / (rs_KE + 1)
 
         K = torch.where(run_nmf[:, None], Kn, K)

@@ -6,6 +6,8 @@ the JAX package.
   * float32 vs the fused trim kernel in interpret mode (``gram_mode="vpu"``,
     plain warm matvec), with the port at ``power_warm_plain=1``: rho
     rtol 5e-4 / atol 5e-5, flags exact (tests/test_pallas.py:240).
+  * a wide bucket (outside the resident kernels' gate in both packages: the
+    unfused loop around the streamed NMF) at the same two tolerances.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -122,10 +124,13 @@ def test_trim_wrapper_on_cpu_is_the_plain_version():
     for x, y, z in zip(a, b, c):
         assert torch.equal(x, y) and torch.equal(x, z)
     assert cuda_trim.trim_launches == before
-    # the unfused kernel path is not ported: the GPU accepts only the default
-    with pytest.raises(NotImplementedError):
-        EngineConfig(device="cuda", fuse_trim=False)
+    # the unfused loop runs with the kernels on or off; the streamed NMF has
+    # no other lowering to switch to
+    assert EngineConfig(device="cuda", fuse_trim=False,
+                        use_kernels=True).fuse_trim is False
     EngineConfig(device="cuda", fuse_trim=False, use_kernels=False)
+    with pytest.raises(NotImplementedError):
+        EngineConfig(device="cuda", stream_nmf=False)
 
 
 def test_baseline_downsample_matches_xla_loop_f64():
@@ -183,3 +188,133 @@ def test_baseline_tiny_and_padding_genes_bail():
         assert (to_np(rt.est_kind) == tb.EST_INPUT).all()
         for t in rt:
             assert torch.isfinite(t.double()).all()
+
+
+# ---- wide buckets: the unfused loop around the streamed NMF ----------------
+
+WIDE_P, WIDE_W = 32, 2176          # p * W = 69,632: outside both gates
+WIDE_LENGTHS = (2176, 1500, 1900, 1300, 2050)
+
+
+def test_wide_shape_is_outside_both_gates():
+    from degnorm_tpu.ops.pallas_nmf import pallas_supported
+    from degnorm_tpu.ops.pallas_stream import streamed_supported
+    from degnorm_tpu.ops.pallas_trim import fused_trim_supported as jfused
+    shape = (len(WIDE_LENGTHS), WIDE_P, WIDE_W)
+    assert not pallas_supported(shape, jnp.float32)
+    assert not jfused(shape, jnp.float32)
+    assert streamed_supported(shape, jnp.float32)
+    assert not cuda_trim.fused_trim_supported(shape, torch.float32)
+    assert cuda_trim.fused_trim_supported((8, 8, 4096), torch.float32)
+    assert not cuda_trim.fused_trim_supported((8, 8, 4096), torch.float64)
+
+
+def test_wide_bucket_unfused_loop_matches_jax_streamed_f32():
+    """Both packages run the unfused trim loop with the streamed NMF per
+    round (the JAX kernel in interpret mode, the port's plain version): rho
+    rtol 5e-4 / atol 5e-5 and K rtol 5e-4 / atol 5e-4 as for the fused
+    kernel above, flags exact."""
+    F, mask = degraded_bucket(52, WIDE_P, WIDE_LENGTHS, WIDE_W, np.float32)
+    rj = jb.baseline_select_bucket(
+        jnp.asarray(F), jnp.asarray(mask), JNmf(nmf_iter=6),
+        JEng(use_pallas=True, pallas_interpret=True, gram_mode="vpu"))
+    rt = tb.baseline_select_bucket(
+        _t(F), _t(mask), NMFConfig(nmf_iter=6),
+        EngineConfig(device="cpu", use_kernels=True, power_warm_plain=1))
+    assert int(to_np(rt.ran_bs).sum()) > 0, "trim loop never ran"
+    assert int(to_np(rt.rounds_active).max()) > 1
+    _assert_flags_equal(rt, rj)
+    np.testing.assert_allclose(to_np(rt.rho), np.asarray(rj.rho), rtol=5e-4,
+                               atol=5e-5)
+    np.testing.assert_allclose(to_np(rt.est_K), np.asarray(rj.est_K),
+                               rtol=5e-4, atol=5e-4)
+
+
+def test_wide_bucket_unfused_loop_matches_xla_loop_f64():
+    """float64, same warm scheme: rounding only (rho rtol 1e-9)."""
+    F, mask = degraded_bucket(52, 4, (8320, 5000, 7000), 8320, np.float64)
+    rj = jb.baseline_select_bucket(
+        jnp.asarray(F), jnp.asarray(mask), JNmf(nmf_iter=6),
+        JEng(use_pallas=False, dtype="float64"))
+    rt = _port(F, mask, dict(nmf_iter=6),
+               dict(dtype="float64", power_warm_plain=0))
+    assert int(to_np(rt.ran_bs).sum()) > 0, "trim loop never ran"
+    _assert_flags_equal(rt, rj)
+    np.testing.assert_allclose(to_np(rt.rho), np.asarray(rj.rho), rtol=1e-9,
+                               atol=1e-12)
+
+
+def test_wide_bucket_raw_int16_route_is_bit_identical():
+    """F_raw + scale handed down to every NMF of the unfused loop give the
+    same bits as the pre-adjusted float32 coverage, and the streamed
+    wrapper is what received them."""
+    from degnorm_tpu_torch.ops import cuda_stream
+    rng = np.random.default_rng(53)
+    F, mask = degraded_bucket(53, 4, (8320, 6000, 7100), 8320, np.float32)
+    raw = _t(np.round(F * 4).astype(np.int16))
+    scale = _t((0.6 + rng.random(4)).astype(np.float32))
+    F_adj = raw.to(torch.float32) / scale[None, :, None]
+    nmf_cfg = NMFConfig(nmf_iter=5)
+    eng_cfg = EngineConfig(device="cpu")
+    seen = []
+    orig = cuda_stream.nmf_masked_streamed_cuda
+
+    def spy(Fin, m, **kw):
+        seen.append((Fin.dtype, kw.get("scale") is not None,
+                     kw.get("u0") is not None, kw["power_iters_cold"]))
+        return orig(Fin, m, **kw)
+
+    cuda_stream.nmf_masked_streamed_cuda = spy
+    try:
+        a = tb.baseline_select_bucket(F_adj, _t(mask), nmf_cfg, eng_cfg,
+                                      F_raw=raw, scale=scale)
+    finally:
+        cuda_stream.nmf_masked_streamed_cuda = orig
+    b = tb.baseline_select_bucket(F_adj, _t(mask), nmf_cfg, eng_cfg)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    rounds = int(to_np(a.rounds_active).max())
+    assert rounds > 0
+    # one initial NMF (cold) plus one per trim round (u0 resume, at the
+    # resume count), all on the raw int16 tensor with the scale vector
+    assert len(seen) == 1 + rounds
+    assert all(dt == torch.int16 and sc for dt, sc, _, _ in seen)
+    assert seen[0][2:] == (False, eng_cfg.power_iters_cold)
+    assert all(s[2:] == (True, eng_cfg.power_iters_resume) for s in seen[1:])
+
+
+@pytest.mark.parametrize("wp", [0, 1])
+def test_unfused_hook_equals_fused_plain_loop_on_narrow_bucket(wp):
+    """trim_loop_plain with the NMF hook of the unfused loop (here: the
+    plain NMF through core/nmf.py) and without it give the same bits."""
+    from degnorm_tpu_torch.core.nmf import nmf_masked
+    F, mask = degraded_bucket(46, 4, LENGTHS, 256, np.float32)
+    nmf_cfg = NMFConfig(nmf_iter=8)
+    eng_cfg = EngineConfig(device="cpu", use_kernels=False,
+                           power_warm_plain=wp)
+    ti = tb.trim_inputs(_t(F), _t(mask), nmf_cfg, eng_cfg)
+    kw = tb.trim_kwargs(nmf_cfg, eng_cfg)
+    args = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+            ti.n_hi, ti.n_bins0, ti.active0)
+    calls = []
+
+    def hook(col_mask, gene_active, u_prev):
+        calls.append(int(gene_active.sum()))
+        return nmf_masked(ti.Fm, col_mask, gene_active=gene_active,
+                          u0=u_prev, use_kernels=False,
+                          **dict(tb._nmf_kwargs(nmf_cfg, eng_cfg),
+                                 power_iters_cold=eng_cfg.power_iters_resume))
+
+    plain = cuda_trim.trim_loop_plain(*args, **kw)
+    hooked = cuda_trim.trim_loop_plain(*args, nmf_fn=hook, **kw)
+    for x, y in zip(plain, hooked):
+        assert torch.equal(x, y)
+    assert len(calls) == int(to_np(plain[3]).max()) > 0
+    # and baseline_select_bucket takes the same two routes by fuse_trim
+    r_fused = tb.baseline_select_bucket(_t(F), _t(mask), nmf_cfg, eng_cfg)
+    r_unfused = tb.baseline_select_bucket(
+        _t(F), _t(mask), nmf_cfg,
+        EngineConfig(device="cpu", use_kernels=True, fuse_trim=False,
+                     power_warm_plain=wp))
+    for x, y in zip(r_fused, r_unfused):
+        assert torch.equal(x, y)

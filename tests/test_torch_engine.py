@@ -247,3 +247,87 @@ def test_convert_carries_one_bucket_step_and_one_outer_update():
     with pytest.raises(ValueError):
         convert.buckets_from_numpy(jb.F, jb.lengths, jb.gene_indices, 512,
                                    device="cpu")
+
+
+@pytest.mark.parametrize("width,wide", [(2048, False), (2176, True)])
+def test_engine_raw_int16_wide_bucket_matches_jax_streamed_engine(
+        monkeypatch, width, wide):
+    """The JAX package's tests/test_stream.py::
+    test_engine_raw_int16_streamed_path through both engines on the CPU: 12
+    genes x 32 samples, integral coverage (int16 upload), one bucket width.
+    At 2048 the bucket is the edge of the port's resident gate; at 2176 it
+    is outside it in both packages, and every NMF of the port goes through
+    the streamed wrapper on the raw int16 tensor.  Tolerances of that test:
+    rho rtol 5e-3 / atol 5e-4, x_adj rtol 5e-3 / atol 5e-3."""
+    from degnorm_tpu_torch.ops import cuda_stream
+    rng = np.random.default_rng(70)
+    cov = OrderedDict(
+        (f"g{i}", np.round(random_coverage(
+            rng, 32, int(rng.integers(1100, 2049)), degraded=(i % 2 == 0))
+        ).astype(np.float32))
+        for i in range(12))
+    X = np.round(np.abs(rng.standard_normal((12, 32))) * 150 + 30)
+    nmf_kw = dict(nmf_iter=4, degnorm_iter=2)
+    jeng = jengine.DegNormEngine(JNmf(**nmf_kw), JEng(
+        use_pallas=True, pallas_interpret=True, bucket_widths=(width,)))
+    rj = jeng.run(cov, X.copy())
+    assert jeng._device_F[0].dtype == jnp.int16
+
+    seen = []
+    orig = cuda_stream.nmf_masked_streamed_cuda
+
+    def spy(F, mask, **kw):
+        seen.append((F.dtype, kw.get("scale") is not None))
+        return orig(F, mask, **kw)
+
+    monkeypatch.setattr(cuda_stream, "nmf_masked_streamed_cuda", spy)
+    eng = tengine.DegNormEngine(
+        NMFConfig(**nmf_kw),
+        EngineConfig(device="cpu", use_kernels=True, bucket_widths=(width,)))
+    rt = eng.run(cov, X.copy())
+    assert eng._device_F[0].dtype == torch.int16
+    assert eng._device_F[0].shape[1:] == (32, width)
+    if wide:
+        # per iteration: the initial NMF and one call per trim round, the
+        # rounds being those the engine counted
+        assert len(eng.trim_rounds) == nmf_kw["degnorm_iter"]
+        rounds = sum(sum(r) for r in eng.trim_rounds)
+        assert rounds >= nmf_kw["degnorm_iter"]
+        assert len(seen) == nmf_kw["degnorm_iter"] + rounds
+        assert all(dt == torch.int16 and sc for dt, sc in seen)
+    else:
+        assert not seen
+    np.testing.assert_array_equal(rt.ran_baseline_selection,
+                                  rj.ran_baseline_selection)
+    np.testing.assert_allclose(rt.rho, rj.rho, rtol=5e-3, atol=5e-4)
+    np.testing.assert_allclose(rt.x_adj, rj.x_adj, rtol=5e-3, atol=5e-3)
+
+
+def test_wide_float64_fit_matches_jax_engine():
+    """A fit whose only bucket is wider than the resident gate, float64 and
+    the same warm scheme on both sides: rounding only (1e-9)."""
+    rng = np.random.default_rng(71)
+    cov = OrderedDict(
+        (f"g{i}", random_coverage(rng, 4, int(rng.integers(4200, 8321)),
+                                  degraded=(i % 2 == 0)))
+        for i in range(5))
+    X = np.round(np.abs(rng.standard_normal((5, 4))) * 150 + 30)
+    nmf_kw = dict(nmf_iter=5, degnorm_iter=2)
+    rj = jax_engine(nmf_kw, dtype="float64", bucket_widths=(8320,)).run(cov, X)
+    rt = port_engine(nmf_kw, dtype="float64", power_warm_plain=0,
+                     bucket_widths=(8320,)).run(cov, X)
+    assert rt.ran_baseline_selection.any()
+    np.testing.assert_array_equal(rt.ran_baseline_selection,
+                                  rj.ran_baseline_selection)
+    np.testing.assert_allclose(rt.rho, rj.rho, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rt.x_adj, rj.x_adj, rtol=1e-9)
+
+
+def test_pack_refuses_a_bucket_that_cannot_fit(monkeypatch):
+    """The memory guard names the sizes when even the smallest bucket of a
+    width cannot run one step on the device."""
+    cov, X = make_dataset(seed=37, n=3)
+    eng = port_engine(dict(nmf_iter=2, degnorm_iter=1))
+    monkeypatch.setattr(tengine, "_device_memory", lambda dev: 1 << 20)
+    with pytest.raises(RuntimeError, match="GiB"):
+        eng.run(cov, X)

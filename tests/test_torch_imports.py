@@ -26,6 +26,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import degnorm_tpu_torch.core.baseline, degnorm_tpu_torch.core.degnorm\n"
         "import degnorm_tpu_torch.ops.cuda_nmf, degnorm_tpu_torch.ops.cuda_trim\n"
         "import degnorm_tpu_torch.ops.build, degnorm_tpu_torch.data.buckets\n"
+        "import degnorm_tpu_torch.ops.cuda_stream\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'degnorm_tpu' or m.startswith('degnorm_tpu.')]\n"
@@ -55,6 +56,7 @@ def test_every_module_imports_without_a_gpu_toolchain():
              "print(sorted(b._SIGNATURES))\n")
     assert r.returncode == 0, r.stderr
     assert "dn_nmf_masked" in r.stdout and "dn_trim_loop" in r.stdout
+    assert "dn_nmf_streamed" in r.stdout
 
 
 def test_default_device_raises_without_cuda():

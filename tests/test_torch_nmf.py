@@ -163,7 +163,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     ((64, 8, 1024), torch.float32, True),
     ((64, 8, 4096), torch.float32, True),
     ((64, 32, 2048), torch.float32, True),
-    ((64, 8, 16384), torch.float32, False),     # streamed kernel: pending
+    ((64, 8, 16384), torch.float32, False),     # the streamed kernel's
     ((64, 33, 256), torch.float32, False),
     ((64, 8, 1024), torch.float64, False),
 ])
@@ -172,9 +172,11 @@ def test_kernel_shape_gate(shape, dtype, ok):
 
 
 def test_kernel_input_check_names_the_pending_kernel():
+    # a resident kernel handed a wide bucket names the kernel that takes it
     wide = torch.zeros((1, 8, 16384), dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="streamed"):
         cuda_nmf.check_kernel_input(wide, "nmf_masked_cuda")
+    cuda_nmf.check_coverage_input(wide, "ratio_rowsums_cuda")   # any width
     with pytest.raises(TypeError):
         cuda_nmf.check_kernel_input(torch.zeros((1, 4, 64), dtype=torch.float64),
                                     "nmf_masked_cuda")
