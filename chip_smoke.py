@@ -16,7 +16,12 @@ CUDA device the script exits non-zero and prints no result.
 
 Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity``
 runs a subset (then no final result line is printed unless all ran);
-``--ptxas`` prints the compiler's register/shared-memory report.
+``--ptxas`` prints the compiler's register/shared-memory report (and keeps
+its raw output in ``degnorm_tpu_torch/_build/ptxas.log``);
+``--sweep`` times kernel 4 over launch geometries and kernels 1 and 3 over
+threads a block (the measurements behind the rules in
+``ops/cuda_stream.py::pick_geometry`` and ``ops/cuda_nmf.py::
+pick_loop_threads``) and prints no result line.
 """
 import argparse
 import dataclasses
@@ -241,17 +246,74 @@ def phase_env():
     return line
 
 
+def ptxas_report(log):
+    """One record a compiled kernel from ``nvcc -Xptxas -v``'s output: name
+    with its template arguments, registers, shared memory, stack frame and
+    spill bytes (stores + loads)."""
+    import re
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            t = re.match(r"_Z\d+([a-z_0-9]+?)I((?:L[ib]\d+E)+)", name)
+            if t:
+                name = "%s<%s>" % (t.group(1), ",".join(
+                    re.findall(r"L[ib](\d+)E", t.group(2))))
+            cur = dict(kernel=name, registers=None, smem_bytes=0,
+                       stack_bytes=0, spill_bytes=0)
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            # the entry's own line and one a function it calls: keep the most
+            cur["stack_bytes"] = max(cur["stack_bytes"], int(m.group(1)))
+            cur["spill_bytes"] = max(cur["spill_bytes"],
+                                     int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
+# Compiled instances that may spill registers: the trim loop at PMAX = 32
+# (p > 16 inside the resident gate means W <= 2048, off both fits' paths),
+# 180 and 276 bytes that five rewrites moved by under 100.  Any other
+# instance of the three loop kernels that spills fails ``--ptxas``.
+SPILL_ALLOWED = ("trim_loop_kernel<32,0>", "trim_loop_kernel<32,1>")
+SPILL_GATED = ("nmf_masked_kernel", "trim_loop_kernel", "nmf_streamed_kernel")
+
+
 def phase_build(ptxas):
     from degnorm_tpu_torch.ops import build
     t0 = time.perf_counter()
     build.get_lib(verbose=ptxas)
     secs = time.perf_counter() - t0
     if ptxas:
-        for ln in str(build.build_info.get("log", "")).splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln.lower():
-                print("[ptxas] " + ln.strip(), flush=True)
+        log = str(build.build_info.get("log", ""))
+        with open(os.path.join(build.BUILD_DIR, "ptxas.log"), "w") as f:
+            f.write(log)
+        report = ptxas_report(log)
+        for row in report:
+            print("[ptxas] " + json.dumps(row), flush=True)
+        spilled = [r["kernel"] for r in report if r["spill_bytes"]]
+        refused = [k for k in spilled if k.startswith(SPILL_GATED)
+                   and k not in SPILL_ALLOWED]
+        emit("ptxas", kernels=len(report), spilled=spilled,
+             spill_allowed=list(SPILL_ALLOWED), refused=refused)
+        if refused or not any(r["kernel"].startswith(SPILL_GATED)
+                              for r in report):
+            raise AssertionError(
+                f"ptxas: loop-kernel instances spill registers: {refused}"
+                if refused else "ptxas: no loop kernel found in the report")
     emit("build", seconds=round(secs, 2),
          cached=bool(build.build_info.get("cached")),
+         source_seconds=build.build_info.get("source_seconds"),
          library=os.path.relpath(str(build.build_info.get("path"))))
 
 
@@ -372,6 +434,7 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, timed=True):
         max_abs_err=float(rho_err[same].max()) if n_same else 0.0,
         rho_within_5e4=rho_ok, K_max_abs_err=err_stats(K_g, K_w, same)[0],
         genes=G, entered=n_ent, rounds_agree=n_same,
+        most_bins=int(ti.n_bins0[ti.active0].max()) if n_ent else 0,
         mean_rounds=float(rounds_g.double().mean()),
         bound_ms=b_ms, bound_by=b_by)
     if timed:
@@ -396,13 +459,33 @@ def assert_rel(got, want, what, sel=None):
     return abs_err, rel_err
 
 
+def check_quotients(scale):
+    """All 65,536 int16 numerators over each scale, as the int16 + scale
+    sweeps of kernel 4 compute the quotient (a hoisted reciprocal and two
+    corrections), against the IEEE divide ``raw.float() / scale``: equal
+    bit for bit.  Returns the count of quotients compared."""
+    import torch
+    from degnorm_tpu_torch.ops import cuda_stream
+    raw = torch.arange(-32768, 32768, device=scale.device).to(torch.int16)
+    got = cuda_stream.scaled_quotients_cuda(raw, scale)
+    want = raw.to(torch.float32)[None, :] / scale.to(torch.float32)[:, None]
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = got != want
+        raise AssertionError(
+            f"scaled quotient differs from the IEEE divide on "
+            f"{int(bad.sum())} of {bad.numel()} (numerator, scale) pairs")
+    return int(got.numel())
+
+
 def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
     """Kernel 4 against its plain version on one wide bucket as the engine
     holds it: ``raw`` the int16 upload, the mask the high-coverage columns
     the initial NMF of a bucket step sees.  (a) float32 pre-adjusted input;
     (b) raw int16 + scale, equal to (a) bit for bit; (c) every 7th gene and
     the bailed ones inactive (zeros out), then a u0 resume at the resume
-    count.  Also kernel 2 on the same bucket.  Returns measurements."""
+    count; (d) a second launch geometry; (e) the exhaustive quotient check.
+    Also kernel 2 on the same bucket.  Returns measurements."""
     import torch
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
@@ -458,7 +541,26 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
     for g_, w_, nm in zip(got_r, want_r, names):
         errs.append(assert_rel(g_, w_, f"nmf_streamed {nm} p={p} W={W} "
                                         "(u0 resume)"))
-    del got_a, got_b, again, got_c, got_r, want_r, hi2
+    # (d) another launch geometry: the same function within the tolerance,
+    # and the same bits from two runs of one geometry
+    auto = cuda_stream.pick_geometry(W, p)
+    other = (1, cuda_nmf.max_loop_threads(p)) if auto[0] > 1 else (8, 128)
+    got_g = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                 _geometry=other, **nkw)
+    got_g2 = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                  _geometry=other, **nkw)
+    torch.cuda.synchronize()
+    geo_err = 0.0
+    for g_, g2_, w_, nm in zip(got_g, got_g2, want, names):
+        if not torch.equal(g_, g2_):
+            raise AssertionError(f"nmf_streamed {nm} p={p} W={W}: two runs at "
+                                 f"geometry {other} differ")
+        geo_err = max(geo_err, assert_rel(
+            g_, w_, f"nmf_streamed {nm} p={p} W={W} (geometry {other})")[1])
+    # (e) the quotient of the int16 + scale form against the IEEE divide,
+    # for every int16 numerator and this launch's scales
+    n_quot = check_quotients(scale)
+    del got_a, got_b, again, got_c, got_r, want_r, hi2, got_g, got_g2
     all_on = torch.ones_like(act)
     b_ms, b_by = bound_stream(raw, hi, all_on, nmf_cfg.nmf_iter)
 
@@ -470,7 +572,9 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
         shape=[G, p, W], max_abs_err=max(e[0] for e in errs),
         max_rel_err=max(e[1] for e in errs), raw_equals_f32=True,
         inactive_genes=int((~act).sum()), active_columns=int(hi.sum()),
-        bound_ms=b_ms, bound_by=b_by, threads=cuda_stream.pick_threads(W),
+        bound_ms=b_ms, bound_by=b_by, geometry=list(auto),
+        other_geometry=list(other), other_geometry_rel_err=geo_err,
+        quotients_equal_ieee=n_quot,
         ms=time_ms(run_raw, reps),
         f32_input_ms=time_ms(
             lambda: cuda_stream.nmf_masked_streamed_cuda(F_adj, hi, **nkw),
@@ -523,8 +627,8 @@ def phase_kernels(cov, cov_wide):
     """Each kernel against its plain version at the shapes the fits launch
     it at.  Kernels 1-3: the two whole buckets the engine packs from the
     narrow dataset (p=8; W=1024 and W=4096; every slot, with inactive genes
-    and a u0-resume case), after two small odd shapes for the other
-    template instances.  Kernel 4 (and kernel 2 again): the two whole
+    and a u0-resume case), after three small odd shapes: two for the other
+    template instances, one with 48 trim bins on 32-thread blocks.  Kernel 4 (and kernel 2 again): the two whole
     buckets of the long genes (p=8; W=16384 and W=65536), after p=32,
     W=4096 and p=16, W=8192 at 48 genes and p=2, W=40000 at 12.
     Tolerances: kernels 1-3 K, E, u and row sums rtol 1e-3 / atol 1e-3
@@ -540,9 +644,11 @@ def phase_kernels(cov, cov_wide):
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
     eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
     res = {}
-    # other template instances (p <= 4 and p <= 16), correctness only
+    # other template instances (p <= 4 and p <= 16) and more trim bins than
+    # a block of the trim kernel has threads (48 against 32), correctness only
     rng = np.random.default_rng(SEED + 1)
-    for p, W, G in ((3, 384, 48), (16, 512, 32)):
+    for p, W, G, bins in ((3, 384, 48, 20), (16, 512, 32, 20),
+                          (8, 512, 48, 48)):
         small, _ = synth_dataset(G, p, seed=SEED + p)
         F = np.zeros((G, p, W), np.float32)
         lens = np.zeros(G, np.int64)
@@ -551,9 +657,17 @@ def phase_kernels(cov, cov_wide):
             F[i, :, :L] = m[:, :L]
             lens[i] = L
         lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(dev)
+        assert cuda_nmf.pick_loop_threads(p, W) == 32
         r = check_kernels_at(torch.from_numpy(F).to(dev), lm,
-                             NMFConfig(nmf_iter=20), eng_cfg, timed=False)
-        res[f"p{p}_W{W}"] = {k: v["max_abs_err"] for k, v in r.items()}
+                             NMFConfig(nmf_iter=20, bins=bins), eng_cfg,
+                             timed=False)
+        res[f"p{p}_W{W}_bins{bins}"] = dict(
+            {k: v["max_abs_err"] for k, v in r.items()},
+            trim_entered=r["trim_loop"]["entered"],
+            trim_most_bins=r["trim_loop"]["most_bins"])
+        if bins > 32 and not r["trim_loop"]["most_bins"] > 32:
+            raise AssertionError("no gene of the many-bins case has more "
+                                 "bins than the block has threads")
     buckets = pack_buckets(list(cov.values()), bucket_widths=BUCKET_WIDTHS,
                            dtype=np.int16)
     assert sorted(b.width for b in buckets) == sorted(BUCKET_WIDTHS)
@@ -597,10 +711,12 @@ def phase_kernels(cov, cov_wide):
     return res
 
 
-def profile_fit(engine, cov, X, steady_wall_s):
+def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
     """One more steady fit under torch.profiler: device time by kernel and
     the device's idle share of the fit's wall time.  Returns "not measured"
-    where the profiler shows no device time."""
+    where the profiler shows no device time.  ``per_launch``: a kernel-name
+    tag; the device time of each of its launches, in launch order, is
+    returned under "per_launch_ms"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -625,6 +741,13 @@ def profile_fit(engine, cov, X, steady_wall_s):
             f"profile: device time {busy_us / 1e3:.1f} ms exceeds the fit's "
             f"wall time {wall * 1e3:.1f} ms: device rows counted twice")
     rows.sort(key=lambda r: -r[1])
+    each = None
+    if per_launch is not None:
+        evs = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA and per_launch in ev.name]
+        evs.sort(key=lambda ev: ev.time_range.start)
+        each = [round(float(getattr(ev, "self_device_time_total", getattr(
+            ev, "self_cuda_time_total", 0.0))) / 1e3, 4) for ev in evs]
     ours = {}
     for tag in ("nmf_masked_kernel", "ratio_rowsums_kernel",
                 "trim_loop_kernel", "nmf_streamed_kernel"):
@@ -639,6 +762,7 @@ def profile_fit(engine, cov, X, steady_wall_s):
         "port_kernels_share_of_busy": round(
             sum(v["device_ms"] for v in ours.values()) * 1e3 / busy_us, 4),
         "top": [[k[:60], round(us / 1e3, 3), c] for k, us, c in rows[:8]],
+        **({"per_launch_ms": each} if each is not None else {}),
     }
 
 
@@ -761,7 +885,54 @@ def phase_fit_wide(cov, X):
     res2 = engine.run(cov, X, reuse_device_data=True)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    prof = profile_fit(engine, cov, X, wall2)
+    peak_mem = int(torch.cuda.max_memory_allocated())
+    # the profiled fit: every launch of kernel 4 with its round, the count of
+    # active genes it ran on, its geometry and its device time; the states of
+    # the W=16384 bucket's rounds are kept to time a late round alone
+    # afterwards
+    log, states = [], []
+    wrapped = cuda_stream.nmf_masked_streamed_cuda
+
+    def keep_state(Fin, m, **kw):
+        act = kw.get("gene_active")
+        # the count stays on the device until the fit is over: no extra sync
+        log.append((Fin.shape, Fin.shape[0] if act is None else act.sum(),
+                    kw.get("u0") is not None))
+        if Fin.shape[2] == WIDE_WIDTHS[0]:
+            if kw.get("u0") is None:
+                states.clear()          # a new bucket step: its rounds only
+            else:
+                states.append((Fin, m, kw))
+        return wrapped(Fin, m, **kw)
+
+    cuda_stream.nmf_masked_streamed_cuda = keep_state
+    try:
+        prof = profile_fit(engine, cov, X, wall2,
+                           per_launch="nmf_streamed_kernel")
+    finally:
+        cuda_stream.nmf_masked_streamed_cuda = wrapped
+    per_launch = "not measured"
+    if isinstance(prof, dict) and len(prof.get("per_launch_ms", ())) == len(log):
+        per_launch, rnd = [], {}
+        for ((_, p_, W_), n_act, resumed), ms in zip(
+                log, prof.pop("per_launch_ms")):
+            rnd[W_] = rnd[W_] + 1 if resumed else 0   # 0 = a step's initial fit
+            per_launch.append([W_, rnd[W_], int(n_act),
+                               *cuda_stream.pick_geometry(W_, p_), ms])
+    # a late round alone: the last DegNorm iteration's middle and last rounds
+    # of the W=16384 bucket (few active genes, bins dropped)
+    late = []
+    last_iter = list(states)
+    for Fin, m, kw in (last_iter[len(last_iter) // 2], last_iter[-1]):
+        late.append(dict(
+            runs_on=int(kw["gene_active"].sum()),
+            active_columns=int(m[kw["gene_active"]].sum()),
+            geometry=list(cuda_stream.pick_geometry(Fin.shape[2],
+                                                    Fin.shape[1])),
+            bound_ms=bound_stream(Fin, m, kw["gene_active"], NMF_ITER)[0],
+            ms=time_ms(lambda: wrapped(Fin, m, **kw), 3)))
+    LATE_STATES[:] = [last_iter[len(last_iter) // 2], last_iter[-1]]
+    del states, last_iter
     n, p = res.rho.shape
     assert (n, p) == (WIDE_GENES, P_SAMPLES), res.rho.shape
     assert np.isfinite(res.rho).all() and res.rho.min() >= 0 and res.rho.max() <= 0.9
@@ -784,9 +955,107 @@ def phase_fit_wide(cov, X):
          gene_iter_per_s=round(n * DEGNORM_ITER / compute, 1),
          steady_gene_iter_per_s=round(n * DEGNORM_ITER / wall2, 1),
          genes_ran_bs=n_ran, rho_mean=float(res.rho.mean()),
-         peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
-         profile=prof)
+         peak_mem_bytes=peak_mem,
+         profile=prof, late_round=late,
+         per_launch_columns=["W", "round (0 = initial fit)", "active genes",
+                             "blocks a gene", "threads", "device ms"],
+         per_launch=per_launch)
     return launches
+
+
+# states of kernel 4's late trim rounds kept by phase_fit_wide for the sweep
+LATE_STATES = []
+
+
+def sweep_times(run, configs, reps=2):
+    """ms of ``run(config)`` for every config, timed in two passes, the
+    second in reverse order, so that drift over the sweep shows as a spread
+    between a config's two numbers."""
+    first = [time_ms(lambda: run(c), reps) for c in configs]
+    second = [time_ms(lambda: run(c), reps) for c in reversed(configs)][::-1]
+    return [[list(c), round(a, 4), round(b, 4)]
+            for c, a, b in zip(configs, first, second)]
+
+
+def phase_sweep(cov, cov_wide):
+    """Times only (correctness is phase ``kernels``): kernel 4 over launch
+    geometries (blocks a gene x threads) at the two whole wide buckets, the
+    p=16 and p=32 shapes and two late trim rounds kept by ``fit_wide``;
+    kernels 1 and 3 over threads a block at the two whole narrow buckets.  Each line names the choice of the wrappers' rules beside the
+    timings, so the rule can be read against the sweep."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.data.buckets import pack_buckets
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    dev = torch.device(DEVICE)
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
+    wide_cfg = EngineConfig()
+    nkw = baseline._nmf_kwargs(nmf_cfg, wide_cfg)
+
+    def geometries(p):
+        top = cuda_nmf.max_loop_threads(p)
+        return [(cl, t) for cl in cuda_stream.CLUSTERS
+                for t in (128, 256, 512) if t <= top]
+
+    def sweep_stream(tag, Fin, m, kw, n_active):
+        G, p, W = Fin.shape
+        res = sweep_times(
+            lambda c: cuda_stream.nmf_masked_streamed_cuda(
+                Fin, m, **dict(kw, _geometry=c)), geometries(p))
+        emit("sweep_stream", case=tag, shape=[G, p, W], n_active=n_active,
+             rule=list(cuda_stream.pick_geometry(W, p)),
+             columns=["(blocks a gene, threads)", "ms", "ms (reverse pass)"],
+             times=res)
+
+    for G, p, W in ((48, 32, 4096), (48, 16, 8192)):
+        raw, lm = small_wide_bucket(G, p, W, SEED + p, dev)
+        scale = torch.linspace(0.8, 1.25, p, device=dev)
+        sweep_stream(f"p{p}", raw, lm, dict(nkw, scale=scale), G)
+    buckets = pack_buckets(list(cov_wide.values()),
+                           bucket_widths=wide_cfg.bucket_widths,
+                           dtype=np.int16)
+    for b in buckets:
+        raw = torch.from_numpy(b.F).to(dev)
+        lm = torch.from_numpy(b.len_mask()).to(dev)
+        scale = torch.linspace(0.8, 1.25, raw.shape[1], device=dev)
+        sweep_stream(f"whole bucket W={b.width}", raw, lm,
+                     dict(nkw, scale=scale), raw.shape[0])
+        del raw, lm
+        torch.cuda.empty_cache()
+    for Fin, m, kw in LATE_STATES:
+        n_act = int(kw["gene_active"].sum())
+        sweep_stream(f"late round W={Fin.shape[2]}", Fin, m, kw, n_act)
+
+    eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
+    plain_cfg = dataclasses.replace(eng_cfg, use_kernels=False)
+    buckets = pack_buckets(list(cov.values()), bucket_widths=BUCKET_WIDTHS,
+                           dtype=np.int16)
+    for b in buckets:
+        F_adj, lm = kernel_inputs(b, dev)
+        G, p, W = F_adj.shape
+        ti = baseline.trim_inputs(F_adj, lm, nmf_cfg, plain_cfg)
+        targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+                 ti.n_hi, ti.n_bins0, ti.active0)
+        tkw = baseline.trim_kwargs(nmf_cfg, eng_cfg)
+        act = ~ti.bailed
+        choices = [t for t in (32, 64, 128, 256, 512) if W <= 64 * t]
+
+        def run_trim(t):
+            return cuda_trim.trim_loop_cuda(*targs, _threads=t[0], **tkw)
+
+        def run_nmf(t):
+            return cuda_nmf.nmf_masked_cuda(
+                ti.Fm, ti.hi, gene_active=act, _threads=t[0],
+                **baseline._nmf_kwargs(nmf_cfg, eng_cfg))
+
+        for name, run in (("trim_loop", run_trim), ("nmf_masked", run_nmf)):
+            emit("sweep_resident", kernel=name, shape=[G, p, W],
+                 rule=[cuda_nmf.pick_loop_threads(p, W)],
+                 columns=["(threads)", "ms", "ms (reverse pass)"],
+                 times=sweep_times(run, [(t,) for t in choices]))
+        del F_adj, lm, ti, targs
+        torch.cuda.empty_cache()
 
 
 def compare_fits(name, a, b, secs, **extra):
@@ -884,7 +1153,7 @@ def kernels_line(kres, launches, launches_wide):
         "nmf_masked": "degnorm_tpu_torch/csrc/nmf.cu",
         "ratio_rowsums": "degnorm_tpu_torch/csrc/ratio.cu",
         "trim_loop": "degnorm_tpu_torch/csrc/trim.cu",
-        "nmf_streamed": "degnorm_tpu_torch/csrc/stream.cu",
+        "nmf_streamed": "degnorm_tpu_torch/csrc/stream.cuh",
     }
     kernels = []
     for name in ("nmf_masked", "ratio_rowsums", "trim_loop"):
@@ -909,7 +1178,7 @@ def kernels_line(kres, launches, launches_wide):
         dict(shape=kres[f"stream_{w}"]["shape"],
              **kres[f"stream_{w}"]["ratio_rowsums"]) for w in WIDE_WIDTHS]
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "f32_input_ms", "threads")
+            "f32_input_ms", "geometry")
     m = kres[f"stream_{WIDE_WIDTHS[0]}"]
     kernels.append({
         "name": "nmf_streamed", "route": "cuda",
@@ -935,8 +1204,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time kernel 4 over launch geometries and kernels 1 "
+                         "and 3 over threads a block (phases "
+                         "env, build, fit_wide, then the sweep; no result "
+                         "line)")
     args = ap.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
+    if args.sweep:
+        phases = ["env", "build", "fit_wide"]
 
     import torch
     if not torch.cuda.is_available():
@@ -974,6 +1250,8 @@ def main(argv=None):
                      if "fit_wide" in phases else None)
     if "parity" in phases:
         phase_parity(cov, X, cov_wide, X_wide)
+    if args.sweep:
+        phase_sweep(cov, cov_wide)
     if set(ALL_PHASES) - set(phases):
         print(json.dumps({"ok": False, "partial": phases}))
         return 0

@@ -25,7 +25,11 @@ def _gram(A: torch.Tensor) -> torch.Tensor:
 
 
 def _normalized(B: torch.Tensor) -> torch.Tensor:
-    """B scaled by its largest absolute entry (spectral radius in [1, p])."""
+    """B scaled by its largest absolute entry (spectral radius in [1, p]).
+    Divides, as the JAX package does; the CUDA kernels multiply by one
+    reciprocal of ``bmax + eps`` instead (csrc/common.cuh::normalize_rows),
+    a last-bit difference of a scale that the power steps normalise away,
+    inside the kernels' tolerance."""
     bmax = B.abs().amax(dim=(1, 2), keepdim=True)
     return B / (bmax + _EPS)
 

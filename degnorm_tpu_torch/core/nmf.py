@@ -37,7 +37,7 @@ def nmf_masked(
     A bucket inside the resident kernels' gate
     (``cuda_nmf.kernels_supported``) goes to the resident NMF kernel; one
     outside it goes to the streamed kernel, which reads the raw coverage
-    when ``F_raw`` and ``scale`` are both given.  ``use_kernels=False``
+    when an int16 ``F_raw`` and ``scale`` are both given.  ``use_kernels=False``
     takes the plain versions by the same routing.
 
     Args:
@@ -49,10 +49,11 @@ def nmf_masked(
       gene_active: optional (G,) bool; genes outside it are skipped and
         return zeros — callers gate every consumer on their own masks.
       u0: optional (G, p) warm start for the initial cold rank-1.
-      F_raw/scale: the engine's raw device-resident coverage (typically
-        int16) and the per-sample scale vector with F == F_raw / scale; the
-        streamed kernel then reads F_raw at half the bytes and adjusts each
-        column itself, bit-identically (ops/cuda_stream.py).
+      F_raw/scale: the engine's raw device-resident coverage and the
+        per-sample scale vector with F == F_raw / scale; where F_raw is
+        int16 the streamed kernel reads it at half the bytes and adjusts
+        each column itself, bit-identically (ops/cuda_stream.py).  A raw
+        tensor of another type saves no bytes: F is used.
 
     Returns (K, E, u): rank-1 factors (G,p), (G,W) and the final unit left
     vector for warm starts.
@@ -67,7 +68,8 @@ def nmf_masked(
         return fn(F, mask, **kwargs)
     fn = (cuda_stream.nmf_masked_streamed_cuda if use_kernels
           else cuda_stream.nmf_masked_streamed_plain)
-    use_raw = F_raw is not None and scale is not None
+    use_raw = (F_raw is not None and scale is not None
+               and F_raw.dtype == torch.int16)
     return fn(F_raw if use_raw else F, mask,
               scale=scale if use_raw else None, **kwargs)
 

@@ -45,7 +45,7 @@ __global__ void ratio_rowsums_kernel(const float* __restrict__ F,
   block_reduce<NG + PMAX>(acc, sm.part, sm.red);
   if (warp == 0) {
     if (tid < p) cov_sums[g * p + tid] = sm.red[NG + tid];
-    warp0_refit<PMAX>(sm, power_cold, 0, true);
+    warp0_refit<PMAX>(sm, power_cold);
   }
   __syncthreads();
 
@@ -80,8 +80,8 @@ extern "C" int dn_ratio_rowsums(const float* F, const uint8_t* mask,
                                 int W, int power_cold, int threads,
                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define CALL(PM)                                                          \
-  ratio_rowsums_kernel<PM><<<G, threads, 0, st>>>(F, mask, cov_sums,      \
+#define CALL(PM, FULL)                                                        \
+  ratio_rowsums_kernel<PM><<<G, threads, 0, st>>>(F, mask, cov_sums,          \
                                                   est_sums, p, W, power_cold)
   DN_DISPATCH_P(p, CALL);
 #undef CALL

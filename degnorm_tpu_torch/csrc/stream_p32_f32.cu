@@ -1,0 +1,8 @@
+// Kernel 4 (stream.cuh), the instances for PMAX = 32 and finished float32
+// input: one translation unit a (PMAX, input form), so that they compile side
+// by side.
+#include "stream.cuh"
+
+int dn_stream_p32_f32(const StreamArgs& a) {
+  return launch_streamed_full<32, false>(a);
+}

@@ -4,7 +4,7 @@
 // (_trim_kernel).  Per gene, for up to max_rounds rounds while the gene is
 // active: worst squared relative residual per column, mean per rank bin,
 // drop the first arg-max bin, update n_hi / n_bins, rerun the Lagrangian
-// NMF loop (common.cuh::nmf_loop) on the surviving columns with u resumed
+// NMF loop (common.cuh::nmf_core) on the surviving columns with u resumed
 // from the previous round, zero-row check, clipped DI refresh, exit flags.
 // Semantics follow the lax.while_loop of degnorm_tpu/core/baseline.py.
 //
@@ -17,34 +17,46 @@
 // buffer is scratch that carries each round's column factor to the next
 // round's residuals.
 //
-// Bound on this card: float32 operations — each round is a full NMF loop
-// (see nmf.cu) plus two light passes; the coverage of a gene is read from
-// device memory once and stays in L2 for the later rounds.  Work depends on
-// the data: a gene costs rounds_active NMF loops over its surviving columns.
+// What bounds it on this card.  By count it is float32 operations (a round
+// is a full NMF loop plus two light passes, and a gene costs rounds_active
+// of them); in practice the latency of a sweep at the occupancy its
+// registers allow (common.cuh).  The design gives a gene few threads (one per
+// 16 columns, ops/cuda_nmf.py), so that what a sweep costs besides its
+// columns is paid by few warps, keeps every instance within the registers of
+// its launch bound without a spill at p <= 16, and takes the sweep of
+// common.cuh: one barrier, a butterfly reduction, the power step on every
+// warp, no mask loads after the first pass.  X stays in a global scratch:
+// keeping it, and the coverage, in the block's shared memory was built and
+// measured slower at every block size (fewer blocks an SM).
 #include "common.cuh"
 
 #define DN_MAX_BINS 64
 #define DN_NEG -1e30f
 
-template <int PMAX>
-__global__ void trim_loop_kernel(
+template <int PMAX, bool FULL>
+__global__ void __launch_bounds__(32 * dn_max_warps<PMAX>(), 1)
+trim_loop_kernel(
     const float* __restrict__ Fm, const int* __restrict__ bin_id,
     const float* __restrict__ bin_count, const float* __restrict__ K0,
     float* E, const float* __restrict__ rho0,
     const float* __restrict__ u0, const int* __restrict__ n_hi0,
     const int* __restrict__ n_bins0, const uint8_t* __restrict__ active0,
-    float* X, uint8_t* colmask,
+    float* Xscratch, uint8_t* colmask,
     float* __restrict__ K_out, float* __restrict__ rho_out,
     uint8_t* __restrict__ ran_bs, int* __restrict__ rounds_out, int p, int W,
     int B, int nmf_iter, int power_resume, int power_warm, int warm_plain,
     int max_rounds, int min_bins, int min_gene_len) {
-  __shared__ NmfSmem<PMAX> sm;
+  __shared__ BlockRed<PMAX> red;
+  // the warps' shares of the sum of E, then of the DI row sums
+  __shared__ float s_part[dn_max_warps<PMAX>() * 2 * PMAX];
+  __shared__ float s_K[PMAX];  // K of the last fit (zero beyond p)
   __shared__ float s_rho[PMAX];
   __shared__ float s_cnt[DN_MAX_BINS];
   __shared__ float s_ss[DN_MAX_BINS];
   __shared__ int s_bin_active[DN_MAX_BINS];
   __shared__ int s_n_hi, s_n_bins, s_go;
-  extern __shared__ float s_res[];  // (W) per-column residual scores
+  // (W) per-column residual scores, then the Gram tiles (p >= 16)
+  extern __shared__ float dyn[];
 
   const size_t g = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -63,20 +75,24 @@ __global__ void trim_loop_kernel(
     return;
   }
 
-  const float* Fg = Fm + g * p * W;
+  float* s_res = dyn;
+  float* tiles = s_res + W;
   const int* bid = bin_id + g * W;
   float* Eg = E + g * W;
-  float* Xg = X + g * p * W;
   uint8_t* cm = colmask + g * W;
+  const float* Fg = Fm + g * p * W;
+  float* Xg = Xscratch + g * p * W;
 
+  // lane i of every warp carries u_i (zero beyond p)
+  float u_lane = lane < p ? u0[g * p + lane] : 0.f;
   if (tid < PMAX) {
-    sm.K[tid] = tid < p ? K0[g * p + tid] : 0.f;
-    sm.u[tid] = tid < p ? u0[g * p + tid] : 0.f;
+    s_K[tid] = tid < p ? K0[g * p + tid] : 0.f;
     s_rho[tid] = tid < p ? rho0[g * p + tid] : 0.f;
   }
-  if (tid < B) {
-    s_cnt[tid] = bin_count[g * B + tid];
-    s_bin_active[tid] = tid < n_bins0[g];
+  // a block may have fewer threads than the gene has bins (32 against 64)
+  for (int b = tid; b < B; b += nt) {
+    s_cnt[b] = bin_count[g * B + b];
+    s_bin_active[b] = b < n_bins0[g];
   }
   if (tid == 0) {
     s_n_hi = n_hi0[g];
@@ -86,33 +102,29 @@ __global__ void trim_loop_kernel(
 
   bool clipped = false;
   int rounds = 0;
+  const float* K = s_K;
   while (rounds < max_rounds) {
     ++rounds;  // this gene is active in this round
 
     // worst squared relative residual per active column; round 1 scores
     // against the unclipped initial estimate, later rounds the clipped one
-    {
-      float K[PMAX];
+    for (int w = tid; w < W; w += nt) {
+      const int b = bid[w];
+      float r = 0.f;
+      if (b < B && s_bin_active[b]) {
+        const float e = Eg[w];
 #pragma unroll
-      for (int i = 0; i < PMAX; ++i) K[i] = sm.K[i];
-      for (int w = tid; w < W; w += nt) {
-        const int b = bid[w];
-        float r = 0.f;
-        if (b < B && s_bin_active[b]) {
-          const float e = Eg[w];
-#pragma unroll
-          for (int i = 0; i < PMAX; ++i) {
-            if (i < p) {
-              const float f = Fg[(size_t)i * W + w];
-              float ke = __fmul_rn(K[i], e);  // no FMA into the subtraction
-              if (clipped) ke = fmaxf(ke, f);
-              const float z = (ke - f) / (f + 1.0f);
-              r = fmaxf(r, z * z);
-            }
+        for (int i = 0; i < PMAX; ++i) {
+          if (DN_ROW(i)) {
+            const float f = Fg[i * W + w];
+            float ke = __fmul_rn(K[i], e);  // no FMA into the subtraction
+            if (clipped) ke = fmaxf(ke, f);
+            const float z = (ke - f) / (f + 1.0f);
+            r = fmaxf(r, z * z);
           }
         }
-        s_res[w] = r;
       }
+      s_res[w] = r;
     }
     __syncthreads();
     // per-bin sums in a fixed order: warp q takes bins q, q + nw, ...
@@ -155,45 +167,58 @@ __global__ void trim_loop_kernel(
     }
     __syncthreads();
 
-    // full NMF loop on the surviving columns, u resumed from sm.u
-    nmf_loop<PMAX>(sm, Fg, cm, Xg, Eg, p, W, nmf_iter, power_resume,
-                   power_warm, warm_plain);
+    // full NMF loop on the surviving columns, u resumed from the last round
+    ResidentSrc<PMAX, FULL> src{Fg, cm, Xg, Eg, p, W};
+    float s;
+    const float se = nmf_core<PMAX>(src, red, tiles, u_lane, s, nmf_iter,
+                                    power_resume, power_warm, warm_plain);
+    if (tid < PMAX) s_K[tid] = u_lane * s;
+    {
+      const float ws = warp_sum(se);
+      if (lane == 0) s_part[warp] = ws;
+    }
+    __syncthreads();  // also: K and E of this round are visible to all
+    float sumE = 0.f;
+    for (int w = 0; w < nw; ++w) sumE += s_part[w];
 
     // all-zero fitted sample (nmf.py:315-316): keep the new K, stop
     // without refreshing rho
     float min_rs = INFINITY;
-    for (int i = 0; i < p; ++i)
-      min_rs = fminf(min_rs, __fmul_rn(sm.K[i], sm.sumE));
+#pragma unroll
+    for (int i = 0; i < PMAX; ++i)
+      if (DN_ROW(i)) min_rs = fminf(min_rs, __fmul_rn(K[i], sumE));
     if (min_rs == 0.0f) break;
+    __syncthreads();  // s_part is read by all before it is written again
 
     // clip up to F, recompute DI (nmf.py:318-321)
-    float acc[2 * PMAX];
     {
-      float K[PMAX];
+      float acc[2 * PMAX];
 #pragma unroll
-      for (int i = 0; i < PMAX; ++i) {
-        K[i] = sm.K[i];
-        acc[i] = 0.f;
-        acc[PMAX + i] = 0.f;
-      }
+      for (int i = 0; i < 2 * PMAX; ++i) acc[i] = 0.f;
       for (int w = tid; w < W; w += nt) {
         if (cm[w] == 0) continue;
         const float e = Eg[w];
 #pragma unroll
         for (int i = 0; i < PMAX; ++i) {
-          if (i < p) {
-            const float f = Fg[(size_t)i * W + w];
+          if (DN_ROW(i)) {
+            const float f = Fg[i * W + w];
             acc[i] += f;
             acc[PMAX + i] += fmaxf(K[i] * e, f);
           }
         }
       }
+      warp_reduce_store<2 * PMAX>(acc, s_part + warp * 2 * PMAX, lane);
     }
-    block_reduce<2 * PMAX>(acc, sm.part, sm.red);
+    __syncthreads();
     if (warp == 0) {
       float rho = -INFINITY;
       if (lane < p) {
-        rho = 1.0f - sm.red[lane] / (sm.red[PMAX + lane] + 1.0f);
+        float rf = 0.f, re = 0.f;
+        for (int w = 0; w < nw; ++w) {
+          rf += s_part[w * 2 * PMAX + lane];
+          re += s_part[w * 2 * PMAX + PMAX + lane];
+        }
+        rho = 1.0f - rf / (re + 1.0f);
         s_rho[lane] = rho;
       }
       const float mx = warp_max(rho);
@@ -208,8 +233,9 @@ __global__ void trim_loop_kernel(
     if (!s_go) break;
   }
 
+  __syncthreads();
   if (tid < p) {
-    K_out[g * p + tid] = sm.K[tid];
+    K_out[g * p + tid] = s_K[tid];
     rho_out[g * p + tid] = s_rho[tid];
   }
   if (tid == 0) {
@@ -218,6 +244,7 @@ __global__ void trim_loop_kernel(
   }
 }
 
+// X: (G, p, W) float32 scratch.
 extern "C" int dn_trim_loop(
     const float* Fm, const int* bin_id, const float* bin_count,
     const float* K0, float* E, const float* rho0, const float* u0,
@@ -226,14 +253,25 @@ extern "C" int dn_trim_loop(
     int* rounds_active, int G, int p, int W, int B, int nmf_iter,
     int power_resume, int power_warm, int warm_plain, int max_rounds,
     int min_bins, int min_gene_len, int threads, void* stream) {
+  if (threads % 32 != 0 || threads < 32 || threads > 512 || B > DN_MAX_BINS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t dyn = (size_t)W * sizeof(float);
-#define CALL(PM)                                                              \
-  trim_loop_kernel<PM><<<G, threads, dyn, st>>>(                              \
-      Fm, bin_id, bin_count, K0, E, rho0, u0, n_hi, n_bins, active0, X,       \
-      colmask, K, rho, ran_bs, rounds_active, p, W, B, nmf_iter,              \
-      power_resume, power_warm, warm_plain, max_rounds, min_bins,             \
-      min_gene_len)
+#define CALL(PM, FULL)                                                        \
+  do {                                                                        \
+    if (threads > 32 * dn_max_warps<PM>()) return (int)cudaErrorInvalidValue; \
+    const size_t dyn =                                                        \
+        sizeof(float) * ((size_t)W + gram_tile_floats<PM>(threads / 32));     \
+    cudaError_t e = cudaFuncSetAttribute(                                     \
+        trim_loop_kernel<PM, FULL>,                                           \
+        cudaFuncAttributeMaxDynamicSharedMemorySize,                          \
+        (int)dyn);                                                            \
+    if (e != cudaSuccess) return (int)e;                                      \
+    trim_loop_kernel<PM, FULL><<<G, threads, dyn, st>>>(                      \
+        Fm, bin_id, bin_count, K0, E, rho0, u0, n_hi, n_bins, active0, X,     \
+        colmask, K, rho, ran_bs, rounds_active, p, W, B, nmf_iter,            \
+        power_resume, power_warm, warm_plain, max_rounds, min_bins,           \
+        min_gene_len);                                                        \
+  } while (0)
   DN_DISPATCH_P(p, CALL);
 #undef CALL
   return (int)cudaGetLastError();

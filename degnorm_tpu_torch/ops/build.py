@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Optional
 
@@ -48,8 +49,10 @@ _SIGNATURES = {
     # max_rounds, min_bins, min_gene_len, threads, stream
     "dn_trim_loop": [_P] * 16 + [_I] * 12 + [_P],
     # F, f_is_i16, mask, act, scale, u0, X, K, E, u, G, p, W, nmf_iter,
-    # power_cold, power_warm, warm_plain, threads, stream
-    "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 8 + [_P],
+    # power_cold, power_warm, warm_plain, cl, threads, stream
+    "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 9 + [_P],
+    # raw, scale, out, n, p, stream
+    "dn_scaled_quotients": [_P, _P, _P, _I, _I, _P],
 }
 
 
@@ -82,21 +85,30 @@ def _source_hash(cu, hdr) -> str:
 
 def _run_all(cmds):
     """Start every command at once, wait for all, raise on the first
-    failure with the compiler's output."""
-    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
+    failure with the compiler's output.  Returns (logs, seconds): each
+    command's output and how long it ran."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    logs = []
-    failed = None
-    for c, pr in procs:
-        out, _ = pr.communicate()
-        logs.append(out)
-        if pr.returncode != 0 and failed is None:
-            failed = (c, out)
-    if failed is not None:
-        raise RuntimeError("kernel build failed: %s\n%s"
-                           % (" ".join(failed[0]), failed[1]))
-    return logs
+    logs = [None] * len(cmds)
+    secs = [0.0] * len(cmds)
+
+    def wait(i):
+        logs[i], _ = procs[i].communicate()
+        secs[i] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(cmds))]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    for c, pr, out in zip(cmds, procs, logs):
+        if pr.returncode != 0:
+            raise RuntimeError("kernel build failed: %s\n%s"
+                               % (" ".join(c), out))
+    return logs, secs
 
 
 def build(verbose: bool = False) -> str:
@@ -113,16 +125,18 @@ def build(verbose: bool = False) -> str:
     t0 = time.perf_counter()
     extra = ["-Xptxas", "-v"] if verbose else []
     objs = [os.path.join(BUILD_DIR, f"{n[:-3]}_{tag}.o") for n in cu]
-    logs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c",
-                      os.path.join(CSRC_DIR, n), "-o", o]
-                     for n, o in zip(cu, objs)])
+    logs, secs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c",
+                            os.path.join(CSRC_DIR, n), "-o", o]
+                           for n, o in zip(cu, objs)])
     tmp = so_path + f".tmp{os.getpid()}"
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
     os.replace(tmp, so_path)
     for o in objs:
         os.remove(o)
     build_info.update(path=so_path, seconds=time.perf_counter() - t0,
-                      cached=False, nvcc=nvcc, log="\n".join(logs))
+                      cached=False, nvcc=nvcc, log="\n".join(logs),
+                      source_seconds={n: round(t, 2)
+                                      for n, t in zip(cu, secs)})
     return so_path
 
 

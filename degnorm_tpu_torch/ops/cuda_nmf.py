@@ -73,8 +73,27 @@ def check_kernel_input(F: torch.Tensor, name: str) -> None:
 
 
 def pick_threads(W: int) -> int:
-    """Threads per block (one block per gene): about 8 columns a thread."""
+    """Threads per block of kernel 2 (one block per gene): about 8 columns a
+    thread."""
     return int(min(256, max(64, (W // 8 + 31) // 32 * 32)))
+
+
+def max_loop_threads(p: int) -> int:
+    """Most threads a block of kernels 1, 3 and 4 may have
+    (``dn_max_warps`` of csrc/common.cuh): the p > 8 instances keep a Gram
+    tile a warp in shared memory and more registers a thread."""
+    return 512 if p <= 8 else 256
+
+
+def pick_loop_threads(p: int, W: int) -> int:
+    """Threads of a block of kernels 1 and 3 (one block per gene): a thread
+    per 16 columns, in whole warps within the kernel's bound.  A sweep costs
+    a reduction, a barrier and a power step a warp whatever its columns, so
+    few warps a gene win while enough genes are in flight (the measurements:
+    PERF.md, ``chip_smoke.py --sweep``).  A thread's column slots must fit
+    the kernels' 64-bit mask of active slots, which any W inside the gate
+    does."""
+    return min(max_loop_threads(p), max(32, (W // 16 + 31) // 32 * 32))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -150,10 +169,13 @@ def nmf_masked_cuda(
     power_warm_plain: int = 0,
     gene_active: Optional[torch.Tensor] = None,
     u0: Optional[torch.Tensor] = None,
+    _threads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``nmf_masked_plain``'s signature: one thread
     block per gene runs the whole loop (csrc/nmf.cu).  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version; a CUDA tensor launches the kernel or raises.
+    ``_threads`` overrides ``pick_loop_threads`` (the timing sweep of
+    ``chip_smoke.py --sweep`` passes it; nothing else does)."""
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain,
@@ -164,6 +186,7 @@ def nmf_masked_cuda(
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
+    threads = _threads or pick_loop_threads(p, W)
     m8 = _as_u8(mask)
     act8 = None if gene_active is None else _as_u8(gene_active)
     u0c = None if u0 is None else u0.to(torch.float32).contiguous()
@@ -183,8 +206,7 @@ def nmf_masked_cuda(
             F.data_ptr(), m8.data_ptr(), _ptr(act8), _ptr(u0c),
             X.data_ptr(), K.data_ptr(), E.data_ptr(), u.data_ptr(),
             G, p, W, int(nmf_iter), int(power_iters_cold),
-            int(power_iters_warm), int(power_warm_plain), pick_threads(W),
-            stream)
+            int(power_iters_warm), int(power_warm_plain), threads, stream)
     check_launch(code, "dn_nmf_masked")
     nmf_launches += 1
     return K, E, u

@@ -5,12 +5,14 @@ Counterpart of ``degnorm_tpu/ops/pallas_stream.py`` (``nmf_masked_streamed``).
 Same function as ``ops/cuda_nmf.py::nmf_masked_*`` for buckets outside the
 resident kernels' gate (few genes, each p x W of half a megabyte and more),
 with one more input form: with ``scale`` the coverage is the engine's RAW
-device-resident tensor (int16 or float32) and the kernel casts, divides and
-masks each column itself, in the order of ``engine._bucket_step``, so the
-result equals that of the pre-adjusted float32 form bit for bit.
+device-resident int16 tensor and the kernel casts, divides and masks each
+column itself, in the order of ``engine._bucket_step``, so the result equals
+that of the pre-adjusted float32 form bit for bit (the plain version also
+takes raw floating-point coverage with ``scale``).
 
-The kernel (``csrc/stream.cu``) spreads one gene over a cluster of thread
-blocks; the wrapper takes the plain version only for a tensor that lies on
+The kernel (``csrc/stream.cuh``) spreads one gene over a cluster of thread
+blocks whose size and threads the wrapper chooses by shape
+(``pick_geometry``); the wrapper takes the plain version only for a tensor that lies on
 the CPU, and for a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -24,17 +26,57 @@ from degnorm_tpu_torch.ops import cuda_nmf
 # Launch counter (plain int): one is added where the kernel is launched.
 stream_launches = 0
 
-# Thread blocks a gene: DN_STREAM_CLUSTER of csrc/stream.cu, where it is a
-# compile-time constant; here it only sizes the blocks.
-CLUSTER = 8
-MAX_THREADS = 512
+# Launch geometry of csrc/stream.cuh.  A gene is a cluster of 1, 2, 4 or 8
+# thread blocks (8 is the largest portable cluster); its columns are dealt to
+# the blocks in chunks of CHUNK, round robin.
+CLUSTERS = (1, 2, 4, 8)
+CHUNK = 128
+# The most column slots the geometry rule gives a thread, while a cluster of
+# 8 can keep to it (the kernel keeps a 64-bit mask of a thread's active slots
+# in a register and rereads the mask past 64: csrc/common.cuh).
+RULE_SLOTS = 32
 
 
-def pick_threads(W: int) -> int:
-    """Threads a block: about 8 columns a thread of a block's share of the
-    width (W / CLUSTER).  Fewer threads lengthen a sweep, more of them
-    lengthen the Gram reduction."""
-    return min(MAX_THREADS, max(64, (W // (8 * CLUSTER) + 31) // 32 * 32))
+def block_share(W: int, cl: int) -> int:
+    """The most columns one of ``cl`` blocks is dealt of a gene of width W
+    (whole chunks)."""
+    chunks = -(-W // CHUNK)
+    return -(-chunks // cl) * CHUNK
+
+
+def block_columns(ncols: int, W: int, cl: int, rank: int):
+    """The columns block ``rank`` of a gene's ``cl`` blocks sweeps when the
+    gene's last active column is ``ncols - 1``: the mirror of
+    ``StreamSrc::col`` in csrc/stream.cuh (chunks rank, rank + cl, ... below
+    the gene's last chunk, cut at W)."""
+    nch = -(-ncols // CHUNK)
+    out = []
+    for c in range(rank, nch, cl):
+        out.extend(range(c * CHUNK, min((c + 1) * CHUNK, W)))
+    return out
+
+
+def pick_geometry(W: int, p: int) -> Tuple[int, int]:
+    """(blocks a gene, threads a block) of a launch, by shape; the rule of
+    the committed sweep (``chip_smoke.py --sweep``, PERF.md).
+
+    A block has the most threads its instance takes (fewer only for a share
+    of under a column a thread).  A gene gets the smallest cluster that
+    leaves a thread at most ``256 / p`` column slots, and never more than
+    ``RULE_SLOTS``: a cluster pays a barrier and p(p+1)/2 remote reads a
+    block every sweep, so it is worth its cost only where a thread would
+    have more columns than that, each of them about p * p operations.  The
+    count of active genes does not enter: a larger cluster for a late trim
+    round of few genes gained under 0.1 ms a launch."""
+    max_threads = cuda_nmf.max_loop_threads(p)
+    max_slots = min(RULE_SLOTS, max(1, 256 // p))
+
+    def slots(cl):
+        return -(-block_share(W, cl) // max_threads)
+
+    cl = next((c for c in CLUSTERS if slots(c) <= max_slots), CLUSTERS[-1])
+    threads = min(max_threads, max(32, (block_share(W, cl) + 31) // 32 * 32))
+    return cl, threads
 
 
 def nmf_masked_streamed_plain(
@@ -75,12 +117,19 @@ def nmf_masked_streamed_cuda(
     gene_active: Optional[torch.Tensor] = None,
     u0: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
+    _geometry: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``nmf_masked_streamed_plain``'s signature: one
-    cluster of ``CLUSTER`` thread blocks per gene runs the whole loop
-    (csrc/stream.cu).  Takes int16 or float32 coverage of any width and
-    2 <= p <= 32.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    cluster of thread blocks per gene runs the whole loop (csrc/stream.cuh).
+    Takes float32 coverage, or int16 coverage with or without ``scale``, of
+    any width and 2 <= p <= 32.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises.
+
+    The launch geometry comes from ``pick_geometry``; results differ between
+    geometries by float32 summation order alone and are the same bits for
+    the same geometry.  ``_geometry`` overrides (blocks a gene, threads): the
+    timing sweep and the geometry check of ``chip_smoke.py`` pass it, nothing
+    else does."""
     if F.device.type == "cpu":
         return nmf_masked_streamed_plain(
             F, mask, nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
@@ -104,6 +153,18 @@ def nmf_masked_streamed_cuda(
                          f"got {tuple(scale.shape)}")
     f32 = torch.float32
     dev = F.device
+    # two forms reach the kernel: raw int16 with its scales, or finished
+    # float32 coverage.  int16 without scales is divided by ones (exact); raw
+    # float32 with scales saves no bytes over the finished form, so no caller
+    # sends it and no instance takes it.
+    if F.dtype == f32 and scale is not None:
+        raise NotImplementedError(
+            f"{name}: float32 coverage with scale is not taken on a CUDA "
+            "tensor; divide it first (F / scale[None, :, None]) and pass no "
+            "scale")
+    if F.dtype == torch.int16 and scale is None:
+        scale = torch.ones(p, dtype=f32, device=dev)
+    cl, threads = _geometry or pick_geometry(W, p)
     m8 = cuda_nmf._as_u8(mask)
     act8 = None if gene_active is None else cuda_nmf._as_u8(gene_active)
     u0c = None if u0 is None else u0.to(f32).contiguous()
@@ -125,7 +186,29 @@ def nmf_masked_streamed_cuda(
             ptr(act8), ptr(sc), ptr(u0c), X.data_ptr(), K.data_ptr(),
             E.data_ptr(), u.data_ptr(), G, p, W, int(nmf_iter),
             int(power_iters_cold), int(power_iters_warm),
-            int(power_warm_plain), pick_threads(W), stream)
+            int(power_warm_plain), cl, threads, stream)
     check_launch(code, "dn_nmf_streamed")
     stream_launches += 1
     return K, E, u
+
+
+def scaled_quotients_cuda(raw: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(p, n) float32 quotients ``raw[k] / scale[i]`` computed on the card by
+    the device function the int16 + scale sweeps of csrc/stream.cuh use (a
+    hoisted reciprocal and two corrections): the probe of the check that it
+    equals the IEEE divide for every int16 numerator.  CUDA tensors only."""
+    from degnorm_tpu_torch.ops.build import check_launch, get_lib
+    if raw.device.type != "cuda" or raw.dtype != torch.int16:
+        raise ValueError("scaled_quotients_cuda: raw must be a CUDA int16 "
+                         "tensor")
+    raw = raw.contiguous().view(-1)
+    sc = scale.to(torch.float32).contiguous()
+    out = torch.empty((sc.numel(), raw.numel()), dtype=torch.float32,
+                      device=raw.device)
+    with torch.cuda.device(raw.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = get_lib().dn_scaled_quotients(
+            raw.data_ptr(), sc.data_ptr(), out.data_ptr(), raw.numel(),
+            sc.numel(), stream)
+    check_launch(code, "dn_scaled_quotients")
+    return out

@@ -197,11 +197,14 @@ def trim_loop_cuda(
     max_rounds: int,
     min_bins: int,
     min_gene_len: int,
+    _threads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``trim_loop_plain``'s signature: one thread block
     per gene runs the whole loop while its own gene is active
     (csrc/trim.cu).  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernel or raises.  ``_threads`` overrides
+    ``cuda_nmf.pick_loop_threads`` (the timing sweep of ``chip_smoke.py
+    --sweep`` passes it; nothing else does)."""
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain,
@@ -218,6 +221,7 @@ def trim_loop_cuda(
     B = bin_count.shape[1]
     if B > MAX_BINS:
         raise ValueError(f"trim_loop_cuda: bins={B} exceeds {MAX_BINS}")
+    threads = _threads or cuda_nmf.pick_loop_threads(p, W)
     dev = Fm.device
     f32, i32 = torch.float32, torch.int32
     bin_id_c = bin_id.to(i32).contiguous()
@@ -250,7 +254,7 @@ def trim_loop_cuda(
             int(power_iters_resume or power_iters_cold),
             int(power_iters_warm), int(power_warm_plain),
             int(max_rounds), int(min_bins), int(min_gene_len),
-            cuda_nmf.pick_threads(W), stream)
+            threads, stream)
     check_launch(code, "dn_trim_loop")
     trim_launches += 1
     return K, rho, ran_bs.bool(), rounds_active

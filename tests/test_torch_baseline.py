@@ -192,6 +192,16 @@ def test_baseline_tiny_and_padding_genes_bail():
 
 # ---- wide buckets: the unfused loop around the streamed NMF ----------------
 
+# (p, W) -> threads a block of kernels 1 and 3
+LOOP_THREAD_PINS = [
+    (8, 1024, 64),       # the narrow fit's two buckets
+    (8, 4096, 256),
+    (8, 8192, 512),      # the bound of the p <= 8 instances
+    (32, 2048, 128),
+    (16, 4096, 256),     # the bound of the p > 8 instances
+    (4, 384, 32),        # one warp at least
+]
+
 WIDE_P, WIDE_W = 32, 2176          # p * W = 69,632: outside both gates
 WIDE_LENGTHS = (2176, 1500, 1900, 1300, 2050)
 
@@ -318,3 +328,55 @@ def test_unfused_hook_equals_fused_plain_loop_on_narrow_bucket(wp):
                      power_warm_plain=wp))
     for x, y in zip(r_fused, r_unfused):
         assert torch.equal(x, y)
+
+
+# ---- launch threads of the resident loop kernels (kernels 1 and 3) ---------
+
+@pytest.mark.parametrize("p,width", [(2, 8192), (4, 384), (8, 1024),
+                                     (8, 4096), (8, 8192), (16, 512),
+                                     (16, 4096), (32, 1024), (32, 2048)])
+def test_loop_threads_are_a_legal_launch(p, width):
+    """Every shape inside the resident gate gets whole warps within the
+    kernel's bound for p, and a thread's column slots fit the kernels'
+    64-bit mask of active slots."""
+    from degnorm_tpu_torch.ops import cuda_nmf
+    assert cuda_nmf.kernels_supported((8, p, width), torch.float32)
+    threads = cuda_nmf.pick_loop_threads(p, width)
+    assert threads % 32 == 0 and 32 <= threads <= cuda_nmf.max_loop_threads(p)
+    assert -(-width // threads) <= 64
+
+
+@pytest.mark.parametrize("p,width,want", LOOP_THREAD_PINS)
+def test_loop_threads_by_shape(p, width, want):
+    """Kernels 1 and 3 share one rule, a thread per 16 columns: the narrow
+    fit's launches as the committed sweep (chip_smoke.py --sweep) chose
+    them, and the bounds of the rule."""
+    from degnorm_tpu_torch.ops import cuda_nmf
+    assert cuda_nmf.pick_loop_threads(p, width) == want
+
+
+def test_plain_trim_loop_with_more_bins_than_a_warp_matches_pallas_interpret():
+    """48 trim bins (the fused kernel's 32-thread blocks of narrow genes hold
+    fewer threads than that): the plain loop against the TPU kernel in
+    interpret mode, flags and round counts equal."""
+    from degnorm_tpu.ops.pallas_trim import trim_loop_pallas
+    F, mask = degraded_bucket(47, 4, (500, 512, 450, 480), 512, np.float32)
+    nmf_cfg = NMFConfig(nmf_iter=6, bins=48)
+    eng_cfg = EngineConfig(device="cpu", use_kernels=False)
+    ti = tb.trim_inputs(_t(F), _t(mask), nmf_cfg, eng_cfg)
+    kw = tb.trim_kwargs(nmf_cfg, eng_cfg)
+    args = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+            ti.n_hi, ti.n_bins0, ti.active0)
+    assert ti.bin_count.shape[1] == 48 <= cuda_trim.MAX_BINS
+    assert int(to_np(ti.n_bins0)[to_np(ti.active0)].max()) > 32
+    Kt, rhot, rant, roundst = cuda_trim.trim_loop_plain(*args, **kw)
+    Kj, rhoj, ranj, roundsj = trim_loop_pallas(
+        *[jnp.asarray(to_np(x)) for x in args], gram_mode="vpu",
+        interpret=True, **kw)
+    assert int(to_np(roundst).max()) > 1
+    np.testing.assert_array_equal(to_np(rant), np.asarray(ranj))
+    np.testing.assert_array_equal(to_np(roundst), np.asarray(roundsj))
+    np.testing.assert_allclose(to_np(rhot), np.asarray(rhoj), rtol=5e-4,
+                               atol=5e-5)
+    np.testing.assert_allclose(to_np(Kt), np.asarray(Kj), rtol=5e-4,
+                               atol=5e-4)

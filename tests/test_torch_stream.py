@@ -25,6 +25,17 @@ from tests.torch_port_util import degraded_bucket, to_np
 
 torch.set_num_threads(1)
 
+# (active genes, W, p) -> (blocks a gene, threads)
+GEOMETRY_PINS = [
+    (16384, 8, (1, 512)),      # the W=16384 bucket of the long-tail fit
+    (65536, 8, (4, 512)),      # its W=65536 bucket
+    (32768, 8, (2, 512)),      # a custom width between them
+    (8192, 16, (2, 256)),
+    (4096, 32, (2, 256)),
+    (40000, 2, (4, 512)),
+    (2176, 32, (2, 256)),      # just past the resident gate
+]
+
 W = 2048
 KW = dict(nmf_iter=8, power_iters_cold=60, power_iters_warm=10)
 TOLS = (dict(rtol=1e-4, atol=1e-4), dict(rtol=1e-4, atol=1e-4),
@@ -208,17 +219,163 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
     assert cuda_stream.stream_launches == before
 
 
-@pytest.mark.parametrize("width,threads", [
-    (16384, 256),
-    (65536, 512),
-    (4096, 64),
-    (8192, 128),
-    (40000, 512),
-    (8320, 160),
-    (128, 64),
-])
-def test_pick_threads(width, threads):
-    """The block size the wrapper hands to csrc/stream.cu: whole warps,
-    about 8 columns a thread of a block's share, between 64 and 512."""
-    assert cuda_stream.pick_threads(width) == threads
-    assert threads % 32 == 0 and 64 <= threads <= cuda_stream.MAX_THREADS
+# ---- launch geometry of kernel 4 (ops/cuda_stream.py::pick_geometry) -------
+
+@pytest.mark.parametrize("p", [2, 8, 16, 32])
+@pytest.mark.parametrize("width", [4096, 8320, 16384, 40000, 65536])
+def test_pick_geometry_is_a_legal_launch(width, p):
+    """Every (W, p) gives a launch csrc/stream.cuh takes: whole warps within
+    the kernel's bound for p, a power-of-two cluster within the portable
+    size, and the cluster's blocks are dealt every column up to the gene's
+    last chunk exactly once."""
+    cl, threads = cuda_stream.pick_geometry(width, p)
+    assert cl in (1, 2, 4, 8)
+    assert threads % 32 == 0
+    assert 32 <= threads <= cuda_nmf.max_loop_threads(p)
+    # a thread's column slots fit the kernel's 64-bit mask
+    assert -(-cuda_stream.block_share(width, cl) // threads) <= 64
+    assert cuda_stream.RULE_SLOTS <= 64
+    assert cuda_nmf.max_loop_threads(p) == (512 if p <= 8 else 256)
+    for ncols in (1, width // 3, width):
+        dealt = [w for r in range(cl)
+                 for w in cuda_stream.block_columns(ncols, width, cl, r)]
+        nch = -(-ncols // cuda_stream.CHUNK)
+        assert sorted(dealt) == list(
+            range(min(nch * cuda_stream.CHUNK, width)))
+        share = max(len(cuda_stream.block_columns(ncols, width, cl, r))
+                    for r in range(cl))
+        assert share <= cuda_stream.block_share(width, cl)
+
+
+@pytest.mark.parametrize("width,p", [(16384, 8), (65536, 8), (8192, 16),
+                                     (4096, 32)])
+def test_pick_geometry_takes_the_smallest_cluster_within_the_slot_bound(
+        width, p):
+    """A gene gets the smallest cluster that leaves a thread at most 256 / p
+    column slots (32 at most): the next smaller one would exceed them, and
+    a wider gene never gets a smaller cluster."""
+    bound = min(cuda_stream.RULE_SLOTS, 256 // p)
+    top = cuda_nmf.max_loop_threads(p)
+
+    def slots(cl):
+        return -(-cuda_stream.block_share(width, cl) // top)
+
+    cl, threads = cuda_stream.pick_geometry(width, p)
+    assert slots(cl) <= bound or cl == cuda_stream.CLUSTERS[-1]
+    assert cl == 1 or slots(cl // 2) > bound
+    assert threads == top
+    cls = [cuda_stream.pick_geometry(w, p)[0]
+           for w in (width // 2, width, 2 * width, 4 * width)]
+    assert cls == sorted(cls)
+
+
+@pytest.mark.parametrize("width,p,want", GEOMETRY_PINS)
+def test_pick_geometry_at_the_main_path_shapes(width, p, want):
+    """The launches of the long-tail fit and the p = 16, 32 shapes, as the
+    committed sweep (chip_smoke.py --sweep) chose them."""
+    assert cuda_stream.pick_geometry(width, p) == want
+
+
+def test_wrapper_geometry_override_is_ignored_on_cpu():
+    """``_geometry`` chooses a launch; on a CPU tensor there is none and the
+    plain version's result is unchanged."""
+    raw, scale, mask = _raw_case(68, 5, 4)
+    kw = dict(nmf_iter=3, power_iters_cold=16, power_iters_warm=4,
+              power_warm_plain=1, scale=_t(scale))
+    a = cuda_stream.nmf_masked_streamed_cuda(_t(raw), _t(mask), **kw)
+    b = cuda_stream.nmf_masked_streamed_cuda(_t(raw), _t(mask),
+                                             _geometry=(4, 128), **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_raw_route_takes_int16_only():
+    """core/nmf.py::nmf_masked hands the streamed wrapper the raw tensor
+    only where it is int16 (half the bytes); a raw float32 tensor saves
+    none, so the adjusted coverage goes instead, without the scales."""
+    raw, scale, mask = _raw_case(69, 3, 4, 8320)
+    F_adj = _t(raw).to(torch.float32) / _t(scale)[None, :, None]
+    seen = []
+    orig = cuda_stream.nmf_masked_streamed_cuda
+
+    def spy(Fin, m, **kw):
+        seen.append((Fin.dtype, kw.get("scale") is not None))
+        return orig(Fin, m, **kw)
+
+    kw = dict(nmf_iter=2, power_iters_cold=8, power_iters_warm=4,
+              power_warm_plain=1, scale=_t(scale))
+    cuda_stream.nmf_masked_streamed_cuda = spy
+    try:
+        a = tn.nmf_masked(F_adj, _t(mask), F_raw=_t(raw), **kw)
+        b = tn.nmf_masked(F_adj, _t(mask),
+                          F_raw=_t(raw).to(torch.float32), **kw)
+    finally:
+        cuda_stream.nmf_masked_streamed_cuda = orig
+    assert seen == [(torch.int16, True), (torch.float32, False)]
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# ---- the quotient of the int16 + scale form (csrc/stream.cuh::scaled_i16) ---
+
+def _fma32(a, b, c):
+    """Correctly rounded float32 a * b + c of float32 arrays: the product is
+    exact in float64, the sum is taken with its exact error (TwoSum), and a
+    float64 sum that sits on a float32 tie is resolved by that error."""
+    prod = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    tot = prod + c64
+    bb = tot - prod
+    err = (prod - (tot - bb)) + (c64 - bb)
+    r = tot.astype(np.float32)
+    r64 = r.astype(np.float64)
+    up = np.nextafter(r, np.float32(np.inf))
+    dn = np.nextafter(r, np.float32(-np.inf))
+    r = np.where((tot == (r64 + up.astype(np.float64)) / 2) & (err > 0), up, r)
+    r = np.where((tot == (r64 + dn.astype(np.float64)) / 2) & (err < 0), dn, r)
+    return r.astype(np.float32)
+
+
+def test_fma_emulation_resolves_a_double_rounding_tie():
+    """2^-36 * 2^-24 + (1 + 2^-24 + ...): float64 rounds 1 + 2^-23 + 2^-24 +
+    2^-60 to the float32 tie between 1 + 2^-23 and 1 + 2^-22, which float32
+    rounding alone would send to the even neighbour; the exact sum lies above
+    the tie and rounds up."""
+    c = np.array([1 + 2.0 ** -23 + 2.0 ** -24], np.float64)
+    a = np.array([2.0 ** -36], np.float32)
+    b = np.array([2.0 ** -24], np.float32)
+    # c itself is no float32: feed the tie through the product instead
+    got = _fma32(np.array([2.0 ** -12], np.float32),
+                 np.array([2.0 ** -12 + 2.0 ** -35], np.float32),
+                 np.array([1 + 2.0 ** -23], np.float32))
+    # exact: 1 + 2^-23 + 2^-24 + 2^-47 -> above the tie -> 1 + 2^-22
+    assert got[0] == np.float32(1 + 2.0 ** -22)
+    assert c.astype(np.float32)[0] == np.float32(1 + 2.0 ** -22)  # even
+    got = _fma32(a, b, np.array([1 + 2.0 ** -23], np.float32))
+    assert got[0] == np.float32(1 + 2.0 ** -23)
+
+
+@pytest.mark.parametrize("seed,lo,hi", [(0, 0.8, 1.25), (1, 0.05, 0.2),
+                                        (2, 3.0, 40.0), (3, 0.999, 1.001),
+                                        (4, 1e-3, 1e3)])
+def test_hoisted_reciprocal_quotient_equals_ieee_divide(seed, lo, hi):
+    """q = a r; twice (e = fma(-q, s, a); q = fma(e, r, q)) with r = 1 / s
+    equals the IEEE float32 divide a / s for all 65,536 int16 numerators and
+    8 scales drawn from [lo, hi) (log-uniform), plus scales with all-ones
+    and single-bit mantissas."""
+    rng = np.random.default_rng(seed)
+    scales = np.exp(rng.uniform(np.log(lo), np.log(hi), 8)).astype(np.float32)
+    scales = np.concatenate([scales, np.array(
+        [np.nextafter(np.float32(2 * lo), np.float32(0)), lo, hi],
+        np.float32)])
+    a = np.arange(-32768, 32768).astype(np.int16).astype(np.float32)
+    for s in scales:
+        sv = np.full_like(a, s)
+        r = np.float32(1) / sv
+        q = a * r
+        for _ in range(2):
+            e = _fma32(-q, sv, a)
+            q = _fma32(e, r, q)
+        want = a / sv
+        assert np.array_equal(q.view(np.int32), want.view(np.int32)), (
+            s, int((q != want).sum()))
