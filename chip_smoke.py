@@ -17,11 +17,14 @@ CUDA device the script exits non-zero and prints no result.
 Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity``
 runs a subset (then no final result line is printed unless all ran);
 ``--ptxas`` prints the compiler's register/shared-memory report (and keeps
-its raw output in ``degnorm_tpu_torch/_build/ptxas.log``);
-``--sweep`` times kernel 4 over launch geometries and kernels 1 and 3 over
-threads a block (the measurements behind the rules in
+its raw output in ``degnorm_tpu_torch/_build/ptxas.log``) and fails on a
+kernel instance that spills outside ``SPILL_ALLOWED``;
+``--sweep`` times kernel 4 over launch geometries, kernel 3 over threads a
+block, kernel 1 over its launches (a block or a warp a gene) and kernel 2
+over blocks a gene (the measurements behind the rules in
 ``ops/cuda_stream.py::pick_geometry`` and ``ops/cuda_nmf.py::
-pick_loop_threads``) and prints no result line.
+pick_loop_threads``, ``pick_nmf_geometry``, ``pick_ratio_geometry``) and
+prints no result line.
 """
 import argparse
 import dataclasses
@@ -194,10 +197,15 @@ def bound_stream(F, mask, act, nmf_iter):
     return bound(byts, cols * nmf_ops_per_column(p, nmf_iter))
 
 
-def bound_ratio(F, mask):
+def bound_ratio(F, mask, full=False):
+    """Kernel 2: the coverage of the active columns read once in the type it
+    arrives in (2 bytes an int16 element), the whole mask, two p-vectors a
+    gene written; ``full``: every element of the coverage read (the bound
+    of a kernel that reads padding too)."""
     G, p, W = F.shape
     cols = int(mask.sum())
-    byts = G * (p * W * 4 + W + 2 * p * 4)
+    byts = (G * p * W if full else cols * p) * F.element_size() + G * (
+        W + 2 * p * 4)
     return bound(byts, cols * (p * (p + 1) + 7 * p))
 
 
@@ -284,9 +292,11 @@ def ptxas_report(log):
 # Compiled instances that may spill registers: the trim loop at PMAX = 32
 # (p > 16 inside the resident gate means W <= 2048, off both fits' paths),
 # 180 and 276 bytes that five rewrites moved by under 100.  Any other
-# instance of the three loop kernels that spills fails ``--ptxas``.
+# instance of the four kernels that spills fails ``--ptxas``.
 SPILL_ALLOWED = ("trim_loop_kernel<32,0>", "trim_loop_kernel<32,1>")
-SPILL_GATED = ("nmf_masked_kernel", "trim_loop_kernel", "nmf_streamed_kernel")
+SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
+               "trim_loop_kernel", "nmf_streamed_kernel",
+               "ratio_rowsums_kernel")
 
 
 def phase_build(ptxas):
@@ -309,8 +319,8 @@ def phase_build(ptxas):
         if refused or not any(r["kernel"].startswith(SPILL_GATED)
                               for r in report):
             raise AssertionError(
-                f"ptxas: loop-kernel instances spill registers: {refused}"
-                if refused else "ptxas: no loop kernel found in the report")
+                f"ptxas: kernel instances spill registers: {refused}"
+                if refused else "ptxas: no gated kernel found in the report")
     emit("build", seconds=round(secs, 2),
          cached=bool(build.build_info.get("cached")),
          source_seconds=build.build_info.get("source_seconds"),
@@ -320,18 +330,66 @@ def phase_build(ptxas):
 def kernel_inputs(bucket, device):
     """One whole bucket as the engine hands it to the kernels, all-zero
     padding slots included (they must bail, never NaN): scale-adjusted
-    float32 coverage and the length mask."""
+    float32 coverage, the length mask and the raw int16 upload."""
     import torch
-    F = torch.from_numpy(bucket.F).to(device).to(torch.float32)
+    raw = torch.from_numpy(bucket.F).to(device)
     lm = torch.from_numpy(bucket.len_mask()).to(device)
-    p = F.shape[1]
+    p = raw.shape[1]
     scale = torch.linspace(0.8, 1.25, p, device=device)
-    return (F / scale[None, :, None]).contiguous(), lm
+    return (raw.to(torch.float32) / scale[None, :, None]).contiguous(), lm, raw
 
 
-def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, timed=True):
-    """All three kernels against their plain versions on one bucket slice;
-    returns per-kernel measurements."""
+RATIO_REPS = 20
+
+
+def check_ratio_at(raw, lm, eng_cfg, timed=True):
+    """Kernel 2 on one bucket as the engine's initialisation hands it over:
+    the raw int16 upload and the length mask.  Equal bit for bit to the
+    kernel on the float32 cast, and within rtol/atol 1e-3 of the plain
+    version; both inputs timed over RATIO_REPS launches, beside the plain
+    version and ``torch.sum`` over the same int16 tensor (one call that reads
+    the same bytes once: a yardstick of the read, not the function)."""
+    import torch
+    from degnorm_tpu_torch.ops import cuda_nmf
+    assert raw.dtype == torch.int16
+    G, p, W = raw.shape
+    kw = dict(power_iters=eng_cfg.power_iters_cold)
+    Ff = raw.to(torch.float32)
+    got = cuda_nmf.ratio_rowsums_cuda(raw, lm, **kw)
+    got_f = cuda_nmf.ratio_rowsums_cuda(Ff, lm, **kw)
+    want = cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for g_, f_, w_, nm in zip(got, got_f, want, ("cov_sums", "est_sums")):
+        if not torch.equal(g_, f_):
+            raise AssertionError(
+                f"ratio_rowsums {nm} p={p} W={W}: int16 input differs from "
+                f"its float32 cast on {int((g_ != f_).sum())} values")
+        assert_close(g_, w_, 1e-3, 1e-3, f"ratio_rowsums {nm} p={p} W={W}")
+        errs.append(err_stats(g_, w_))
+    b_ms, b_by = bound_ratio(raw, lm)
+    out = dict(shape=[G, p, W], input="raw int16",
+               max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs), int16_equals_f32=True,
+               geometry=list(cuda_nmf.pick_ratio_geometry(p, W, G)),
+               bound_ms=b_ms, bound_by=b_by,
+               bound_full_ms=bound_ratio(raw, lm, full=True)[0],
+               f32_bound_ms=bound_ratio(Ff, lm)[0])
+    if timed:
+        out["ms"] = time_ms(lambda: cuda_nmf.ratio_rowsums_cuda(raw, lm, **kw),
+                            RATIO_REPS)
+        out["f32_input_ms"] = time_ms(
+            lambda: cuda_nmf.ratio_rowsums_cuda(Ff, lm, **kw), RATIO_REPS)
+        out["torch_sum_i16_ms"] = time_ms(lambda: torch.sum(raw, dim=2),
+                                          RATIO_REPS)
+        out["plain_ms"] = time_ms(
+            lambda: cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw), 3)
+    return out
+
+
+def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True):
+    """Kernels 1-3 against their plain versions on one bucket (kernel 2 on
+    its raw int16 form ``raw``); returns per-kernel measurements."""
     import torch
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
@@ -340,23 +398,7 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, timed=True):
     reps = 3
 
     # kernel 2: ratio-SVD row sums (initialisation sees raw coverage)
-    kw = dict(power_iters=eng_cfg.power_iters_cold)
-    got = cuda_nmf.ratio_rowsums_cuda(F_adj, lm, **kw)
-    want = cuda_nmf.ratio_rowsums_plain(F_adj, lm, **kw)
-    torch.cuda.synchronize()
-    errs = []
-    for g_, w_, nm in zip(got, want, ("cov_sums", "est_sums")):
-        assert_close(g_, w_, 1e-3, 1e-3, f"ratio_rowsums {nm} W={W}")
-        errs.append(err_stats(g_, w_))
-    b_ms, b_by = bound_ratio(F_adj, lm)
-    out["ratio_rowsums"] = dict(
-        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-        bound_ms=b_ms, bound_by=b_by)
-    if timed:
-        out["ratio_rowsums"]["ms"] = time_ms(
-            lambda: cuda_nmf.ratio_rowsums_cuda(F_adj, lm, **kw), reps)
-        out["ratio_rowsums"]["plain_ms"] = time_ms(
-            lambda: cuda_nmf.ratio_rowsums_plain(F_adj, lm, **kw), reps)
+    out["ratio_rowsums"] = check_ratio_at(raw, lm, eng_cfg, timed)
 
     # the trim loop's inputs, computed with the plain versions so that both
     # sides of every comparison below see identical inputs
@@ -364,18 +406,27 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, timed=True):
     ti = baseline.trim_inputs(F_adj, lm, nmf_cfg, plain_cfg)
     nkw = baseline._nmf_kwargs(nmf_cfg, eng_cfg)
 
-    # kernel 1: cold start with inactive genes (every 7th, and the bailed)
+    # kernel 1: cold start with inactive genes (every 7th, and the bailed),
+    # on the launch the rule picks and on the other one
     act = ~ti.bailed
     act[::7] = False
-    got = cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act, **nkw)
+    geo = cuda_nmf.pick_nmf_geometry(p, W, G)
+    other = (("block", cuda_nmf.pick_loop_threads(p, W)) if geo[0] == "warp"
+             else ("warp", 32 * cuda_nmf.GENE_WARPS)
+             if p <= cuda_nmf.GENE_WARP_MAX_P else None)
     want = cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act, **nkw)
-    torch.cuda.synchronize()
     errs = []
-    for g_, w_, nm in zip(got, want, ("K", "E", "u")):
-        assert_close(g_, w_, 1e-3, 1e-3, f"nmf_masked {nm} W={W} (cold)")
-        errs.append(err_stats(g_, w_))
-        if bool((g_[~act] != 0).any()):
-            raise AssertionError(f"nmf_masked {nm}: inactive gene not zero")
+    for g in (geo, other)[:2 if other else 1]:
+        got = cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
+                                       _geometry=g, **nkw)
+        torch.cuda.synchronize()
+        for g_, w_, nm in zip(got, want, ("K", "E", "u")):
+            assert_close(g_, w_, 1e-3, 1e-3,
+                         f"nmf_masked {nm} p={p} W={W} {g} (cold)")
+            errs.append(err_stats(g_, w_))
+            if bool((g_[~act] != 0).any()):
+                raise AssertionError(f"nmf_masked {nm} {g}: inactive gene "
+                                     "not zero")
     # ... and the resume case of the trim rounds: u0 given, fewer cold steps
     rkw = dict(nkw, power_iters_cold=eng_cfg.power_iters_resume)
     got_r = cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
@@ -384,12 +435,17 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, timed=True):
                                        u0=want[2], **rkw)
     torch.cuda.synchronize()
     for g_, w_, nm in zip(got_r, want_r, ("K", "E", "u")):
-        assert_close(g_, w_, 1e-3, 1e-3, f"nmf_masked {nm} W={W} (u0 resume)")
+        assert_close(g_, w_, 1e-3, 1e-3,
+                     f"nmf_masked {nm} p={p} W={W} {geo} (u0 resume)")
         errs.append(err_stats(g_, w_))
+        if bool((g_[~act] != 0).any()):
+            raise AssertionError(f"nmf_masked {nm}: inactive gene not zero")
     b_ms, b_by = bound_nmf(ti.Fm, ti.hi, act, nmf_cfg.nmf_iter)
     out["nmf_masked"] = dict(
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-        inactive_genes=int((~act).sum()), bound_ms=b_ms, bound_by=b_by)
+        inactive_genes=int((~act).sum()), geometry=list(geo),
+        other_geometry=list(other) if other else None, bound_ms=b_ms,
+        bound_by=b_by)
     if timed:
         out["nmf_masked"]["ms"] = time_ms(
             lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
@@ -485,7 +541,8 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
     (b) raw int16 + scale, equal to (a) bit for bit; (c) every 7th gene and
     the bailed ones inactive (zeros out), then a u0 resume at the resume
     count; (d) a second launch geometry; (e) the exhaustive quotient check.
-    Also kernel 2 on the same bucket.  Returns measurements."""
+    Also kernel 2 on the same bucket (``check_ratio_at``).  Returns
+    measurements."""
     import torch
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
@@ -583,23 +640,7 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
             lambda: cuda_stream.nmf_masked_streamed_plain(F_adj, hi, **nkw),
             1, warm=False))
     if with_ratio:
-        kw = dict(power_iters=eng_cfg.power_iters_cold)
-        Ff = raw.to(torch.float32)
-        got = cuda_nmf.ratio_rowsums_cuda(Ff, lm, **kw)
-        want_q = cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw)
-        torch.cuda.synchronize()
-        qerr = []
-        for g_, w_, nm in zip(got, want_q, ("cov_sums", "est_sums")):
-            assert_close(g_, w_, 1e-3, 1e-3, f"ratio_rowsums {nm} W={W}")
-            qerr.append(err_stats(g_, w_))
-        rb_ms, rb_by = bound_ratio(Ff, lm)
-        out["ratio_rowsums"] = dict(
-            max_abs_err=max(e[0] for e in qerr),
-            max_rel_err=max(e[1] for e in qerr), bound_ms=rb_ms,
-            bound_by=rb_by,
-            ms=time_ms(lambda: cuda_nmf.ratio_rowsums_cuda(Ff, lm, **kw), reps),
-            plain_ms=time_ms(
-                lambda: cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw), reps))
+        out["ratio_rowsums"] = check_ratio_at(raw, lm, eng_cfg)
     return out
 
 
@@ -628,9 +669,13 @@ def phase_kernels(cov, cov_wide):
     it at.  Kernels 1-3: the two whole buckets the engine packs from the
     narrow dataset (p=8; W=1024 and W=4096; every slot, with inactive genes
     and a u0-resume case), after three small odd shapes: two for the other
-    template instances, one with 48 trim bins on 32-thread blocks.  Kernel 4 (and kernel 2 again): the two whole
-    buckets of the long genes (p=8; W=16384 and W=65536), after p=32,
-    W=4096 and p=16, W=8192 at 48 genes and p=2, W=40000 at 12.
+    template instances (p=3, W=384; p=16, W=512), one with 48 trim bins on
+    32-thread blocks, and p=32, W=2048.  Kernel 1 runs on the launch the
+    rule picks and on the other one (a block or a warp a gene), kernel 2 on
+    the raw int16 form, bit-equal to its float32 cast.  Kernel 4 (and kernel
+    2 again): the two whole buckets of the long genes (p=8; W=16384 and
+    W=65536), after p=32, W=4096 and p=16, W=8192 at 48 genes and p=2,
+    W=40000 at 12.
     Tolerances: kernels 1-3 K, E, u and row sums rtol 1e-3 / atol 1e-3
     (float32 reduction order over W differs); trim loop ran_bs and
     rounds_active equal on >= 99% of genes, rho atol 5e-4 on >= 99%;
@@ -644,11 +689,12 @@ def phase_kernels(cov, cov_wide):
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
     eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
     res = {}
-    # other template instances (p <= 4 and p <= 16) and more trim bins than
-    # a block of the trim kernel has threads (48 against 32), correctness only
+    # other template instances (p <= 4, p <= 16, p = 32) and more trim bins
+    # than a block of the trim kernel has threads (48 against 32),
+    # correctness only
     rng = np.random.default_rng(SEED + 1)
     for p, W, G, bins in ((3, 384, 48, 20), (16, 512, 32, 20),
-                          (8, 512, 48, 48)):
+                          (8, 512, 48, 48), (32, 2048, 32, 20)):
         small, _ = synth_dataset(G, p, seed=SEED + p)
         F = np.zeros((G, p, W), np.float32)
         lens = np.zeros(G, np.int64)
@@ -657,9 +703,10 @@ def phase_kernels(cov, cov_wide):
             F[i, :, :L] = m[:, :L]
             lens[i] = L
         lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(dev)
-        assert cuda_nmf.pick_loop_threads(p, W) == 32
+        assert bins <= 32 or cuda_nmf.pick_loop_threads(p, W) == 32
         r = check_kernels_at(torch.from_numpy(F).to(dev), lm,
                              NMFConfig(nmf_iter=20, bins=bins), eng_cfg,
+                             torch.from_numpy(F.astype(np.int16)).to(dev),
                              timed=False)
         res[f"p{p}_W{W}_bins{bins}"] = dict(
             {k: v["max_abs_err"] for k, v in r.items()},
@@ -672,10 +719,10 @@ def phase_kernels(cov, cov_wide):
                            dtype=np.int16)
     assert sorted(b.width for b in buckets) == sorted(BUCKET_WIDTHS)
     for b in buckets:
-        F_adj, lm = kernel_inputs(b, dev)
-        res[b.width] = check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg)
+        F_adj, lm, raw = kernel_inputs(b, dev)
+        res[b.width] = check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw)
         res[b.width]["shape"] = list(F_adj.shape)
-        del F_adj, lm
+        del F_adj, lm, raw
         torch.cuda.empty_cache()
     # kernel 4: the shapes where p = 32 and p = 16 leave the resident gate,
     # and a width that is no multiple of the column chunk (p <= 4 instance)
@@ -699,10 +746,11 @@ def phase_kernels(cov, cov_wide):
         torch.cuda.empty_cache()
     emit("kernels",
          kernels=["nmf_masked", "ratio_rowsums", "trim_loop", "nmf_streamed"],
-         tolerance="kernels 1-3: K,E,u,row sums rtol 1e-3 atol 1e-3; trim "
-                   "flags >= 99% equal, rho atol 5e-4 on >= 99%; kernel 4: "
-                   "K,E,u within 1e-5 of max(|value|, 1), raw int16 input "
-                   "bit-equal to float32 input",
+         tolerance="kernels 1-3: K,E,u,row sums rtol 1e-3 atol 1e-3 (kernel "
+                   "1 on both launches); trim flags >= 99% equal, rho atol "
+                   "5e-4 on >= 99%; kernel 2 and kernel 4: raw int16 input "
+                   "bit-equal to float32 input; kernel 4: K,E,u within 1e-5 "
+                   "of max(|value|, 1)",
          launches=dict(nmf_masked=cuda_nmf.nmf_launches,
                        ratio_rowsums=cuda_nmf.ratio_launches,
                        trim_loop=cuda_trim.trim_launches,
@@ -749,8 +797,9 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
         each = [round(float(getattr(ev, "self_device_time_total", getattr(
             ev, "self_cuda_time_total", 0.0))) / 1e3, 4) for ev in evs]
     ours = {}
-    for tag in ("nmf_masked_kernel", "ratio_rowsums_kernel",
-                "trim_loop_kernel", "nmf_streamed_kernel"):
+    for tag in ("nmf_masked_kernel", "nmf_masked_warp_kernel",
+                "ratio_rowsums_kernel", "trim_loop_kernel",
+                "nmf_streamed_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -981,8 +1030,12 @@ def phase_sweep(cov, cov_wide):
     """Times only (correctness is phase ``kernels``): kernel 4 over launch
     geometries (blocks a gene x threads) at the two whole wide buckets, the
     p=16 and p=32 shapes and two late trim rounds kept by ``fit_wide``;
-    kernels 1 and 3 over threads a block at the two whole narrow buckets.  Each line names the choice of the wrappers' rules beside the
-    timings, so the rule can be read against the sweep."""
+    kernel 3 over threads a block and kernel 1 over its launches (a block a
+    gene over threads, a warp a gene over warps a block) at the two whole
+    narrow
+    buckets; kernel 2 over blocks a gene and threads at all four buckets.
+    Each line names the choice of the wrappers' rules beside the timings,
+    so the rule can be read against the sweep."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.core import baseline
@@ -1008,6 +1061,19 @@ def phase_sweep(cov, cov_wide):
              columns=["(blocks a gene, threads)", "ms", "ms (reverse pass)"],
              times=res)
 
+    def sweep_ratio(tag, raw, lm):
+        G, p, W = raw.shape
+        kw = dict(power_iters=wide_cfg.power_iters_cold)
+        res = sweep_times(
+            lambda c: cuda_nmf.ratio_rowsums_cuda(raw, lm, _geometry=c, **kw),
+            [(cl, t, kb) for cl in (1, 2, 4, 8) for t in (64, 128, 256)
+             for kb in (0, 24, 48, 96)], reps=RATIO_REPS)
+        emit("sweep_ratio", case=tag, shape=[G, p, W], input="raw int16",
+             rule=list(cuda_nmf.pick_ratio_geometry(p, W, G)),
+             columns=["(blocks a gene, threads, KB copied)", "ms",
+                      "ms (reverse pass)"],
+             times=res)
+
     for G, p, W in ((48, 32, 4096), (48, 16, 8192)):
         raw, lm = small_wide_bucket(G, p, W, SEED + p, dev)
         scale = torch.linspace(0.8, 1.25, p, device=dev)
@@ -1021,6 +1087,7 @@ def phase_sweep(cov, cov_wide):
         scale = torch.linspace(0.8, 1.25, raw.shape[1], device=dev)
         sweep_stream(f"whole bucket W={b.width}", raw, lm,
                      dict(nkw, scale=scale), raw.shape[0])
+        sweep_ratio(f"whole bucket W={b.width}", raw, lm)
         del raw, lm
         torch.cuda.empty_cache()
     for Fin, m, kw in LATE_STATES:
@@ -1032,8 +1099,9 @@ def phase_sweep(cov, cov_wide):
     buckets = pack_buckets(list(cov.values()), bucket_widths=BUCKET_WIDTHS,
                            dtype=np.int16)
     for b in buckets:
-        F_adj, lm = kernel_inputs(b, dev)
+        F_adj, lm, raw = kernel_inputs(b, dev)
         G, p, W = F_adj.shape
+        sweep_ratio(f"whole bucket W={W}", raw, lm)
         ti = baseline.trim_inputs(F_adj, lm, nmf_cfg, plain_cfg)
         targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
                  ti.n_hi, ti.n_bins0, ti.active0)
@@ -1044,17 +1112,26 @@ def phase_sweep(cov, cov_wide):
         def run_trim(t):
             return cuda_trim.trim_loop_cuda(*targs, _threads=t[0], **tkw)
 
-        def run_nmf(t):
+        emit("sweep_resident", kernel="trim_loop", shape=[G, p, W],
+             rule=[cuda_nmf.pick_loop_threads(p, W)],
+             columns=["(threads)", "ms", "ms (reverse pass)"],
+             times=sweep_times(run_trim, [(t,) for t in choices]))
+
+        # kernel 1: a block a gene over threads; a warp a gene over warps a
+        # block
+        def run_nmf(c):
             return cuda_nmf.nmf_masked_cuda(
-                ti.Fm, ti.hi, gene_active=act, _threads=t[0],
+                ti.Fm, ti.hi, gene_active=act, _geometry=c,
                 **baseline._nmf_kwargs(nmf_cfg, eng_cfg))
 
-        for name, run in (("trim_loop", run_trim), ("nmf_masked", run_nmf)):
-            emit("sweep_resident", kernel=name, shape=[G, p, W],
-                 rule=[cuda_nmf.pick_loop_threads(p, W)],
-                 columns=["(threads)", "ms", "ms (reverse pass)"],
-                 times=sweep_times(run, [(t,) for t in choices]))
-        del F_adj, lm, ti, targs
+        configs = [("block", t) for t in choices] + [
+            ("warp", 32 * w) for w in (2, 4, 8)
+            if p <= cuda_nmf.GENE_WARP_MAX_P]
+        emit("sweep_resident", kernel="nmf_masked", shape=[G, p, W],
+             rule=list(cuda_nmf.pick_nmf_geometry(p, W, G)),
+             columns=["(launch, threads)", "ms", "ms (reverse pass)"],
+             times=sweep_times(run_nmf, configs))
+        del F_adj, lm, raw, ti, targs
         torch.cuda.empty_cache()
 
 
@@ -1156,8 +1233,14 @@ def kernels_line(kres, launches, launches_wide):
         "nmf_streamed": "degnorm_tpu_torch/csrc/stream.cuh",
     }
     kernels = []
+    extra_keys = {
+        "nmf_masked": ("geometry",),
+        "ratio_rowsums": ("input", "geometry", "f32_input_ms",
+                          "torch_sum_i16_ms", "bound_full_ms", "f32_bound_ms"),
+        "trim_loop": ()}
     for name in ("nmf_masked", "ratio_rowsums", "trim_loop"):
         m, wide = main_shape[name], kres[4096][name]
+        extra = {k: m[k] for k in extra_keys[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches[name],
@@ -1165,18 +1248,18 @@ def kernels_line(kres, launches, launches_wide):
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None,
-            "shape": main_shape["shape"],
+            "shape": main_shape["shape"], **extra,
             **({"bound_note": TRIM_BOUND_NOTE} if name == "trim_loop" else {}),
             "wide": {"shape": kres[4096]["shape"], "ms": wide["ms"],
                      "plain_ms": wide["plain_ms"],
                      "bound_ms": wide["bound_ms"],
-                     "bound_by": wide["bound_by"]},
+                     "bound_by": wide["bound_by"],
+                     **{k: wide[k] for k in extra_keys[name]}},
             "launches_fit_wide": launches_wide[name],
         })
     # kernel 2 also runs on the wide buckets (initialisation of fit_wide)
-    kernels[1]["fit_wide_shapes"] = [
-        dict(shape=kres[f"stream_{w}"]["shape"],
-             **kres[f"stream_{w}"]["ratio_rowsums"]) for w in WIDE_WIDTHS]
+    kernels[1]["fit_wide_shapes"] = [kres[f"stream_{w}"]["ratio_rowsums"]
+                                     for w in WIDE_WIDTHS]
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
             "f32_input_ms", "geometry")
     m = kres[f"stream_{WIDE_WIDTHS[0]}"]
@@ -1205,10 +1288,9 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--sweep", action="store_true",
-                    help="time kernel 4 over launch geometries and kernels 1 "
-                         "and 3 over threads a block (phases "
-                         "env, build, fit_wide, then the sweep; no result "
-                         "line)")
+                    help="time kernels 1-4 over their launch geometries "
+                         "(phases env, build, fit_wide, then the sweep; no "
+                         "result line)")
     args = ap.parse_args(argv)
     phases = [s for s in args.phases.split(",") if s]
     if args.sweep:

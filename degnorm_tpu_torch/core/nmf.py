@@ -85,7 +85,8 @@ def ratio_svd_rowsums(
     (reference ``ratio_svd``, nmf.py:109-121): per-sample sums of F and of
     max(K·E, F), both over active columns.  Returns (cov_sums, est_sums).
     The kernel takes every width, so a wide bucket's initialisation runs in
-    it too (the JAX package leaves that one to XLA)."""
+    it too (the JAX package leaves that one to XLA), and int16 coverage as
+    it is: both paths compute on its exact float32 values."""
     fn = (cuda_nmf.ratio_rowsums_cuda if use_kernels
           else cuda_nmf.ratio_rowsums_plain)
     return fn(F, mask, power_iters=power_iters)

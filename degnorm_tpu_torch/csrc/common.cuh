@@ -3,17 +3,19 @@
 // Replaces the shared helpers of the TPU kernels in
 // degnorm_tpu/ops/pallas_nmf.py (_gram, _power, _power_warm, _rank1_uv,
 // _finish_KE, _nmf_loop), which ops/pallas_trim.py imports the same way
-// this header is included by nmf.cu, ratio.cu, trim.cu and stream.cuh.
+// this header is included by nmf.cu, ratio.cuh, trim.cu and stream.cuh.
 //
 // nmf_core below is the whole Lagrangian NMF-OA loop of one gene, shared by
-// kernel 1 (nmf.cu), kernel 3 (trim.cu) and kernel 4 (stream.cuh).  A thread
-// owns whole columns of the gene's (p, W) matrix, so one sweep per
-// Lagrangian iteration does everything that touches the wide axis:
+// kernel 1 (nmf.cu: a block or a warp a gene), kernel 3 (trim.cu) and kernel
+// 4 (stream.cuh).  A thread owns whole columns of the gene's (p, W) matrix,
+// so one sweep per Lagrangian iteration does everything that touches the
+// wide axis:
 // v_w = sum_i X[i,w] u_i (the previous iterate's right vector, never
 // stored), the X-form multiplier update, and the Gram of the new X.  Where
 // the columns come from and where X lives is the caller's `Src`; how the
 // Gram partials of the warps (and, in stream.cuh, of a cluster's blocks) are
-// brought together is the caller's `Red`.
+// brought together is the caller's `Red`; which threads run the gene is the
+// caller's `Geo` (the block, or one warp with its own workspace).
 //
 // What bounds a sweep on this card is not its float32 operations (about
 // p(p+1) + 8p a column) nor its bytes, but latency: a thread needs about 120
@@ -63,7 +65,6 @@
 // is predicated on a runtime p, which costs a third of a sweep's time.
 #define DN_ROW(i) (FULL || (i) < p)
 #define DN_EPS 1e-30f
-#define DN_MAX_WARPS 8  // ratio kernel; the loop kernels: dn_max_warps
 #define DN_FULL 0xffffffffu
 #define DN_TILE_STRIDE 33  // floats a row of a warp's Gram tile
 
@@ -157,45 +158,6 @@ __device__ __forceinline__ void warp_reduce_store(const float (&acc)[N],
 template <int PMAX>
 __device__ __forceinline__ int packed_index(int a, int b) {
   return a * PMAX - (a * (a - 1)) / 2 + (b - a);
-}
-
-// Per-block shared workspace of the ratio kernel's rank-1 step (warp 0 runs
-// it there: one step a launch); MAXW is the most warps a block may have.
-template <int PMAX, int MAXW = DN_MAX_WARPS>
-struct NmfSmem {
-  static constexpr int NG = PMAX * (PMAX + 1) / 2;  // packed upper triangle
-  static constexpr int NR = NG + 2 * PMAX;          // widest reduction
-  float part[MAXW * NR];          // per-warp partial sums
-  float red[NR];                  // reduced values (read by warp 0)
-  float u[PMAX];                  // unit left vector
-  float K[PMAX];                  // u * s
-  float s;                        // singular value
-};
-
-// Block-wide sum of N per-thread values into out[0..N).  Only warp 0 may
-// read `out` when this returns; the caller must __syncthreads() before
-// `part` or `out` are written again and before other warps read `out`.
-template <int N>
-__device__ __forceinline__ void block_reduce(const float (&acc)[N], float* part,
-                                             float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  // plain shuffle sums: the ratio kernel is bound by bytes, and the few
-  // registers of this form keep its blocks an SM up
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float v = warp_sum(acc[k]);
-    if (lane == 0) part[warp * N + k] = v;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    for (int k = lane; k < N; k += 32) {
-      float s = 0.f;
-      for (int w = 0; w < nw; ++w) s += part[w * N + k];
-      out[k] = s;
-    }
-    __syncwarp();
-  }
 }
 
 // acc += upper triangle of x x^T (row-major packed, j >= i).
@@ -396,24 +358,6 @@ __device__ __forceinline__ float power_refit(const float (&row)[PMAX], float u,
   return u;
 }
 
-// Warp 0 of the ratio kernel: refit u from the packed Gram in sm.red, then
-// s and K = u * s.
-template <int PMAX, int MAXW>
-__device__ __forceinline__ void warp0_refit(NmfSmem<PMAX, MAXW>& sm,
-                                            int n_squared) {
-  const int lane = threadIdx.x & 31;
-  float row[PMAX];
-  load_gram_row<PMAX>(sm.red, lane, row);
-  float s = 0.f;
-  float u = lane < PMAX ? sm.u[lane] : 0.f;
-  u = power_refit<PMAX>(row, u, n_squared, 0, true, s);
-  if (lane < PMAX) {
-    sm.K[lane] = u * s;
-    sm.u[lane] = u;
-  }
-  if (lane == 0) sm.s = s;
-}
-
 // Floats of dynamic shared memory a warp of a p >= 16 instance works in: its
 // Gram tile and, after it, its copy of u (UVec).
 template <int PMAX>
@@ -527,17 +471,105 @@ struct UVec<PMAX, true> {
   __device__ __forceinline__ float operator[](int i) const { return us[i]; }
 };
 
+// The threads that run one gene's loop in nmf_core: the whole block (kernels
+// 1, 3 and 4: BlockGeo) or one warp of it (kernel 1's warp-a-gene launch:
+// WarpGeo, whose constants let the compiler drop the block arithmetic).
+struct BlockGeo {
+  __device__ __forceinline__ int threads() const { return blockDim.x; }
+  __device__ __forceinline__ int warp() const { return threadIdx.x >> 5; }
+};
+struct WarpGeo {
+  __device__ __forceinline__ int threads() const { return 32; }
+  __device__ __forceinline__ int warp() const { return 0; }
+};
+
+// The reduction of a warp that owns a whole gene: after the butterfly the
+// warp's Gram partial IS the gene's Gram, so there is no block barrier and
+// no cross-warp sum, only a __syncwarp on each side of the flush.  `part`
+// is the warp's own NG floats of shared memory.
+template <int PMAX>
+struct WarpRed {
+  float* part;
+
+  template <class G>
+  __device__ __forceinline__ float refit(G& gram, int, float u, int n_squared,
+                                         int n_plain, bool finish, float& s) {
+    const int lane = threadIdx.x & 31;
+    __syncwarp();  // every lane has read the previous sweep's Gram
+    gram.flush(part, lane);
+    __syncwarp();
+    float row[PMAX];
+    load_gram_row<PMAX>(part, lane, row);
+    return power_refit<PMAX>(row, u, n_squared, n_plain, finish, s);
+  }
+};
+
+// The active columns of one gene, compacted by the caller: slot l is column
+// idx[l], l < n, so a sweep walks ceil(n / 32) groups with every lane on.
+// X of the first xcap slots and the masked coverage (A0) of the first acap
+// slots sit in shared memory (rows of xcap / acap floats, written by the cold
+// sweep); X of the others in the gene's global scratch at compact positions
+// (rows of W floats, so a row's loads are coalesced), and their A0 is read
+// from F again each sweep.  E is written at the active columns only: the
+// caller zeroes the others.
+template <int PMAX, bool FULL>
+struct CompactSrc {
+  const float* __restrict__ F;
+  const uint16_t* idx;
+  float* Xg;
+  float* Xs;
+  float* As;
+  float* E;
+  int p, W, n, xcap, acap;
+  __device__ __forceinline__ int n_local() const { return n; }
+  __device__ __forceinline__ bool on(int l) const { return l < n; }
+  __device__ __forceinline__ float a_at(int l, int i) const {
+    if (!DN_ROW(i)) return 0.f;
+    return l < acap ? As[i * acap + l] : F[i * W + idx[l]];
+  }
+  __device__ __forceinline__ void load_a0(int l, float (&a)[PMAX]) const {
+    const int w = idx[l];
+    const bool keep = l < acap;
+#pragma unroll
+    for (int i = 0; i < PMAX; ++i) {
+      a[i] = DN_ROW(i) ? F[i * W + w] : 0.f;
+      if (keep && DN_ROW(i)) As[i * acap + l] = a[i];
+    }
+  }
+  __device__ __forceinline__ void load_x(int l, float (&x)[PMAX]) const {
+    const bool loc = l < xcap;
+    const float* base = loc ? Xs : Xg;
+    const int stride = loc ? xcap : W;
+#pragma unroll
+    for (int i = 0; i < PMAX; ++i)
+      x[i] = DN_ROW(i) ? base[i * stride + l] : 0.f;
+  }
+  __device__ __forceinline__ void store_x(int l, const float (&x)[PMAX]) const {
+    const bool loc = l < xcap;
+    float* base = loc ? Xs : Xg;
+    const int stride = loc ? xcap : W;
+#pragma unroll
+    for (int i = 0; i < PMAX; ++i)
+      if (DN_ROW(i)) base[i * stride + l] = x[i];
+  }
+  __device__ __forceinline__ void store_e(int l, float e) const {
+    if (l < n) E[idx[l]] = e;
+  }
+};
+
 // The whole Lagrangian NMF-OA loop for the gene of `src`, by every thread of
-// the block (or of the cluster's blocks: `red` then sums across them).
+// the block (or of the cluster's blocks: `red` then sums across them), or by
+// one warp (Geo = WarpGeo: `tiles` is then that warp's own workspace).
 //   u_lane: the start vector, lane i of every warp holds u_i (0 beyond p).
 // Returns this thread's share of sum_w E[w]; u_lane and s come back refit
 // and identical in every warp; E is written through src.store_e.
-template <int PMAX, class Src, class Red>
+template <int PMAX, class Geo = BlockGeo, class Src, class Red>
 __device__ __forceinline__ float nmf_core(Src& src, Red& red, float* tiles,
                                           float& u_lane, float& s, int nmf_iter,
                                           int power_cold, int power_warm,
                                           int warm_plain) {
-  const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Geo geo{};
+  const int nt = geo.threads(), lane = threadIdx.x & 31, warp = geo.warp();
   const int nloc = src.n_local();
   const float step =
       nmf_iter > 0 ? (float)(1.0 / sqrt((double)nmf_iter)) : 0.f;

@@ -95,8 +95,13 @@ def _bucket_step(F: torch.Tensor, len_mask: torch.Tensor,
 def _bucket_init(F: torch.Tensor, len_mask: torch.Tensor,
                  eng_cfg: EngineConfig):
     """Initialization: ratio-SVD row sums on the raw coverage
-    (nmf.py:522-526), at any bucket width."""
-    Ff = F.to(_torch_dtype(eng_cfg.dtype))
+    (nmf.py:522-526), at any bucket width.  A float32 engine hands the int16
+    upload over as it is (kernel 2 reads it at half the bytes, and both it
+    and the plain version compute on its exact float32 values); any other
+    upload is cast to the compute dtype first."""
+    dtype = _torch_dtype(eng_cfg.dtype)
+    uncast = F.dtype == torch.int16 and dtype == torch.float32
+    Ff = F if uncast else F.to(dtype)
     return ratio_svd_rowsums(Ff, len_mask,
                              power_iters=eng_cfg.power_iters_cold,
                              use_kernels=eng_cfg.use_kernels)

@@ -41,8 +41,12 @@ _SIGNATURES = {
     # power_warm, warm_plain, threads, stream
     "dn_nmf_masked": [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # F, mask, cov_sums, est_sums, G, p, W, power_cold, threads, stream
-    "dn_ratio_rowsums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # F, mask, act, u0, next, X, K, E, u, G, p, W, nmf_iter, power_cold,
+    # power_warm, warm_plain, threads, stream
+    "dn_nmf_masked_warp": [_P] * 9 + [_I] * 8 + [_P],
+    # F, f_is_i16, mask, cov_sums, est_sums, G, p, W, power_cold, cl,
+    # threads, stage_kb, stream
+    "dn_ratio_rowsums": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
     # Fm, bin_id, bin_count, K0, E, rho0, u0, n_hi, n_bins, active0,
     # X, colmask, K, rho, ran_bs, rounds_active,
     # G, p, W, B, nmf_iter, power_resume, power_warm, warm_plain,

@@ -4,7 +4,7 @@ wrappers and their plain PyTorch versions.
 Counterpart of ``degnorm_tpu/ops/pallas_nmf.py`` (``nmf_masked_pallas`` and
 ``ratio_rowsums_pallas``).  Each wrapper takes its plain version only for a
 tensor that lies on the CPU; for a CUDA tensor it launches the kernel
-(``csrc/nmf.cu``, ``csrc/ratio.cu``) or raises.  Each wrapper counts its
+(``csrc/nmf.cu``, ``csrc/ratio.cuh``) or raises.  Each wrapper counts its
 launches in a module-level int.
 """
 from __future__ import annotations
@@ -47,11 +47,14 @@ def kernels_supported(shape, dtype) -> bool:
             and p * W <= MAX_PW)
 
 
-def check_coverage_input(F: torch.Tensor, name: str) -> None:
+def check_coverage_input(F: torch.Tensor, name: str,
+                         int16_ok: bool = False) -> None:
     """What every kernel needs of its coverage tensor (and all that kernel 2
-    needs): float32, contiguous, 2 <= p <= MAX_P.  Raises; never falls back."""
-    if F.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernels are float32, got {F.dtype}")
+    needs): float32 (or int16 where ``int16_ok``: kernel 2 reads the raw
+    upload), contiguous, 2 <= p <= MAX_P.  Raises; never falls back."""
+    if F.dtype != torch.float32 and not (int16_ok and F.dtype == torch.int16):
+        raise TypeError(f"{name}: the CUDA kernels are float32"
+                        f"{' or int16' if int16_ok else ''}, got {F.dtype}")
     if not F.is_contiguous():
         raise ValueError(f"{name}: coverage tensor must be contiguous")
     p = F.shape[1]
@@ -72,12 +75,6 @@ def check_kernel_input(F: torch.Tensor, name: str) -> None:
             "nmf_masked_streamed_cuda (core/nmf.py routes by this gate)")
 
 
-def pick_threads(W: int) -> int:
-    """Threads per block of kernel 2 (one block per gene): about 8 columns a
-    thread."""
-    return int(min(256, max(64, (W // 8 + 31) // 32 * 32)))
-
-
 def max_loop_threads(p: int) -> int:
     """Most threads a block of kernels 1, 3 and 4 may have
     (``dn_max_warps`` of csrc/common.cuh): the p > 8 instances keep a Gram
@@ -94,6 +91,75 @@ def pick_loop_threads(p: int, W: int) -> int:
     the kernels' 64-bit mask of active slots, which any W inside the gate
     does."""
     return min(max_loop_threads(p), max(32, (W // 16 + 31) // 32 * 32))
+
+
+# The card the launch rules were measured on (``chip_smoke.py --sweep``):
+# an H100's SMs.
+SMS = 132
+
+
+def pmax_of(p: int) -> int:
+    """The template instance a p runs in (``DN_DISPATCH_P``)."""
+    return 4 if p <= 4 else 8 if p <= 8 else 16 if p <= 16 else 32
+
+
+def warp_slots(p: int) -> int:
+    """Warps the card holds at once in the loop kernels at p: 16 an SM at
+    p <= 8 (their launch bound leaves 128 registers a thread), 8 above."""
+    return SMS * max_loop_threads(p) // 32
+
+
+def warp_gene_bytes(p: int, W: int) -> int:
+    """Shared memory one warp of the warp-a-gene kernel 1 needs with X in
+    device memory: its Gram, its Gram tile and u at p >= 16, and W uint16
+    column indices (mirror of ``warp_gene_floats`` in csrc/nmf.cu)."""
+    P = pmax_of(p)
+    work = P * 33 + P if P >= 16 else 0
+    return 4 * (P * (P + 1) // 2 + work + (W + 1) // 2)
+
+
+# Warps a block of the warp-a-gene launch of kernel 1, and the largest p it
+# takes (its PMAX = 32 instance spilled registers: csrc/nmf.cu).
+GENE_WARPS = 4
+GENE_WARP_MAX_P = 16
+
+
+def pick_nmf_geometry(p: int, W: int, G: int) -> Tuple[str, int]:
+    """Launch of kernel 1 for a (G, p, W) bucket: ("block", threads), one
+    block a gene with ``pick_loop_threads`` threads, or ("warp", threads),
+    one warp a gene and ``threads / 32`` genes a block at a time.
+
+    A warp a gene pays a sweep's fixed cost (the Gram reduction and the
+    power step) once instead of once a warp, but gives a gene 32 threads:
+    it wins where the bucket has enough genes to fill the card's warps
+    (``warp_slots``); a bucket of fewer, wider genes keeps a block a gene
+    (the measurements: PERF.md, ``chip_smoke.py --sweep``).  p above
+    ``GENE_WARP_MAX_P`` always takes a block a gene."""
+    if p <= GENE_WARP_MAX_P and G >= warp_slots(p):
+        return "warp", 32 * GENE_WARPS
+    return "block", pick_loop_threads(p, W)
+
+
+# KB of shared memory a block of kernel 2 copies its share of a gene into:
+# more lets fewer blocks in flight (the committed sweep: 24 is within 2% of
+# the best at every bucket and the best at the two wide ones).
+RATIO_COPY_KB = 24
+
+
+def pick_ratio_geometry(p: int, W: int, G: int) -> Tuple[int, int, int]:
+    """(blocks a gene, threads a block, KB a block copies) of a launch of
+    kernel 2 for a (G, p, W) bucket, the rule of the committed sweep
+    (``chip_smoke.py --sweep``, PERF.md): the smallest cluster that leaves a
+    block at most 64 KB of a gene's int16 coverage (8 past that); 128
+    threads a block where the launch has 8,192 blocks or more (each block
+    waits on a cold power step of serial matvecs, so there the number of
+    blocks in flight decides), else 256 (few genes: more loads in flight
+    each).  No dtype enters, so int16 and float32 input share a launch and
+    give the same bits."""
+    for cl in (1, 2, 4, 8):
+        if p * -(-W // cl) * 2 <= 65536:
+            break
+    return cl, (128 if G * cl >= 8192 else 256), RATIO_COPY_KB
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -169,13 +235,17 @@ def nmf_masked_cuda(
     power_warm_plain: int = 0,
     gene_active: Optional[torch.Tensor] = None,
     u0: Optional[torch.Tensor] = None,
-    _threads: Optional[int] = None,
+    _geometry: Optional[Tuple[str, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``nmf_masked_plain``'s signature: one thread
-    block per gene runs the whole loop (csrc/nmf.cu).  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises.
-    ``_threads`` overrides ``pick_loop_threads`` (the timing sweep of
-    ``chip_smoke.py --sweep`` passes it; nothing else does)."""
+    block, or one warp, per gene runs the whole loop (csrc/nmf.cu), as
+    ``pick_nmf_geometry`` chooses.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.  Results differ between the
+    two launches by float32 summation order alone.
+
+    ``_geometry`` overrides the rule's launch (the timing sweep of
+    ``chip_smoke.py --sweep`` and the check of both launches in
+    ``chip_smoke.py`` pass it; nothing else does)."""
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain,
@@ -186,7 +256,7 @@ def nmf_masked_cuda(
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
-    threads = _threads or pick_loop_threads(p, W)
+    kind, threads = _geometry or pick_nmf_geometry(p, W, G)
     m8 = _as_u8(mask)
     act8 = None if gene_active is None else _as_u8(gene_active)
     u0c = None if u0 is None else u0.to(torch.float32).contiguous()
@@ -200,14 +270,24 @@ def nmf_masked_cuda(
     u = torch.empty((G, p), dtype=torch.float32, device=dev)
     if G == 0:
         return K, E, u
+    loop = (int(nmf_iter), int(power_iters_cold), int(power_iters_warm),
+            int(power_warm_plain), threads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = get_lib().dn_nmf_masked(
-            F.data_ptr(), m8.data_ptr(), _ptr(act8), _ptr(u0c),
-            X.data_ptr(), K.data_ptr(), E.data_ptr(), u.data_ptr(),
-            G, p, W, int(nmf_iter), int(power_iters_cold),
-            int(power_iters_warm), int(power_warm_plain), threads, stream)
-    check_launch(code, "dn_nmf_masked")
+        if kind == "block":
+            name = "dn_nmf_masked"
+            code = get_lib().dn_nmf_masked(
+                F.data_ptr(), m8.data_ptr(), _ptr(act8), _ptr(u0c),
+                X.data_ptr(), K.data_ptr(), E.data_ptr(), u.data_ptr(),
+                G, p, W, *loop, stream)
+        else:
+            name = "dn_nmf_masked_warp"
+            nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+            code = get_lib().dn_nmf_masked_warp(
+                F.data_ptr(), m8.data_ptr(), _ptr(act8), _ptr(u0c),
+                nxt.data_ptr(), X.data_ptr(), K.data_ptr(), E.data_ptr(),
+                u.data_ptr(), G, p, W, *loop, stream)
+    check_launch(code, name)
     nmf_launches += 1
     return K, E, u
 
@@ -224,7 +304,11 @@ def ratio_rowsums_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: one cold rank-1 of A0 = F·mask, est = max(K⊗E, A0),
     and the row sums over active columns of F and of est (reference
-    ``ratio_svd``, nmf.py:109-121,522-526).  Returns (cov_sums, est_sums)."""
+    ``ratio_svd``, nmf.py:109-121,522-526).  Integer coverage (the engine's
+    int16 upload) is cast to float32 first, which is exact.  Returns
+    (cov_sums, est_sums)."""
+    if not F.dtype.is_floating_point:
+        F = F.to(torch.float32)
     m = mask.to(F.dtype)
     K, E, _ = masked_rank_one(F, mask, n_iters=power_iters)
     est = torch.maximum(outer_product(K, E), F * m[:, None, :])
@@ -238,17 +322,22 @@ def ratio_rowsums_cuda(
     mask: torch.Tensor,
     *,
     power_iters: int = 30,
+    _geometry: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``ratio_rowsums_plain``'s signature
-    (csrc/ratio.cu), at any width: the kernel reads a gene twice and writes
-    2p floats, so a wide bucket costs it time and no memory.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    (csrc/ratio.cuh), at any width, on float32 coverage or the raw int16
+    upload as it is (the same bits as its float32 cast).  The kernel reads a
+    gene once and writes 2p floats, so a wide bucket costs it time and no
+    memory.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel or raises.  ``_geometry`` overrides ``pick_ratio_geometry``
+    (the timing sweep of ``chip_smoke.py --sweep`` passes it)."""
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
     global ratio_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
-    check_coverage_input(F, "ratio_rowsums_cuda")
+    check_coverage_input(F, "ratio_rowsums_cuda", int16_ok=True)
     G, p, W = F.shape
+    cl, threads, stage_kb = _geometry or pick_ratio_geometry(p, W, G)
     m8 = _as_u8(mask)
     cov = torch.empty((G, p), dtype=torch.float32, device=F.device)
     est = torch.empty((G, p), dtype=torch.float32, device=F.device)
@@ -257,8 +346,9 @@ def ratio_rowsums_cuda(
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_ratio_rowsums(
-            F.data_ptr(), m8.data_ptr(), cov.data_ptr(), est.data_ptr(),
-            G, p, W, int(power_iters), pick_threads(W), stream)
+            F.data_ptr(), int(F.dtype == torch.int16), m8.data_ptr(),
+            cov.data_ptr(), est.data_ptr(), G, p, W, int(power_iters), cl,
+            threads, stage_kb, stream)
     check_launch(code, "dn_ratio_rowsums")
     ratio_launches += 1
     return cov, est

@@ -184,3 +184,161 @@ def test_kernel_input_check_names_the_pending_kernel():
         cuda_nmf.check_kernel_input(
             torch.zeros((2, 64, 4), dtype=torch.float32).permute(0, 2, 1),
             "nmf_masked_cuda")
+
+
+# ---- launch rules and the int16 route of kernel 2 --------------------------
+
+# every width inside the resident gate, in steps of 8, and a few odd ones
+GATE_WIDTHS = sorted(set(range(8, cuda_nmf.MAX_W + 1, 8)) | {1, 31, 100, 383})
+SMEM_PER_BLOCK = 232448     # the H100's opt-in shared memory a block
+
+
+@pytest.mark.parametrize("p", range(2, cuda_nmf.MAX_P + 1))
+def test_pick_nmf_geometry_gives_a_legal_launch(p):
+    """For every width inside the gate and bucket sizes from one gene to
+    more than the card's warps: threads in whole warps within the kernel's
+    bound; a block a gene keeps a thread's column slots inside the 64-bit
+    mask; a warp a gene fits its warps' shared memory (Gram, tile, uint16
+    column indices) in a block."""
+    for W in GATE_WIDTHS:
+        if p * W > cuda_nmf.MAX_PW:
+            continue
+        assert cuda_nmf.kernels_supported((1, p, W), torch.float32)
+        for G in (1, 64, 1536, cuda_nmf.warp_slots(p), 24576):
+            kind, threads = cuda_nmf.pick_nmf_geometry(p, W, G)
+            assert threads % 32 == 0
+            assert 32 <= threads <= cuda_nmf.max_loop_threads(p)
+            if kind == "block":
+                assert -(-W // threads) <= 64
+            else:
+                assert kind == "warp" and W <= 65535
+                assert p <= cuda_nmf.GENE_WARP_MAX_P
+                assert threads // 32 * cuda_nmf.warp_gene_bytes(p, W) \
+                    <= SMEM_PER_BLOCK
+
+
+NMF_GEOMETRY_PINS = [
+    (8, 1024, 24576, ("warp", 128)),    # the narrow fit's W=1024 bucket
+    (8, 4096, 1536, ("block", 256)),    # ... and its W=4096 bucket
+]
+
+
+@pytest.mark.parametrize("p,W,G,want", NMF_GEOMETRY_PINS)
+def test_pick_nmf_geometry_at_the_main_path_shapes(p, W, G, want):
+    """Kernel 1's launches of the narrow fit, as the committed sweep
+    (chip_smoke.py --sweep) chose them."""
+    assert cuda_nmf.pick_nmf_geometry(p, W, G) == want
+
+
+@pytest.mark.parametrize("p", [2, 3, 8, 16, 32])
+def test_pick_ratio_geometry_gives_a_legal_launch(p):
+    """Kernel 2's cluster grows with the width, never past 8; threads in
+    whole warps within its 256; the copy within a block's shared memory.
+    The rule sees no dtype, so int16 and float32 input share a launch."""
+    for G in (1, 384, 24576):
+        cls = []
+        for W in (256, 1024, 4096, 16384, 65536, 200000):
+            cl, threads, kb = cuda_nmf.pick_ratio_geometry(p, W, G)
+            assert cl in (1, 2, 4, 8) and threads in (128, 256)
+            assert cl == 8 or p * -(-W // cl) * 2 <= 65536
+            assert 0 <= kb <= 200
+            cls.append(cl)
+        assert cls == sorted(cls)
+
+
+RATIO_GEOMETRY_PINS = [
+    (8, 1024, 24576, (1, 128, 24)),     # the narrow fit's buckets
+    (8, 4096, 1536, (1, 256, 24)),
+    (8, 16384, 2048, (4, 128, 24)),     # the long-tail fit's buckets
+    (8, 65536, 384, (8, 256, 24)),
+]
+
+
+@pytest.mark.parametrize("p,W,G,want", RATIO_GEOMETRY_PINS)
+def test_pick_ratio_geometry_at_the_main_path_shapes(p, W, G, want):
+    """Kernel 2's launches of both fits, as the committed sweep
+    (chip_smoke.py --sweep) chose them."""
+    assert cuda_nmf.pick_ratio_geometry(p, W, G) == want
+
+
+def _int16_bucket(seed=47, p=4):
+    F, mask = _bucket(np.float32, seed=seed, p=p)
+    return np.round(F * 20).astype(np.int16), mask
+
+
+def test_ratio_rowsums_int16_equals_float32_cast_and_pallas_interpret():
+    """The wrapper on a CPU int16 tensor (the engine's upload) gives the
+    plain version's bits on its float32 cast, and matches the TPU kernel in
+    interpret mode on that cast, as degnorm_tpu/engine.py hands it over
+    (tolerance of test_ratio_svd_rowsums_matches_pallas_interpret)."""
+    raw, mask = _int16_bucket()
+    Ff = raw.astype(np.float32)
+    got = cuda_nmf.ratio_rowsums_cuda(_t(raw), _t(mask), power_iters=60)
+    ref = cuda_nmf.ratio_rowsums_plain(_t(Ff), _t(mask), power_iters=60)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    cj, ej = jp.ratio_rowsums_pallas(jnp.asarray(Ff), jnp.asarray(mask),
+                                     power_iters=60, interpret=True)
+    np.testing.assert_allclose(to_np(got[0]), np.asarray(cj), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(to_np(got[1]), np.asarray(ej), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,seen", [("float32", torch.int16),
+                                        ("float64", torch.float64)])
+def test_bucket_init_hands_the_int16_upload_through_uncast(monkeypatch, dtype,
+                                                           seen):
+    """A float32 engine's initialisation gives kernel 2's wrapper the int16
+    upload as it is (no float32 copy of the bucket); a float64 engine keeps
+    its cast."""
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch import engine as tengine
+    raw, mask = _int16_bucket(seed=49)
+    dtypes = []
+    orig = cuda_nmf.ratio_rowsums_cuda
+
+    def spy(F, m, **kw):
+        dtypes.append(F.dtype)
+        return orig(F, m, **kw)
+
+    monkeypatch.setattr(cuda_nmf, "ratio_rowsums_cuda", spy)
+    cfg = EngineConfig(device="cpu", dtype=dtype, power_iters_cold=16)
+    cs, es = tengine._bucket_init(_t(raw), _t(mask), cfg)
+    assert dtypes == [seen]
+    want = cuda_nmf.ratio_rowsums_plain(_t(raw).to(seen if dtype == "float64"
+                                                   else torch.float32),
+                                        _t(mask), power_iters=16)
+    assert torch.equal(cs, want[0]) and torch.equal(es, want[1])
+
+
+def test_chip_smoke_ratio_bound_counts_the_element_size():
+    """chip_smoke.bound_ratio counts 2 bytes an int16 element and 4 a
+    float32 one: the active columns' coverage, or every element with
+    ``full``, beside the whole mask and the two outputs."""
+    import chip_smoke
+    G, p, W = 6, 4, 256
+    raw, mask = _int16_bucket(seed=50)
+    cols = int(mask.sum())
+    rest = G * (W + 2 * p * 4)
+
+    def byts(F, full=False):
+        ms, by = chip_smoke.bound_ratio(F, _t(mask), full=full)
+        assert by == "bytes"
+        return ms / 1e3 * chip_smoke.PEAK_BYTES_PER_S
+
+    assert raw.shape == (G, p, W)
+    for F, size in ((_t(raw), 2), (_t(raw).to(torch.float32), 4)):
+        assert byts(F) == pytest.approx(cols * p * size + rest)
+        assert byts(F, full=True) == pytest.approx(G * p * W * size + rest)
+
+
+def test_nmf_wrapper_launch_overrides_are_ignored_on_cpu():
+    """``_geometry`` chooses a launch; on a CPU tensor there is none and the
+    plain version's result is unchanged."""
+    F, mask = _bucket(np.float32)
+    a = cuda_nmf.nmf_masked_cuda(_t(F), _t(mask), power_warm_plain=1, **KW)
+    b = cuda_nmf.nmf_masked_cuda(_t(F), _t(mask), power_warm_plain=1,
+                                 _geometry=("warp", 64), **KW)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
