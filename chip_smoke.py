@@ -10,11 +10,18 @@ resident NMF kernel and the fused trim kernel) and the wide one (2,048 long
 genes x 8 samples of 8,193 to 60,000 bases, default bucket widths 16384 and
 65536: the streamed NMF kernel on raw int16 coverage, once per round of the
 unfused trim loop).  It then checks kernels-on against kernels-off fits and
-the unfused against the fused loop.  Each phase prints one JSON line; any
+the unfused against the fused loop, and runs the ``degnorm-tpu-torch``
+command twice (phase ``pipeline``): cold, ``python3 -m degnorm_tpu_torch`` in
+a subprocess on simulated .bam files and a .gtf (ETL, fit, outputs, report),
+and warm, ``cli.main`` on a warm-start directory of both fits' genes, whose
+DI and adjusted counts must be bit-equal to a direct ``DegNormEngine.run``,
+whose fit must launch all four kernels and agree with a ``use_kernels=False``
+fit, and at whose narrow buckets of the default widths kernels 1-3 are held
+against their plain versions.  Each phase prints one JSON line; any
 failed phase raises (non-zero exit).  There is no CPU fallback: without a
 CUDA device the script exits non-zero and prints no result.
 
-Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity``
+Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,pipeline``
 runs a subset (then no final result line is printed unless all ran);
 ``--ptxas`` prints the compiler's register/shared-memory report (and keeps
 its raw output in ``degnorm_tpu_torch/_build/ptxas.log``) and fails on a
@@ -55,7 +62,18 @@ PARITY_WIDE_GENES = (96, 32)       # of either width
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity")
+ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
+              "pipeline")
+
+# phase pipeline: the degnorm-tpu-torch command on simulated .bam files (cold)
+# and on a warm-start directory of both fits' genes (warm)
+PIPE_CHROMS = 4
+PIPE_GENES_PER_CHROM = 512
+PIPE_DEGRADATION = (0.0, 0.0, 0.5, 0.5)      # one sample each
+PIPE_READS_PER_GENE = 150
+PIPE_READ_LEN = 50
+REPO = os.path.dirname(os.path.abspath(__file__))
+PIPE_DIR = os.path.join(REPO, "degnorm_tpu_torch", "_build", "smoke_pipeline")
 
 
 def synth_lengths(n, rng):
@@ -1215,7 +1233,339 @@ def phase_parity(cov, X, cov_wide, X_wide):
                  nmf_streamed_launches=streamed)
 
 
-def kernels_line(kres, launches, launches_wide):
+def _one_run_dir(base):
+    runs = [d for d in os.listdir(base) if d.startswith("degnorm_")]
+    if len(runs) != 1:
+        raise AssertionError(f"{base}: expected one run directory, got {runs}")
+    return os.path.join(base, runs[0])
+
+
+def _report_libraries():
+    """(True, "") where the report's libraries import, else (False, why)."""
+    import importlib.util
+    missing = [m for m in ("matplotlib", "seaborn", "jinja2")
+               if importlib.util.find_spec(m) is None]
+    return (not missing, "missing: " + ", ".join(missing) if missing else "")
+
+
+def _check_run_dir(run, chroms, n_samples, degnorm_iter, expect_device):
+    """The output contract of one run directory; returns (DI frame, log
+    text, timings from the log, report reason or "")."""
+    import ast
+    import pandas as pd
+    for name in ("degradation_index_scores.csv", "adjusted_read_counts.csv",
+                 "ran_baseline_selection.csv", "read_counts.csv",
+                 "gene_exon_metadata.csv", "degnorm.log",
+                 "degnorm_checkpoint.npz"):
+        if not os.path.isfile(os.path.join(run, name)):
+            raise AssertionError(f"{run}: {name} missing")
+    for c in chroms:
+        for prefix in ("coverage_matrices", "estimated_coverage_matrices"):
+            f = os.path.join(run, c, f"{prefix}_{c}.pkl")
+            if not os.path.isfile(f):
+                raise AssertionError(f"{f} missing")
+    with np.load(os.path.join(run, "degnorm_checkpoint.npz"),
+                 allow_pickle=True) as z:
+        if int(z["iteration"]) != degnorm_iter - 1:
+            raise AssertionError(f"checkpoint at iteration {z['iteration']}")
+    di = pd.read_csv(os.path.join(run, "degradation_index_scores.csv"),
+                     float_precision="round_trip")
+    vals = di.iloc[:, 2:].to_numpy()
+    if vals.shape[1] != n_samples or not np.isfinite(vals).all() \
+            or vals.min() < 0 or vals.max() > 0.9:
+        raise AssertionError(f"{run}: DI out of [0, 0.9] or not finite")
+    with open(os.path.join(run, "degnorm.log")) as f:
+        log = f.read()
+    if f"fit device: {expect_device}" not in log:
+        raise AssertionError(f"{run}: the log does not name {expect_device}")
+    line = [ln for ln in log.splitlines() if "pipeline phase timings" in ln]
+    timings = ast.literal_eval(line[-1].split("(s): ", 1)[1])
+    have, why = _report_libraries()
+    report = os.path.isfile(os.path.join(run, "report",
+                                         "degnorm_summary.html"))
+    if have and not report:
+        raise AssertionError(f"{run}: the report libraries exist, no report")
+    if not have:
+        failed = [ln for ln in log.splitlines()
+                  if "report rendering failed" in ln]
+        why = f"{why} ({failed[-1].split('---- ', 1)[-1]})" if failed else why
+    return di, log, timings, ("" if report else why)
+
+
+def write_simulated_bams(out_dir, seed=SEED):
+    """The cold run's input: PIPE_CHROMS chromosomes of PIPE_GENES_PER_CHROM
+    genes (a .gtf) and one single-end .bam a sample, written by the port's
+    io/simulate.py.  Returns (gtf, bams, reads a sample)."""
+    from degnorm_tpu_torch.io import bam as bamio
+    from degnorm_tpu_torch.io.simulate import (make_genes, simulate_sample,
+                                               write_gtf)
+    rng = np.random.default_rng(seed)
+    by_chrom = OrderedDict()
+    for c in range(PIPE_CHROMS):
+        name = f"chr{c + 1}"
+        by_chrom[name] = make_genes(rng, chrom=name,
+                                    n_genes=PIPE_GENES_PER_CHROM,
+                                    name_prefix=f"{name}.")
+    lens = {c: g[-1].exons[-1][1] + 5000 for c, g in by_chrom.items()}
+    gtf = os.path.join(out_dir, "sim.gtf")
+    write_gtf(gtf, [g for genes in by_chrom.values() for g in genes])
+    bams, n_reads = [], []
+    for i, deg in enumerate(PIPE_DEGRADATION):
+        rs = np.random.default_rng(seed + 100 + i)
+        recs = []
+        for tid, (c, genes) in enumerate(by_chrom.items()):
+            recs += [(r[0], tid, *r[2:]) for r in simulate_sample(
+                rs, genes, lens[c], mean_reads_per_gene=PIPE_READS_PER_GENE,
+                read_len=PIPE_READ_LEN, degradation=deg)]
+        path = os.path.join(out_dir, f"sample{i}.bam")
+        bamio.write_bam(path, list(by_chrom), [lens[c] for c in by_chrom],
+                        recs)
+        bams.append(path)
+        n_reads.append(len(recs))
+    return gtf, bams, n_reads
+
+
+def write_warm_dir(out_dir, cov_parts, X_parts, seed=SEED):
+    """A run directory holding ``cov_parts`` (gene dicts) as a finished run
+    leaves them, written with the port's outputs writers: one single-exon
+    gene a matrix, the short and long genes interleaved over chromosomes in
+    an order drawn from ``seed``, with their gene_exon_metadata.csv,
+    read_counts.csv and per-chromosome coverage pickles."""
+    import pandas as pd
+    from degnorm_tpu_torch.pipeline import outputs
+    mats, counts = [], []
+    for cov, X in zip(cov_parts, X_parts):
+        mats += list(cov.values())
+        counts.append(np.asarray(X))
+    counts = np.concatenate(counts).astype(np.int64)
+    n, p = len(mats), mats[0].shape[0]
+    order = np.random.default_rng(seed).permutation(n)
+    genes = [f"w{i}" for i in range(n)]
+    rows, cursor, gene_chrom = [], {}, {}
+    for k, gi in enumerate(order):
+        chrom = f"chr{1 + k % PIPE_CHROMS}"
+        start = cursor.get(chrom, 1000)
+        end = start + mats[gi].shape[1] - 1
+        cursor[chrom] = end + 1000
+        rows.append((chrom, start, end, genes[gi], start, end))
+        gene_chrom[genes[gi]] = chrom
+    exon_df = pd.DataFrame(rows, columns=["chr", "start", "end", "gene",
+                                          "gene_start", "gene_end"])
+    exon_df.to_csv(os.path.join(out_dir, "gene_exon_metadata.csv"),
+                   index=False)
+    sids = [f"s{j}" for j in range(p)]
+    rc = pd.DataFrame(counts[order], columns=sids)
+    rc.insert(0, "chr", exon_df.chr.values)
+    rc.insert(0, "gene", exon_df.gene.values)
+    rc.to_csv(os.path.join(out_dir, "read_counts.csv"), index=False)
+    outputs.save_coverage_matrices(
+        out_dir, gene_chrom,
+        OrderedDict((genes[gi], mats[gi]) for gi in order))
+    return n, p
+
+
+def phase_pipeline(cov, X, cov_wide, X_wide):
+    """The degnorm-tpu-torch command, twice.  Cold: ``python3 -m
+    degnorm_tpu_torch`` in a subprocess with no --device (so on the card) on
+    simulated .bam files and a .gtf: the ETL, the fit, the outputs and the
+    report.  Warm: ``cli.main`` in this process on a warm-start directory of
+    the narrow and the wide dataset (22,528 genes x 8), whose DI and
+    adjusted counts must be bit-equal to a direct DegNormEngine.run of the
+    same loaded genes, and whose fit must launch all four kernels.  The
+    default bucket widths give the warm fit narrow buckets that phase
+    kernels does not see (W=256, 512, 2048): kernels 1-3 are held against
+    their plain versions on each of them (``check_kernels_at``), and the
+    command's result against a use_kernels=False fit (``compare_fits``).
+    The host library is built before the cold command, so that its etl
+    timing holds the ETL alone."""
+    import pickle
+    import shutil
+    import pandas as pd
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch import cli
+    from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    from degnorm_tpu_torch.pipeline import run as prun
+    from degnorm_tpu_torch.pipeline.warm_start import load_from_previous
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    os.makedirs(PIPE_DIR)
+    device_flag = [] if DEVICE == "cuda" else ["--device", DEVICE]
+    expect_device = "cuda:0" if DEVICE == "cuda" else DEVICE
+    fit_flags = ["--nmf-iter", str(NMF_ITER), "--iter", str(DEGNORM_ITER)]
+    try:
+        # ---- cold: .bam + .gtf through the console entry point ----
+        data_dir = os.path.join(PIPE_DIR, "data")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        gtf, bams, n_reads = write_simulated_bams(data_dir)
+        data_s = time.perf_counter() - t0
+        cold_base = os.path.join(PIPE_DIR, "cold")
+        os.makedirs(cold_base)
+        # the host library's g++ build first, where the command would run it
+        # inside its ETL, so that the command's etl times the ETL alone
+        from degnorm_tpu_torch.io.native import build as native_build
+        built_before = os.path.isfile(os.path.join(native_build.BUILD_DIR,
+                                                   native_build._so_name()))
+        t0 = time.perf_counter()
+        native_build.open_library(native_build.BUILD_DIR)
+        host_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "degnorm_tpu_torch", "--bam-files", *bams,
+             "-g", gtf, "-o", cold_base, *fit_flags, "-p", "4",
+             *device_flag], cwd=REPO, capture_output=True, text=True,
+            timeout=900)
+        cold_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"cold command rc={r.returncode}\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        chroms = [f"chr{c + 1}" for c in range(PIPE_CHROMS)]
+        cold_run = _one_run_dir(cold_base)
+        di, _, cold_timings, cold_report_why = _check_run_dir(
+            cold_run, chroms, len(bams), DEGNORM_ITER, expect_device)
+        cold_host_bytes = 0
+        for c in chroms:
+            with open(os.path.join(cold_run, c, f"coverage_matrices_{c}.pkl"),
+                      "rb") as f:
+                cold_host_bytes += sum(m.nbytes
+                                       for m in pickle.load(f).values())
+        cold = dict(
+            command="python3 -m degnorm_tpu_torch (no --device)",
+            samples=len(bams), degradation=list(PIPE_DEGRADATION),
+            chroms=PIPE_CHROMS, genes_annotated=PIPE_CHROMS
+            * PIPE_GENES_PER_CHROM, genes_fit=int(len(di)),
+            reads_per_sample=n_reads, read_len=PIPE_READ_LEN,
+            data_write_s=round(data_s, 3), wall_s=round(cold_s, 3),
+            timings=cold_timings,
+            fit_share_of_wall=round(cold_timings["fit"] / cold_s, 4),
+            host_library_build_s=round(host_build_s, 3),
+            host_library_built_before=built_before,
+            etl_reads_per_s=round(sum(n_reads) / cold_timings["etl"], 1),
+            host_bytes_coverage=cold_host_bytes,
+            report=not cold_report_why,
+            **({"report_reason": cold_report_why} if cold_report_why
+               else {}),
+            di_mean=float(di.iloc[:, 2:].to_numpy().mean()))
+
+        # ---- warm: both fits' genes through cli.main in this process ----
+        warm_src = os.path.join(PIPE_DIR, "warm_src")
+        os.makedirs(warm_src)
+        t0 = time.perf_counter()
+        n_warm, p_warm = write_warm_dir(warm_src, (cov, cov_wide),
+                                        (X, X_wide))
+        warm_write_s = time.perf_counter() - t0
+        warm_base = os.path.join(PIPE_DIR, "warm")
+        os.makedirs(warm_base)
+        captured = {}
+        original = prun.run_pipeline
+
+        def capture(cfg, output_dir=None):
+            captured.update(original(cfg, output_dir=output_dir))
+            return captured
+
+        prun.run_pipeline = capture
+        # counts to 0 just before the command, read just after
+        cuda_nmf.nmf_launches = cuda_nmf.ratio_launches = 0
+        cuda_trim.trim_launches = cuda_stream.stream_launches = 0
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["-w", warm_src, "-o", warm_base, *fit_flags,
+                           *device_flag])
+            warm_s = time.perf_counter() - t0
+        finally:
+            prun.run_pipeline = original
+        launches = dict(nmf_masked=cuda_nmf.nmf_launches,
+                        ratio_rowsums=cuda_nmf.ratio_launches,
+                        trim_loop=cuda_trim.trim_launches,
+                        nmf_streamed=cuda_stream.stream_launches)
+        if rc != 0:
+            raise AssertionError(f"warm command rc={rc}")
+        if DEVICE == "cuda" and min(launches.values()) < 1:
+            raise AssertionError(f"warm command launches: {launches}")
+        warm_run = _one_run_dir(warm_base)
+        _, _, _, warm_report_why = _check_run_dir(
+            warm_run, chroms, p_warm, DEGNORM_ITER, expect_device)
+        res = captured["result"]
+        # the same loaded genes, fitted directly
+        direct_dir = os.path.join(PIPE_DIR, "direct")
+        os.makedirs(direct_dir)
+        loaded = load_from_previous(warm_src, direct_dir)
+        counts = loaded["read_count_df"][loaded["sample_ids"]].values.astype(
+            np.float64)
+        t0 = time.perf_counter()
+        direct = DegNormEngine(
+            NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER),
+            EngineConfig(device=DEVICE)).run(loaded["gene_cov_dict"], counts)
+        direct_s = time.perf_counter() - t0
+        if direct.genes != res.genes or len(res.genes) != n_warm:
+            raise AssertionError("warm command and direct fit differ in genes")
+        for what in ("rho", "x_adj", "ran_baseline_selection"):
+            if not np.array_equal(getattr(res, what), getattr(direct, what)):
+                raise AssertionError(f"warm command {what} is not bit-equal "
+                                     "to the direct fit")
+        # kernels 1-3 against their plain versions at the narrow buckets the
+        # default widths give the command and phase kernels does not check
+        bucket_checks = {}
+        for b in direct._engine._buckets:
+            if b.width in BUCKET_WIDTHS or not cuda_nmf.kernels_supported(
+                    b.F.shape, torch.float32):
+                continue
+            F_adj, lm, raw = kernel_inputs(b, torch.device(DEVICE))
+            r = check_kernels_at(F_adj, lm, NMFConfig(nmf_iter=NMF_ITER),
+                                 EngineConfig(device=DEVICE), raw,
+                                 timed=False)
+            bucket_checks[b.width] = dict(
+                {k: v["max_abs_err"] for k, v in r.items()},
+                shape=list(F_adj.shape),
+                trim_entered=r["trim_loop"]["entered"],
+                trim_rounds_agree=r["trim_loop"]["rounds_agree"])
+            del F_adj, lm, raw
+        # ... and the command's fit against the plain versions' fit
+        t0 = time.perf_counter()
+        plain = DegNormEngine(
+            NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER),
+            EngineConfig(device=DEVICE, use_kernels=False)).run(
+                loaded["gene_cov_dict"], counts)
+        plain_s = time.perf_counter() - t0
+        compare_fits("pipeline_plain", res, plain,
+                     (captured["timings"]["fit"], plain_s),
+                     pair="warm command (kernels on) vs direct "
+                          "use_kernels=False fit")
+        del plain
+        # the files hold the same bits
+        saved = pd.read_csv(
+            os.path.join(warm_run, "degradation_index_scores.csv"),
+            float_precision="round_trip")
+        if not np.array_equal(saved.iloc[:, 2:].to_numpy(), res.rho):
+            raise AssertionError("degradation_index_scores.csv differs from "
+                                 "the fit's DI")
+        widths = sorted({b.width for b in direct._engine._buckets})
+        warm = dict(
+            command="degnorm_tpu_torch.cli.main(['-w', ...])",
+            genes=n_warm, samples=p_warm, wall_s=round(warm_s, 3),
+            warm_dir_write_s=round(warm_write_s, 3),
+            timings={k: round(v, 4) for k, v in captured["timings"].items()},
+            fit_share_of_wall=round(captured["timings"]["fit"] / warm_s, 4),
+            host_bytes_coverage=int(sum(
+                m.nbytes for m in loaded["gene_cov_dict"].values())),
+            bucket_widths=widths, launches=launches,
+            bit_equal_to_direct_fit=True, direct_fit_s=round(direct_s, 3),
+            plain_fit_s=round(plain_s, 3),
+            kernels_vs_plain_at={str(k): v for k, v in bucket_checks.items()},
+            report=not warm_report_why,
+            **({"report_reason": warm_report_why} if warm_report_why
+               else {}))
+        del loaded, direct, res, captured
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        emit("pipeline", cold=cold, warm=warm, smi=smi_line())
+        return launches
+    finally:
+        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+
+
+def kernels_line(kres, launches, launches_wide, launches_pipeline):
     """The per-kernel records of the result line: kernels 1-3 at the narrow
     fit's main shape (W=1024) with the W=4096 one beside it, kernel 4 at the
     wide fit's W=16384 bucket with its other shapes beside it."""
@@ -1256,6 +1606,7 @@ def kernels_line(kres, launches, launches_wide):
                      "bound_by": wide["bound_by"],
                      **{k: wide[k] for k in extra_keys[name]}},
             "launches_fit_wide": launches_wide[name],
+            "launches_pipeline": launches_pipeline[name],
         })
     # kernel 2 also runs on the wide buckets (initialisation of fit_wide)
     kernels[1]["fit_wide_shapes"] = [kres[f"stream_{w}"]["ratio_rowsums"]
@@ -1269,6 +1620,7 @@ def kernels_line(kres, launches, launches_wide):
         # its main path is fit_wide: counts set to 0 just before that fit
         "launches": launches_wide["nmf_streamed"],
         "launches_fit": launches.get("nmf_streamed", 0),
+        "launches_pipeline": launches_pipeline["nmf_streamed"],
         "max_abs_err": max(v["max_abs_err"] for k, v in kres.items()
                            if str(k).startswith("stream_")),
         "max_rel_err": max(v["max_rel_err"] for k, v in kres.items()
@@ -1315,7 +1667,7 @@ def main(argv=None):
     emit("data", seconds=round(time.perf_counter() - t0, 2), genes=N_GENES,
          samples=P_SAMPLES, seed=SEED, profile="dense")
     cov_wide = X_wide = None
-    if {"kernels", "fit_wide", "parity"} & set(phases):
+    if {"kernels", "fit_wide", "parity", "pipeline"} & set(phases):
         t0 = time.perf_counter()
         cov_wide, X_wide = synth_dataset(WIDE_GENES, P_SAMPLES, seed=SEED + 1,
                                          lengths_fn=synth_long_lengths)
@@ -1332,13 +1684,15 @@ def main(argv=None):
                      if "fit_wide" in phases else None)
     if "parity" in phases:
         phase_parity(cov, X, cov_wide, X_wide)
+    launches_pipeline = (phase_pipeline(cov, X, cov_wide, X_wide)
+                         if "pipeline" in phases else None)
     if args.sweep:
         phase_sweep(cov, cov_wide)
     if set(ALL_PHASES) - set(phases):
         print(json.dumps({"ok": False, "partial": phases}))
         return 0
 
-    kernels = kernels_line(kres, launches, launches_wide)
+    kernels = kernels_line(kres, launches, launches_wide, launches_pipeline)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",
                       "seconds": round(time.perf_counter() - t_start, 1)}),

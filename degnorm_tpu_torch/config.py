@@ -2,13 +2,13 @@
 
 ``NMFConfig`` is this package's own copy of the algorithm parameters
 (reference ``degnorm/nmf.py:12-53``); ``EngineConfig`` holds the execution
-knobs of the port.
+knobs of the port; ``PipelineConfig`` the options of the command.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,3 +139,29 @@ class EngineConfig:
                 + ", ".join(pending))
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32 or float64, got {self.dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """End-to-end pipeline options — the typed replacement for the CLI flag
+    set validated in reference ``degnorm/utils.py:318-484``."""
+
+    bam_files: Sequence[str] = ()
+    bai_files: Sequence[str] = ()
+    genome_annotation: Optional[str] = None
+    output_dir: str = "."
+    plot_genes: Sequence[str] = ()
+    warm_start_dir: Optional[str] = None
+    # Gene filters applied before NMF (reference __main__.py:221-238 and the
+    # MPI-only caps __main_mpi__.py:374-376, unified here per SURVEY.md §7.2).
+    minimax_coverage: int = 0
+    unique_alignments: bool = True
+    # BAI-driven per-chromosome streaming ETL: None = auto (stream when an
+    # index exists and the BAM exceeds BamSampleProcessor.STREAM_THRESHOLD),
+    # True/False = force. Streaming bounds host memory by the largest
+    # chromosome instead of the whole file.
+    stream_etl: Optional[bool] = None
+    n_jobs: int = 1
+    nmf: NMFConfig = dataclasses.field(default_factory=NMFConfig)
+    # the fit runs on engine.device: "cuda" unless the caller asks for "cpu"
+    engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)

@@ -33,6 +33,8 @@ from degnorm_tpu_torch.core.baseline import (BucketResult,
 from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums
 from degnorm_tpu_torch.data.buckets import (GeneBucket, int16able,
                                             integral_int16able, pack_buckets)
+from degnorm_tpu_torch.pipeline.checkpoints import (load_checkpoint,
+                                                    save_checkpoint)
 
 
 def resolve_device(device) -> torch.device:
@@ -258,8 +260,12 @@ class DegNormEngine:
     # -- main loop -------------------------------------------------------
     def run(self, cov_dat: Mapping[str, np.ndarray],
             reads_dat: np.ndarray,
+            checkpoint_dir: Optional[str] = None,
             reuse_device_data: bool = False) -> DegNormResult:
-        """Fit DegNorm.
+        """Fit DegNorm.  With ``checkpoint_dir``, the outer-loop state is
+        saved there after every iteration (``degnorm_checkpoint.npz``, the
+        JAX package's format), and a checkpoint found there for the same
+        genes with iterations left resumes the loop after its iteration.
 
         ``reuse_device_data``: opt-in refit on the previous ``run``'s
         device-resident buckets — the packer and the upload are skipped.
@@ -302,15 +308,38 @@ class DegNormEngine:
         dev = self.device
         idx_parts = self._device_idx
 
+        # ---- resume from a checkpoint? ----
+        start_iter = 0
+        ran_restored = np.zeros((n, 0), dtype=bool)
+        ckpt = None
+        if checkpoint_dir:
+            ckpt = load_checkpoint(checkpoint_dir, genes)
+            if ckpt and ckpt["iteration"] + 1 < self.nmf_cfg.degnorm_iter:
+                start_iter = ckpt["iteration"] + 1
+                ran_restored = np.asarray(
+                    ckpt["ran_baseline_selection"][:, :start_iter], bool)
+            else:
+                ckpt = None
+
         # ---- initialization (nmf.py:512-535), float64 on the device ----
         t0 = time.perf_counter()
         x = torch.from_numpy(x_np).to(dev)
-        init_out = [_bucket_init(F_d, m_d, self.eng_cfg)
-                    for F_d, m_d in zip(self._device_F, self._device_mask)]
-        cov_sums = _device_scatter([cs for cs, _ in init_out], idx_parts, n, 0.0)
-        est_sums = _device_scatter([es for _, es in init_out], idx_parts, n, 0.0)
-        x_weighted, norm, _ = outer.device_init_state(cov_sums, est_sums, x)
-        scale = norm
+        if ckpt is not None:
+            st = ckpt["state"]
+            x_weighted, norm, scale = (
+                torch.from_numpy(np.array(a, np.float64)).to(dev)
+                for a in (st.x_weighted, st.norm_factors, st.scale_factors))
+        else:
+            init_out = [_bucket_init(F_d, m_d, self.eng_cfg)
+                        for F_d, m_d in zip(self._device_F,
+                                            self._device_mask)]
+            cov_sums = _device_scatter([cs for cs, _ in init_out], idx_parts,
+                                       n, 0.0)
+            est_sums = _device_scatter([es for _, es in init_out], idx_parts,
+                                       n, 0.0)
+            x_weighted, norm, _ = outer.device_init_state(cov_sums, est_sums,
+                                                          x)
+            scale = norm
         # the per-phase timings are host clocks closed by a device sync;
         # next to a bucket step the sync costs nothing
         self._sync()
@@ -323,7 +352,7 @@ class DegNormEngine:
         results: List[BucketResult] = []
         kernel_cfg = self.nmf_cfg.kernel_key()
         t0 = time.perf_counter()
-        for it in range(self.nmf_cfg.degnorm_iter):
+        for it in range(start_iter, self.nmf_cfg.degnorm_iter):
             t_it = time.perf_counter()
             final = it == self.nmf_cfg.degnorm_iter - 1
             sf = scale.to(dtype)
@@ -342,6 +371,12 @@ class DegNormEngine:
                 torch.stack([r.rounds_active.max() for r in results]).tolist())
             self._sync()
             self.timings[f"iter_{it}"] = time.perf_counter() - t_it
+            if checkpoint_dir:
+                save_checkpoint(
+                    checkpoint_dir, it,
+                    outer.DeviceState(x, x_weighted, x_adj, rho, norm,
+                                      scale).to_numpy(),
+                    self._ran_matrix(ran_restored, ran_cols), genes)
         self.timings["iterations"] = time.perf_counter() - t0
 
         self._last_results = results
@@ -356,12 +391,19 @@ class DegNormEngine:
         # estimates are computed on coverage scaled by the PRE-update scale
         # factors of the final iteration
         self._final_scale = scale64 / norm64
-        ran_bs = np.stack([c.cpu().numpy().astype(bool) for c in ran_cols],
-                          axis=1)
+        ran_bs = self._ran_matrix(ran_restored, ran_cols)
         return DegNormResult(
             genes=genes, rho=rho64, x_adj=xadj64, scale_factors=scale64,
             norm_factors=norm64, ran_baseline_selection=ran_bs,
             x_weighted=xw64, engine=self)
+
+    @staticmethod
+    def _ran_matrix(restored: np.ndarray, cols) -> np.ndarray:
+        """(n, iterations) baseline-selection tracker: the columns of a
+        resumed checkpoint, then one column a run iteration."""
+        return np.concatenate(
+            [restored] + [c.cpu().numpy().astype(bool)[:, None]
+                          for c in cols], axis=1)
 
     # -- estimates -------------------------------------------------------
     def _materialize_estimates(self) -> List[np.ndarray]:

@@ -27,6 +27,21 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import degnorm_tpu_torch.ops.cuda_nmf, degnorm_tpu_torch.ops.cuda_trim\n"
         "import degnorm_tpu_torch.ops.build, degnorm_tpu_torch.data.buckets\n"
         "import degnorm_tpu_torch.ops.cuda_stream\n"
+        "import degnorm_tpu_torch.cli, degnorm_tpu_torch.__main__\n"
+        "import degnorm_tpu_torch.io.bgzf, degnorm_tpu_torch.io.bam\n"
+        "import degnorm_tpu_torch.io.bai, degnorm_tpu_torch.io.gtf\n"
+        "import degnorm_tpu_torch.io.overlap, degnorm_tpu_torch.io.coverage\n"
+        "import degnorm_tpu_torch.io.coverage_native\n"
+        "import degnorm_tpu_torch.io.merge, degnorm_tpu_torch.io.simulate\n"
+        "import degnorm_tpu_torch.io.native.build\n"
+        "import degnorm_tpu_torch.pipeline.sample\n"
+        "import degnorm_tpu_torch.pipeline.outputs\n"
+        "import degnorm_tpu_torch.pipeline.warm_start\n"
+        "import degnorm_tpu_torch.pipeline.checkpoints\n"
+        "import degnorm_tpu_torch.pipeline.run\n"
+        "import degnorm_tpu_torch.report.report\n"
+        "import degnorm_tpu_torch.report.data_access\n"
+        "import degnorm_tpu_torch.report.visualizations\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'degnorm_tpu' or m.startswith('degnorm_tpu.')]\n"
@@ -50,9 +65,16 @@ def test_no_import_statement_names_jax_or_the_jax_package():
 
 
 def test_every_module_imports_without_a_gpu_toolchain():
-    """No module builds a kernel or needs nvcc at import time."""
-    r = _run("import degnorm_tpu_torch.ops.build as b\n"
+    """No module builds a kernel or needs nvcc at import time, and the
+    command's modules build no host library and load no plotting library
+    on import."""
+    r = _run("import sys\n"
+             "import degnorm_tpu_torch.ops.build as b\n"
+             "import degnorm_tpu_torch.cli, degnorm_tpu_torch.pipeline.run\n"
+             "import degnorm_tpu_torch.io.native.build as h\n"
              "assert b._lib is None and not b.build_info\n"
+             "assert h._LIB is None\n"
+             "assert 'matplotlib' not in sys.modules\n"
              "print(sorted(b._SIGNATURES))\n")
     assert r.returncode == 0, r.stderr
     assert "dn_nmf_masked" in r.stdout and "dn_trim_loop" in r.stdout
