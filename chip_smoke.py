@@ -17,12 +17,19 @@ and warm, ``cli.main`` on a warm-start directory of both fits' genes, whose
 DI and adjusted counts must be bit-equal to a direct ``DegNormEngine.run``,
 whose fit must launch all four kernels and agree with a ``use_kernels=False``
 fit, and at whose narrow buckets of the default widths kernels 1-3 are held
-against their plain versions.  Each phase prints one JSON line; any
-failed phase raises (non-zero exit).  There is no CPU fallback: without a
-CUDA device the script exits non-zero and prints no result.
+against their plain versions.  The opt-in modes: phase ``kernels`` also
+holds the nmf_tol branch of kernel 1 and the trim_fast and nmf_tol branches
+of kernel 3 against their plain versions; phase ``modes`` drives the narrow
+fit under trim_fast and under nmf_tol (each launching its branches),
+rank1_method="eigh" and keyed downsample offsets; phase ``oracle`` holds the
+engine on the card against the package's float64 oracle on the host.  Each
+phase prints one JSON line; any failed phase raises (non-zero exit).  There
+is no CPU fallback: without a CUDA device the script exits non-zero and
+prints no result.
 
-Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,pipeline``
-runs a subset (then no final result line is printed unless all ran);
+Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,
+pipeline,modes,oracle`` runs a subset (then no final result line is printed
+unless all ran; ``modes`` reads the default fit of ``fit`` for its drift);
 ``--ptxas`` prints the compiler's register/shared-memory report (and keeps
 its raw output in ``degnorm_tpu_torch/_build/ptxas.log``) and fails on a
 kernel instance that spills outside ``SPILL_ALLOWED``;
@@ -49,6 +56,8 @@ P_SAMPLES = 8
 NMF_ITER = 50
 DEGNORM_ITER = 5            # full depth of the bench workload; not cut
 BUCKET_WIDTHS = (1024, 4096)
+P32_GENES = 1024            # phase kernels' timed p > 16 buckets (W = 1024)
+TIMED_WIDE_P = (32, 24)
 PARITY_GENES = 512
 SEED = 7
 DEVICE = "cuda"             # the script runs nowhere else
@@ -63,7 +72,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
-              "pipeline")
+              "pipeline", "modes", "oracle")
 
 # phase pipeline: the degnorm-tpu-torch command on simulated .bam files (cold)
 # and on a warm-start directory of both fits' genes (warm)
@@ -195,12 +204,20 @@ def bound(bytes_moved, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def bound_nmf(F, mask, act, nmf_iter):
+def bound_nmf(F, mask, act, nmf_iter, iters=None):
+    """Kernel 1; ``iters``: the Lagrangian iterations each gene ran (the
+    nmf_tol branch reports them), else ``nmf_iter`` for every gene."""
     G, p, W = F.shape
     ga = int(act.sum())
-    cols = int(mask[act].sum())
+    cols_g = mask.double().sum(dim=1) * act.double()
     byts = ga * (p * W * 4 + W) + G * (W * 4 + 2 * p * 4) + G
-    return bound(byts, cols * nmf_ops_per_column(p, nmf_iter))
+    if iters is None:
+        return bound(byts, float(cols_g.sum()) * nmf_ops_per_column(p, nmf_iter))
+    # nmf_ops_per_column is affine in the iterations
+    fixed = nmf_ops_per_column(p, 0)
+    per_it = nmf_ops_per_column(p, 1) - fixed
+    return bound(byts, float(cols_g.sum()) * fixed
+                 + float((cols_g * iters.double()).sum()) * per_it)
 
 
 def bound_stream(F, mask, act, nmf_iter):
@@ -233,14 +250,17 @@ TRIM_BOUND_NOTE = (
     "less than one bin's columns in each later round of that gene")
 
 
-def bound_trim(ti, rounds_active, nmf_iter):
+def bound_trim(ti, rounds_active, nmf_iter, iters=None):
     """Work this run's data needs.  A gene active for R rounds scores its
     residuals R times (6p operations a column, round r on the columns left
     after r - 1 drops) and runs R NMF loops and DI refreshes (4p a column,
     on the columns left after r drops).  Each round drops one bin; every
     bin of a gene holds ``bin_count[:, 0]`` columns but its last, which may
     be shorter, and the loop does not report which bins it dropped, so a
-    dropped bin is counted as a full one (TRIM_BOUND_NOTE)."""
+    dropped bin is counted as a full one (TRIM_BOUND_NOTE).  ``iters``: the
+    Lagrangian iterations each gene ran over its rounds, as the kernel
+    reports them (trim_fast, nmf_tol), spread over its rounds' columns in
+    proportion to the rounds (exact where every round runs as many)."""
     G, p, W = ti.Fm.shape
     B = ti.bin_count.shape[1]
     R = rounds_active.double()
@@ -252,8 +272,14 @@ def bound_trim(ti, rounds_active, nmf_iter):
     ga = int((rounds_active > 0).sum())
     byts = (ga * (p * W * 4 + W * 4 + W * 4 + B * 4 + 3 * p * 4)
             + G * (2 * p * 4 + 1 + 4 + 1 + 8))
-    ops = (float(after.sum()) * (nmf_ops_per_column(p, nmf_iter) + 4 * p)
-           + float(before.sum()) * 6 * p)
+    if iters is None:
+        nmf_ops = float(after.sum()) * (nmf_ops_per_column(p, nmf_iter) + 4 * p)
+    else:
+        fixed = nmf_ops_per_column(p, 0) + 4 * p
+        per_it = nmf_ops_per_column(p, 1) - nmf_ops_per_column(p, 0)
+        nmf_ops = (float(after.sum()) * fixed + float(
+            (after / R.clamp_min(1) * iters.double()).sum()) * per_it)
+    ops = nmf_ops + float(before.sum()) * 6 * p
     return bound(byts, ops)
 
 
@@ -309,9 +335,13 @@ def ptxas_report(log):
 
 # Compiled instances that may spill registers: the trim loop at PMAX = 32
 # (p > 16 inside the resident gate means W <= 2048, off both fits' paths),
-# 180 and 276 bytes that five rewrites moved by under 100.  Any other
-# instance of the four kernels that spills fails ``--ptxas``.
-SPILL_ALLOWED = ("trim_loop_kernel<32,0>", "trim_loop_kernel<32,1>")
+# 180 and 276 bytes that five rewrites moved by under 100, in each of its
+# modes (the last template argument: default, trim_fast, nmf_tol), and the
+# nmf_tol instance of kernel 1's block launch at PMAX = 32 for 16 < p < 32
+# (676 bytes; phase kernels times it at p = 24).  Any other instance of the
+# four kernels that spills fails ``--ptxas``.
+SPILL_ALLOWED = tuple(f"trim_loop_kernel<32,{f},{m}>" for m in range(3)
+                      for f in range(2)) + ("nmf_masked_kernel<32,0,1>",)
 SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "trim_loop_kernel", "nmf_streamed_kernel",
                "ratio_rowsums_kernel")
@@ -405,9 +435,23 @@ def check_ratio_at(raw, lm, eng_cfg, timed=True):
     return out
 
 
-def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True):
+def nmf_geometries(p, W, G):
+    """Kernel 1's launch as its rule picks it, and the other one (a block or
+    a warp a gene; None where p is past a warp a gene's limit)."""
+    from degnorm_tpu_torch.ops import cuda_nmf
+    geo = cuda_nmf.pick_nmf_geometry(p, W, G)
+    other = (("block", cuda_nmf.pick_loop_threads(p, W)) if geo[0] == "warp"
+             else ("warp", 32 * cuda_nmf.GENE_WARPS)
+             if p <= cuda_nmf.GENE_WARP_MAX_P else None)
+    return geo, other
+
+
+def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
+                     freeze=False):
     """Kernels 1-3 against their plain versions on one bucket (kernel 2 on
-    its raw int16 form ``raw``); returns per-kernel measurements."""
+    its raw int16 form ``raw``), the opt-in branches too (``freeze``: also
+    where most genes freeze, ``check_branches_at``); returns per-kernel
+    measurements."""
     import torch
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
@@ -428,10 +472,7 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True):
     # on the launch the rule picks and on the other one
     act = ~ti.bailed
     act[::7] = False
-    geo = cuda_nmf.pick_nmf_geometry(p, W, G)
-    other = (("block", cuda_nmf.pick_loop_threads(p, W)) if geo[0] == "warp"
-             else ("warp", 32 * cuda_nmf.GENE_WARPS)
-             if p <= cuda_nmf.GENE_WARP_MAX_P else None)
+    geo, other = nmf_geometries(p, W, G)
     want = cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act, **nkw)
     errs = []
     for g in (geo, other)[:2 if other else 1]:
@@ -476,8 +517,38 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True):
     targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
              ti.n_hi, ti.n_bins0, ti.active0)
     tkw = baseline.trim_kwargs(nmf_cfg, eng_cfg)
-    K_g, rho_g, ran_g, rounds_g = cuda_trim.trim_loop_cuda(*targs, **tkw)
-    K_w, rho_w, ran_w, rounds_w = cuda_trim.trim_loop_plain(*targs, **tkw)
+    out["trim_loop"] = check_trim_at(ti, targs, tkw, nmf_cfg, timed)
+
+    # the opt-in branches of kernels 1 and 3, on the same inputs
+    out.update(check_branches_at(ti, act, nkw, targs, tkw, nmf_cfg, timed,
+                                 out["trim_loop"]["lagrangian_iters"], freeze))
+    return out
+
+
+def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
+                  **mode):
+    """Kernel 3 (in the branch ``mode`` selects: trim_fast or nmf_tol)
+    against its plain version on one bucket's trim inputs: ran_bs and
+    rounds_active equal on >= 99% of the genes that enter, rho within 5e-4
+    on >= 99%, a gene that never enters keeps K0 and rho0.  Lagrangian
+    iterations: on the genes whose rounds agree, the kernel's count equals
+    the plain version's on >= 99% of the genes that enter, give or take one
+    iteration a round under nmf_tol (a freeze test that float32 summation
+    order tips one iteration early or late).  ``default_iters``: the default
+    mode's Lagrangian iterations on the same inputs; given, the rounds must
+    freeze, at most 90% of them.  The kernel's iterations go into the
+    bound."""
+    import torch
+    from degnorm_tpu_torch.ops import cuda_trim
+    G, p, W = ti.Fm.shape
+    what = "trim_loop" + "".join(f"[{k}]" if v is True else f"[{k}={v:g}]"
+                                 for k, v in mode.items())
+    it_g = torch.zeros(G, dtype=torch.int32, device=ti.Fm.device)
+    it_w = torch.zeros_like(it_g)
+    K_g, rho_g, ran_g, rounds_g = cuda_trim.trim_loop_cuda(
+        *targs, iters_out=it_g, **tkw, **mode)
+    K_w, rho_w, ran_w, rounds_w = cuda_trim.trim_loop_plain(
+        *targs, iters_out=it_w, **tkw, **mode)
     torch.cuda.synchronize()
     same = (ran_g == ran_w) & (rounds_g == rounds_w)
     n_same = int(same.sum())
@@ -486,36 +557,166 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True):
     n_ent = int(ti.active0.sum())
     if G - n_same > 0.01 * n_ent:
         raise AssertionError(
-            f"trim_loop W={W}: ran_bs/rounds_active differ on {G - n_same} "
+            f"{what} W={W}: ran_bs/rounds_active differ on {G - n_same} "
             f"genes, of {n_ent} that entered")
     if not bool(torch.isfinite(rho_g).all() & torch.isfinite(K_g).all()):
-        raise AssertionError(f"trim_loop W={W}: non-finite output")
+        raise AssertionError(f"{what} W={W}: non-finite output")
     rho_err = (rho_g.double() - rho_w.double()).abs().amax(dim=1)
     rho_ok = int(((rho_err <= 5e-4) & same).sum())
     # an arg-max near-tie can drop another bin at the same round count;
     # such genes are counted, and must stay as rare as round disagreements
     if G - rho_ok > 0.01 * n_ent:
         raise AssertionError(
-            f"trim_loop W={W}: rho off by more than 5e-4 on {G - rho_ok} "
+            f"{what} W={W}: rho off by more than 5e-4 on {G - rho_ok} "
             f"genes, of {n_ent} that entered")
+    slack = rounds_w if "nmf_tol" in mode else torch.zeros_like(rounds_w)
+    it_off = int(((it_g - it_w).abs() > slack)[same].sum())
+    if it_off > 0.01 * n_ent:
+        raise AssertionError(
+            f"{what} W={W}: Lagrangian iterations differ on {it_off} genes "
+            f"(more than one a round under nmf_tol), of {n_ent} that entered")
+    if default_iters is not None and not int(it_g.sum()) <= 0.9 * default_iters:
+        raise AssertionError(
+            f"{what} W={W}: rounds did not freeze: {int(it_g.sum())} "
+            f"Lagrangian iterations against {default_iters} by default")
     inact = ~ti.active0
     if not (torch.equal(K_g[inact], ti.K0[inact])
             and torch.equal(rho_g[inact], ti.rho0[inact])
-            and int(rounds_g[inact].sum()) == 0 and not bool(ran_g[inact].any())):
-        raise AssertionError("trim_loop: inactive gene did not keep K0/rho0")
-    b_ms, b_by = bound_trim(ti, rounds_g, nmf_cfg.nmf_iter)
-    out["trim_loop"] = dict(
+            and int(rounds_g[inact].sum()) == 0 and not bool(ran_g[inact].any())
+            and int(it_g[inact].abs().sum()) == 0):
+        raise AssertionError(f"{what}: inactive gene did not keep K0/rho0")
+    b_ms, b_by = bound_trim(ti, rounds_g, nmf_cfg.nmf_iter,
+                            iters=it_g if mode else None)
+    rec = dict(
         max_abs_err=float(rho_err[same].max()) if n_same else 0.0,
         rho_within_5e4=rho_ok, K_max_abs_err=err_stats(K_g, K_w, same)[0],
         genes=G, entered=n_ent, rounds_agree=n_same,
+        iters_agree=int((it_g == it_w).sum()), iters_off=it_off,
+        iters_max_diff=int((it_g - it_w).abs().max()) if G else 0,
         most_bins=int(ti.n_bins0[ti.active0].max()) if n_ent else 0,
         mean_rounds=float(rounds_g.double().mean()),
+        lagrangian_iters=int(it_g.sum()),
         bound_ms=b_ms, bound_by=b_by)
     if timed:
-        out["trim_loop"]["ms"] = time_ms(
-            lambda: cuda_trim.trim_loop_cuda(*targs, **tkw), 2)
-        out["trim_loop"]["plain_ms"] = time_ms(
-            lambda: cuda_trim.trim_loop_plain(*targs, **tkw), 1, warm=False)
+        rec["ms"] = time_ms(
+            lambda: cuda_trim.trim_loop_cuda(*targs, **tkw, **mode), 2)
+        rec["plain_ms"] = time_ms(
+            lambda: cuda_trim.trim_loop_plain(*targs, **tkw, **mode), 1,
+            warm=False)
+    return rec
+
+
+# the opt-in modes as chip_smoke.py drives them, and the kernel branches
+# they run: name -> (kernel, mode, source, the TPU kernel's branch)
+MODE_TOL = 1e-4
+# a tolerance at which most genes and trim rounds freeze at nmf_iter 50
+# (about 32 iterations a gene on the narrow workload): phase kernels holds
+# the nmf_tol branches there too, so that their checks see the freeze
+FREEZE_TOL = 1e-3
+BRANCHES = {
+    "nmf_masked[nmf_tol]": (
+        "nmf_masked", dict(nmf_tol=MODE_TOL), "degnorm_tpu_torch/csrc/nmf_tol.cu",
+        "degnorm_tpu/ops/pallas_nmf.py:440"),
+    "trim_loop[trim_fast]": (
+        "trim_loop", dict(trim_fast=True), "degnorm_tpu_torch/csrc/trim_fast.cu",
+        "degnorm_tpu/ops/pallas_trim.py:135"),
+    "trim_loop[nmf_tol]": (
+        "trim_loop", dict(nmf_tol=MODE_TOL), "degnorm_tpu_torch/csrc/trim_tol.cu",
+        "degnorm_tpu/ops/pallas_trim.py:177"),
+}
+
+
+def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
+    """Kernel 1's nmf_tol branch at ``tol`` against its plain version (cold
+    start, inactive genes, on the launch the rule picks and on the other
+    one).  Each gene reports the iterations it ran: the kernel's count must
+    equal the plain version's on all but max(2, 1%) of the genes that froze
+    early in the plain version, and on >= 99% of the active genes (float32
+    summation order can tip a freeze test one iteration), so a kernel that
+    never freezes, or freezes on another test, fails; K, E, u rtol 1e-3 /
+    atol 1e-3 on the genes whose counts agree.  ``need_freeze``: at least half the active genes must
+    freeze early, or the check would not see the freeze."""
+    import torch
+    from degnorm_tpu_torch.ops import cuda_nmf
+    G, p, W = ti.Fm.shape
+    kw = dict(nkw, nmf_tol=tol)
+    it_w = torch.zeros(G, dtype=torch.int32, device=ti.Fm.device)
+    want = cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act,
+                                     iters_out=it_w, **kw)
+    frozen = int((act & (it_w < nmf_cfg.nmf_iter)).sum())
+    n_act = int(act.sum())
+    what = f"nmf_masked[nmf_tol={tol:g}] p={p} W={W}"
+    if need_freeze and frozen < 0.5 * n_act:
+        raise AssertionError(f"{what}: only {frozen} of {n_act} active genes "
+                             "froze early in the plain version")
+    geo, other = nmf_geometries(p, W, G)
+    errs, agree, max_diff = [], [], 0
+    for g in (geo, other)[:2 if other else 1]:
+        it_g = torch.zeros_like(it_w)
+        got = cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
+                                       iters_out=it_g, _geometry=g, **kw)
+        torch.cuda.synchronize()
+        same = it_g == it_w
+        n_off = int((~same).sum())
+        agree.append(G - n_off)
+        max_diff = max(max_diff, int((it_g - it_w).abs().max()))
+        if n_off > min(max(2, 0.01 * frozen), 0.01 * n_act):
+            raise AssertionError(
+                f"{what} {g}: iterations differ on {n_off} genes, of {frozen} "
+                f"that froze early in the plain version ({n_act} active)")
+        for g_, w_, nm in zip(got, want, ("K", "E", "u")):
+            assert_close(g_, w_, 1e-3, 1e-3, f"{what} {nm} {g}", sel=same)
+            errs.append(err_stats(g_, w_, same))
+            if bool((g_[~act] != 0).any()):
+                raise AssertionError(f"{what} {nm} {g}: inactive gene not "
+                                     "zero")
+        if g == geo:
+            it_rule = it_g
+    b_ms, b_by = bound_nmf(ti.Fm, ti.hi, act, nmf_cfg.nmf_iter, iters=it_rule)
+    ran = it_rule[act].double()
+    rec = dict(
+        max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs), nmf_tol=tol,
+        iters_agree=agree, iters_max_diff=max_diff, active=n_act,
+        mean_iters=float(ran.mean()) if ran.numel() else 0.0,
+        genes_frozen_early=int((ran < nmf_cfg.nmf_iter).sum()),
+        plain_genes_frozen_early=frozen,
+        nmf_iter=nmf_cfg.nmf_iter, geometry=list(geo),
+        bound_ms=b_ms, bound_by=b_by)
+    if timed:
+        rec["ms"] = time_ms(
+            lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
+                                             **kw), 3)
+        rec["plain_ms"] = time_ms(
+            lambda: cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act,
+                                              **kw), 1, warm=False)
+    return rec
+
+
+def check_branches_at(ti, act, nkw, targs, tkw, nmf_cfg, timed,
+                      default_iters, freeze=False):
+    """The opt-in branches against their plain versions on one bucket, on
+    the inputs of the default checks: kernel 1's nmf_tol branch
+    (``check_nmf_tol_at``), kernel 3's trim_fast and nmf_tol branches
+    (``check_trim_at``), at MODE_TOL.  ``freeze``: the two nmf_tol branches
+    again at FREEZE_TOL, where most genes and trim rounds freeze, recorded
+    under ``freeze``.  The bound of each counts the work of its own
+    iterations: those the kernel reports for nmf_tol, n_it a round for
+    trim_fast."""
+    out = {"nmf_masked[nmf_tol]": check_nmf_tol_at(ti, act, nkw, nmf_cfg,
+                                                   MODE_TOL, timed)}
+    out["trim_loop[trim_fast]"] = check_trim_at(ti, targs, tkw, nmf_cfg,
+                                                timed, trim_fast=True)
+    out["trim_loop[nmf_tol]"] = check_trim_at(ti, targs, tkw, nmf_cfg, timed,
+                                              nmf_tol=MODE_TOL)
+    out["trim_loop[trim_fast]"]["n_it"] = max(nmf_cfg.nmf_iter // 4, 8)
+    if freeze:
+        out["nmf_masked[nmf_tol]"]["freeze"] = check_nmf_tol_at(
+            ti, act, nkw, nmf_cfg, FREEZE_TOL, timed, need_freeze=True)
+        out["trim_loop[nmf_tol]"]["freeze"] = dict(
+            check_trim_at(ti, targs, tkw, nmf_cfg, timed,
+                          default_iters=default_iters, nmf_tol=FREEZE_TOL),
+            nmf_tol=FREEZE_TOL, default_lagrangian_iters=default_iters)
     return out
 
 
@@ -694,6 +895,9 @@ def phase_kernels(cov, cov_wide):
     2 again): the two whole buckets of the long genes (p=8; W=16384 and
     W=65536), after p=32, W=4096 and p=16, W=8192 at 48 genes and p=2,
     W=40000 at 12.
+    Kernels 1 and 3 also in their opt-in branches (``check_branches_at``),
+    at the two whole buckets also where most genes freeze (FREEZE_TOL), and
+    all of kernels 1-3 timed at p=32 and p=24, W=1024 (P32_GENES genes).
     Tolerances: kernels 1-3 K, E, u and row sums rtol 1e-3 / atol 1e-3
     (float32 reduction order over W differs); trim loop ran_bs and
     rounds_active equal on >= 99% of genes, rho atol 5e-4 on >= 99%;
@@ -711,8 +915,8 @@ def phase_kernels(cov, cov_wide):
     # than a block of the trim kernel has threads (48 against 32),
     # correctness only
     rng = np.random.default_rng(SEED + 1)
-    for p, W, G, bins in ((3, 384, 48, 20), (16, 512, 32, 20),
-                          (8, 512, 48, 48), (32, 2048, 32, 20)):
+
+    def odd_bucket(G, p, W):
         small, _ = synth_dataset(G, p, seed=SEED + p)
         F = np.zeros((G, p, W), np.float32)
         lens = np.zeros(G, np.int64)
@@ -721,11 +925,15 @@ def phase_kernels(cov, cov_wide):
             F[i, :, :L] = m[:, :L]
             lens[i] = L
         lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(dev)
+        return (torch.from_numpy(F).to(dev), lm,
+                torch.from_numpy(F.astype(np.int16)).to(dev))
+
+    for p, W, G, bins in ((3, 384, 48, 20), (16, 512, 32, 20),
+                          (8, 512, 48, 48), (32, 2048, 32, 20)):
+        F, lm, raw = odd_bucket(G, p, W)
         assert bins <= 32 or cuda_nmf.pick_loop_threads(p, W) == 32
-        r = check_kernels_at(torch.from_numpy(F).to(dev), lm,
-                             NMFConfig(nmf_iter=20, bins=bins), eng_cfg,
-                             torch.from_numpy(F.astype(np.int16)).to(dev),
-                             timed=False)
+        r = check_kernels_at(F, lm, NMFConfig(nmf_iter=20, bins=bins),
+                             eng_cfg, raw, timed=False)
         res[f"p{p}_W{W}_bins{bins}"] = dict(
             {k: v["max_abs_err"] for k, v in r.items()},
             trim_entered=r["trim_loop"]["entered"],
@@ -733,12 +941,22 @@ def phase_kernels(cov, cov_wide):
         if bins > 32 and not r["trim_loop"]["most_bins"] > 32:
             raise AssertionError("no gene of the many-bins case has more "
                                  "bins than the block has threads")
+    # p = 32 and p = 24 at W = 1024, timed: the PMAX = 32 block instances of
+    # kernels 1 and 3 in every mode, p == PMAX and not (the nmf_tol branch
+    # of kernel 1 at p < 32 and kernel 3 spill, SPILL_ALLOWED), where a fit
+    # of 17-32 samples runs them
+    for p in TIMED_WIDE_P:
+        F, lm, raw = odd_bucket(P32_GENES, p, 1024)
+        res[f"p{p}_W1024"] = check_kernels_at(F, lm, nmf_cfg, eng_cfg, raw)
+        res[f"p{p}_W1024"]["shape"] = list(F.shape)
+        del F, lm, raw
     buckets = pack_buckets(list(cov.values()), bucket_widths=BUCKET_WIDTHS,
                            dtype=np.int16)
     assert sorted(b.width for b in buckets) == sorted(BUCKET_WIDTHS)
     for b in buckets:
         F_adj, lm, raw = kernel_inputs(b, dev)
-        res[b.width] = check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw)
+        res[b.width] = check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw,
+                                        freeze=True)
         res[b.width]["shape"] = list(F_adj.shape)
         del F_adj, lm, raw
         torch.cuda.empty_cache()
@@ -763,12 +981,22 @@ def phase_kernels(cov, cov_wide):
         del raw, lm
         torch.cuda.empty_cache()
     emit("kernels",
-         kernels=["nmf_masked", "ratio_rowsums", "trim_loop", "nmf_streamed"],
+         kernels=["nmf_masked", "ratio_rowsums", "trim_loop", "nmf_streamed",
+                  *BRANCHES],
          tolerance="kernels 1-3: K,E,u,row sums rtol 1e-3 atol 1e-3 (kernel "
                    "1 on both launches); trim flags >= 99% equal, rho atol "
                    "5e-4 on >= 99%; kernel 2 and kernel 4: raw int16 input "
                    "bit-equal to float32 input; kernel 4: K,E,u within 1e-5 "
-                   "of max(|value|, 1)",
+                   "of max(|value|, 1); the branches as their kernel, "
+                   "kernel 1's nmf_tol on the genes whose iteration counts "
+                   "agree, which must be all but max(2, 1%) of those that "
+                   "froze early in the plain version and >= 99% of the "
+                   "active ones; kernel 3's "
+                   "iterations equal on >= 99% of the genes whose rounds "
+                   "agree (nmf_tol: within one a round); at the two "
+                   "buckets also at nmf_tol=1e-3, where >= 50% of the "
+                   "active genes and >= 10% of the trim iterations must "
+                   "freeze",
          launches=dict(nmf_masked=cuda_nmf.nmf_launches,
                        ratio_rowsums=cuda_nmf.ratio_launches,
                        trim_loop=cuda_trim.trim_launches,
@@ -895,7 +1123,7 @@ def phase_fit(cov, X):
          rho_mean=float(res.rho.mean()),
          peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
          profile=prof)
-    return launches
+    return launches, res, wall2
 
 
 def phase_fit_wide(cov, X):
@@ -1233,6 +1461,238 @@ def phase_parity(cov, X, cov_wide, X_wide):
                  nmf_streamed_launches=streamed)
 
 
+# phase modes: the opt-in modes on the narrow workload
+MODES = (("trim_fast", dict(trim_fast=True)), ("nmf_tol", dict(nmf_tol=MODE_TOL)))
+MODES_PARITY_GENES = 2048
+EIGH_GENES = 1024
+KEYED_GENES = 1024
+KEYED_RATE = 3
+
+
+def branch_launches():
+    """Launch counts of every kernel and of each opt-in branch."""
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    return {"nmf_masked": cuda_nmf.nmf_launches,
+            "ratio_rowsums": cuda_nmf.ratio_launches,
+            "trim_loop": cuda_trim.trim_launches,
+            "nmf_streamed": cuda_stream.stream_launches,
+            "nmf_masked[nmf_tol]": cuda_nmf.nmf_tol_launches,
+            "trim_loop[trim_fast]": cuda_trim.trim_fast_launches,
+            "trim_loop[nmf_tol]": cuda_trim.trim_tol_launches}
+
+
+def zero_launches():
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    cuda_nmf.nmf_launches = cuda_nmf.nmf_tol_launches = 0
+    cuda_nmf.ratio_launches = cuda_stream.stream_launches = 0
+    cuda_trim.trim_launches = cuda_trim.trim_fast_launches = 0
+    cuda_trim.trim_tol_launches = 0
+
+
+def drift(a, b):
+    """DI drift of fit ``a`` from fit ``b`` of the same genes and the
+    baseline-selection decisions that flip (PARITY.md §known deviations)."""
+    d = np.abs(a.rho - b.rho)
+    return dict(di_drift_max=float(d.max()), di_drift_mean=float(d.mean()),
+                decision_flips=int((a.ran_baseline_selection
+                                    != b.ran_baseline_selection).sum()),
+                genes_with_flips=int((a.ran_baseline_selection
+                                      != b.ran_baseline_selection)
+                                     .any(axis=1).sum()))
+
+
+def phase_modes(cov, X, base_fit, base_steady_s):
+    """The opt-in modes through DegNormEngine.run.  Each of trim_fast and
+    nmf_tol=1e-4 drives the narrow workload at full width on the kernels
+    (counts set to 0 just before the fit, read just after: the mode's
+    kernel branches must have launched), then a steady refit; its DI drift
+    and decision flips against the default fit of phase ``fit`` are
+    reported beside PARITY.md §known-deviations items 6 and 7 (not gated).
+    Parity: a kernel fit and a use_kernels=False fit of the mode on the
+    first MODES_PARITY_GENES genes (``compare_fits``).  Then
+    rank1_method="eigh" on EIGH_GENES genes (the plain versions, no kernel
+    launched; held against the default kernel fit of the same genes), and
+    a keyed downsample_rate=3 fit on the kernels against its plain fit."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
+    launches = {}
+    out = {}
+    genes = list(cov.keys())
+
+    def subset(k):
+        return OrderedDict((g, cov[g]) for g in genes[:k]), X[:k]
+
+    def fit(data, Xs, nmf=nmf_cfg, **eng_kw):
+        t0 = time.perf_counter()
+        res = DegNormEngine(nmf, EngineConfig(bucket_widths=BUCKET_WIDTHS,
+                                              **eng_kw)).run(data, Xs)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    for name, mode in MODES:
+        engine = DegNormEngine(nmf_cfg, EngineConfig(bucket_widths=BUCKET_WIDTHS,
+                                                     **mode))
+        zero_launches()
+        t0 = time.perf_counter()
+        res = engine.run(cov, X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = branch_launches()
+        launches[name] = got
+        branches = [b for b, (_, m, _, _) in BRANCHES.items() if m == mode]
+        if any(got[b] < 1 for b in branches) or got["nmf_streamed"]:
+            raise AssertionError(f"mode {name}: launches {got}")
+        timings = dict(engine.timings)
+        t0 = time.perf_counter()
+        res2 = engine.run(cov, X, reuse_device_data=True)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        n, p = res.rho.shape
+        assert (n, p) == (N_GENES, P_SAMPLES), res.rho.shape
+        assert np.isfinite(res.rho).all() and np.isfinite(res.x_adj).all()
+        assert res.ran_baseline_selection.any(), "no gene ran baseline selection"
+        np.testing.assert_allclose(res2.rho, res.rho, rtol=0, atol=1e-6)
+        compute = timings["init"] + timings["iterations"]
+        rec = dict(wall_s=round(wall, 3), steady_wall_s=round(wall2, 4),
+                   timings={k: round(v, 4) for k, v in timings.items()},
+                   gene_iter_per_s=round(n * DEGNORM_ITER / compute, 1),
+                   steady_gene_iter_per_s=round(n * DEGNORM_ITER / wall2, 1),
+                   trim_rounds=engine.trim_rounds, launches=got)
+        if base_fit is not None:
+            rec.update(drift(res, base_fit),
+                       default_steady_wall_s=round(base_steady_s, 4),
+                       default_steady_gene_iter_per_s=round(
+                           n * DEGNORM_ITER / base_steady_s, 1))
+        out[name] = rec
+        del engine, res, res2
+        torch.cuda.empty_cache()
+        sub, Xs = subset(MODES_PARITY_GENES)
+        on, t_on = fit(sub, Xs, **mode)
+        off, t_off = fit(sub, Xs, use_kernels=False, **mode)
+        compare_fits(f"modes_parity_{name}", on, off, (t_on, t_off),
+                     pair=f"{name}: kernels on vs use_kernels=False")
+    # eigh: every fit through the plain versions, no kernel launched
+    sub, Xs = subset(EIGH_GENES)
+    zero_launches()
+    eigh, t_eigh = fit(sub, Xs, rank1_method="eigh")
+    if any(branch_launches().values()):
+        raise AssertionError(f"eigh launched kernels: {branch_launches()}")
+    power, t_power = fit(sub, Xs)
+    assert np.isfinite(eigh.rho).all() and np.isfinite(eigh.x_adj).all()
+    compare_fits("modes_eigh", eigh, power, (t_eigh, t_power),
+                 pair="rank1_method=eigh (plain versions) vs power (kernels)")
+    # keyed downsample offsets, on the kernels and plain
+    sub, Xs = subset(KEYED_GENES)
+    ds_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER,
+                       downsample_rate=KEYED_RATE)
+    assert ds_cfg.ds_compat == "keyed"
+    on, t_on = fit(sub, Xs, nmf=ds_cfg)
+    off, t_off = fit(sub, Xs, nmf=ds_cfg, use_kernels=False)
+    compare_fits("modes_keyed_downsample", on, off, (t_on, t_off),
+                 pair=f"keyed downsample_rate={KEYED_RATE}: kernels on vs "
+                      "use_kernels=False")
+    emit("modes", genes=N_GENES, samples=P_SAMPLES, nmf_iter=NMF_ITER,
+         degnorm_iter=DEGNORM_ITER, nmf_tol=MODE_TOL, modes=out,
+         known_deviations="PARITY.md: trim_fast DI drift <= 0.02 max, 5e-4 "
+                          "mean; nmf_tol 1e-4 zero decision flips",
+         smi=smi_line())
+    return launches
+
+
+# phase oracle: the port's engine on the card against its float64 oracle
+ORACLE_SYNTH_GENES = 64
+ORACLE_SYNTH_ITER = 2       # DegNorm iterations: keeps ARPACK under a minute
+GOLDEN = os.path.join(REPO, "tests", "data", "golden_nmfoa.npz")
+
+
+def golden_dataset():
+    """The golden corpus (this script's copy of tools/make_golden.py's
+    generator, checked against the fixture's read counts): 24 genes x 4."""
+    rng = np.random.default_rng(20260817)
+    cov = OrderedDict()
+    lengths = rng.integers(250, 1800, 24)
+    for i in range(24):
+        L = int(lengths[i])
+        t = np.linspace(0, 1, L)
+        base = np.abs(np.sin(np.pi * t) + 0.2) * (3 + 10 * rng.random())
+        rows = []
+        for j in range(4):
+            row = (0.5 + rng.random() * 1.5) * base
+            if (i + j) % 2 == 1:
+                row = row * np.exp(-2.5 * (1 - t) * rng.random())
+            rows.append(np.round(np.maximum(row, 0.0) * 15))
+        cov[f"g{i:03d}"] = np.vstack(rows).astype(np.float64)
+    X = np.round(np.abs(rng.standard_normal((24, 4))) * 250 + 40)
+    return cov, X
+
+
+def phase_oracle():
+    """The port's engine on the card (kernels on, default EngineConfig)
+    against the port's float64 oracle (oracle/nmfoa.py, ARPACK on the
+    host): on the golden corpus, gated at tests/test_golden.py's tolerance
+    (ran_baseline_selection equal, rho rtol 3e-4 / atol 3e-6, adjusted
+    counts rtol 3e-4), and on ORACLE_SYNTH_GENES genes x 8 of the narrow
+    generator at ORACLE_SYNTH_ITER DegNorm iterations, held to
+    ``compare_fits``.  The engine's kernels compute in float32."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.oracle.nmfoa import degnorm_fit
+    g = np.load(GOLDEN)
+    cov, X = golden_dataset()
+    np.testing.assert_array_equal(X, g["x"])
+    cfg = NMFConfig(nmf_iter=int(g["nmf_iter"]), degnorm_iter=int(g["degnorm_iter"]))
+    zero_launches()
+    t0 = time.perf_counter()
+    card = DegNormEngine(cfg, EngineConfig()).run(cov, X)
+    t_card = time.perf_counter() - t0
+    if not all(v > 0 for k, v in branch_launches().items()
+               if k in ("nmf_masked", "ratio_rowsums", "trim_loop")):
+        raise AssertionError(f"oracle phase: launches {branch_launches()}")
+    t0 = time.perf_counter()
+    host = degnorm_fit(list(cov.values()), X, cfg)
+    t_host = time.perf_counter() - t0
+    rho_err = np.abs(card.rho - host.rho)
+    adj_rel = np.abs(card.x_adj / host.x_adj - 1)
+    golden = dict(
+        genes=len(cov), samples=4, nmf_iter=cfg.nmf_iter,
+        degnorm_iter=cfg.degnorm_iter, engine_s=round(t_card, 3),
+        oracle_s=round(t_host, 3),
+        ran_bs_equal=bool((card.ran_baseline_selection
+                           == host.ran_baseline_selection).all()),
+        rho_err_max=float(rho_err.max()),
+        rho_err_over_tolerance=float((rho_err / (3e-6 + 3e-4 * np.abs(
+            host.rho))).max()),
+        x_adj_rel_err_max=float(adj_rel.max()),
+        oracle_vs_fixture_rho_err_max=float(np.abs(host.rho - g["rho"]).max()),
+        engine_vs_fixture_rho_err_max=float(np.abs(card.rho - g["rho"]).max()))
+    emit("oracle_golden", **golden,
+         tolerance="tests/test_golden.py:65-66: ran_bs equal, rho rtol 3e-4 "
+                   "atol 3e-6, x_adj rtol 3e-4")
+    np.testing.assert_array_equal(card.ran_baseline_selection,
+                                  host.ran_baseline_selection)
+    np.testing.assert_allclose(card.rho, host.rho, rtol=3e-4, atol=3e-6)
+    np.testing.assert_allclose(card.x_adj, host.x_adj, rtol=3e-4)
+    cov2, X2 = synth_dataset(ORACLE_SYNTH_GENES, P_SAMPLES, seed=SEED + 2)
+    cfg2 = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=ORACLE_SYNTH_ITER)
+    t0 = time.perf_counter()
+    card2 = DegNormEngine(cfg2, EngineConfig()).run(cov2, X2)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host2 = degnorm_fit(list(cov2.values()), X2, cfg2)
+    t_host = time.perf_counter() - t0
+    compare_fits("oracle_synth", card2, host2, (t_card, t_host),
+                 pair="engine on the card (kernels, float32) vs float64 "
+                      "oracle on the host",
+                 nmf_iter=NMF_ITER, degnorm_iter=ORACLE_SYNTH_ITER,
+                 rho_err_over_golden_tolerance=float(
+                     (np.abs(card2.rho - host2.rho)
+                      / (3e-6 + 3e-4 * np.abs(host2.rho))).max()))
+
+
 def _one_run_dir(base):
     runs = [d for d in os.listdir(base) if d.startswith("degnorm_")]
     if len(runs) != 1:
@@ -1565,10 +2025,14 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
 
 
-def kernels_line(kres, launches, launches_wide, launches_pipeline):
+def kernels_line(kres, launches, launches_wide, launches_pipeline,
+                 launches_modes):
     """The per-kernel records of the result line: kernels 1-3 at the narrow
     fit's main shape (W=1024) with the W=4096 one beside it, kernel 4 at the
-    wide fit's W=16384 bucket with its other shapes beside it."""
+    wide fit's W=16384 bucket with its other shapes beside it, then the
+    opt-in branches of kernels 1 and 3 at the narrow shapes, each beside its
+    kernel's default-mode time, with its launches in its mode's fit (phase
+    ``modes``)."""
     main_shape = kres[1024]
     replaces = {
         "nmf_masked": "degnorm_tpu/ops/pallas_nmf.py:687",
@@ -1605,6 +2069,11 @@ def kernels_line(kres, launches, launches_wide, launches_pipeline):
                      "bound_ms": wide["bound_ms"],
                      "bound_by": wide["bound_by"],
                      **{k: wide[k] for k in extra_keys[name]}},
+            **{f"p{q}": {k: kres[f"p{q}_W1024"][name][k]
+                         for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "max_abs_err")
+                         if k in kres[f"p{q}_W1024"][name]}
+               for q in TIMED_WIDE_P},
             "launches_fit_wide": launches_wide[name],
             "launches_pipeline": launches_pipeline[name],
         })
@@ -1632,6 +2101,34 @@ def kernels_line(kres, launches, launches_wide, launches_pipeline):
                          if str(name_).startswith("stream_")
                          and name_ != f"stream_{WIDE_WIDTHS[0]}"],
     })
+    for name, (kernel, mode, src, repl) in BRANCHES.items():
+        m, wide = main_shape[name], kres[4096][name]
+        mode_name = next(k for k, v in MODES if any(v.get(x) == y
+                                                      for x, y in mode.items()))
+        extra = ("n_it",) if "trim_fast" in mode else (
+            ("mean_iters", "genes_frozen_early") if kernel == "nmf_masked"
+            else ("lagrangian_iters",))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "mode": mode, "launches": launches_modes[mode_name][name],
+            "max_abs_err": max(m["max_abs_err"], wide["max_abs_err"]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "shape": main_shape["shape"],
+            "default_ms": main_shape[kernel]["ms"],
+            "default_bound_ms": main_shape[kernel]["bound_ms"],
+            **{k: m[k] for k in extra},
+            **({"freeze": m["freeze"]} if "freeze" in m else {}),
+            **{f"p{q}": {k: kres[f"p{q}_W1024"][name][k]
+                         for k in ("ms", "plain_ms", "bound_ms",
+                                   "max_abs_err")}
+               for q in TIMED_WIDE_P},
+            "wide": {"shape": kres[4096]["shape"], "ms": wide["ms"],
+                     "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+                     "bound_by": wide["bound_by"],
+                     "default_ms": kres[4096][kernel]["ms"],
+                     **{k: wide[k] for k in extra}},
+        })
     return kernels
 
 
@@ -1679,20 +2176,26 @@ def main(argv=None):
                         int((lens > WIDE_WIDTHS[0]).sum())],
              host_bytes=int(sum(m.nbytes for m in cov_wide.values())))
     kres = phase_kernels(cov, cov_wide) if "kernels" in phases else None
-    launches = phase_fit(cov, X) if "fit" in phases else None
+    launches, base_fit, base_steady_s = (phase_fit(cov, X) if "fit" in phases
+                                         else (None, None, None))
     launches_wide = (phase_fit_wide(cov_wide, X_wide)
                      if "fit_wide" in phases else None)
     if "parity" in phases:
         phase_parity(cov, X, cov_wide, X_wide)
     launches_pipeline = (phase_pipeline(cov, X, cov_wide, X_wide)
                          if "pipeline" in phases else None)
+    launches_modes = (phase_modes(cov, X, base_fit, base_steady_s)
+                      if "modes" in phases else None)
+    if "oracle" in phases:
+        phase_oracle()
     if args.sweep:
         phase_sweep(cov, cov_wide)
     if set(ALL_PHASES) - set(phases):
         print(json.dumps({"ok": False, "partial": phases}))
         return 0
 
-    kernels = kernels_line(kres, launches, launches_wide, launches_pipeline)
+    kernels = kernels_line(kres, launches, launches_wide, launches_pipeline,
+                           launches_modes)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",
                       "seconds": round(time.perf_counter() - t_start, 1)}),

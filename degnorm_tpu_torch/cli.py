@@ -63,19 +63,25 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "float64"])
     p.add_argument("--rank1-method", default="power",
                    choices=["power", "eigh"],
-                   help="eigh is not ported yet (ROADMAP Queue 1 item 8)")
+                   help="dominant eigenvector of each rank-1 fit: power "
+                        "iteration (the CUDA kernels) or eigh (a batched "
+                        "eigendecomposition in every fit, no kernel)")
     p.add_argument("--profile-dir", default=None,
                    help="not carried over (ROADMAP 'Not carried over')")
     p.add_argument("--trim-fast", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="opt-in: warm-restart each baseline-selection trim "
+                        "round from the previous one's multipliers, with "
+                        "max(nmf_iter // 4, 8) steps (fused trim loop only)")
     p.add_argument("--nmf-tol", type=float, default=0.0,
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="opt-in: > 0 ends a gene's NMF loop once "
+                        "max|dK| <= nmf_tol * max|K| (resident NMF loops "
+                        "only)")
     p.add_argument("--ds-compat", default="keyed",
                    choices=["keyed", "reference"],
-                   help="downsample-offset RNG: 'reference' reproduces the "
-                        "reference's exact np.random.seed(123) offset "
-                        "stream; 'keyed' with -d > 1 is not ported yet "
-                        "(ROADMAP Queue 1 item 6)")
+                   help="downsample-offset RNG: 'keyed' (default) draws the "
+                        "JAX package's per-(seed, iteration) offsets; "
+                        "'reference' reproduces the reference's exact "
+                        "np.random.seed(123) offset stream")
     p.add_argument("-v", "--version", action="version",
                    version=f"degnorm-tpu-torch {__version__}")
     return p
@@ -101,15 +107,6 @@ def _refuse_unported(args) -> None:
         pending.append("--multihost (ROADMAP Queue 1 item 7)")
     if args.mesh:
         pending.append("--mesh (ROADMAP Queue 1 item 7)")
-    if args.trim_fast:
-        pending.append("--trim-fast (ROADMAP Queue 1 item 8)")
-    if args.nmf_tol != 0.0:
-        pending.append("--nmf-tol (ROADMAP Queue 1 item 8)")
-    if args.rank1_method != "power":
-        pending.append("--rank1-method eigh (ROADMAP Queue 1 item 8)")
-    if args.downsample_rate > 1 and args.ds_compat == "keyed":
-        pending.append("-d > 1 with --ds-compat keyed (ROADMAP Queue 1 "
-                       "item 6; pass --ds-compat reference)")
     if args.profile_dir:
         pending.append("--profile-dir (ROADMAP 'Not carried over'; "
                        "trace with torch.profiler instead)")
@@ -201,7 +198,11 @@ def parse_config(argv: Optional[List[str]] = None,
         downsample_rate=args.downsample_rate,
         skip_baseline_selection=args.skip_baseline_selection,
         ds_compat=args.ds_compat)
-    eng = EngineConfig(device=args.device, dtype=args.dtype)
+    if args.nmf_tol < 0:
+        raise SystemExit("--nmf-tol must be >= 0.")
+    eng = EngineConfig(device=args.device, dtype=args.dtype,
+                       rank1_method=args.rank1_method,
+                       trim_fast=args.trim_fast, nmf_tol=args.nmf_tol)
     cfg = PipelineConfig(
         bam_files=tuple(bam_files),
         bai_files=tuple(args.bai_files or []),

@@ -114,31 +114,70 @@ class EngineConfig:
     bucket_widths: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192, 16384, 65536)
     # Cap on genes per device batch within one bucket; 0 = unbounded.
     max_genes_per_batch: int = 0
-    # Opt-in modes of the JAX package that this port does not carry yet:
-    # only their default is accepted.
+    # Dominant eigenvector of the p x p Gram in every rank-1 fit: "power"
+    # (power iteration, the kernels) or "eigh" (a batched exact
+    # eigendecomposition, torch.linalg.eigh).  "eigh" runs every fit through
+    # the plain versions and launches no kernel: the JAX package's XLA twin
+    # (its use_pallas=False path), which its CPU runs take.
     rank1_method: str = "power"
+    # Opt-in: each trim round restarts its Lagrangian from the previous
+    # round's multipliers (masked to the surviving columns) and left vector,
+    # with max(nmf_iter // 4, 8) steps of size 1/sqrt(that).  Applies to the
+    # fused trim loop of a bucket that trim_fast_applies(); ignored
+    # elsewhere, as in the JAX package.
     trim_fast: bool = False
+    # Opt-in: > 0 freezes a gene's NMF state after the first iteration with
+    # max|dK| <= nmf_tol * max|K| (the update of that iteration kept).
+    # Applies to the NMF loops of a bucket that nmf_tol_applies() (kernel 1
+    # and the plain rounds of the trim loop, fused or not); the streamed
+    # kernel and trim_fast's rounds ignore it, as in the JAX package.
     nmf_tol: float = 0.0
     # Not carried over: the port has no other lowering for a wide bucket
     # than the streamed kernel, so only True is accepted.
     stream_nmf: bool = True
 
     def __post_init__(self):
-        pending = []
-        if self.rank1_method != "power":
-            pending.append(f"rank1_method={self.rank1_method!r}")
-        if self.trim_fast:
-            pending.append("trim_fast=True")
-        if self.nmf_tol != 0.0:
-            pending.append(f"nmf_tol={self.nmf_tol}")
         if not self.stream_nmf:
-            pending.append("stream_nmf=False")
-        if pending:
             raise NotImplementedError(
-                "not ported (only the default is accepted): "
-                + ", ".join(pending))
+                "not ported (only the default is accepted): stream_nmf=False")
+        if self.rank1_method not in ("power", "eigh"):
+            raise ValueError(
+                f"rank1_method must be power or eigh, got {self.rank1_method!r}")
+        if not self.nmf_tol >= 0.0:
+            raise ValueError(f"nmf_tol must be >= 0, got {self.nmf_tol}")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32 or float64, got {self.dtype!r}")
+
+
+# Where an opt-in mode changes numbers: the JAX package applies nmf_tol and
+# trim_fast only inside the kernels that carry them, its resident NMF kernel
+# (degnorm_tpu/ops/pallas_nmf.py::pallas_supported) and its fused trim
+# kernel (ops/pallas_trim.py::fused_trim_supported); a bucket outside them
+# is streamed or trimmed by the unfused loop, and the mode is ignored there.
+# The port decides by the same rules, copied below as rules on the bucket's
+# shape, whatever kernel it launches: W a multiple of 128 and a minimal block
+# of 8 genes within the JAX kernels' 13 MiB VMEM budget at 7 (NMF) or 8
+# (trim) live (p, W) float32 buffers a gene, i.e. p * W <= 60,854 or 53,248.
+_JAX_VMEM_BUDGET = 13 * 1024 * 1024
+
+
+def _jax_resident_fits(p: int, W: int, live_buffers: int) -> bool:
+    return W % 128 == 0 and 8 * live_buffers * p * W * 4 <= _JAX_VMEM_BUDGET
+
+
+def nmf_tol_applies(shape) -> bool:
+    """True when ``EngineConfig.nmf_tol`` applies to the NMF loops of a
+    (G, p, W) bucket: the JAX package's resident NMF kernel takes it."""
+    _, p, W = shape
+    return _jax_resident_fits(p, W, 7)
+
+
+def trim_fast_applies(shape) -> bool:
+    """True when ``EngineConfig.trim_fast`` applies to the trim loop of a
+    (G, p, W) bucket whose loop is fused (``fuse_trim``): the JAX package's
+    fused trim kernel takes it."""
+    _, p, W = shape
+    return _jax_resident_fits(p, W, 8)
 
 
 @dataclasses.dataclass(frozen=True)

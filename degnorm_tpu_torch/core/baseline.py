@@ -30,7 +30,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from degnorm_tpu_torch.config import EngineConfig, NMFConfig
+from degnorm_tpu_torch.config import (EngineConfig, NMFConfig,
+                                     nmf_tol_applies, trim_fast_applies)
 from degnorm_tpu_torch.core.linalg import (masked_rowsum, median_mid,
                                            outer_product)
 from degnorm_tpu_torch.core.nmf import nmf_masked
@@ -146,6 +147,8 @@ def trim_inputs(
     K0, E0, u0 = nmf_masked(Fm, hi, gene_active=~(bail_low | bail_zero_row),
                             use_kernels=eng_cfg.use_kernels,
                             F_raw=F_raw, scale=scale,
+                            nmf_tol=eng_cfg.nmf_tol,
+                            method=eng_cfg.rank1_method,
                             **_nmf_kwargs(nmf_cfg, eng_cfg))
     est_rs0 = K0 * E0.sum(dim=1)[:, None]
     rho0 = 1 - rowsum_start / (est_rs0 + 1)
@@ -212,11 +215,21 @@ def baseline_select_bucket(
     targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
              ti.n_hi, ti.n_bins0, ti.active0)
     tkw = trim_kwargs(nmf_cfg, eng_cfg)
-    if (eng_cfg.use_kernels and eng_cfg.fuse_trim
-            and cuda_trim.fused_trim_supported(F.shape, F.dtype)):
-        # the whole loop in one kernel launch (plain version on the CPU)
-        K_t, rho_t, ran_bs, rounds_active = cuda_trim.trim_loop_cuda(
-            *targs, **tkw)
+    # the fused loop: one kernel launch a bucket inside its gate (eigh runs
+    # the plain unfused loop, as the JAX package's XLA twin does); the
+    # opt-in modes apply where the JAX package's own gates say they do
+    fused = (eng_cfg.fuse_trim and eng_cfg.rank1_method == "power"
+             and cuda_trim.fused_trim_supported(F.shape, F.dtype))
+    fast = eng_cfg.trim_fast and fused and trim_fast_applies(F.shape)
+    if fused and (eng_cfg.use_kernels or fast):
+        # the whole loop in one kernel launch (plain version on the CPU);
+        # the plain fit of a trim_fast bucket runs the fused loop's plain
+        # version, whose rounds the unfused loop does not have
+        fn = (cuda_trim.trim_loop_cuda if eng_cfg.use_kernels
+              else cuda_trim.trim_loop_plain)
+        tol = eng_cfg.nmf_tol if nmf_tol_applies(F.shape) else 0.0
+        K_t, rho_t, ran_bs, rounds_active = fn(
+            *targs, trim_fast=fast, nmf_tol=tol, **tkw)
     else:
         # the unfused loop: a Python while over tensors with one NMF per
         # round through nmf_masked (a kernel launch with the kernels on),
@@ -229,7 +242,9 @@ def baseline_select_bucket(
         def round_nmf(col_mask, gene_active, u_prev):
             return nmf_masked(ti.Fm, col_mask, gene_active=gene_active,
                               u0=u_prev, use_kernels=eng_cfg.use_kernels,
-                              F_raw=F_raw, scale=scale, **resume_kwargs)
+                              F_raw=F_raw, scale=scale,
+                              nmf_tol=eng_cfg.nmf_tol,
+                              method=eng_cfg.rank1_method, **resume_kwargs)
 
         K_t, rho_t, ran_bs, rounds_active = cuda_trim.trim_loop_plain(
             *targs, nmf_fn=round_nmf, **tkw)

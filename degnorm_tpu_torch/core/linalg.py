@@ -71,6 +71,28 @@ def _default_u0(F: torch.Tensor) -> torch.Tensor:
                       device=F.device)
 
 
+def _eigh_dominant(B: torch.Tensor) -> torch.Tensor:
+    """Dominant eigenvector of each Gram by a batched ``eigh`` (eigenvalues
+    ascending: the last column), its sign turned toward a non-negative sum
+    (``degnorm_tpu/core/linalg.py::_eigh_dominant``)."""
+    _, vecs = torch.linalg.eigh(B)
+    u = vecs[..., -1]
+    return u * torch.where(u.sum(dim=-1, keepdim=True) < 0, -1.0, 1.0)
+
+
+def _dominant(B: torch.Tensor, u0: Optional[torch.Tensor], like: torch.Tensor,
+              n_iters: int, warm_plain: int, method: str) -> torch.Tensor:
+    """The left vector of a rank-1 fit from its Gram: ``eigh``, or power
+    iteration from ``u0`` (squared scheme, or ``warm_plain`` plain matvecs,
+    which needs ``u0``).  ``eigh`` ignores ``u0`` and the counts."""
+    if method == "eigh":
+        return _eigh_dominant(B)
+    if u0 is None:
+        u0 = _default_u0(like)
+    return (_power_warm_plain(B, u0, warm_plain) if warm_plain
+            else _power_iterate(B, u0, n_iters))
+
+
 def masked_rank_one_uv(
     F: torch.Tensor,
     mask: torch.Tensor,
@@ -78,17 +100,21 @@ def masked_rank_one_uv(
     n_iters: int = 30,
     u0: Optional[torch.Tensor] = None,
     warm_plain: int = 0,
+    method: str = "power",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scale-free rank-1 state (u, v_raw = Aᵀu), no sigma.  ``warm_plain > 0``
-    replaces the squared scheme by that many plain matvecs (needs ``u0``)."""
+    replaces the squared scheme by that many plain matvecs (needs ``u0``);
+    ``method="eigh"`` takes u from a batched eigendecomposition instead."""
     A = F * mask.to(F.dtype)[:, None, :]
-    B = _gram(A)
-    if u0 is None:
-        u0 = _default_u0(F)
-    u = (_power_warm_plain(B, u0, warm_plain) if warm_plain
-         else _power_iterate(B, u0, n_iters))
+    u = _dominant(_gram(A), u0, F, n_iters, warm_plain, method)
     v = torch.einsum("gpw,gp->gw", A, u)
     return u, v
+
+
+def _scale_of(B: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """s = sqrt(max(uᵀBu, 0)), the singular value of a unit left vector."""
+    Bu = torch.einsum("gpq,gq->gp", B, u)
+    return torch.sqrt(torch.clamp_min(torch.einsum("gp,gp->g", u, Bu), 0.0))
 
 
 def finish_rank_one(
@@ -100,9 +126,7 @@ def finish_rank_one(
     """Materialize (K, E) from a ``masked_rank_one_uv`` state: s from the
     Rayleigh quotient of X's Gram, K = u·s, E = v/s."""
     A = X * mask.to(X.dtype)[:, None, :]
-    B = _gram(A)
-    Bu = torch.einsum("gpq,gq->gp", B, u)
-    s = torch.sqrt(torch.clamp_min(torch.einsum("gp,gp->g", u, Bu), 0.0))
+    s = _scale_of(_gram(A), u)
     return u * s[:, None], v / (s[:, None] + _EPS)
 
 
@@ -112,15 +136,20 @@ def masked_rank_one(
     *,
     n_iters: int = 30,
     u0: Optional[torch.Tensor] = None,
+    warm_plain: int = 0,
+    method: str = "power",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Rank-1 factorization K·E of each masked gene matrix.
+    """Rank-1 factorization K·E of each masked gene matrix, from one Gram.
 
-    Returns K (G,p) = u·s, E (G,W) (zero on masked columns) and the unit left
-    vector u (G,p) for warm starts.
+    Returns K (G,p) = u·s, E (G,W) = Aᵀu / s (zero on masked columns) and the
+    unit left vector u (G,p) for warm starts.
     """
-    u, v = masked_rank_one_uv(F, mask, n_iters=n_iters, u0=u0)
-    K, E = finish_rank_one(F, mask, u, v)
-    return K, E, u
+    A = F * mask.to(F.dtype)[:, None, :]
+    B = _gram(A)
+    u = _dominant(B, u0, F, n_iters, warm_plain, method)
+    s = _scale_of(B, u)
+    v = torch.einsum("gpw,gp->gw", A, u)
+    return u * s[:, None], v / (s[:, None] + _EPS), u
 
 
 def outer_product(K: torch.Tensor, E: torch.Tensor) -> torch.Tensor:

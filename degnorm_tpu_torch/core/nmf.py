@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from degnorm_tpu_torch.config import nmf_tol_applies
 from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
 
 
@@ -31,6 +32,8 @@ def nmf_masked(
     use_kernels: bool = True,
     F_raw: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
+    nmf_tol: float = 0.0,
+    method: str = "power",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the NMF-OA loop on a masked gene bucket.
 
@@ -38,7 +41,8 @@ def nmf_masked(
     (``cuda_nmf.kernels_supported``) goes to the resident NMF kernel; one
     outside it goes to the streamed kernel, which reads the raw coverage
     when an int16 ``F_raw`` and ``scale`` are both given.  ``use_kernels=False``
-    takes the plain versions by the same routing.
+    takes the plain versions by the same routing (by shape: a float64 bucket
+    of the CPU tests routes as its float32 form would).
 
     Args:
       F: (G, p, W) nonnegative coverage batch (already scale-adjusted).
@@ -54,6 +58,13 @@ def nmf_masked(
         int16 the streamed kernel reads it at half the bytes and adjusts
         each column itself, bit-identically (ops/cuda_stream.py).  A raw
         tensor of another type saves no bytes: F is used.
+      nmf_tol: the adaptive freeze (``EngineConfig.nmf_tol``), where
+        ``config.nmf_tol_applies`` holds for the bucket and the resident
+        route runs it; the streamed kernel ignores it, as the JAX package's
+        does.
+      method: "power", or "eigh": every fit by a batched eigendecomposition
+        through the plain version at any width, with ``nmf_tol`` at every
+        width (the JAX package's XLA twin); no kernel is launched.
 
     Returns (K, E, u): rank-1 factors (G,p), (G,W) and the final unit left
     vector for warm starts.
@@ -62,10 +73,14 @@ def nmf_masked(
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain,
                   gene_active=gene_active, u0=u0)
-    if cuda_nmf.kernels_supported(F.shape, F.dtype):
+    if method == "eigh":
+        return cuda_nmf.nmf_masked_plain(F, mask, nmf_tol=nmf_tol,
+                                         method=method, **kwargs)
+    if cuda_nmf.kernels_supported(F.shape, torch.float32):
         fn = (cuda_nmf.nmf_masked_cuda if use_kernels
               else cuda_nmf.nmf_masked_plain)
-        return fn(F, mask, **kwargs)
+        tol = nmf_tol if nmf_tol_applies(F.shape) else 0.0
+        return fn(F, mask, nmf_tol=tol, **kwargs)
     fn = (cuda_stream.nmf_masked_streamed_cuda if use_kernels
           else cuda_stream.nmf_masked_streamed_plain)
     use_raw = (F_raw is not None and scale is not None
@@ -80,13 +95,19 @@ def ratio_svd_rowsums(
     *,
     power_iters: int = 30,
     use_kernels: bool = True,
+    method: str = "power",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row sums of the one-shot clipped rank-1 over-approximation
     (reference ``ratio_svd``, nmf.py:109-121): per-sample sums of F and of
     max(K·E, F), both over active columns.  Returns (cov_sums, est_sums).
     The kernel takes every width, so a wide bucket's initialisation runs in
     it too (the JAX package leaves that one to XLA), and int16 coverage as
-    it is: both paths compute on its exact float32 values."""
+    it is: both paths compute on its exact float32 values.
+    ``method="eigh"`` takes the plain version (the JAX package's XLA path
+    for that method)."""
+    if method == "eigh":
+        return cuda_nmf.ratio_rowsums_plain(F, mask, power_iters=power_iters,
+                                            method=method)
     fn = (cuda_nmf.ratio_rowsums_cuda if use_kernels
           else cuda_nmf.ratio_rowsums_plain)
     return fn(F, mask, power_iters=power_iters)

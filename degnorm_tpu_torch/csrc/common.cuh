@@ -563,11 +563,30 @@ struct CompactSrc {
 //   u_lane: the start vector, lane i of every warp holds u_i (0 beyond p).
 // Returns this thread's share of sum_w E[w]; u_lane and s come back refit
 // and identical in every warp; E is written through src.store_e.
-template <int PMAX, class Geo = BlockGeo, class Src, class Red>
+//
+// Two opt-in branches of the TPU kernels (degnorm_tpu/ops/pallas_nmf.py::
+// _nmf_loop and ops/pallas_trim.py::_trim_kernel):
+//   * ADAPT (EngineConfig.nmf_tol > 0; a template argument, so that the
+//     default instances compile without any of it): the (K, E) carry, each
+//     sweep updating X with est = K_i E_w for K = u s and E = v / (s + eps)
+//     of the last refit (the default carry's est = u_i v_w without the
+//     1e-30 regulariser), s refit every iteration, and the gene's loop ends
+//     after the first iteration whose max|K_new - K_old| <= tol * max(max|K|,
+//     1e-30) (the update of that iteration kept).  Every warp computes the
+//     test on identical numbers, so a block leaves the loop as one; a warp a
+//     gene leaves only its own gene's loop.
+//   * from_x (trim_fast's rounds after the first): the cold sweep reads the
+//     X the gene already holds in src instead of writing X = A0 (a branch
+//     of the cold sweep only).
+// `n_run`, where given, receives the Lagrangian iterations run.
+template <int PMAX, class Geo = BlockGeo, bool ADAPT = false, class Src,
+          class Red>
 __device__ __forceinline__ float nmf_core(Src& src, Red& red, float* tiles,
                                           float& u_lane, float& s, int nmf_iter,
                                           int power_cold, int power_warm,
-                                          int warm_plain) {
+                                          int warm_plain, float tol = 0.f,
+                                          int* n_run = nullptr,
+                                          bool from_x = false) {
   const Geo geo{};
   const int nt = geo.threads(), lane = threadIdx.x & 31, warp = geo.warp();
   const int nloc = src.n_local();
@@ -580,10 +599,11 @@ __device__ __forceinline__ float nmf_core(Src& src, Red& red, float* tiles,
   u.init(work + PMAX * DN_TILE_STRIDE);
   s = 0.f;
 
-  // cold sweep: X = A0 = F * mask, Gram of A0; the thread's active slots go
-  // into a register bit mask (slot k is local column 32 * warp + lane +
-  // k * nt), so no later sweep waits for a mask byte.  A block with more than
-  // 64 slots a thread reads the mask in every sweep instead.
+  // cold sweep: X = A0 = F * mask (or the X held, from_x), Gram of X; the
+  // thread's active slots go into a register bit mask (slot k is local
+  // column 32 * warp + lane + k * nt), so no later sweep waits for a mask
+  // byte.  A block with more than 64 slots a thread reads the mask in every
+  // sweep instead.
   const bool bits_ok = nloc <= 64 * nt;
   unsigned long long bits = 0ull;
   gram.zero();
@@ -592,16 +612,22 @@ __device__ __forceinline__ float nmf_core(Src& src, Red& red, float* tiles,
     const bool on = src.on(l);
     float x[PMAX];
     if (on) {
-      src.load_a0(l, x);  // from the input; the source may keep a copy
-      src.store_x(l, x);
+      if (from_x) {
+        src.load_x(l, x);
+      } else {
+        src.load_a0(l, x);  // from the input; the source may keep a copy
+        src.store_x(l, x);
+      }
       if (k < 64) bits |= 1ull << k;
     }
     gram.add(x, on, lane);
   }
 #define DN_ON(k, l) (bits_ok ? ((bits >> (k)) & 1ull) != 0 : src.on(l))
-  u_lane = red.refit(gram, 0, u_lane, power_cold, 0, nmf_iter == 0, s);
+  u_lane = red.refit(gram, 0, u_lane, power_cold, 0, ADAPT || nmf_iter == 0,
+                     s);
 
   // merged sweeps: v = u^T X, multiplier update, Gram of the new X
+  int ran = nmf_iter;
   for (int it = 0; it < nmf_iter; ++it) {
     u.set(u_lane, lane);
     gram.zero();
@@ -614,7 +640,11 @@ __device__ __forceinline__ float nmf_core(Src& src, Red& red, float* tiles,
         float v = 0.f;
 #pragma unroll
         for (int i = 0; i < PMAX; ++i) v = fmaf(x[i], u[i], v);
-        // X <- max(X - step * (u_i v - A0), A0), A0 eight rows at a time
+        // ADAPT: est = K_i E_w with K = u s and E = v / (s + eps), taken as
+        // u_i (s E_w), which differs from (u_i s) E_w in the last bit and
+        // keeps the per-row work and registers of the default sweep
+        const float se = ADAPT ? __fmul_rn(s, v / (s + DN_EPS)) : v;
+        // X <- max(X - step * (est - A0), A0), A0 eight rows at a time
         // (all of them at p <= 8): registers are short at p = 32
 #pragma unroll
         for (int i0 = 0; i0 < PMAX; i0 += 8) {
@@ -625,15 +655,29 @@ __device__ __forceinline__ float nmf_core(Src& src, Red& red, float* tiles,
 #pragma unroll
           for (int i = 0; i < NC; ++i)
             x[i0 + i] =
-                fmaxf(x[i0 + i] - step * (u[i0 + i] * v - a[i]), a[i]);
+                fmaxf(x[i0 + i] - step * (u[i0 + i] * se - a[i]), a[i]);
         }
         src.store_x(l, x);
       }
       gram.add(x, on, lane);
     }
-    u_lane = red.refit(gram, (it + 1) & 1, u_lane, power_warm, warm_plain,
-                       it == nmf_iter - 1, s);
+    if constexpr (ADAPT) {
+      const float k_old = __fmul_rn(u_lane, s);
+      u_lane = red.refit(gram, (it + 1) & 1, u_lane, power_warm, warm_plain,
+                         true, s);
+      const float k_new = __fmul_rn(u_lane, s);
+      const float delta = warp_max(fabsf(k_new - k_old));
+      const float ref = fmaxf(warp_max(fabsf(k_new)), DN_EPS);
+      if (delta <= __fmul_rn(tol, ref)) {  // frozen: this update kept
+        ran = it + 1;
+        break;
+      }
+    } else {
+      u_lane = red.refit(gram, (it + 1) & 1, u_lane, power_warm, warm_plain,
+                         it == nmf_iter - 1, s);
+    }
   }
+  if (n_run != nullptr) *n_run = ran;
 
   // finish: E = X^T u / (s + eps), and this thread's share of its sum
   u.set(u_lane, lane);

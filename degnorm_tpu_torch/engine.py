@@ -27,6 +27,7 @@ import torch
 
 from degnorm_tpu_torch.config import EngineConfig, NMFConfig
 from degnorm_tpu_torch.core import degnorm as outer
+from degnorm_tpu_torch.core import prng
 from degnorm_tpu_torch.core.baseline import (BucketResult,
                                              baseline_select_bucket,
                                              materialize_estimate)
@@ -106,7 +107,8 @@ def _bucket_init(F: torch.Tensor, len_mask: torch.Tensor,
     Ff = F if uncast else F.to(dtype)
     return ratio_svd_rowsums(Ff, len_mask,
                              power_iters=eng_cfg.power_iters_cold,
-                             use_kernels=eng_cfg.use_kernels)
+                             use_kernels=eng_cfg.use_kernels,
+                             method=eng_cfg.rank1_method)
 
 
 def _device_scatter(parts: Sequence[torch.Tensor],
@@ -161,6 +163,7 @@ class DegNormEngine:
         self._final_scale: Optional[np.ndarray] = None
         self._packed_fp = None
         self._ds_ref_draws = None
+        self._ds_cache = None
         self._ds_zero_cache: Dict[int, torch.Tensor] = {}
 
     def _sync(self):
@@ -229,32 +232,42 @@ class DegNormEngine:
         self.timings["upload"] = time.perf_counter() - t0
 
     def _ds_starts(self, bucket: GeneBucket, iteration: int) -> torch.Tensor:
-        """Per-gene systematic-sampling offsets.  Without downsampling:
-        zeros.  With it, only ``ds_compat="reference"`` is ported: the
-        reference's exact stream, one ``RandomState(seed).choice(rate)`` per
-        gene per iteration in input order (nmf.py:422,556), looked up by
-        gene id.  Genes shorter than the rate diverge from the reference
-        exactly as in the JAX package (its engine.py:532)."""
+        """Per-gene systematic-sampling offsets, drawn for the global gene
+        order once per iteration and looked up by gene id.  Without
+        downsampling: zeros.  ``ds_compat="keyed"`` (the default) draws the
+        JAX package's vector, ``randint(fold_in(PRNGKey(seed), iteration),
+        (n_genes,), 0, rate)`` (its engine.py:535-545), with the numpy
+        Threefry of ``core/prng.py``; it depends on (seed, iteration) alone,
+        so a resumed fit needs no state.  ``"reference"``: the reference's
+        exact stream, one ``RandomState(seed).choice(rate)`` per gene per
+        iteration in input order (nmf.py:422,556).  Genes shorter than the
+        rate diverge from the reference exactly as in the JAX package (its
+        engine.py:532)."""
         G = bucket.F.shape[0]
         if self.nmf_cfg.downsample_rate <= 1:
             if G not in self._ds_zero_cache:
                 self._ds_zero_cache[G] = torch.zeros(
                     G, dtype=torch.int32, device=self.device)
             return self._ds_zero_cache[G]
-        if self.nmf_cfg.ds_compat != "reference":
-            raise NotImplementedError(
-                "downsample offsets with ds_compat='keyed' are not ported "
-                "yet; use ds_compat='reference'")
-        if self._ds_ref_draws is None:
-            self._ds_ref_draws = []
-            self._ds_ref_rs = np.random.RandomState(self.nmf_cfg.random_state)
-        draws = self._ds_ref_draws
-        while len(draws) <= iteration:
-            rs = self._ds_ref_rs
-            draws.append(np.array(
-                [rs.choice(self.nmf_cfg.downsample_rate)
-                 for _ in range(self._n_genes)], np.int32))
-        starts = draws[iteration][np.maximum(bucket.gene_indices, 0)]
+        if self.nmf_cfg.ds_compat == "reference":
+            if self._ds_ref_draws is None:
+                self._ds_ref_draws = []
+                self._ds_ref_rs = np.random.RandomState(
+                    self.nmf_cfg.random_state)
+            draws = self._ds_ref_draws
+            while len(draws) <= iteration:
+                rs = self._ds_ref_rs
+                draws.append(np.array(
+                    [rs.choice(self.nmf_cfg.downsample_rate)
+                     for _ in range(self._n_genes)], np.int32))
+            offsets = draws[iteration]
+        else:
+            if self._ds_cache is None or self._ds_cache[0] != iteration:
+                self._ds_cache = (iteration, prng.downsample_offsets(
+                    self.nmf_cfg.random_state, iteration, self._n_genes,
+                    self.nmf_cfg.downsample_rate))
+            offsets = self._ds_cache[1]
+        starts = offsets[np.maximum(bucket.gene_indices, 0)]
         return torch.from_numpy(starts).to(self.device)
 
     # -- main loop -------------------------------------------------------
@@ -296,6 +309,7 @@ class DegNormEngine:
         t0 = time.perf_counter()
         self.timings = {}
         self._ds_ref_draws = None      # fresh offset stream per fit
+        self._ds_cache = None
         fingerprint = _data_fingerprint(cov_mats, n)
         reuse = (reuse_device_data and self._buckets
                  and self._packed_fp == fingerprint

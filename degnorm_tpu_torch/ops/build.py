@@ -33,25 +33,25 @@ build_info: Dict[str, object] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # name -> argtypes; every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit C int and cut the pointer).
 _SIGNATURES = {
     # F, mask, act, u0, X, K, E, u, G, p, W, nmf_iter, power_cold,
-    # power_warm, warm_plain, threads, stream
-    "dn_nmf_masked": [_P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # power_warm, warm_plain, tol, iters, threads, stream
+    "dn_nmf_masked": [_P] * 8 + [_I] * 7 + [_F, _P, _I, _P],
     # F, mask, act, u0, next, X, K, E, u, G, p, W, nmf_iter, power_cold,
-    # power_warm, warm_plain, threads, stream
-    "dn_nmf_masked_warp": [_P] * 9 + [_I] * 8 + [_P],
+    # power_warm, warm_plain, tol, iters, threads, stream
+    "dn_nmf_masked_warp": [_P] * 9 + [_I] * 7 + [_F, _P, _I, _P],
     # F, f_is_i16, mask, cov_sums, est_sums, G, p, W, power_cold, cl,
     # threads, stage_kb, stream
     "dn_ratio_rowsums": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
     # Fm, bin_id, bin_count, K0, E, rho0, u0, n_hi, n_bins, active0,
-    # X, colmask, K, rho, ran_bs, rounds_active,
+    # X, colmask, K, rho, ran_bs, rounds_active, iters,
     # G, p, W, B, nmf_iter, power_resume, power_warm, warm_plain,
-    # max_rounds, min_bins, min_gene_len, threads, stream
-    "dn_trim_loop": [_P] * 16 + [_I] * 12 + [_P],
+    # max_rounds, min_bins, min_gene_len, fast, tol, threads, stream
+    "dn_trim_loop": [_P] * 17 + [_I] * 12 + [_F, _I, _P],
     # F, f_is_i16, mask, act, scale, u0, X, K, E, u, G, p, W, nmf_iter,
     # power_cold, power_warm, warm_plain, cl, threads, stream
     "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 9 + [_P],

@@ -17,8 +17,10 @@ from degnorm_tpu_torch.core.linalg import (finish_rank_one, masked_rank_one,
                                            masked_rank_one_uv, outer_product)
 
 # Launch counters (plain ints): one is added where a kernel is launched and
-# nowhere else.
+# nowhere else.  ``nmf_tol_launches`` counts the launches of kernel 1 that
+# run its nmf_tol branch (they are in ``nmf_launches`` too).
 nmf_launches = 0
+nmf_tol_launches = 0
 ratio_launches = 0
 
 # Shape gate of the resident loop kernels (kernel 1, the NMF loop, and
@@ -185,6 +187,9 @@ def nmf_masked_plain(
     power_warm_plain: int = 0,
     gene_active: Optional[torch.Tensor] = None,
     u0: Optional[torch.Tensor] = None,
+    nmf_tol: float = 0.0,
+    method: str = "power",
+    iters_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the NMF-OA loop (X-form update, scale-free (u, v)
     carry): A0 = F·mask, cold rank-1, then ``nmf_iter`` times
@@ -194,35 +199,102 @@ def nmf_masked_plain(
     ``power_warm_plain`` = 0 runs the squared warm scheme at
     ``power_iters_warm`` (the JAX package's XLA twin); > 0 runs that many
     plain matvecs (its fused kernels).  ``gene_active``: genes outside it
-    return zeros, as the kernel does.  Returns (K, E, u).
+    return zeros, as the kernel does.  ``nmf_tol`` > 0: the adaptive loop
+    (``nmf_loop_plain``).  ``method="eigh"``: every fit by a batched
+    eigendecomposition (no kernel has it).  ``iters_out``: an int32 (G,)
+    tensor that receives the Lagrangian iterations each gene ran (0 for an
+    inactive gene), as the kernel reports them.  Returns (K, E, u).
     """
     return nmf_loop_plain(F * mask.to(F.dtype)[:, None, :], mask,
                           nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                           power_iters_warm=power_iters_warm,
                           power_warm_plain=power_warm_plain,
-                          gene_active=gene_active, u0=u0)
+                          gene_active=gene_active, u0=u0, nmf_tol=nmf_tol,
+                          method=method, iters_out=iters_out)
 
 
 def nmf_loop_plain(A0, mask, *, nmf_iter, power_iters_cold, power_iters_warm,
-                   power_warm_plain, gene_active, u0):
+                   power_warm_plain, gene_active, u0, nmf_tol=0.0,
+                   method="power", iters_out=None, X=None):
     """The loop of ``nmf_masked_plain`` from the masked coverage A0 on; the
-    streamed kernel's plain version (ops/cuda_stream.py) shares it."""
+    streamed kernel's plain version (ops/cuda_stream.py) shares it.  ``X``:
+    multipliers (X = A0 + lambda, zero off the mask) to start from instead
+    of A0, refit cold from and updated in place (trim_fast's rounds)."""
     step = 1.0 / (nmf_iter ** 0.5) if nmf_iter else 0.0
-    u, v = masked_rank_one_uv(A0, mask, n_iters=power_iters_cold, u0=u0)
-    # X is updated in place: the loop holds one (G, p, W) state, not one
-    # per iteration.
-    X = A0.clone()
-    for _ in range(nmf_iter):
-        est = outer_product(u, v)
-        est.sub_(A0).mul_(step)
-        torch.maximum(X.sub_(est), A0, out=X)
-        u, v = masked_rank_one_uv(X, mask, n_iters=power_iters_warm, u0=u,
-                                  warm_plain=power_warm_plain)
-    K, E = finish_rank_one(X, mask, u, v)
+    G = A0.shape[0]
+    if nmf_tol > 0:
+        K, E, u, iters = _adaptive_loop(
+            A0, mask, step, nmf_iter=nmf_iter,
+            power_iters_cold=power_iters_cold,
+            power_iters_warm=power_iters_warm,
+            power_warm_plain=power_warm_plain, gene_active=gene_active,
+            u0=u0, nmf_tol=nmf_tol, method=method)
+    else:
+        u, v = masked_rank_one_uv(A0 if X is None else X, mask,
+                                  n_iters=power_iters_cold, u0=u0,
+                                  method=method)
+        # X is updated in place: the loop holds one (G, p, W) state, not one
+        # per iteration.
+        X = A0.clone() if X is None else X
+        for _ in range(nmf_iter):
+            est = outer_product(u, v)
+            est.sub_(A0).mul_(step)
+            torch.maximum(X.sub_(est), A0, out=X)
+            u, v = masked_rank_one_uv(X, mask, n_iters=power_iters_warm, u0=u,
+                                      warm_plain=power_warm_plain,
+                                      method=method)
+        K, E = finish_rank_one(X, mask, u, v)
+        iters = torch.full((G,), nmf_iter, dtype=torch.int32, device=A0.device)
     if gene_active is not None:
         act = gene_active.to(A0.dtype)[:, None]
         K, E, u = K * act, E * act, u * act
+        iters = iters * gene_active.to(torch.int32)
+    if iters_out is not None:
+        iters_out.copy_(iters)
     return K, E, u
+
+
+def _adaptive_loop(A0, mask, step, *, nmf_iter, power_iters_cold,
+                   power_iters_warm, power_warm_plain, gene_active, u0,
+                   nmf_tol, method):
+    """The ``nmf_tol > 0`` loop (``degnorm_tpu/ops/pallas_nmf.py::_nmf_loop``
+    and its XLA twin, ``core/nmf.py``): the (K, E, u) carry with est = K⊗E,
+    and a gene freezes its (X, K, E, u) after the first iteration whose
+    max|ΔK| <= nmf_tol · max(max|K|, 1e-30), the update of that iteration
+    kept.  Each gene's result depends on its own history alone, so the batch
+    may stop once its active genes have frozen.  Returns (K, E, u, iters)."""
+    G = A0.shape[0]
+    dev = A0.device
+    K, E, u = masked_rank_one(A0, mask, n_iters=power_iters_cold, u0=u0,
+                              method=method)
+    X = A0.clone()
+    done = torch.zeros(G, dtype=torch.bool, device=dev)
+    live = (torch.ones_like(done) if gene_active is None
+            else gene_active.to(torch.bool))
+    iters = torch.zeros(G, dtype=torch.int32, device=dev)
+    for _ in range(nmf_iter):
+        if not bool((live & ~done).any()):
+            break
+        # the candidate update of every gene, discarded for the frozen
+        Xn = outer_product(K, E)
+        Xn.sub_(A0).mul_(step)
+        torch.sub(X, Xn, out=Xn)
+        torch.maximum(Xn, A0, out=Xn)
+        Kn, En, un = masked_rank_one(Xn, mask, n_iters=power_iters_warm,
+                                     u0=u, warm_plain=power_warm_plain,
+                                     method=method)
+        keep = done[:, None]
+        Xn[done] = X[done]
+        X = Xn
+        Kn = torch.where(keep, K, Kn)
+        En = torch.where(keep, E, En)
+        un = torch.where(keep, u, un)
+        delta = (Kn - K).abs().amax(dim=1)
+        ref = torch.clamp_min(Kn.abs().amax(dim=1), 1e-30)
+        iters += (~done).to(torch.int32)
+        done = done | (delta <= nmf_tol * ref)
+        K, E, u = Kn, En, un
+    return K, E, u, iters
 
 
 def nmf_masked_cuda(
@@ -235,13 +307,18 @@ def nmf_masked_cuda(
     power_warm_plain: int = 0,
     gene_active: Optional[torch.Tensor] = None,
     u0: Optional[torch.Tensor] = None,
+    nmf_tol: float = 0.0,
+    iters_out: Optional[torch.Tensor] = None,
     _geometry: Optional[Tuple[str, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``nmf_masked_plain``'s signature: one thread
     block, or one warp, per gene runs the whole loop (csrc/nmf.cu), as
-    ``pick_nmf_geometry`` chooses.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.  Results differ between the
-    two launches by float32 summation order alone.
+    ``pick_nmf_geometry`` chooses; ``nmf_tol > 0`` launches the kernel's
+    adaptive instance (csrc/nmf_tol.cu), where a gene leaves its own loop
+    once frozen.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises.  Results differ between the two launches
+    by float32 summation order alone.  ``iters_out``: see
+    ``nmf_masked_plain``.
 
     ``_geometry`` overrides the rule's launch (the timing sweep of
     ``chip_smoke.py --sweep`` and the check of both launches in
@@ -249,10 +326,11 @@ def nmf_masked_cuda(
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain,
-                  gene_active=gene_active, u0=u0)
+                  gene_active=gene_active, u0=u0, nmf_tol=nmf_tol,
+                  iters_out=iters_out)
     if F.device.type == "cpu":
         return nmf_masked_plain(F, mask, **kwargs)
-    global nmf_launches
+    global nmf_launches, nmf_tol_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
@@ -261,6 +339,11 @@ def nmf_masked_cuda(
     act8 = None if gene_active is None else _as_u8(gene_active)
     u0c = None if u0 is None else u0.to(torch.float32).contiguous()
     dev = F.device
+    if iters_out is not None and (iters_out.dtype != torch.int32
+                                  or iters_out.shape != (G,)
+                                  or iters_out.device != dev):
+        raise ValueError("nmf_masked_cuda: iters_out must be an int32 (G,) "
+                         "tensor on the coverage's device")
     # Scratch and converted inputs may be dropped as soon as this returns:
     # the caching allocator reuses a block only for work queued later on
     # this same stream, after the kernel.
@@ -271,7 +354,7 @@ def nmf_masked_cuda(
     if G == 0:
         return K, E, u
     loop = (int(nmf_iter), int(power_iters_cold), int(power_iters_warm),
-            int(power_warm_plain), threads)
+            int(power_warm_plain), float(nmf_tol), _ptr(iters_out), threads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if kind == "block":
@@ -289,6 +372,8 @@ def nmf_masked_cuda(
                 u.data_ptr(), G, p, W, *loop, stream)
     check_launch(code, name)
     nmf_launches += 1
+    if nmf_tol > 0:
+        nmf_tol_launches += 1
     return K, E, u
 
 
@@ -301,16 +386,18 @@ def ratio_rowsums_plain(
     mask: torch.Tensor,
     *,
     power_iters: int = 30,
+    method: str = "power",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: one cold rank-1 of A0 = F·mask, est = max(K⊗E, A0),
     and the row sums over active columns of F and of est (reference
     ``ratio_svd``, nmf.py:109-121,522-526).  Integer coverage (the engine's
-    int16 upload) is cast to float32 first, which is exact.  Returns
-    (cov_sums, est_sums)."""
+    int16 upload) is cast to float32 first, which is exact.
+    ``method="eigh"``: the rank-1 by a batched eigendecomposition (no kernel
+    has it).  Returns (cov_sums, est_sums)."""
     if not F.dtype.is_floating_point:
         F = F.to(torch.float32)
     m = mask.to(F.dtype)
-    K, E, _ = masked_rank_one(F, mask, n_iters=power_iters)
+    K, E, _ = masked_rank_one(F, mask, n_iters=power_iters, method=method)
     est = torch.maximum(outer_product(K, E), F * m[:, None, :])
     est_sums = torch.einsum("gpw,gw->gp", est, m)
     cov_sums = torch.einsum("gpw,gw->gp", F, m)

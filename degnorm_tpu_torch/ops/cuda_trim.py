@@ -19,8 +19,12 @@ import torch
 from degnorm_tpu_torch.core.linalg import masked_rowsum, outer_product
 from degnorm_tpu_torch.ops import cuda_nmf
 
-# Launch counter (plain int): one is added where the kernel is launched.
+# Launch counters (plain ints): one is added where the kernel is launched.
+# ``trim_fast_launches`` and ``trim_tol_launches`` count the launches that
+# run the kernel's trim_fast or nmf_tol branch (in ``trim_launches`` too).
 trim_launches = 0
+trim_fast_launches = 0
+trim_tol_launches = 0
 
 MAX_BINS = 64          # the kernel keeps per-bin state in shared memory
 
@@ -65,6 +69,9 @@ def trim_loop_plain(
     max_rounds: int,
     min_bins: int,
     min_gene_len: int,
+    trim_fast: bool = False,
+    nmf_tol: float = 0.0,
+    iters_out: Optional[torch.Tensor] = None,
     nmf_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the whole trim loop (reference nmf.py:273-324).
@@ -76,10 +83,23 @@ def trim_loop_plain(
       K0/E0/rho0/u0: initial NMF factors, DI scores and left vectors.
       n_hi/n_bins: (G,) int32 surviving column / bin counts.
       active0: (G,) bool — genes entering the loop.
+      trim_fast: the fused loop's warm-restart rounds
+        (``degnorm_tpu/ops/pallas_trim.py:135-176``): a multiplier state
+        X starts at Fm (lambda = 0) and each round, the first included,
+        masks it to the surviving columns, refits u from it by the squared
+        scheme at ``power_iters_warm`` from the carried u, runs
+        n_it = max(nmf_iter // 4, 8) steps of size 1/sqrt(n_it) and builds
+        K and E once.  ``nmf_tol`` does not reach these rounds.
+      nmf_tol: the adaptive freeze of each plain round's NMF loop
+        (``cuda_nmf.nmf_masked_plain``).
+      iters_out: an int32 (G,) tensor that receives the Lagrangian
+        iterations each gene ran over all its rounds, as the kernel reports
+        them.
       nmf_fn: optional ``(col_mask, gene_active, u0) -> (K, E, u)`` that runs
         a round's NMF on ``Fm`` (resumed from ``u0`` at the resume count);
         the default is ``cuda_nmf.nmf_masked_plain``.  The unfused loop of
-        ``core/baseline.py`` passes the kernel route here.
+        ``core/baseline.py`` passes the kernel route here (with its own
+        ``nmf_tol``; the unfused loop has no trim_fast).
 
     The loop reads ``active.any()`` on the host once a round (the
     counterpart of ``lax.while_loop``'s condition).
@@ -93,14 +113,30 @@ def trim_loop_plain(
     bin_ids = torch.arange(B, dtype=torch.int32, device=Fm.device)
     neg_inf = torch.tensor(float("-inf"), dtype=dtype, device=Fm.device)
     power_resume = power_iters_resume or power_iters_cold
-    if nmf_fn is None:
+    round_iters = torch.zeros(G, dtype=torch.int32, device=Fm.device)
+    iters = torch.zeros(G, dtype=torch.int32, device=Fm.device)
+    if nmf_fn is not None and (trim_fast or nmf_tol):
+        raise ValueError("trim_loop_plain: trim_fast and nmf_tol belong to "
+                         "the fused loop; an nmf_fn carries its own")
+    if trim_fast:
+        Xf = Fm.clone()       # X = A0 + lambda with lambda = 0 everywhere
+
+        def nmf_fn(col_mask, gene_active, u_prev):
+            can_f = col_mask.to(dtype)[:, None, :]
+            return cuda_nmf.nmf_loop_plain(
+                Fm * can_f, col_mask, nmf_iter=max(nmf_iter // 4, 8),
+                power_iters_cold=power_iters_warm,
+                power_iters_warm=power_iters_warm,
+                power_warm_plain=power_warm_plain, gene_active=gene_active,
+                u0=u_prev, iters_out=round_iters, X=Xf.mul_(can_f))
+    elif nmf_fn is None:
         def nmf_fn(col_mask, gene_active, u_prev):
             return cuda_nmf.nmf_masked_plain(
                 Fm, col_mask, nmf_iter=nmf_iter,
                 power_iters_cold=power_resume,
                 power_iters_warm=power_iters_warm,
                 power_warm_plain=power_warm_plain, gene_active=gene_active,
-                u0=u_prev)
+                u0=u_prev, nmf_tol=nmf_tol, iters_out=round_iters)
 
     K, E, rho, u = K0, E0, rho0, u0
     n_hi = n_hi.to(torch.int32)
@@ -149,7 +185,9 @@ def trim_loop_plain(
 
         # cold rank-1 resumed from the previous round's left vector at the
         # reduced power_iters_resume count (same unique Perron target)
+        round_iters.zero_()
         Kn, En, un = nmf_fn(can, run_nmf, u)
+        iters += round_iters
         est_rs = Kn * En.sum(dim=1)[:, None]
         zero_row = est_rs.amin(dim=1) == 0.0                # nmf.py:315-316
         update_rho = run_nmf & ~zero_row
@@ -174,6 +212,8 @@ def trim_loop_plain(
         active = update_rho & ~floor_hit & (rho_new.amax(dim=1) > 0.1)
         rounds += 1
 
+    if iters_out is not None:
+        iters_out.copy_(iters)
     return K, rho, ran_bs, rounds_active
 
 
@@ -197,32 +237,42 @@ def trim_loop_cuda(
     max_rounds: int,
     min_bins: int,
     min_gene_len: int,
+    trim_fast: bool = False,
+    nmf_tol: float = 0.0,
+    iters_out: Optional[torch.Tensor] = None,
     _threads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``trim_loop_plain``'s signature: one thread block
     per gene runs the whole loop while its own gene is active
-    (csrc/trim.cu).  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises.  ``_threads`` overrides
-    ``cuda_nmf.pick_loop_threads`` (the timing sweep of ``chip_smoke.py
-    --sweep`` passes it; nothing else does)."""
+    (csrc/trim.cu; the trim_fast and nmf_tol branches are the instances of
+    csrc/trim_fast.cu and csrc/trim_tol.cu).  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  ``_threads``
+    overrides ``cuda_nmf.pick_loop_threads`` (the timing sweep of
+    ``chip_smoke.py --sweep`` passes it; nothing else does)."""
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain,
                   power_iters_resume=power_iters_resume,
                   max_rounds=max_rounds, min_bins=min_bins,
-                  min_gene_len=min_gene_len)
+                  min_gene_len=min_gene_len, trim_fast=trim_fast,
+                  nmf_tol=nmf_tol, iters_out=iters_out)
     if Fm.device.type == "cpu":
         return trim_loop_plain(Fm, bin_id, bin_count, K0, E0, rho0, u0,
                                n_hi, n_bins, active0, **kwargs)
-    global trim_launches
+    global trim_launches, trim_fast_launches, trim_tol_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     cuda_nmf.check_kernel_input(Fm, "trim_loop_cuda")
     G, p, W = Fm.shape
     B = bin_count.shape[1]
     if B > MAX_BINS:
         raise ValueError(f"trim_loop_cuda: bins={B} exceeds {MAX_BINS}")
-    threads = _threads or cuda_nmf.pick_loop_threads(p, W)
     dev = Fm.device
+    if iters_out is not None and (iters_out.dtype != torch.int32
+                                  or iters_out.shape != (G,)
+                                  or iters_out.device != dev):
+        raise ValueError("trim_loop_cuda: iters_out must be an int32 (G,) "
+                         "tensor on the coverage's device")
+    threads = _threads or cuda_nmf.pick_loop_threads(p, W)
     f32, i32 = torch.float32, torch.int32
     bin_id_c = bin_id.to(i32).contiguous()
     bin_count_c = bin_count.to(f32).contiguous()
@@ -233,8 +283,10 @@ def trim_loop_cuda(
     n_hi_c = n_hi.to(i32).contiguous()
     n_bins_c = n_bins.to(i32).contiguous()
     act8 = cuda_nmf._as_u8(active0)
-    X = torch.empty((G, p, W), dtype=f32, device=dev)            # scratch
-    colmask = torch.empty((G, W), dtype=torch.uint8, device=dev)  # scratch
+    # scratch: the multipliers X (with trim_fast, carried from round to
+    # round: its first round starts from Fm) and the column mask
+    X = torch.empty((G, p, W), dtype=f32, device=dev)
+    colmask = torch.empty((G, W), dtype=torch.uint8, device=dev)
     K = torch.empty((G, p), dtype=f32, device=dev)
     rho = torch.empty((G, p), dtype=f32, device=dev)
     ran_bs = torch.empty((G,), dtype=torch.uint8, device=dev)
@@ -249,12 +301,16 @@ def trim_loop_cuda(
             n_hi_c.data_ptr(), n_bins_c.data_ptr(), act8.data_ptr(),
             X.data_ptr(), colmask.data_ptr(),
             K.data_ptr(), rho.data_ptr(), ran_bs.data_ptr(),
-            rounds_active.data_ptr(),
+            rounds_active.data_ptr(), cuda_nmf._ptr(iters_out),
             G, p, W, B, int(nmf_iter),
             int(power_iters_resume or power_iters_cold),
             int(power_iters_warm), int(power_warm_plain),
             int(max_rounds), int(min_bins), int(min_gene_len),
-            threads, stream)
+            int(bool(trim_fast)), float(nmf_tol), threads, stream)
     check_launch(code, "dn_trim_loop")
     trim_launches += 1
+    if trim_fast:
+        trim_fast_launches += 1
+    elif nmf_tol > 0:
+        trim_tol_launches += 1
     return K, rho, ran_bs.bool(), rounds_active

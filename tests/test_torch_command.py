@@ -252,12 +252,19 @@ def test_cli_flag_validation(dataset, tmp_path):
     assert parse(base + ["--device", "cpu"]).engine.device == "cpu"
     assert parse(base + ["-d", "2", "--ds-compat", "reference"]
                  ).nmf.downsample_rate == 2
+    # the opt-in modes and keyed downsample offsets are ported: accepted
+    for flag, check in (
+            (["--trim-fast"], lambda c: c.engine.trim_fast),
+            (["--nmf-tol", "1e-4"], lambda c: c.engine.nmf_tol == 1e-4),
+            (["--rank1-method", "eigh"],
+             lambda c: c.engine.rank1_method == "eigh"),
+            (["-d", "2"], lambda c: (c.nmf.downsample_rate, c.nmf.ds_compat)
+             == (2, "keyed")),
+            (["-d", "2", "--ds-compat", "keyed"],
+             lambda c: (c.nmf.downsample_rate, c.nmf.ds_compat)
+             == (2, "keyed"))):
+        assert check(parse(base + flag)), flag
     for flag, item in ((["--multihost"], "item 7"), (["--mesh"], "item 7"),
-                       (["--trim-fast"], "item 8"),
-                       (["--nmf-tol", "1e-4"], "item 8"),
-                       (["--rank1-method", "eigh"], "item 8"),
-                       (["-d", "2"], "item 6"),
-                       (["-d", "2", "--ds-compat", "keyed"], "item 6"),
                        (["--profile-dir", str(tmp_path)], "Not carried")):
         with pytest.raises(SystemExit, match=item):
             parse(base + flag)

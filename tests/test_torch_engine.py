@@ -176,9 +176,13 @@ def test_downsample_reference_offsets_match_jax_and_keyed_raises():
     np.testing.assert_array_equal(rt.ran_baseline_selection,
                                   rj.ran_baseline_selection)
     np.testing.assert_allclose(rt.rho, rj.rho, rtol=0, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="keyed"):
-        port_engine(dict(nmf_iter=6, degnorm_iter=1, downsample_rate=3)
-                    ).run(cov, X)
+    # the default offset source, keyed: the JAX engine's draw
+    keyed_kw = dict(nmf_iter=6, degnorm_iter=2, downsample_rate=3)
+    rj = jax_engine(keyed_kw, dtype="float64").run(cov, X)
+    rt = port_engine(keyed_kw, dtype="float64", power_warm_plain=0).run(cov, X)
+    np.testing.assert_array_equal(rt.ran_baseline_selection,
+                                  rj.ran_baseline_selection)
+    np.testing.assert_allclose(rt.rho, rj.rho, rtol=0, atol=1e-9)
 
 
 def test_int16_upload_when_integral():

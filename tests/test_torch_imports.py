@@ -42,6 +42,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import degnorm_tpu_torch.report.report\n"
         "import degnorm_tpu_torch.report.data_access\n"
         "import degnorm_tpu_torch.report.visualizations\n"
+        "import degnorm_tpu_torch.oracle, degnorm_tpu_torch.oracle.nmfoa\n"
+        "import degnorm_tpu_torch.testing, degnorm_tpu_torch.core.prng\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'degnorm_tpu' or m.startswith('degnorm_tpu.')]\n"
@@ -113,6 +115,12 @@ def test_chip_smoke_fails_without_cuda():
                                 dict(rank1_method="eigh"),
                                 dict(stream_nmf=False)])
 def test_unported_opt_in_modes_raise(kw):
+    """Only stream_nmf=False is still refused (not carried over); the
+    three opt-in modes are ported and accepted."""
     from degnorm_tpu_torch import EngineConfig
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**kw)
+    if "stream_nmf" in kw:
+        with pytest.raises(NotImplementedError):
+            EngineConfig(**kw)
+    else:
+        cfg = EngineConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
