@@ -11,10 +11,13 @@ genes x 8 samples of 8,193 to 60,000 bases, default bucket widths 16384 and
 65536: the streamed NMF kernel on raw int16 coverage, once per round of the
 unfused trim loop).  It then checks kernels-on against kernels-off fits and
 the unfused against the fused loop, and runs the ``degnorm-tpu-torch``
-command twice (phase ``pipeline``): cold, ``python3 -m degnorm_tpu_torch`` in
+command (phase ``pipeline``): cold, ``python3 -m degnorm_tpu_torch`` in
 a subprocess on simulated .bam files and a .gtf (ETL, fit, outputs, report),
+then on .cram files of the same reads, whose outputs must equal the .bam
+run's bit for bit with no CRAM slice declined by the vectorized decoder;
 and warm, ``cli.main`` on a warm-start directory of both fits' genes, whose
 DI and adjusted counts must be bit-equal to a direct ``DegNormEngine.run``,
+whose buckets (native scan and pack) must be byte-equal to the numpy pack,
 whose fit must launch all four kernels and agree with a ``use_kernels=False``
 fit, and at whose narrow buckets of the default widths kernels 1-3 are held
 against their plain versions.  The opt-in modes: phase ``kernels`` also
@@ -30,6 +33,10 @@ prints no result.
 Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,
 pipeline,modes,oracle`` runs a subset (then no final result line is printed
 unless all ran; ``modes`` reads the default fit of ``fit`` for its drift);
+phase ``upload``, run only when ``--phases`` names it, times the direct int16
+upload against a 4-bit delta-encoded one (host encode, upload, decode on
+the card) on the buckets of three fits, the A/B behind the engine's direct
+upload;
 ``--ptxas`` prints the compiler's register/shared-memory report (and keeps
 its raw output in ``degnorm_tpu_torch/_build/ptxas.log``) and fails on a
 kernel instance that spills outside ``SPILL_ALLOWED``;
@@ -73,6 +80,8 @@ PEAK_F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
               "pipeline", "modes", "oracle")
+# run only when named in --phases: the encoded upload's A/B (PERF.md, PR 7)
+OPT_IN_PHASES = ("upload",)
 
 # phase pipeline: the degnorm-tpu-torch command on simulated .bam files (cold)
 # and on a warm-start directory of both fits' genes (warm)
@@ -1752,13 +1761,21 @@ def _check_run_dir(run, chroms, n_samples, degnorm_iter, expect_device):
     return di, log, timings, ("" if report else why)
 
 
-def write_simulated_bams(out_dir, seed=SEED):
-    """The cold run's input: PIPE_CHROMS chromosomes of PIPE_GENES_PER_CHROM
-    genes (a .gtf) and one single-end .bam a sample, written by the port's
-    io/simulate.py.  Returns (gtf, bams, reads a sample)."""
+def write_simulated_samples(out_dir, seed=SEED):
+    """The cold runs' input: PIPE_CHROMS chromosomes of PIPE_GENES_PER_CHROM
+    genes (a .gtf) and one single-end sample a PIPE_DEGRADATION entry,
+    written by the port's io/simulate.py twice: as a .bam (io/bam.py) and
+    as a .cram of the same records (io/cram.py, rANS blocks; pure Python,
+    so one process a sample, started as each sample's records are made).
+    Returns (gtf, bams, crams, reads a sample, seconds until the last .cram
+    was written)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
     from degnorm_tpu_torch.io import bam as bamio
+    from degnorm_tpu_torch.io import cram as cramio
     from degnorm_tpu_torch.io.simulate import (make_genes, simulate_sample,
                                                write_gtf)
+    t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     by_chrom = OrderedDict()
     for c in range(PIPE_CHROMS):
@@ -1769,20 +1786,29 @@ def write_simulated_bams(out_dir, seed=SEED):
     lens = {c: g[-1].exons[-1][1] + 5000 for c, g in by_chrom.items()}
     gtf = os.path.join(out_dir, "sim.gtf")
     write_gtf(gtf, [g for genes in by_chrom.values() for g in genes])
-    bams, n_reads = [], []
-    for i, deg in enumerate(PIPE_DEGRADATION):
-        rs = np.random.default_rng(seed + 100 + i)
-        recs = []
-        for tid, (c, genes) in enumerate(by_chrom.items()):
-            recs += [(r[0], tid, *r[2:]) for r in simulate_sample(
-                rs, genes, lens[c], mean_reads_per_gene=PIPE_READS_PER_GENE,
-                read_len=PIPE_READ_LEN, degradation=deg)]
-        path = os.path.join(out_dir, f"sample{i}.bam")
-        bamio.write_bam(path, list(by_chrom), [lens[c] for c in by_chrom],
-                        recs)
-        bams.append(path)
-        n_reads.append(len(recs))
-    return gtf, bams, n_reads
+    names, lengths = list(by_chrom), [lens[c] for c in by_chrom]
+    bams, crams, n_reads, writes = [], [], [], []
+    with ProcessPoolExecutor(len(PIPE_DEGRADATION),
+                             mp_context=get_context("spawn")) as pool:
+        for i, deg in enumerate(PIPE_DEGRADATION):
+            rs = np.random.default_rng(seed + 100 + i)
+            recs = []
+            for tid, (c, genes) in enumerate(by_chrom.items()):
+                recs += [(r[0], tid, *r[2:]) for r in simulate_sample(
+                    rs, genes, lens[c],
+                    mean_reads_per_gene=PIPE_READS_PER_GENE,
+                    read_len=PIPE_READ_LEN, degradation=deg)]
+            path = os.path.join(out_dir, f"sample{i}")
+            writes.append(pool.submit(cramio.write_cram, path + ".cram",
+                                      names, lengths, recs,
+                                      compression="rans"))
+            bamio.write_bam(path + ".bam", names, lengths, recs)
+            bams.append(path + ".bam")
+            crams.append(path + ".cram")
+            n_reads.append(len(recs))
+        for w in writes:
+            w.result()
+    return gtf, bams, crams, n_reads, time.perf_counter() - t0
 
 
 def write_warm_dir(out_dir, cov_parts, X_parts, seed=SEED):
@@ -1825,13 +1851,17 @@ def write_warm_dir(out_dir, cov_parts, X_parts, seed=SEED):
 
 
 def phase_pipeline(cov, X, cov_wide, X_wide):
-    """The degnorm-tpu-torch command, twice.  Cold: ``python3 -m
+    """The degnorm-tpu-torch command, three times.  Cold: ``python3 -m
     degnorm_tpu_torch`` in a subprocess with no --device (so on the card) on
     simulated .bam files and a .gtf: the ETL, the fit, the outputs and the
-    report.  Warm: ``cli.main`` in this process on a warm-start directory of
-    the narrow and the wide dataset (22,528 genes x 8), whose DI and
-    adjusted counts must be bit-equal to a direct DegNormEngine.run of the
-    same loaded genes, and whose fit must launch all four kernels.  The
+    report; then the same on .cram files of the same reads, whose output
+    files must equal the .bam run's (the fit is deterministic) and whose
+    log must show no slice declined by the vectorized CRAM decoder.  Warm:
+    ``cli.main`` in this process on a warm-start directory of the narrow
+    and the wide dataset (22,528 genes x 8), whose DI and adjusted counts
+    must be bit-equal to a direct DegNormEngine.run of the same loaded
+    genes, whose buckets must be byte-equal to a pack of the same genes on
+    the numpy paths, and whose fit must launch all four kernels.  The
     default bucket widths give the warm fit narrow buckets that phase
     kernels does not see (W=256, 512, 2048): kernels 1-3 are held against
     their plain versions on each of them (``check_kernels_at``), and the
@@ -1845,6 +1875,7 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch import cli
     from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.io.native.build import native_disabled
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
     from degnorm_tpu_torch.pipeline import run as prun
     from degnorm_tpu_torch.pipeline.warm_start import load_from_previous
@@ -1854,14 +1885,11 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
     expect_device = "cuda:0" if DEVICE == "cuda" else DEVICE
     fit_flags = ["--nmf-iter", str(NMF_ITER), "--iter", str(DEGNORM_ITER)]
     try:
-        # ---- cold: .bam + .gtf through the console entry point ----
+        # ---- cold: .bam + .gtf, then .cram + .gtf, through the console
+        # entry point ----
         data_dir = os.path.join(PIPE_DIR, "data")
         os.makedirs(data_dir)
-        t0 = time.perf_counter()
-        gtf, bams, n_reads = write_simulated_bams(data_dir)
-        data_s = time.perf_counter() - t0
-        cold_base = os.path.join(PIPE_DIR, "cold")
-        os.makedirs(cold_base)
+        gtf, bams, crams, n_reads, data_s = write_simulated_samples(data_dir)
         # the host library's g++ build first, where the command would run it
         # inside its ETL, so that the command's etl times the ETL alone
         from degnorm_tpu_torch.io.native import build as native_build
@@ -1870,26 +1898,63 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
         t0 = time.perf_counter()
         native_build.open_library(native_build.BUILD_DIR)
         host_build_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "degnorm_tpu_torch", "--bam-files", *bams,
-             "-g", gtf, "-o", cold_base, *fit_flags, "-p", "4",
-             *device_flag], cwd=REPO, capture_output=True, text=True,
-            timeout=900)
-        cold_s = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise AssertionError(f"cold command rc={r.returncode}\n"
-                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
         chroms = [f"chr{c + 1}" for c in range(PIPE_CHROMS)]
-        cold_run = _one_run_dir(cold_base)
-        di, _, cold_timings, cold_report_why = _check_run_dir(
-            cold_run, chroms, len(bams), DEGNORM_ITER, expect_device)
+
+        def cold_command(kind, files):
+            base = os.path.join(PIPE_DIR, f"cold_{kind}")
+            os.makedirs(base)
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "degnorm_tpu_torch", "--bam-files",
+                 *files, "-g", gtf, "-o", base, *fit_flags, "-p", "4",
+                 *device_flag], cwd=REPO, capture_output=True, text=True,
+                timeout=900)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"cold {kind} command rc={r.returncode}"
+                                     f"\n{r.stdout[-3000:]}\n"
+                                     f"{r.stderr[-3000:]}")
+            run = _one_run_dir(base)
+            di, log, timings, report_why = _check_run_dir(
+                run, chroms, len(files), DEGNORM_ITER, expect_device)
+            declined = [ln for ln in log.splitlines()
+                        if "CRAM slices decoded record by record" in ln]
+            return run, di, timings, report_why, wall, dict(
+                input=kind, wall_s=round(wall, 3), etl_s=timings["etl"],
+                etl_reads_per_s=round(sum(n_reads) / timings["etl"], 1),
+                fit_s=timings["fit"],
+                declined_slices=(int(declined[-1].rsplit(" ", 1)[1])
+                                 if declined else None))
+
+        cold_run, di, cold_timings, cold_report_why, cold_s, bam_rec = \
+            cold_command("bam", bams)
+        cram_run, _, _, _, _, cram_rec = cold_command("cram", crams)
+        if cram_rec["declined_slices"] != 0:
+            raise AssertionError("the vectorized CRAM decoder declined "
+                                 f"{cram_rec['declined_slices']} slices of "
+                                 "the writer's files")
+        # the .cram run leaves the .bam run's outputs, bit for bit
+        import filecmp
+        for name in ("read_counts.csv", "gene_exon_metadata.csv",
+                     "degradation_index_scores.csv",
+                     "adjusted_read_counts.csv",
+                     "ran_baseline_selection.csv"):
+            if not filecmp.cmp(os.path.join(cold_run, name),
+                               os.path.join(cram_run, name), shallow=False):
+                raise AssertionError(f"cold .cram run's {name} differs "
+                                     "from the .bam run's")
         cold_host_bytes = 0
         for c in chroms:
-            with open(os.path.join(cold_run, c, f"coverage_matrices_{c}.pkl"),
-                      "rb") as f:
-                cold_host_bytes += sum(m.nbytes
-                                       for m in pickle.load(f).values())
+            for prefix in ("coverage_matrices", "estimated_coverage_matrices"):
+                f = os.path.join(c, f"{prefix}_{c}.pkl")
+                with open(os.path.join(cold_run, f), "rb") as a, \
+                        open(os.path.join(cram_run, f), "rb") as b:
+                    ma, mb = pickle.load(a), pickle.load(b)
+                if list(ma) != list(mb) or not all(
+                        np.array_equal(ma[g], mb[g]) for g in ma):
+                    raise AssertionError(f"cold .cram run's {f} differs")
+                if prefix == "coverage_matrices":
+                    cold_host_bytes += sum(m.nbytes for m in ma.values())
         cold = dict(
             command="python3 -m degnorm_tpu_torch (no --device)",
             samples=len(bams), degradation=list(PIPE_DEGRADATION),
@@ -1906,7 +1971,8 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
             report=not cold_report_why,
             **({"report_reason": cold_report_why} if cold_report_why
                else {}),
-            di_mean=float(di.iloc[:, 2:].to_numpy().mean()))
+            di_mean=float(di.iloc[:, 2:].to_numpy().mean()),
+            inputs=[bam_rec, cram_rec], cram_equals_bam=True)
 
         # ---- warm: both fits' genes through cli.main in this process ----
         warm_src = os.path.join(PIPE_DIR, "warm_src")
@@ -1964,6 +2030,31 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
             if not np.array_equal(getattr(res, what), getattr(direct, what)):
                 raise AssertionError(f"warm command {what} is not bit-equal "
                                      "to the direct fit")
+        # the native scan and pack made the numpy paths' buckets, byte for
+        # byte (the same genes packed again under DEGNORM_TPU_TORCH_NO_NATIVE)
+        if native_disabled():
+            raise AssertionError("DEGNORM_TPU_TORCH_NO_NATIVE is set: the "
+                                 "warm buckets were not packed natively")
+        saved = os.environ.get("DEGNORM_TPU_TORCH_NO_NATIVE")
+        os.environ["DEGNORM_TPU_TORCH_NO_NATIVE"] = "1"
+        try:
+            numpy_buckets, numpy_scan_s, numpy_pack_s = engine_buckets(
+                list(loaded["gene_cov_dict"].values()),
+                EngineConfig().bucket_widths)
+        finally:
+            if saved is None:
+                del os.environ["DEGNORM_TPU_TORCH_NO_NATIVE"]
+            else:
+                os.environ["DEGNORM_TPU_TORCH_NO_NATIVE"] = saved
+        packed = direct._engine._buckets
+        if len(packed) != len(numpy_buckets) or not all(
+                a.F.dtype == b.F.dtype == np.int16
+                and a.F.tobytes() == b.F.tobytes()
+                and np.array_equal(a.gene_indices, b.gene_indices)
+                and np.array_equal(a.lengths, b.lengths)
+                for a, b in zip(packed, numpy_buckets)):
+            raise AssertionError("warm buckets differ from the numpy pack")
+        del numpy_buckets
         # kernels 1-3 against their plain versions at the narrow buckets the
         # default widths give the command and phase kernels does not check
         bucket_checks = {}
@@ -2011,6 +2102,8 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
                 m.nbytes for m in loaded["gene_cov_dict"].values())),
             bucket_widths=widths, launches=launches,
             bit_equal_to_direct_fit=True, direct_fit_s=round(direct_s, 3),
+            buckets_equal_numpy_pack=True,
+            numpy_pack_scan_s=numpy_scan_s, numpy_pack_host_s=numpy_pack_s,
             plain_fit_s=round(plain_s, 3),
             kernels_vs_plain_at={str(k): v for k, v in bucket_checks.items()},
             report=not warm_report_why,
@@ -2023,6 +2116,152 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
         return launches
     finally:
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
+
+
+def engine_buckets(mats, widths):
+    """The buckets DegNormEngine packs of ``mats`` on this device at the
+    default float32 (its own scan, pack and bucket cap), with its two host
+    timings."""
+    from degnorm_tpu_torch.config import EngineConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    eng = DegNormEngine(eng_cfg=EngineConfig(device=DEVICE,
+                                             bucket_widths=widths))
+    eng._pack_host(mats)
+    if any(b.F.dtype != np.int16 for b in eng._buckets):
+        raise AssertionError("the packed workload is not int16")
+    return (eng._buckets, eng.timings["pack_scan"],
+            eng.timings["pack_host"])
+
+
+def nib_encode(F, n_real):
+    """The host library's 4-bit delta encoder (io/native/pack_kernel.cpp
+    ``dn_nib_encode``) on one int16 (G, p, W) bucket, 4 threads: column 0,
+    two clipped position deltas a byte (low nibble the even one), and the
+    deltas outside [-8, 7] as (flat index, remainder) pairs.  The encoded
+    upload's measurement only: the engine uploads int16 directly."""
+    import ctypes
+    from degnorm_tpu_torch.io.native.build import get_fn
+    G, p, W = F.shape
+    cap = max(1024, n_real * p * (W - 1) // 100)
+    first = np.zeros((G, p), np.int16)
+    nib = np.zeros((G, p, W // 2), np.uint8)
+    exc_idx = np.empty(cap, np.int64)
+    exc_val = np.empty(cap, np.int32)
+    ptr = lambda a, t: a.ctypes.data_as(ctypes.POINTER(t))  # noqa: E731
+    n = int(get_fn("dn_nib_encode")(
+        ptr(np.ascontiguousarray(F), ctypes.c_int16), n_real, p, W,
+        ptr(first, ctypes.c_int16), ptr(nib, ctypes.c_uint8),
+        ptr(exc_idx, ctypes.c_int64), ptr(exc_val, ctypes.c_int32), cap, 4))
+    if n < 0:
+        raise AssertionError("4-bit exceptions over 1% of the deltas")
+    return first, nib, exc_idx[:n].copy(), exc_val[:n].copy()
+
+
+def nib_decode(first, nib, exc_idx, exc_val, W):
+    """The exact int16 (G, p, W) bucket from nib_encode's fields, on their
+    device: unpack (arithmetic shifts of int8 sign-extend each nibble),
+    add the exceptions, sum along positions in int32."""
+    import torch
+    G, p, nb = nib.shape
+    full = torch.empty((G, p, W), dtype=torch.int32, device=nib.device)
+    full[:, :, 0] = first
+    d8 = torch.stack([(nib << 4).view(torch.int8) >> 4,
+                      nib.view(torch.int8) >> 4], dim=-1).reshape(G, p, -1)
+    full[:, :, 1:] = d8[:, :, :W - 1]
+    full.view(-1).index_add_(0, exc_idx // (W - 1) * W + exc_idx % (W - 1)
+                             + 1, exc_val)
+    return torch.cumsum(full, dim=2, dtype=torch.int32).to(torch.int16)
+
+
+def phase_upload(cov, cov_wide):
+    """The encoded upload against the direct one (ROADMAP item 5b), on the
+    int16 buckets of three fits: the narrow one, the long tail, and the
+    warm command's (both, at the default widths).  Direct: each bucket
+    through ``torch.from_numpy(F).to(device)``, as DegNormEngine._upload
+    uploads it.  Encoded: the host library's 4-bit delta encoder
+    (nib_encode, 4 threads), the encoded fields uploaded, then decoded on
+    the card (nib_decode; CUDA events).  Forms in turns (direct, encoded,
+    encoded, direct); the decoded tensor must be torch.equal to the direct
+    upload.  The engine keeps the direct upload: encoding alone took
+    longer than it in this phase's first run (PERF.md, PR 7).  Opt-in:
+    runs only when ``--phases`` names it."""
+    import torch
+    from degnorm_tpu_torch.config import EngineConfig
+    dev = torch.device(DEVICE)
+    workloads = (
+        ("narrow", list(cov.values()), BUCKET_WIDTHS),
+        ("long_tail", list(cov_wide.values()), EngineConfig().bucket_widths),
+        ("warm", list(cov.values()) + list(cov_wide.values()),
+         EngineConfig().bucket_widths))
+    out = {}
+    for name, mats, widths in workloads:
+        buckets, scan_s, pack_s = engine_buckets(mats, widths)
+
+        def direct():
+            t0 = time.perf_counter()
+            ts = [torch.from_numpy(b.F).to(dev) for b in buckets]
+            torch.cuda.synchronize()
+            return ts, time.perf_counter() - t0
+
+        def encoded():
+            t0 = time.perf_counter()
+            encs = [nib_encode(b.F, b.n_real) for b in buckets]
+            enc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_dev = [[torch.from_numpy(f).to(dev) for f in e] for e in encs]
+            torch.cuda.synchronize()
+            up_s = time.perf_counter() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts = [nib_decode(*e, b.width) for e, b in zip(on_dev, buckets)]
+            stop.record()
+            torch.cuda.synchronize()
+            return ts, dict(
+                bytes=sum(f.nbytes for e in encs for f in e),
+                exceptions=sum(len(e[2]) for e in encs), encode_s=enc_s,
+                upload_s=up_s, decode_ms=start.elapsed_time(stop))
+
+        runs = {"direct": [], "encoded": []}
+        ref = None
+        for form in ("direct", "encoded", "encoded", "direct"):
+            if form == "direct":
+                ts, up_s = direct()
+                runs["direct"].append(up_s)
+                if ref is None:
+                    ref = [t.cpu() for t in ts]
+            else:
+                ts, rec = encoded()
+                runs["encoded"].append(rec)
+                for t, r in zip(ts, ref):
+                    if not torch.equal(t.cpu(), r):
+                        raise AssertionError(
+                            f"{name}: decoded upload differs from the "
+                            "direct upload")
+            del ts
+        del ref
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        enc = runs["encoded"]
+        direct_s = min(runs["direct"])
+        enc_s = min(r["encode_s"] + r["upload_s"] + r["decode_ms"] / 1e3
+                    for r in enc)
+        out[name] = dict(
+            genes=len(mats), buckets=[[b.width, int(b.F.shape[0])]
+                                      for b in buckets],
+            pack_scan_s=scan_s, pack_host_s=pack_s,
+            direct=dict(bytes=int(sum(b.F.nbytes for b in buckets)),
+                        upload_s=runs["direct"]),
+            encoded=dict(bytes=enc[0]["bytes"],
+                         exceptions=enc[0]["exceptions"],
+                         encode_s=[r["encode_s"] for r in enc],
+                         upload_s=[r["upload_s"] for r in enc],
+                         decode_ms=[r["decode_ms"] for r in enc]),
+            direct_best_s=direct_s, encoded_best_s=enc_s,
+            encoded_wins=enc_s < direct_s, decoded_equal=True)
+        del buckets
+    emit("upload", host_threads=os.cpu_count(), smi=smi_line(), **out)
+    return out
 
 
 def kernels_line(kres, launches, launches_wide, launches_pipeline,
@@ -2134,7 +2373,9 @@ def kernels_line(kres, launches, launches_wide, launches_pipeline,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated phases; opt-in: "
+                         + ",".join(OPT_IN_PHASES))
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--sweep", action="store_true",
                     help="time kernels 1-4 over their launch geometries "
@@ -2164,7 +2405,7 @@ def main(argv=None):
     emit("data", seconds=round(time.perf_counter() - t0, 2), genes=N_GENES,
          samples=P_SAMPLES, seed=SEED, profile="dense")
     cov_wide = X_wide = None
-    if {"kernels", "fit_wide", "parity", "pipeline"} & set(phases):
+    if {"kernels", "fit_wide", "parity", "pipeline", "upload"} & set(phases):
         t0 = time.perf_counter()
         cov_wide, X_wide = synth_dataset(WIDE_GENES, P_SAMPLES, seed=SEED + 1,
                                          lengths_fn=synth_long_lengths)
@@ -2188,6 +2429,8 @@ def main(argv=None):
                       if "modes" in phases else None)
     if "oracle" in phases:
         phase_oracle()
+    if "upload" in phases:
+        phase_upload(cov, cov_wide)
     if args.sweep:
         phase_sweep(cov, cov_wide)
     if set(ALL_PHASES) - set(phases):

@@ -25,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="RNA-seq degradation normalization (DegNorm) on a CUDA "
                     "GPU")
     p.add_argument("--bam-files", nargs="+", default=None,
-                   help="aligned read files (.bam; .cram is not ported yet)")
+                   help="aligned read files (.bam or .cram; CRAM decodes "
+                        "without a reference FASTA)")
     p.add_argument("--bai-files", nargs="+", default=None,
                    help=".bam index files (optional — the streaming reader "
                         "does not require them; accepted for compatibility)")

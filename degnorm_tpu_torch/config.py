@@ -195,6 +195,10 @@ class PipelineConfig:
     # MPI-only caps __main_mpi__.py:374-376, unified here per SURVEY.md §7.2).
     minimax_coverage: int = 0
     unique_alignments: bool = True
+    # CIGAR/pairing semantics: "reference" reproduces the reference
+    # implementation's parser quirks exactly (needed for bitwise coverage
+    # parity); "strict" follows the SAM spec (io/coverage.py docstring).
+    cigar_compat: str = "reference"
     # BAI-driven per-chromosome streaming ETL: None = auto (stream when an
     # index exists and the BAM exceeds BamSampleProcessor.STREAM_THRESHOLD),
     # True/False = force. Streaming bounds host memory by the largest
@@ -204,3 +208,8 @@ class PipelineConfig:
     nmf: NMFConfig = dataclasses.field(default_factory=NMFConfig)
     # the fit runs on engine.device: "cuda" unless the caller asks for "cpu"
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+
+    def __post_init__(self):
+        if self.cigar_compat not in ("reference", "strict"):
+            raise ValueError("cigar_compat must be reference or strict, got "
+                             f"{self.cigar_compat!r}")

@@ -10,36 +10,69 @@ Gene length is power-law distributed, so bucket widths are geometric.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Sequence
 
 import numpy as np
 
-
-def int16able(F: np.ndarray) -> bool:
-    """True when one array is exactly representable as int16 coverage:
-    integral values in [0, 32766]."""
-    if F.dtype.kind == "b":
-        return True
-    if F.dtype.kind in "iu":
-        return F.min(initial=0) >= 0 and F.max(initial=0) < 32767
-    return (F.min(initial=0.0) >= 0.0 and F.max(initial=0.0) < 32767
-            and bool(np.all(F == np.floor(F))))
+from degnorm_tpu_torch.data.encode import int16able, int16able_many_native
+from degnorm_tpu_torch.io.native.build import get_fn, native_disabled
 
 
 def integral_int16able(cov_mats: Sequence[np.ndarray],
                        chunk: int = 1024) -> bool:
-    """True when every matrix is exactly representable as int16 — buys
-    packing and uploading the padded buckets at half the float32 bytes.
-    The ragged inputs are scanned ``chunk`` matrices at a time as one flat
-    array: per-matrix numpy calls cost more than the scan itself at 20k+
-    genes, and the chunk bounds the transient copy."""
+    """True when every matrix is exactly representable as int16 (integral,
+    in [0, 32766]) — buys packing and uploading the padded buckets at half
+    the float32 bytes.  The per-array rule is data/encode.py::int16able.
+
+    Uniform contiguous float inputs (the common case) take one batched
+    native call on 4 threads — per-array dispatch costs more than the scan
+    itself at 20k+ genes; other inputs are scanned array by array on 4
+    threads.  Under DEGNORM_TPU_TORCH_NO_NATIVE=1 the ragged inputs
+    are scanned with numpy ``chunk`` matrices at a time as one flat array
+    (the chunk bounds the transient copy)."""
+    if not native_disabled():
+        verdict = int16able_many_native(cov_mats, threads=4)
+        if verdict is not None:
+            return verdict
+        with ThreadPoolExecutor(4) as ex:
+            return all(ex.map(int16able, cov_mats, chunksize=256))
     for s in range(0, len(cov_mats), chunk):
         flat = np.concatenate([np.asarray(m).ravel()
                                for m in cov_mats[s:s + chunk]])
         if not int16able(flat):
             return False
+    return True
+
+
+def _pack_i16_native(mats, lengths: np.ndarray, F: np.ndarray) -> bool:
+    """Cast-pack ragged float mats into the leading rows of the padded
+    int16 bucket F with one native call (values must already be validated
+    int16able — integral_int16able gates the int16 pack dtype upstream).
+    False when the call does not apply: native code disabled, or a matrix
+    of another dtype, shape or layout (the caller then fills with numpy,
+    whose slice assignment raises on a row-count mismatch; the raw C kernel
+    must never read past a differently-shaped buffer)."""
+    if F.dtype != np.int16 or not mats or native_disabled():
+        return False
+    dt = mats[0].dtype
+    if dt not in (np.float32, np.float64):
+        return False
+    p = F.shape[1]
+    if any(m.dtype != dt or m.ndim != 2 or m.shape[0] != p
+           or not m.flags.c_contiguous for m in mats):
+        return False
+    fn = get_fn("dn_pack_i16")
+    n = len(mats)
+    ptrs = (ctypes.c_void_p * n)(*(m.ctypes.data for m in mats))
+    lens = np.ascontiguousarray(lengths[:n], np.int64)
+    fn(ptrs, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+       n, F.shape[1], F.shape[2], 0 if dt == np.float32 else 1,
+       F.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+       min(4, os.cpu_count() or 1))
     return True
 
 
@@ -180,16 +213,20 @@ def pack_buckets(
                     gi = chunk[slot]
                     F[slot, :, :cov_mats[gi].shape[1]] = cov_mats[gi]
 
-            # slice assignment is a (casting) memcpy that releases the GIL,
-            # so thread the copy loop — page-fault zeroing of the padded
-            # buffer and the copies themselves both parallelize.
-            n_threads = min(4, max(1, g // 512))
-            bounds = np.linspace(0, g, n_threads + 1).astype(int)
-            if n_threads > 1:
-                with ThreadPoolExecutor(n_threads) as ex:
-                    list(ex.map(fill, zip(bounds[:-1], bounds[1:])))
-            else:
-                fill((0, g))
+            # int16 buckets from float mats (the post-scan common case)
+            # cast-pack in one native call; otherwise slice assignment is a
+            # (casting) memcpy that releases the GIL, so thread the copy
+            # loop — page-fault zeroing of the padded buffer and the copies
+            # themselves both parallelize.
+            if not _pack_i16_native([cov_mats[gi] for gi in chunk],
+                                    lengths[:g], F):
+                n_threads = min(4, max(1, g // 512))
+                bounds = np.linspace(0, g, n_threads + 1).astype(int)
+                if n_threads > 1:
+                    with ThreadPoolExecutor(n_threads) as ex:
+                        list(ex.map(fill, zip(bounds[:-1], bounds[1:])))
+                else:
+                    fill((0, g))
             # zero-length padding genes break nothing, but give them length 1
             # so len_mask arithmetic stays trivially valid.
             lengths[g:] = 1

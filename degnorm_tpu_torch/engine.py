@@ -32,8 +32,9 @@ from degnorm_tpu_torch.core.baseline import (BucketResult,
                                              baseline_select_bucket,
                                              materialize_estimate)
 from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums
-from degnorm_tpu_torch.data.buckets import (GeneBucket, int16able,
-                                            integral_int16able, pack_buckets)
+from degnorm_tpu_torch.data.buckets import (GeneBucket, integral_int16able,
+                                            pack_buckets)
+from degnorm_tpu_torch.data.encode import int16able
 from degnorm_tpu_torch.pipeline.checkpoints import (load_checkpoint,
                                                     save_checkpoint)
 
@@ -172,6 +173,11 @@ class DegNormEngine:
 
     # -- setup -----------------------------------------------------------
     def _pack(self, cov_mats: Sequence[np.ndarray]):
+        self._pack_host(cov_mats)
+        self._upload()
+
+    def _pack_host(self, cov_mats: Sequence[np.ndarray]):
+        """Scan and pack ``cov_mats`` into ``self._buckets`` on the host."""
         dtype = _torch_dtype(self.eng_cfg.dtype)
         itemsize = 8 if dtype == torch.float64 else 4
         # Device-memory guard.  With S the bytes of one padded bucket in the
@@ -212,6 +218,9 @@ class DegNormEngine:
                     f"x width {b.width} needs about {need / 2**30:.1f} GiB "
                     f"for one step (7 x {b.F.size * itemsize / 2**30:.2f} "
                     f"GiB), the device has {total / 2**30:.1f} GiB")
+
+    def _upload(self):
+        dtype = _torch_dtype(self.eng_cfg.dtype)
 
         def upload_form(F):
             if F.dtype == np.int16:

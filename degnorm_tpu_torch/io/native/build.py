@@ -1,4 +1,5 @@
-"""Build + load the native BAM reader / coverage library of the host layer.
+"""Build + load the native host library: the BAM reader, the coverage
+kernel, the int16 scan / pack / nibble encoder and the rANS / ITF8 decoders.
 
 Compiled with g++ on first use into ``degnorm_tpu_torch/_build/``, keyed by
 a hash of the sources and flags.  The build is safe across processes: it
@@ -21,8 +22,9 @@ import threading
 from typing import Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRCS = (os.path.join(_DIR, "bam_reader.cpp"),
-         os.path.join(_DIR, "coverage_kernel.cpp"))
+_SRCS = tuple(os.path.join(_DIR, f) for f in (
+    "bam_reader.cpp", "coverage_kernel.cpp", "pack_kernel.cpp",
+    "rans_kernel.cpp"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
           "-pthread"]
@@ -108,6 +110,35 @@ def _declare(lib: ctypes.CDLL) -> None:
         i64, i64, i64, i64,
         ctypes.c_int,
     ]
+    f32 = ctypes.POINTER(ctypes.c_float)
+    f64 = ctypes.POINTER(ctypes.c_double)
+    i16 = ctypes.POINTER(ctypes.c_int16)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.dn_f32_int16able.restype = ctypes.c_int
+    lib.dn_f32_int16able.argtypes = [f32, ctypes.c_int64]
+    lib.dn_f64_int16able.restype = ctypes.c_int
+    lib.dn_f64_int16able.argtypes = [f64, ctypes.c_int64]
+    lib.dn_int16able_many.restype = ctypes.c_int
+    lib.dn_int16able_many.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), i64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int]
+    lib.dn_pack_i16.restype = None
+    lib.dn_pack_i16.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), i64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, i16, ctypes.c_int]
+    lib.dn_nib_encode.restype = ctypes.c_int64
+    lib.dn_nib_encode.argtypes = [
+        i16, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        i16, u8, i64, i32, ctypes.c_int64, ctypes.c_int]
+    lib.dn_rans_uncompress.restype = ctypes.c_int64
+    lib.dn_rans_uncompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, u8, ctypes.c_int64]
+    lib.dn_itf8_scan.restype = ctypes.c_int64
+    lib.dn_itf8_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, i32, ctypes.c_int64]
+    lib.dn_pair_hash.restype = None
+    lib.dn_pair_hash.argtypes = [
+        ctypes.c_char_p, i64, i64, ctypes.c_int64, u64, i8]
 
 
 def open_library(directory: str) -> ctypes.CDLL:
@@ -138,3 +169,9 @@ def load_library() -> ctypes.CDLL:
         if _LIB is None:
             _LIB = open_library(BUILD_DIR)
     return _LIB
+
+
+def get_fn(name: str):
+    """The named, declared symbol of the host library (built on first use;
+    a failed build raises)."""
+    return getattr(load_library(), name)

@@ -3,7 +3,7 @@
 The reference ships small test BAMs that are stripped from this snapshot
 (SURVEY.md §4), so tests and benchmarks synthesize their own inputs —
 genes with multi-exon structure, spliced/paired reads with degradation
-bias, and writes through io/bam.py.
+bias, and writes through io/bam.py (and io/cram.py).
 """
 from __future__ import annotations
 
@@ -126,3 +126,16 @@ def write_multichrom_bam(path: str, genes_by_chrom, chrom_lens,
         for r in sub:
             recs.append((r[0], tid, *r[2:]))
     bamio.write_bam(path, chroms, [chrom_lens[c] for c in chroms], recs)
+
+
+def write_sample_cram(path: str, genes: Sequence[SimGene], chrom_len: int,
+                      seed: int = 0, compression: str = "rans",
+                      **kwargs) -> None:
+    """CRAM twin of write_sample_bam — identical record stream through
+    io/cram.py (same seed => same reads as the .bam form)."""
+    from degnorm_tpu_torch.io import cram as cramio
+    rng = np.random.default_rng(seed)
+    chrom = genes[0].chrom
+    recs = simulate_sample(rng, genes, chrom_len, **kwargs)
+    cramio.write_cram(path, [chrom], [chrom_len], recs,
+                      compression=compression)

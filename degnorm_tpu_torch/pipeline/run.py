@@ -264,7 +264,8 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
             f"--bai-files count ({len(bais)}) does not match .bam count "
             f"({len(cfg.bam_files)})")
     samples = [BamSampleProcessor(b, unique_alignment=cfg.unique_alignments,
-                                  output_dir=output_dir, bai_file=bai,
+                                  output_dir=output_dir,
+                                  compat=cfg.cigar_compat, bai_file=bai,
                                   stream=cfg.stream_etl)
                for b, bai in zip(cfg.bam_files, bais)]
     sample_ids = [s.sample_id for s in samples]
@@ -300,6 +301,10 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
         return s.sample_id, s.coverage_read_counts(
             overlap_by_chrom, gene_df, exon_df, n_jobs=inner_jobs)
 
+    is_cram = any(s.is_cram for s in samples)
+    if is_cram:
+        from degnorm_tpu_torch.io import cram_fast
+        declined_before = cram_fast.declined
     results = {}
     if sample_workers > 1 and len(samples) > 1:
         with ThreadPoolExecutor(max_workers=sample_workers) as ex:
@@ -310,6 +315,11 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
             sid, r = etl(s)
             results[sid] = r
 
+    if is_cram:
+        # the counter is process-wide: log this ETL's share of it
+        log.info("CRAM slices decoded record by record (the vectorized "
+                 "decoder declined them): %d",
+                 cram_fast.declined - declined_before)
     read_count_df = merge_read_counts(results, sample_ids, used_chroms)
     gene_cov_dict = merge_coverage(results, sample_ids, exon_df)
 

@@ -19,16 +19,20 @@ log = logging.getLogger("degnorm_tpu_torch")
 
 
 class BamSampleProcessor:
-    """Loads one .bam, sniffs pairedness, and computes per-chromosome
-    coverage + read counts.  A .cram input raises NotImplementedError: the
-    CRAM decoder is not ported yet."""
+    """Loads one .bam or .cram, sniffs pairedness, and computes
+    per-chromosome coverage + read counts.
+
+    CRAM input is a completeness extension over the reference (which only
+    accepts .bam through pysam, ``loaders.py:44-70``): files ending in
+    .cram decode through io/cram.py — whole-file, reference-FASTA-free —
+    and flow into the identical columnar coverage path."""
 
     #: default whole-file decode threshold for auto streaming (bytes).
     STREAM_THRESHOLD = 512 << 20
 
     def __init__(self, bam_file: str, unique_alignment: bool = True,
                  output_dir: Optional[str] = None,
-                 bai_file: Optional[str] = None,
+                 compat: str = "reference", bai_file: Optional[str] = None,
                  stream: Optional[bool] = None):
         """``stream``: fetch reads per chromosome through the .bai index
         (memory-bounded; reference-equivalent of pysam's indexed fetch,
@@ -38,13 +42,27 @@ class BamSampleProcessor:
         self.filename = bam_file
         self.sample_id = ".".join(os.path.basename(bam_file).split(".")[:-1])
         self.unique_alignment = unique_alignment
+        self.compat = compat
         self.output_dir = output_dir
         self.save_dir = (os.path.join(output_dir, self.sample_id)
                          if output_dir else None)
-        if bam_file.lower().endswith(".cram"):
-            raise NotImplementedError(
-                f"{bam_file}: CRAM input is not ported to degnorm_tpu_torch "
-                "yet (ROADMAP Queue 1 item 4); convert it to .bam")
+        self.is_cram = bam_file.lower().endswith(".cram")
+
+        if self.is_cram:
+            # CRAM needs no index to stream: containers carry their ref
+            # id, so per-chromosome fetch is seek-and-skip (io/cram.py::
+            # read_cram_region).  Same auto rule as BAM.
+            from degnorm_tpu_torch.io import cram as cramio
+            self.bai_file = None
+            self._bai_index = None
+            if stream is None:
+                stream = os.path.getsize(bam_file) > self.STREAM_THRESHOLD
+            self.stream = bool(stream)
+            self.header = cramio.read_cram_header(bam_file)
+            self.chroms = list(self.header.ref_names)
+            self._cols_by_tid: Dict[int, bamio.ReadColumns] = {}
+            self.paired = self._sniff_paired()
+            return
 
         if bai_file is None:
             for cand in (bam_file + ".bai",
@@ -74,7 +92,11 @@ class BamSampleProcessor:
 
     def _load_all(self):
         if not self._cols_by_tid:
-            _, cols = bamio.read_bam(self.filename)
+            if self.is_cram:
+                from degnorm_tpu_torch.io import cram as cramio
+                _, cols = cramio.read_cram(self.filename)
+            else:
+                _, cols = bamio.read_bam(self.filename)
             for t in np.unique(cols.tid):
                 self._cols_by_tid[int(t)] = bamio.subset_columns(
                     cols, cols.tid == t)
@@ -83,16 +105,23 @@ class BamSampleProcessor:
         """Pairedness heuristic from the first 301 query names in file
         order: all qnames end in '.1'/'.2' (reference reads.py:178-203,
         which heads the loaded reads dataframe — file order likewise).
-        The sniff reads BGZF blocks incrementally from the file head in
-        BOTH modes, so __init__ never triggers a whole-file decode
+        The sniff reads BGZF blocks/containers incrementally from the file
+        head in BOTH modes, so __init__ never triggers a whole-file decode
         (non-stream decode is deferred to coverage_read_counts, inside the
         per-sample thread pool)."""
-        qnames = bamio.read_head_qnames(self.filename, 301)
+        if self.is_cram:
+            from degnorm_tpu_torch.io import cram as cramio
+            qnames = cramio.read_cram_head_qnames(self.filename, 301)
+        else:
+            qnames = bamio.read_head_qnames(self.filename, 301)
         if not qnames:
             return False
         return {q.split(".")[-1] for q in qnames} == {"1", "2"}
 
     def _chrom_cols(self, tid: int) -> bamio.ReadColumns:
+        if self.stream and self.is_cram:
+            from degnorm_tpu_torch.io import cram as cramio
+            return cramio.read_cram_region(self.filename, tid)
         if self.stream:
             from degnorm_tpu_torch.io import bai as baiio
             if self._bai_index is None:
@@ -114,7 +143,8 @@ class BamSampleProcessor:
         return chromosome_coverage_read_counts(
             cols, chrom, chrom_len, chrom_gene_df, chrom_exon_df,
             overlap_dat, paired=self.paired,
-            unique_alignment=self.unique_alignment, n_threads=n_threads)
+            unique_alignment=self.unique_alignment, compat=self.compat,
+            n_threads=n_threads)
 
     def coverage_read_counts(self, overlap_by_chrom: Mapping[str, dict],
                              gene_df: pd.DataFrame, exon_df: pd.DataFrame,

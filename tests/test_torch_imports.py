@@ -44,6 +44,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import degnorm_tpu_torch.report.visualizations\n"
         "import degnorm_tpu_torch.oracle, degnorm_tpu_torch.oracle.nmfoa\n"
         "import degnorm_tpu_torch.testing, degnorm_tpu_torch.core.prng\n"
+        "import degnorm_tpu_torch.data.encode, degnorm_tpu_torch.io.rans\n"
+        "import degnorm_tpu_torch.io.cram, degnorm_tpu_torch.io.cram_fast\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'degnorm_tpu' or m.startswith('degnorm_tpu.')]\n"
@@ -74,6 +76,8 @@ def test_every_module_imports_without_a_gpu_toolchain():
              "import degnorm_tpu_torch.ops.build as b\n"
              "import degnorm_tpu_torch.cli, degnorm_tpu_torch.pipeline.run\n"
              "import degnorm_tpu_torch.io.native.build as h\n"
+             "import degnorm_tpu_torch.data.buckets, degnorm_tpu_torch.io.cram\n"
+             "import degnorm_tpu_torch.io.cram_fast, degnorm_tpu_torch.io.rans\n"
              "assert b._lib is None and not b.build_info\n"
              "assert h._LIB is None\n"
              "assert 'matplotlib' not in sys.modules\n"

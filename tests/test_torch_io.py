@@ -453,7 +453,41 @@ def test_sample_and_merge_equal(files, tmp_path, paired):
 
 
 def test_cram_input_raises_not_implemented(tmp_path):
-    path = tmp_path / "s.cram"
-    path.write_bytes(b"CRAM")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TSample(str(path))
+    """Once a refusal of .cram input, now its acceptance: the port's
+    command on .cram files (CPU) leaves the JAX command's output directory
+    (read counts and metadata byte-equal, coverage exactly equal, the fit
+    within the command tests' tolerances), and the coverage of the .bam of
+    the same reads."""
+    from degnorm_tpu import cli as jcli
+    from degnorm_tpu_torch import cli as tcli
+    from tests.test_torch_pipeline import (FIT, _assert_fit_files_close,
+                                           _pickle)
+    from tests.torch_port_util import run_command, write_sim_dataset
+    data = {}
+    for fmt in ("bam", "cram"):
+        (tmp_path / fmt).mkdir()
+        data[fmt] = write_sim_dataset(tmp_path / fmt, fmt=fmt)
+    runs = {}
+    for name, main, fmt, extra in (("port", tcli.main, "cram",
+                                    ["--device", "cpu"]),
+                                   ("jax", jcli.main, "cram", []),
+                                   ("port_bam", tcli.main, "bam",
+                                    ["--device", "cpu"])):
+        base = str(tmp_path / "out" / name)
+        runs[name] = run_command(main, base, [
+            "--bam-files", *data[fmt]["bams"], "-g", data[fmt]["gtf"],
+            "-o", base, *FIT, *extra])
+    port, jax = runs["port"], runs["jax"]
+    assert sorted(os.listdir(port)) == sorted(os.listdir(jax))
+    for name in ("read_counts.csv", "gene_exon_metadata.csv"):
+        for other in (jax, runs["port_bam"]):
+            with open(os.path.join(port, name), "rb") as f, \
+                    open(os.path.join(other, name), "rb") as g:
+                assert f.read() == g.read(), name
+    ct = _pickle(port, "chr1", "coverage_matrices")
+    for other in (jax, runs["port_bam"]):
+        co = _pickle(other, "chr1", "coverage_matrices")
+        assert list(ct) == list(co)
+        for g in ct:
+            np.testing.assert_array_equal(ct[g], co[g])
+    _assert_fit_files_close(port, jax)

@@ -175,3 +175,93 @@ def test_warm_start_across_commands(runs, tmp_path):
     for name in CSVS[:3]:
         pd.testing.assert_frame_equal(_csv(port_w, name),
                                       _csv(runs["port"], name))
+
+
+def _eqx_bam(d, genes, seed):
+    """A single-end .bam whose aligner wrote '='/'X' CIGAR operations: the
+    simulated reads with each M run split into '=' runs around one 'X'."""
+    import re
+    from degnorm_tpu_torch.io import bam as tbam
+    from degnorm_tpu_torch.io.simulate import simulate_sample
+
+    def eqx(cigar):
+        def split(m):
+            n = int(m.group(1))
+            return f"{n}=" if n < 3 else f"{n // 2}=1X{n - n // 2 - 1}="
+        return re.sub(r"(\d+)M", split, cigar)
+
+    recs = [(r[0], r[1], r[2], r[3], eqx(r[4]), *r[5:])
+            for r in simulate_sample(np.random.default_rng(seed), genes,
+                                     80_000, mean_reads_per_gene=120,
+                                     degradation=0.3 * (seed % 2))]
+    path = os.path.join(str(d), f"eqx{seed}.bam")
+    tbam.write_bam(path, [genes[0].chrom], [80_000], recs)
+    return path
+
+
+def _both_pipelines(tmp_path, bams, gtf, jax_kw=(), **pipe_kw):
+    """run_pipeline of the port and of the JAX package on the same
+    arithmetic (float64, the XLA twin's warm power scheme); ``jax_kw``
+    goes to the JAX config only."""
+    nmf = dict(nmf_iter=5, degnorm_iter=2)
+    kw = dict(bam_files=tuple(bams), genome_annotation=gtf, **pipe_kw)
+    outs = {}
+    for name, cfg, run in (
+            ("port", PipelineConfig(
+                nmf=NMFConfig(**nmf), **kw,
+                engine=EngineConfig(device="cpu", dtype="float64",
+                                    power_warm_plain=0)), trun.run_pipeline),
+            ("jax", JPipe(nmf=JNmf(**nmf), **kw, **dict(jax_kw),
+                          engine=JEng(dtype="float64", device_loop=False,
+                                      use_pallas=False)),
+             jrun.run_pipeline)):
+        d = tmp_path / name
+        d.mkdir()
+        outs[name] = run(cfg, output_dir=str(d))["result"]
+    return outs["port"], outs["jax"]
+
+
+def test_run_pipeline_strict_cigars_matches_jax(tmp_path):
+    """cigar_compat="strict" reaches the ETL: on a .bam with '='/'X'
+    CIGARs the port's pipeline equals the JAX package's with the same
+    config, where the default "reference" mode refuses the reads."""
+    from degnorm_tpu_torch.io.simulate import make_genes, write_gtf
+    genes = make_genes(np.random.default_rng(42), n_genes=12,
+                       overlap_fraction=0.25)
+    gtf = str(tmp_path / "sim.gtf")
+    write_gtf(gtf, genes)
+    bams = [_eqx_bam(tmp_path, genes, seed) for seed in (1, 2, 3)]
+    rt, rj = _both_pipelines(tmp_path, bams, gtf, cigar_compat="strict")
+    assert rt.genes == rj.genes and len(rt.genes) > 0
+    np.testing.assert_array_equal(rt.ran_baseline_selection,
+                                  rj.ran_baseline_selection)
+    np.testing.assert_allclose(rt.rho, rj.rho, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rt.x_adj, rj.x_adj, rtol=1e-9)
+    out = tmp_path / "ref"
+    out.mkdir()
+    with pytest.raises(ValueError, match="cigar_compat='strict'"):
+        trun.run_pipeline(PipelineConfig(
+            bam_files=tuple(bams), genome_annotation=gtf,
+            engine=EngineConfig(device="cpu")), output_dir=str(out))
+    with pytest.raises(ValueError, match="cigar_compat"):
+        PipelineConfig(cigar_compat="spec")
+
+
+def test_gene_caps_drop_the_same_genes(dataset, tmp_path, monkeypatch):
+    """The port's gene-length and coverage caps are the JAX config's
+    defaults, and drop the same genes as the JAX pipeline's
+    max_gene_length / max_coverage (caps set between the fixture genes'
+    lengths and peaks, in the port by its module constants)."""
+    from degnorm_tpu_torch.io.gtf import process_annotation
+    assert trun._MAX_GENE_LENGTH == JPipe().max_gene_length
+    assert trun._MAX_COVERAGE == JPipe().max_coverage
+    exons = process_annotation(dataset["gtf"])
+    lens = (exons.gene_end - exons.gene_start + 1).unique()
+    caps = dict(max_gene_length=int(np.median(lens)), max_coverage=40.0)
+    monkeypatch.setattr(trun, "_MAX_GENE_LENGTH", caps["max_gene_length"])
+    monkeypatch.setattr(trun, "_MAX_COVERAGE", caps["max_coverage"])
+    rt, rj = _both_pipelines(tmp_path, dataset["bams"], dataset["gtf"],
+                             jax_kw=caps)
+    assert rt.genes == rj.genes
+    assert 0 < len(rt.genes) < len(exons.gene.unique())
+    np.testing.assert_allclose(rt.rho, rj.rho, rtol=0, atol=1e-9)

@@ -45,22 +45,25 @@ def to_np(t):
 SIM_SAMPLES = ("sample0", "sample1", "sample2")
 
 
-def write_sim_dataset(d, n_genes=12, chrom_len=80_000):
-    """The command tests' fixture: a .gtf and one single-end .bam a sample of
-    SIM_SAMPLES (degraded 0, 0.5 and 0.3), written by the port's
-    io/simulate.py from fixed seeds, in directory ``d``."""
+def write_sim_dataset(d, n_genes=12, chrom_len=80_000, fmt="bam"):
+    """The command tests' fixture: a .gtf and one single-end .bam (or, with
+    ``fmt="cram"``, .cram) a sample of SIM_SAMPLES (degraded 0, 0.5 and
+    0.3), written by the port's io/simulate.py from fixed seeds, in
+    directory ``d``."""
     import os
     from degnorm_tpu_torch.io.simulate import (make_genes, write_gtf,
-                                               write_sample_bam)
+                                               write_sample_bam,
+                                               write_sample_cram)
+    write = write_sample_cram if fmt == "cram" else write_sample_bam
     genes = make_genes(np.random.default_rng(42), n_genes=n_genes,
                        overlap_fraction=0.25)
     gtf = os.path.join(str(d), "sim.gtf")
     write_gtf(gtf, genes)
     bams = []
     for i, deg in enumerate((0.0, 0.5, 0.3)):
-        bam = os.path.join(str(d), f"{SIM_SAMPLES[i]}.bam")
-        write_sample_bam(bam, genes, chrom_len, seed=100 + i,
-                         mean_reads_per_gene=120, degradation=deg)
+        bam = os.path.join(str(d), f"{SIM_SAMPLES[i]}.{fmt}")
+        write(bam, genes, chrom_len, seed=100 + i, mean_reads_per_gene=120,
+              degradation=deg)
         bams.append(bam)
     return {"gtf": gtf, "bams": bams, "dir": d}
 
