@@ -25,14 +25,22 @@ holds the nmf_tol branch of kernel 1 and the trim_fast and nmf_tol branches
 of kernel 3 against their plain versions; phase ``modes`` drives the narrow
 fit under trim_fast and under nmf_tol (each launching its branches),
 rank1_method="eigh" and keyed downsample offsets; phase ``oracle`` holds the
-engine on the card against the package's float64 oracle on the host.  Each
+engine on the card against the package's float64 oracle on the host.  The
+gene-sharded engine (``parallel/``): phase ``mesh`` runs both fits on two
+gene shards of the card in one process, bit-equal to phases ``fit`` and
+``fit_wide``, and ``dryrun_multichip(2)``; phase ``multihost`` runs the
+narrow fit in two processes sharing the card over gloo and in a one-process
+NCCL group, and the ``--multihost`` command in two processes on phase
+``pipeline``'s .bam samples, whose outputs must equal that phase's.  Each
 phase prints one JSON line; any failed phase raises (non-zero exit).  There
 is no CPU fallback: without a CUDA device the script exits non-zero and
 prints no result.
 
 Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,
-pipeline,modes,oracle`` runs a subset (then no final result line is printed
-unless all ran; ``modes`` reads the default fit of ``fit`` for its drift);
+pipeline,mesh,multihost,modes,oracle`` runs a subset (then no final result
+line is printed unless all ran; ``modes`` reads the default fit of ``fit``
+for its drift, ``mesh`` the fits of ``fit`` and ``fit_wide``, ``multihost``
+those of ``fit`` and ``pipeline``: ``NEEDS``);
 phase ``upload``, run only when ``--phases`` names it, times the direct int16
 upload against a 4-bit delta-encoded one (host encode, upload, decode on
 the card) on the buckets of three fits, the A/B behind the engine's direct
@@ -79,7 +87,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
-              "pipeline", "modes", "oracle")
+              "pipeline", "mesh", "multihost", "modes", "oracle")
+# what a phase reads from earlier ones
+NEEDS = {"modes": ("fit",), "mesh": ("fit", "fit_wide"),
+         "multihost": ("fit", "pipeline")}
 # run only when named in --phases: the encoded upload's A/B (PERF.md, PR 7)
 OPT_IN_PHASES = ("upload",)
 
@@ -1132,7 +1143,7 @@ def phase_fit(cov, X):
          rho_mean=float(res.rho.mean()),
          peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
          profile=prof)
-    return launches, res, wall2
+    return launches, res, wall2, timings
 
 
 def phase_fit_wide(cov, X):
@@ -1264,7 +1275,7 @@ def phase_fit_wide(cov, X):
          per_launch_columns=["W", "round (0 = initial fit)", "active genes",
                              "blocks a gene", "threads", "device ms"],
          per_launch=per_launch)
-    return launches
+    return launches, res, wall2
 
 
 # states of kernel 4's late trim rounds kept by phase_fit_wide for the sweep
@@ -1850,7 +1861,7 @@ def write_warm_dir(out_dir, cov_parts, X_parts, seed=SEED):
     return n, p
 
 
-def phase_pipeline(cov, X, cov_wide, X_wide):
+def phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=False):
     """The degnorm-tpu-torch command, three times.  Cold: ``python3 -m
     degnorm_tpu_torch`` in a subprocess with no --device (so on the card) on
     simulated .bam files and a .gtf: the ETL, the fit, the outputs and the
@@ -1867,7 +1878,9 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
     their plain versions on each of them (``check_kernels_at``), and the
     command's result against a use_kernels=False fit (``compare_fits``).
     The host library is built before the cold command, so that its etl
-    timing holds the ETL alone."""
+    timing holds the ETL alone.  Returns the warm command's launches and the
+    cold .bam run (``keep_cold``: its inputs and run directory are left for
+    phase ``multihost``, which removes them)."""
     import pickle
     import shutil
     import pandas as pd
@@ -1986,8 +1999,8 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
         captured = {}
         original = prun.run_pipeline
 
-        def capture(cfg, output_dir=None):
-            captured.update(original(cfg, output_dir=output_dir))
+        def capture(cfg, output_dir=None, **kw):
+            captured.update(original(cfg, output_dir=output_dir, **kw))
             return captured
 
         prun.run_pipeline = capture
@@ -2113,9 +2126,17 @@ def phase_pipeline(cov, X, cov_wide, X_wide):
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
         emit("pipeline", cold=cold, warm=warm, smi=smi_line())
-        return launches
+        kept = dict(run=cold_run, bams=bams, gtf=gtf, wall_s=bam_rec["wall_s"],
+                    fit_s=bam_rec["fit_s"], etl_s=bam_rec["etl_s"])
+        return launches, kept
     finally:
-        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+        if keep_cold:
+            for d in os.listdir(PIPE_DIR):
+                if d not in ("data", "cold_bam"):
+                    shutil.rmtree(os.path.join(PIPE_DIR, d),
+                                  ignore_errors=True)
+        else:
+            shutil.rmtree(PIPE_DIR, ignore_errors=True)
 
 
 def engine_buckets(mats, widths):
@@ -2264,6 +2285,390 @@ def phase_upload(cov, cov_wide):
     return out
 
 
+# ---- phases mesh and multihost: the gene-sharded fit (parallel/) ----------
+
+MESH_SHARDS = 2            # both on the card: the script needs one
+
+
+def compare_or_gate(name, got, want, secs, **extra):
+    """A sharded fit against the one-device fit of the same genes: DI,
+    adjusted counts and baseline-selection flags bit-equal, else the max
+    difference and the reason are printed and the pair is held to the
+    parity gate (``compare_fits``).  Returns the bit-equality record."""
+    same = {f: bool(np.array_equal(getattr(got, f), getattr(want, f)))
+            for f in ("rho", "x_adj", "ran_baseline_selection")}
+    if all(same.values()):
+        return {"bit_equal": True}
+    rec = {"bit_equal": False, "equal": same,
+           "rho_max_abs_diff": float(np.abs(got.rho - want.rho).max()),
+           "x_adj_max_rel_diff": float(np.abs(got.x_adj / want.x_adj
+                                              - 1).max()),
+           "reason": "a shard's kernel launches or reduction order differ "
+                     "from the whole bucket's (float32 summation order)"}
+    compare_fits(name + "_gate", got, want, secs, **extra, **rec)
+    return rec
+
+
+def batch_invariance(engine):
+    """Which computations of a wide bucket step give a gene the same bits
+    in a half-size batch: the first half of each of the one-device engine's
+    buckets run alone, against its rows of the whole bucket, through kernel
+    4, kernel 2 (with the whole bucket's gene count), the batched einsum of
+    ``core/linalg.py::masked_rowsum`` (cuBLAS), and PyTorch's ``sum`` over
+    the columns of a (G, p, W) and of a (G, W) tensor (the unfused loop's
+    per-bin sums, ``ops/cuda_trim.py::_per_bin_sums``).  The measured
+    reason when a sharded wide fit is not bit-equal."""
+    import torch
+    from degnorm_tpu_torch.core.linalg import masked_rowsum
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    out = []
+    for F, m in zip(engine._device_F, engine._device_mask):
+        G, p, W = F.shape
+        h = G // 2
+        Fh, mh = F[:h].contiguous(), m[:h].contiguous()
+        ones = torch.ones(p, dtype=torch.float32, device=F.device)
+        kw = dict(nmf_iter=NMF_ITER, power_iters_cold=128,
+                  power_iters_warm=24, power_warm_plain=1, scale=ones)
+        whole = cuda_stream.nmf_masked_streamed_cuda(F, m, **kw)
+        half = cuda_stream.nmf_masked_streamed_cuda(Fh, mh, **kw)
+        rec = {"bucket": [G, p, W], "half": h,
+               "kernel4_K_E": all(torch.equal(a[:h], b)
+                                  for a, b in zip(whole[:2], half[:2]))}
+        whole = cuda_nmf.ratio_rowsums_cuda(F, m, bucket_genes=G)
+        half = cuda_nmf.ratio_rowsums_cuda(Fh, mh, bucket_genes=G)
+        rec["kernel2"] = all(torch.equal(a[:h], b)
+                             for a, b in zip(whole, half))
+        Ff, mf = F.float(), m.float()
+        rec["einsum_masked_rowsum"] = torch.equal(
+            masked_rowsum(Ff, mf)[:h], masked_rowsum(Ff[:h], mf[:h]))
+        rec["sum_gpw_over_w"] = torch.equal(
+            (Ff * mf[:, None, :]).sum(dim=2)[:h],
+            (Ff[:h] * mf[:h, None, :]).sum(dim=2))
+        col = Ff.amax(dim=1) * mf
+        rec["sum_gw_over_w"] = torch.equal(col.sum(dim=1)[:h],
+                                           col[:h].sum(dim=1))
+        out.append(rec)
+        del Ff, mf, col, whole, half
+    return out
+
+
+def phase_mesh(cov, X, cov_wide, X_wide, fits):
+    """The gene-sharded engine in one process: the narrow workload and the
+    long tail on ``make_mesh([cuda:0] * MESH_SHARDS)`` (counts to 0 just
+    before each fit, read just after: every kernel launched once a shard,
+    twice the one-device count where the count does not depend on the trim
+    rounds), each held bit-equal to its one-device fit of phases ``fit``
+    and ``fit_wide`` (``compare_or_gate``), a steady refit timed beside the
+    one-device one, the gather seconds and the peak memory; then
+    ``dryrun_multichip(2)`` on the card."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.parallel import make_mesh
+    from degnorm_tpu_torch.parallel.dryrun import dryrun_multichip
+    dev = torch.device(DEVICE, torch.cuda.current_device()) \
+        if DEVICE == "cuda" else torch.device(DEVICE)
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
+    out = {}
+    for name, c, x, widths in (("narrow", cov, X, BUCKET_WIDTHS),
+                               ("long_tail", cov_wide, X_wide, None)):
+        one, one_steady_s, one_launches = fits[name]
+        eng_cfg = (EngineConfig(bucket_widths=widths) if widths
+                   else EngineConfig())
+        engine = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh)
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        res = engine.run(c, x)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in branch_launches().items()
+                    if "[" not in k}
+        timings = dict(engine.timings)
+        t0 = time.perf_counter()
+        engine.run(c, x, reuse_device_data=True)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        steady = time.perf_counter() - t0
+        n_shards = len(engine._shards)
+        if n_shards != MESH_SHARDS * len(engine._buckets):
+            raise AssertionError(f"mesh {name}: {n_shards} shards for "
+                                 f"{len(engine._buckets)} buckets")
+        fixed = (("nmf_masked", "ratio_rowsums", "trim_loop")
+                 if name == "narrow" else ("ratio_rowsums",))
+        for k in fixed:
+            if launches[k] != MESH_SHARDS * one_launches[k]:
+                raise AssertionError(
+                    f"mesh {name}: {k} launched {launches[k]} times, not "
+                    f"{MESH_SHARDS} x {one_launches[k]} (one a shard)")
+        if name == "long_tail" and DEVICE == "cuda" and not (
+                MESH_SHARDS * len(engine._buckets) * DEGNORM_ITER
+                <= launches["nmf_streamed"]
+                <= MESH_SHARDS * one_launches["nmf_streamed"]):
+            raise AssertionError(f"mesh long tail: nmf_streamed launched "
+                                 f"{launches['nmf_streamed']} times")
+        unused = [k for k, v in launches.items()
+                  if (v > 0) != (one_launches[k] > 0)]
+        if unused:
+            raise AssertionError(f"mesh {name}: kernels {unused} launched "
+                                 "on one path and not the other")
+        check = compare_or_gate(f"mesh_{name}", res, one, (steady,
+                                                           one_steady_s))
+        if not check["bit_equal"] and DEVICE == "cuda":
+            check["batch_invariant"] = batch_invariance(one._engine)
+        n = res.rho.shape[0]
+        out[name] = dict(
+            genes=n, shards=MESH_SHARDS, devices=[str(d) for d in
+                                                  mesh.devices],
+            launches=launches, launches_one_device=one_launches,
+            wall_s=round(wall, 4), steady_wall_s=round(steady, 4),
+            one_device_steady_wall_s=round(one_steady_s, 4),
+            steady_gene_iter_per_s=round(n * DEGNORM_ITER / steady, 1),
+            one_device_steady_gene_iter_per_s=round(
+                n * DEGNORM_ITER / one_steady_s, 1),
+            steady_vs_one_device=round(steady / one_steady_s - 1, 4),
+            gather_s=round(timings["gather"], 4),
+            steady_gather_s=round(engine.timings["gather"], 4),
+            timings={k: round(v, 4) for k, v in timings.items()},
+            peak_mem_bytes=(int(torch.cuda.max_memory_allocated())
+                            if DEVICE == "cuda" else None),
+            **check)
+        del engine, res
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_SHARDS, devices=[dev])
+    dry["seconds"] = round(time.perf_counter() - t0, 3)
+    emit("mesh", **out, dryrun_multichip=dry, smi=smi_line())
+
+
+_ENGINE_RANK = r"""
+import json, sys, time
+from collections import OrderedDict
+import numpy as np, torch
+from degnorm_tpu_torch import EngineConfig, NMFConfig
+from degnorm_tpu_torch.engine import DegNormEngine
+from degnorm_tpu_torch.parallel import distributed
+data, out, device = sys.argv[1], sys.argv[2], sys.argv[3]
+t_start = time.perf_counter()
+distributed.initialize_multihost(device=device)
+rank = distributed.process_index()
+backend = torch.distributed.get_backend()
+with np.load(data) as d:
+    names, lens, flat, X = ([str(g) for g in d["genes"]], d["lengths"],
+                            d["flat"], d["X"])
+p = X.shape[1]
+ends = np.cumsum(lens.astype(np.int64) * p)
+cov = OrderedDict((g, flat[e - L * p:e].reshape(p, L))
+                  for g, L, e in zip(names, lens.tolist(), ends.tolist()))
+nmf_iter, degnorm_iter = (int(v) for v in sys.argv[4:6])
+widths = tuple(int(w) for w in sys.argv[6].split(","))
+mesh = distributed.global_mesh(device)
+eng = DegNormEngine(NMFConfig(nmf_iter=nmf_iter, degnorm_iter=degnorm_iter),
+                    EngineConfig(device=device, bucket_widths=widths),
+                    mesh=mesh)
+t0 = time.perf_counter()
+res = eng.run(cov, X)
+if device == "cuda":
+    torch.cuda.synchronize()
+fit_s = time.perf_counter() - t0
+timings = dict(eng.timings)
+t0 = time.perf_counter()
+eng.run(cov, X, reuse_device_data=True)
+if device == "cuda":
+    torch.cuda.synchronize()
+steady_s = time.perf_counter() - t0
+# the collectives themselves, on this group's backend: a gather of CUDA
+# rows, a broadcast string and a barrier
+rows = torch.full((rank + 1, 3), float(rank), device=mesh.devices[0])
+got = distributed.gather_rows(rows)
+want = torch.cat([torch.full((r + 1, 3), float(r))
+                  for r in range(distributed.process_count())])
+assert torch.equal(got.cpu(), want) and got.device == rows.device
+s = distributed.broadcast_string("run/å-π" if rank == 0 else "")
+assert s == "run/å-π", s
+distributed.barrier("smoke")
+np.save(out + "/rho_%d.npy" % rank, res.rho)
+distributed.shutdown()
+print(json.dumps({"rank": rank, "backend": backend,
+                  "device": str(mesh.devices[0]),
+                  "shards": [[sh.bucket, sh.start, sh.stop]
+                             for sh in eng._shards],
+                  "fit_s": fit_s, "steady_s": steady_s,
+                  "gather_s": timings["gather"],
+                  "wall_s": time.perf_counter() - t_start,
+                  "peak_mem_bytes": (int(torch.cuda.max_memory_allocated())
+                                     if device == "cuda" else None)}),
+      flush=True)
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, n, env_extra=(), timeout=600):
+    """``argv`` in ``n`` processes as one torch.distributed job on a free
+    localhost port; returns (outputs, wall seconds); raises with every
+    rank's output when one fails.  Every process is waited for or
+    killed."""
+    env = dict(os.environ, DEGNORM_TPU_COORDINATOR=f"localhost:{_free_port()}",
+               DEGNORM_TPU_NUM_PROCESSES=str(n), **dict(env_extra))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              env=dict(env, DEGNORM_TPU_PROCESS_ID=str(r)))
+             for r in range(n)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=timeout)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    wall = time.perf_counter() - t0
+    if any(pr.returncode != 0 for pr in procs):
+        raise AssertionError("\n".join(
+            f"rank {r} rc={pr.returncode}:\n{out[-3000:]}"
+            for r, (pr, out) in enumerate(zip(procs, outs))))
+    return outs, wall
+
+
+def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold):
+    """Several processes on the one card.  (a) Two processes share it over
+    gloo (``DEGNORM_TPU_TORCH_DIST_BACKEND=gloo``: NCCL refuses two ranks
+    on one card) and fit the narrow workload, its inputs handed over as an
+    .npz; (b) a one-process NCCL group runs the same fit through
+    ``initialize_multihost``; each rank's DI is held bit-equal to phase
+    ``fit``'s (``compare_or_gate``), and each rank also runs a gather, a
+    broadcast and a barrier.  (c) ``python -m degnorm_tpu_torch
+    --multihost`` in two processes (gloo) on phase ``pipeline``'s four .bam
+    samples: one run directory, no file the single-process run lacks (the
+    worker writes none), no .etl_shared left, DI and adjusted-count CSVs
+    byte-equal to phase ``pipeline``'s .bam run, --plot-genes split over
+    the ranks.  Wall and fit seconds beside the single-process ones."""
+    import filecmp
+    import shutil
+    import pandas as pd
+    work = os.path.join(PIPE_DIR, "multihost")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    device = DEVICE
+    data = os.path.join(work, "narrow.npz")
+    names = list(cov.keys())
+    np.savez(data, genes=np.array(names), X=X,
+             lengths=np.array([cov[g].shape[1] for g in names]),
+             flat=np.concatenate([cov[g].ravel() for g in names]))
+    argv = [sys.executable, "-c", _ENGINE_RANK, data, work, device,
+            str(NMF_ITER), str(DEGNORM_ITER),
+            ",".join(str(w) for w in BUCKET_WIDTHS)]
+    fits = {}
+    for tag, n, extra in (("gloo_2_processes", 2,
+                           {"DEGNORM_TPU_TORCH_DIST_BACKEND": "gloo"}),
+                          ("nccl_1_process", 1, {})):
+        if device != "cuda" and tag.startswith("nccl"):
+            continue
+        outs, wall = run_ranks(argv, n, extra)
+        ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        want = "gloo" if tag.startswith("gloo") else "nccl"
+        if device == "cuda" and any(r["backend"] != want for r in ranks):
+            raise AssertionError(f"{tag}: backends {ranks}")
+        checks = []
+        for r in range(n):
+            rho = np.load(os.path.join(work, f"rho_{r}.npy"))
+            same = bool(np.array_equal(rho, base_fit.rho))
+            checks.append(same)
+            if not same:
+                d = float(np.abs(rho - base_fit.rho).max())
+                emit(f"multihost_{tag}_rank{r}_differs", rho_max_abs_diff=d,
+                     reason="float32 summation order of another launch")
+                if d > 5e-3:       # the parity gate's DI tolerance
+                    raise AssertionError(f"{tag} rank {r}: DI differs from "
+                                         f"phase fit's by {d}")
+        fits[tag] = dict(
+            processes=n, wall_s=round(wall, 3), rho_bit_equal=checks,
+            ranks=ranks, one_process_fit_s=round(
+                base_timings["init"] + base_timings["iterations"]
+                + base_timings["pack"], 4),
+            one_process_steady_s=round(base_steady_s, 4))
+    # (c) the command
+    base = os.path.join(work, "command")
+    os.makedirs(base)
+    di_one = pd.read_csv(os.path.join(cold["run"],
+                                      "degradation_index_scores.csv"))
+    plot = sorted(di_one.gene.astype(str))[:2]
+    device_flag = [] if device == "cuda" else ["--device", device]
+    outs, wall = run_ranks(
+        [sys.executable, "-m", "degnorm_tpu_torch", "--bam-files",
+         *cold["bams"], "-g", cold["gtf"], "-o", base, "--nmf-iter",
+         str(NMF_ITER), "--iter", str(DEGNORM_ITER), "-p", "4",
+         "--multihost", "--plot-genes", *plot, *device_flag], 2,
+        {"DEGNORM_TPU_TORCH_DIST_BACKEND": "gloo"})
+    run = _one_run_dir(base)
+    if any(f.startswith(".etl") for f in os.listdir(run)):
+        raise AssertionError("multihost command left .etl_shared behind")
+
+    def files(d):
+        return {os.path.relpath(os.path.join(r, f), d)
+                for r, _, fs in os.walk(d) for f in fs
+                if not f.endswith("_coverage.png")}
+    extra = files(run) - files(cold["run"])
+    missing = files(cold["run"]) - files(run)
+    if extra or missing:
+        raise AssertionError(f"multihost run files differ: extra {extra}, "
+                             f"missing {missing}")
+    for name in ("ran_baseline_selection.csv", "read_counts.csv",
+                 "gene_exon_metadata.csv"):
+        if not filecmp.cmp(os.path.join(run, name),
+                           os.path.join(cold["run"], name), shallow=False):
+            raise AssertionError(f"multihost command's {name} differs from "
+                                 "the single-process .bam run's")
+    byte_equal = {}
+    for name, rel in (("degradation_index_scores.csv", False),
+                      ("adjusted_read_counts.csv", True)):
+        byte_equal[name] = filecmp.cmp(os.path.join(run, name),
+                                       os.path.join(cold["run"], name),
+                                       shallow=False)
+        if not byte_equal[name]:
+            a, b = (pd.read_csv(os.path.join(d, name),
+                                float_precision="round_trip")
+                    for d in (run, cold["run"]))
+            va, vb = (t.select_dtypes("number").to_numpy(np.float64)
+                      for t in (a, b))
+            d = float((np.abs(va - vb) / (np.maximum(np.abs(vb), 1.0)
+                                          if rel else 1.0)).max())
+            byte_equal[name + " max diff"] = d
+            if not d <= 5e-3:        # the parity gate
+                raise AssertionError(f"multihost command's {name} differs "
+                                     f"from the single-process run's by {d}")
+    for r, (out, gene) in enumerate(zip(outs, plot)):
+        if f"plotting coverage for 1 gene(s): {gene}" not in out:
+            raise AssertionError(f"rank {r} did not plot {gene}")
+        if "multi-process ETL: this process owns 2/4 sample(s)" not in out:
+            raise AssertionError(f"rank {r} did not own two samples")
+    with open(os.path.join(run, "degnorm.log")) as f:
+        log = f.read()
+    if "[rank 1]" in log:
+        raise AssertionError("the worker wrote into the run's degnorm.log")
+    line = [ln for ln in log.splitlines() if "pipeline phase timings" in ln]
+    import ast
+    timings = ast.literal_eval(line[-1].split("(s): ", 1)[1])
+    command = dict(processes=2, backend="gloo", wall_s=round(wall, 3),
+                   fit_s=timings["fit"], etl_s=timings["etl"],
+                   one_process_wall_s=cold["wall_s"],
+                   one_process_fit_s=cold["fit_s"],
+                   one_process_etl_s=cold["etl_s"],
+                   plot_genes=plot, byte_equal_one_process=byte_equal)
+    emit("multihost", fits=fits, command=command, smi=smi_line())
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def kernels_line(kres, launches, launches_wide, launches_pipeline,
                  launches_modes):
     """The per-kernel records of the result line: kernels 1-3 at the narrow
@@ -2385,6 +2790,9 @@ def main(argv=None):
     phases = [s for s in args.phases.split(",") if s]
     if args.sweep:
         phases = ["env", "build", "fit_wide"]
+    for ph, needs in NEEDS.items():
+        if ph in phases and set(needs) - set(phases):
+            ap.error(f"phase {ph} needs phases {', '.join(needs)}")
 
     import torch
     if not torch.cuda.is_available():
@@ -2405,7 +2813,8 @@ def main(argv=None):
     emit("data", seconds=round(time.perf_counter() - t0, 2), genes=N_GENES,
          samples=P_SAMPLES, seed=SEED, profile="dense")
     cov_wide = X_wide = None
-    if {"kernels", "fit_wide", "parity", "pipeline", "upload"} & set(phases):
+    if {"kernels", "fit_wide", "parity", "pipeline", "upload",
+            "mesh"} & set(phases):
         t0 = time.perf_counter()
         cov_wide, X_wide = synth_dataset(WIDE_GENES, P_SAMPLES, seed=SEED + 1,
                                          lengths_fn=synth_long_lengths)
@@ -2417,14 +2826,29 @@ def main(argv=None):
                         int((lens > WIDE_WIDTHS[0]).sum())],
              host_bytes=int(sum(m.nbytes for m in cov_wide.values())))
     kres = phase_kernels(cov, cov_wide) if "kernels" in phases else None
-    launches, base_fit, base_steady_s = (phase_fit(cov, X) if "fit" in phases
-                                         else (None, None, None))
-    launches_wide = (phase_fit_wide(cov_wide, X_wide)
-                     if "fit_wide" in phases else None)
+    launches, base_fit, base_steady_s, base_timings = (
+        phase_fit(cov, X) if "fit" in phases else (None,) * 4)
+    launches_wide, wide_fit, wide_steady_s = (
+        phase_fit_wide(cov_wide, X_wide) if "fit_wide" in phases
+        else (None,) * 3)
     if "parity" in phases:
         phase_parity(cov, X, cov_wide, X_wide)
-    launches_pipeline = (phase_pipeline(cov, X, cov_wide, X_wide)
-                         if "pipeline" in phases else None)
+    keep_cold = "multihost" in phases
+    launches_pipeline, cold = (
+        phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=keep_cold)
+        if "pipeline" in phases else (None, None))
+    try:
+        if "mesh" in phases:
+            phase_mesh(cov, X, cov_wide, X_wide, {
+                "narrow": (base_fit, base_steady_s, launches),
+                "long_tail": (wide_fit, wide_steady_s, launches_wide)})
+        if "multihost" in phases:
+            phase_multihost(cov, X, base_fit, base_steady_s, base_timings,
+                            cold)
+    finally:
+        if keep_cold:
+            import shutil
+            shutil.rmtree(PIPE_DIR, ignore_errors=True)
     launches_modes = (phase_modes(cov, X, base_fit, base_steady_s)
                       if "modes" in phases else None)
     if "oracle" in phases:

@@ -2,9 +2,9 @@
 
 Same flag set as the JAX package's ``degnorm-tpu`` command (itself the
 reference's argparser, ``utils.py:195-315``), plus ``--device``: the fit runs
-on the GPU (``cuda``) unless the caller asks for ``cpu``.  Flags whose
-features this package does not carry yet are accepted by the parser and
-refused with ``SystemExit`` naming the ROADMAP item that brings them.
+on the GPU (``cuda``) unless the caller asks for ``cpu``.  ``--mesh``
+gene-shards the fit over every visible card in one process; ``--multihost``
+runs one process of a multi-process job (parallel/distributed.py).
 """
 from __future__ import annotations
 
@@ -57,9 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device of the fit: cuda (default; raises when no "
                         "GPU is present) or cpu")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 7)")
+                   help="one process of a multi-process run on "
+                        "torch.distributed: DEGNORM_TPU_COORDINATOR "
+                        "(host:port), DEGNORM_TPU_NUM_PROCESSES and "
+                        "DEGNORM_TPU_PROCESS_ID, or torchrun's variables")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 7)")
+                   help="gene-shard the fit over every visible GPU in this "
+                        "process")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--rank1-method", default="power",
@@ -68,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "iteration (the CUDA kernels) or eigh (a batched "
                         "eigendecomposition in every fit, no kernel)")
     p.add_argument("--profile-dir", default=None,
-                   help="not carried over (ROADMAP 'Not carried over')")
+                   help="write a torch.profiler trace of the fit's "
+                        "iterations into this directory")
     p.add_argument("--trim-fast", action="store_true",
                    help="opt-in: warm-restart each baseline-selection trim "
                         "round from the previous one's multipliers, with "
@@ -102,24 +107,9 @@ def expand_plot_genes(vals: Optional[List[str]]) -> List[str]:
     return list(dict.fromkeys(genes))
 
 
-def _refuse_unported(args) -> None:
-    pending = []
-    if args.multihost:
-        pending.append("--multihost (ROADMAP Queue 1 item 7)")
-    if args.mesh:
-        pending.append("--mesh (ROADMAP Queue 1 item 7)")
-    if args.profile_dir:
-        pending.append("--profile-dir (ROADMAP 'Not carried over'; "
-                       "trace with torch.profiler instead)")
-    if pending:
-        raise SystemExit("not ported to degnorm-tpu-torch yet: "
-                         + ", ".join(pending))
-
-
 def parse_config(argv: Optional[List[str]] = None,
                  return_args: bool = False):
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
     # cap -p at the host's core count (reference utils.py:327-332 caps at
     # max_cpu = cores-1 with a warning; we warn and cap the same way)
@@ -203,7 +193,8 @@ def parse_config(argv: Optional[List[str]] = None,
         raise SystemExit("--nmf-tol must be >= 0.")
     eng = EngineConfig(device=args.device, dtype=args.dtype,
                        rank1_method=args.rank1_method,
-                       trim_fast=args.trim_fast, nmf_tol=args.nmf_tol)
+                       trim_fast=args.trim_fast, nmf_tol=args.nmf_tol,
+                       profile_dir=args.profile_dir)
     cfg = PipelineConfig(
         bam_files=tuple(bam_files),
         bai_files=tuple(args.bai_files or []),
@@ -224,11 +215,39 @@ def main(argv: Optional[List[str]] = None) -> int:
     from degnorm_tpu_torch.pipeline.run import (configure_logger,
                                                 create_output_dir,
                                                 run_pipeline, welcome)
-    cfg = parse_config(argv)
+    cfg, args = parse_config(argv, return_args=True)
+    device = cfg.engine.device
+    mesh = None
+    if args.multihost:
+        from degnorm_tpu_torch.parallel import distributed
+        distributed.initialize_multihost(device=device)
+        if distributed.process_count() > 1:
+            # the coordinator owns the run directory and every artifact
+            # write; its timestamped name is broadcast so that all processes
+            # agree (the reference broadcasts its output dir,
+            # __main_mpi__.py:62-71)
+            coordinator = distributed.is_coordinator()
+            output_dir = distributed.broadcast_string(
+                create_output_dir(cfg.output_dir) if coordinator else "")
+            os.makedirs(output_dir, exist_ok=True)
+            configure_logger(output_dir if coordinator else None,
+                             process_tag=f"rank {distributed.process_index()}")
+            welcome()
+            try:
+                run_pipeline(cfg, output_dir=output_dir,
+                             mesh=distributed.global_mesh(device),
+                             write_outputs=coordinator)
+            finally:
+                distributed.shutdown()
+            return 0
+    elif args.mesh:
+        from degnorm_tpu_torch.parallel.sharded import make_mesh
+        mesh = make_mesh() if device.startswith("cuda") else make_mesh(
+            [device])
     output_dir = create_output_dir(cfg.output_dir)
     configure_logger(output_dir)
     welcome()
-    run_pipeline(cfg, output_dir=output_dir)
+    run_pipeline(cfg, output_dir=output_dir, mesh=mesh)
     return 0
 
 

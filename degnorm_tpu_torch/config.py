@@ -135,6 +135,9 @@ class EngineConfig:
     # Not carried over: the port has no other lowering for a wide bucket
     # than the streamed kernel, so only True is accepted.
     stream_nmf: bool = True
+    # Write a torch.profiler trace of the fit's DegNorm iterations into this
+    # directory (the JAX engine's jax.profiler trace; ``--profile-dir``).
+    profile_dir: Optional[str] = None
 
     def __post_init__(self):
         if not self.stream_nmf:

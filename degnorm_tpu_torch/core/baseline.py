@@ -110,10 +110,11 @@ def trim_inputs(
     ds_start: Optional[torch.Tensor] = None,
     F_raw: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
+    bucket_genes: Optional[int] = None,
 ) -> TrimInputs:
     """High-coverage and downsample masks, bail-outs, the initial NMF and
-    the rank bins (reference nmf.py:220-271).  ``F_raw``/``scale``: see
-    ``baseline_select_bucket``."""
+    the rank bins (reference nmf.py:220-271).  ``F_raw``/``scale``,
+    ``bucket_genes``: see ``baseline_select_steps``."""
     G, p, W = F.shape
     dtype = F.dtype
     dev = F.device
@@ -149,6 +150,7 @@ def trim_inputs(
                             F_raw=F_raw, scale=scale,
                             nmf_tol=eng_cfg.nmf_tol,
                             method=eng_cfg.rank1_method,
+                            bucket_genes=bucket_genes,
                             **_nmf_kwargs(nmf_cfg, eng_cfg))
     est_rs0 = K0 * E0.sum(dim=1)[:, None]
     rho0 = 1 - rowsum_start / (est_rs0 + 1)
@@ -189,7 +191,13 @@ def trim_kwargs(nmf_cfg: NMFConfig, eng_cfg: EngineConfig) -> dict:
         **_nmf_kwargs(nmf_cfg, eng_cfg))
 
 
-def baseline_select_bucket(
+def baseline_select_bucket(*args, **kwargs) -> BucketResult:
+    """``baseline_select_steps`` run to its end (``cuda_trim.run_steps``),
+    with its arguments."""
+    return cuda_trim.run_steps([baseline_select_steps(*args, **kwargs)])[0]
+
+
+def baseline_select_steps(
     F: torch.Tensor,
     len_mask: torch.Tensor,
     nmf_cfg: NMFConfig,
@@ -198,8 +206,11 @@ def baseline_select_bucket(
     with_estimates: bool = True,
     F_raw: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
-) -> BucketResult:
-    """Run baseline selection for every gene in a padded bucket.
+    bucket_genes: Optional[int] = None,
+):
+    """Run baseline selection for every gene in a padded bucket, as a step
+    generator (``cuda_trim.run_steps``): the unfused trim loop yields its
+    host reads.  Returns a ``BucketResult``.
 
     Args:
       F: (G, p, W) scale-adjusted coverage.
@@ -210,8 +221,12 @@ def baseline_select_bucket(
       F_raw/scale: the raw (unadjusted, typically int16) device coverage and
         the per-sample scale vector with F == F_raw / scale: the streamed NMF
         kernel of a wide bucket reads it at half the bytes (core/nmf.py).
+      bucket_genes: where F is one shard of a bucket (parallel/), the whole
+        bucket's gene count: the NMF kernel's launch rule reads it, so the
+        shard launches as the whole bucket would and gives its bits.
     """
-    ti = trim_inputs(F, len_mask, nmf_cfg, eng_cfg, ds_start, F_raw, scale)
+    ti = trim_inputs(F, len_mask, nmf_cfg, eng_cfg, ds_start, F_raw, scale,
+                     bucket_genes)
     targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
              ti.n_hi, ti.n_bins0, ti.active0)
     tkw = trim_kwargs(nmf_cfg, eng_cfg)
@@ -244,10 +259,11 @@ def baseline_select_bucket(
                               u0=u_prev, use_kernels=eng_cfg.use_kernels,
                               F_raw=F_raw, scale=scale,
                               nmf_tol=eng_cfg.nmf_tol,
-                              method=eng_cfg.rank1_method, **resume_kwargs)
+                              method=eng_cfg.rank1_method,
+                              bucket_genes=bucket_genes, **resume_kwargs)
 
-        K_t, rho_t, ran_bs, rounds_active = cuda_trim.trim_loop_plain(
-            *targs, nmf_fn=round_nmf, **tkw)
+        K_t, rho_t, ran_bs, rounds_active = yield from \
+            cuda_trim.trim_loop_steps(*targs, nmf_fn=round_nmf, **tkw)
 
     return _finalize_bucket(ti.Fm, ti.lm_f, ti.hi.to(F.dtype), len_mask,
                             ti.K0, ti.E0, ti.rho0, ti.rowsum_start, ti.n_hi,

@@ -34,6 +34,7 @@ def nmf_masked(
     scale: Optional[torch.Tensor] = None,
     nmf_tol: float = 0.0,
     method: str = "power",
+    bucket_genes: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the NMF-OA loop on a masked gene bucket.
 
@@ -65,6 +66,9 @@ def nmf_masked(
       method: "power", or "eigh": every fit by a batched eigendecomposition
         through the plain version at any width, with ``nmf_tol`` at every
         width (the JAX package's XLA twin); no kernel is launched.
+      bucket_genes: the whole bucket's gene count where F is one shard of
+        it: the resident kernel's launch rule reads it
+        (``cuda_nmf.nmf_masked_cuda``).
 
     Returns (K, E, u): rank-1 factors (G,p), (G,W) and the final unit left
     vector for warm starts.
@@ -77,10 +81,12 @@ def nmf_masked(
         return cuda_nmf.nmf_masked_plain(F, mask, nmf_tol=nmf_tol,
                                          method=method, **kwargs)
     if cuda_nmf.kernels_supported(F.shape, torch.float32):
-        fn = (cuda_nmf.nmf_masked_cuda if use_kernels
-              else cuda_nmf.nmf_masked_plain)
         tol = nmf_tol if nmf_tol_applies(F.shape) else 0.0
-        return fn(F, mask, nmf_tol=tol, **kwargs)
+        if use_kernels:
+            return cuda_nmf.nmf_masked_cuda(F, mask, nmf_tol=tol,
+                                            bucket_genes=bucket_genes,
+                                            **kwargs)
+        return cuda_nmf.nmf_masked_plain(F, mask, nmf_tol=tol, **kwargs)
     fn = (cuda_stream.nmf_masked_streamed_cuda if use_kernels
           else cuda_stream.nmf_masked_streamed_plain)
     use_raw = (F_raw is not None and scale is not None
@@ -96,6 +102,7 @@ def ratio_svd_rowsums(
     power_iters: int = 30,
     use_kernels: bool = True,
     method: str = "power",
+    bucket_genes: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row sums of the one-shot clipped rank-1 over-approximation
     (reference ``ratio_svd``, nmf.py:109-121): per-sample sums of F and of
@@ -104,10 +111,12 @@ def ratio_svd_rowsums(
     it too (the JAX package leaves that one to XLA), and int16 coverage as
     it is: both paths compute on its exact float32 values.
     ``method="eigh"`` takes the plain version (the JAX package's XLA path
-    for that method)."""
+    for that method).  ``bucket_genes``: as in ``nmf_masked``, for the
+    kernel's launch rule."""
     if method == "eigh":
         return cuda_nmf.ratio_rowsums_plain(F, mask, power_iters=power_iters,
                                             method=method)
-    fn = (cuda_nmf.ratio_rowsums_cuda if use_kernels
-          else cuda_nmf.ratio_rowsums_plain)
-    return fn(F, mask, power_iters=power_iters)
+    if use_kernels:
+        return cuda_nmf.ratio_rowsums_cuda(F, mask, power_iters=power_iters,
+                                           bucket_genes=bucket_genes)
+    return cuda_nmf.ratio_rowsums_plain(F, mask, power_iters=power_iters)

@@ -1,6 +1,7 @@
 """DegNormEngine — the PyTorch/CUDA equivalent of reference ``GeneNMFOA``.
 
-Counterpart of ``degnorm_tpu/engine.py`` for one device.  Public API mirrors
+Counterpart of ``degnorm_tpu/engine.py``: on one device, or gene-sharded
+over a ``parallel.GeneMesh`` of devices and processes.  Public API mirrors
 ``GeneNMFOA.run(cov_dat, reads_dat)`` (nmf.py:483-601): an ordered
 {gene: (p x L_i) coverage matrix} mapping plus an (n x p) read count matrix
 in, DI scores / adjusted counts / coverage estimates out.
@@ -15,12 +16,18 @@ Execution model:
     fused trim kernel; a wider one takes the streamed NMF kernel, on the raw
     int16 coverage where there is one, once per round of the unfused loop;
   * the cross-gene reductions (medians, column sums) run on the device in
-    float64 (core/degnorm.py).
+    float64 (core/degnorm.py);
+  * on a mesh every bucket is cut into one shard a mesh device
+    (parallel/sharded.py): each runs the bucket step on its device, and the
+    per-gene rows are gathered before the outer update, which runs on the
+    mesh's first device of every process.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Mapping, Optional, Sequence
+import contextlib
+import os
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,12 +36,16 @@ from degnorm_tpu_torch.config import EngineConfig, NMFConfig
 from degnorm_tpu_torch.core import degnorm as outer
 from degnorm_tpu_torch.core import prng
 from degnorm_tpu_torch.core.baseline import (BucketResult,
-                                             baseline_select_bucket,
+                                             baseline_select_steps,
                                              materialize_estimate)
 from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums
 from degnorm_tpu_torch.data.buckets import (GeneBucket, integral_int16able,
                                             pack_buckets)
 from degnorm_tpu_torch.data.encode import int16able
+from degnorm_tpu_torch.ops.cuda_trim import run_steps
+from degnorm_tpu_torch.parallel import distributed
+from degnorm_tpu_torch.parallel.sharded import (GeneMesh, make_mesh,
+                                                shard_bucket, shard_slots)
 from degnorm_tpu_torch.pipeline.checkpoints import (load_checkpoint,
                                                     save_checkpoint)
 
@@ -78,38 +89,50 @@ def _data_fingerprint(cov_mats, n) -> tuple:
             float(np.asarray(f1[:, -1]).sum()))
 
 
-def _bucket_step(F: torch.Tensor, len_mask: torch.Tensor,
-                 scale_factors: torch.Tensor, ds_start: Optional[torch.Tensor],
-                 nmf_cfg: NMFConfig, eng_cfg: EngineConfig,
-                 with_estimates: bool = True) -> BucketResult:
-    """One DegNorm iteration's device work for one bucket: scale-adjust the
-    coverage (nmf.py:142-146,563) then run batched baseline selection.
+def _bucket_step(*args, **kwargs) -> BucketResult:
+    """``_bucket_steps`` run to its end, with its arguments."""
+    return run_steps([_bucket_steps(*args, **kwargs)])[0]
+
+
+def _bucket_steps(F: torch.Tensor, len_mask: torch.Tensor,
+                  scale_factors: torch.Tensor,
+                  ds_start: Optional[torch.Tensor],
+                  nmf_cfg: NMFConfig, eng_cfg: EngineConfig,
+                  with_estimates: bool = True,
+                  bucket_genes: Optional[int] = None):
+    """One DegNorm iteration's device work for one bucket (or one shard of
+    it: ``bucket_genes`` is then the whole bucket's gene count), as a step
+    generator (``ops/cuda_trim.py::run_steps``): scale-adjust the coverage
+    (nmf.py:142-146,563) then run batched baseline selection.
     ``F`` may arrive as int16 (integral coverage uploads at half the bytes):
     it is cast to the compute dtype first, then divided, in that order.  The
     int16 original is also handed down as ``F_raw`` with the scale vector, so
     that the streamed NMF kernel of a wide bucket reads it directly."""
     F_raw = F if F.dtype == torch.int16 else None
     F_adj = F.to(scale_factors.dtype) / scale_factors[None, :, None]
-    return baseline_select_bucket(
+    return (yield from baseline_select_steps(
         F_adj, len_mask, nmf_cfg, eng_cfg, ds_start=ds_start,
         with_estimates=with_estimates, F_raw=F_raw,
-        scale=scale_factors if F_raw is not None else None)
+        scale=scale_factors if F_raw is not None else None,
+        bucket_genes=bucket_genes))
 
 
 def _bucket_init(F: torch.Tensor, len_mask: torch.Tensor,
-                 eng_cfg: EngineConfig):
+                 eng_cfg: EngineConfig, bucket_genes: Optional[int] = None):
     """Initialization: ratio-SVD row sums on the raw coverage
     (nmf.py:522-526), at any bucket width.  A float32 engine hands the int16
     upload over as it is (kernel 2 reads it at half the bytes, and both it
     and the plain version compute on its exact float32 values); any other
-    upload is cast to the compute dtype first."""
+    upload is cast to the compute dtype first.  ``bucket_genes``: as in
+    ``_bucket_steps``."""
     dtype = _torch_dtype(eng_cfg.dtype)
     uncast = F.dtype == torch.int16 and dtype == torch.float32
     Ff = F if uncast else F.to(dtype)
     return ratio_svd_rowsums(Ff, len_mask,
                              power_iters=eng_cfg.power_iters_cold,
                              use_kernels=eng_cfg.use_kernels,
-                             method=eng_cfg.rank1_method)
+                             method=eng_cfg.rank1_method,
+                             bucket_genes=bucket_genes)
 
 
 def _device_scatter(parts: Sequence[torch.Tensor],
@@ -144,23 +167,47 @@ class DegNormResult:
         return self._engine._materialize_estimates()
 
 
+class _Shard(NamedTuple):
+    """One of this process's shards: slots [start, stop) of a bucket."""
+    bucket: int
+    start: int
+    stop: int
+    device: torch.device
+
+
 class DegNormEngine:
     def __init__(self, nmf_cfg: Optional[NMFConfig] = None,
-                 eng_cfg: Optional[EngineConfig] = None):
+                 eng_cfg: Optional[EngineConfig] = None,
+                 mesh: Optional[GeneMesh] = None):
         """Runs on ``eng_cfg.device`` (default "cuda"); a CUDA device that
-        is absent raises here."""
+        is absent raises here.  ``mesh``: shard every bucket's genes over
+        the mesh's devices and processes instead (parallel/; then
+        ``eng_cfg.device`` is not read, and the outer update runs on the
+        mesh's first device of this process)."""
         self.nmf_cfg = nmf_cfg or NMFConfig()
         self.eng_cfg = eng_cfg or EngineConfig()
-        self.device = resolve_device(self.eng_cfg.device)
+        if mesh is None:
+            mesh = make_mesh([resolve_device(self.eng_cfg.device)])
+        for dev in mesh.devices:
+            resolve_device(dev)
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.timings: Dict[str, float] = {}
         # trim rounds of the last fit: per DegNorm iteration, per bucket, the
-        # rounds its longest-running gene took (what the unfused loop ran)
+        # rounds its longest-running gene took (what the unfused loop ran),
+        # over this process's shards
         self.trim_rounds: List[List[int]] = []
         self._buckets: List[GeneBucket] = []
+        # per shard of this process (one a bucket on one device): coverage,
+        # mask, gene ids on self.device, and its last results
+        self._shards: List[_Shard] = []
         self._device_F: List[torch.Tensor] = []
         self._device_mask: List[torch.Tensor] = []
         self._device_idx: List[torch.Tensor] = []
+        self._global_idx: Optional[torch.Tensor] = None
         self._last_results: List[BucketResult] = []
+        self._genes: Optional[List[str]] = None
+        self._est_rows = None
         self._final_scale: Optional[np.ndarray] = None
         self._packed_fp = None
         self._ds_ref_draws = None
@@ -168,8 +215,9 @@ class DegNormEngine:
         self._ds_zero_cache: Dict[int, torch.Tensor] = {}
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- setup -----------------------------------------------------------
     def _pack(self, cov_mats: Sequence[np.ndarray]):
@@ -189,8 +237,14 @@ class DegNormEngine:
         # kernel's X scratch, S, is freed before them): 6 S, beside the
         # resident upload form of every bucket (S, or S / 2 as int16).  A padded
         # bucket is capped at 1/12 of the device's memory, which leaves half
-        # of it to the resident forms.
-        total = _device_memory(self.device)
+        # of it to the resident forms.  On a mesh the cap is the smallest
+        # device's, over every process (all must pack the same buckets), and
+        # is not scaled by the shards: shards may share a card, and the
+        # one-device layout keeps a sharded fit bit-equal to that fit.
+        total = min(_device_memory(d) for d in set(self.mesh.devices))
+        if self.mesh.process_count > 1:
+            total = int(distributed.gather_rows(
+                torch.tensor([total], device=self.device)).min())
         bucket_cap = max(total // 12, 512 << 20)
         t0 = time.perf_counter()
         # Integral small-valued coverage (read pileups) packs and uploads
@@ -220,7 +274,10 @@ class DegNormEngine:
                     f"GiB), the device has {total / 2**30:.1f} GiB")
 
     def _upload(self):
+        """Upload this process's shards of every bucket (one shard a bucket
+        on one device), skipping empty ones."""
         dtype = _torch_dtype(self.eng_cfg.dtype)
+        mesh = self.mesh
 
         def upload_form(F):
             if F.dtype == np.int16:
@@ -230,15 +287,55 @@ class DegNormEngine:
             return F
 
         t0 = time.perf_counter()
-        self._device_F = [torch.from_numpy(upload_form(b.F)).to(self.device)
-                          for b in self._buckets]
-        self._device_mask = [torch.from_numpy(b.len_mask()).to(self.device)
-                             for b in self._buckets]
-        self._device_idx = [
-            torch.from_numpy(np.asarray(b.gene_indices, np.int64))
-            .to(self.device) for b in self._buckets]
+        self._shards, self._device_F, self._device_mask = [], [], []
+        self._device_idx = []
+        for bi, b in enumerate(self._buckets):
+            slots = shard_slots(b.F.shape[0], mesh.size)
+            placed = shard_bucket(upload_form(b.F), b.len_mask(), mesh)
+            for s, (F_d, m_d) in zip(mesh.local_shards, placed):
+                a, c = slots[s]
+                if c == a:
+                    continue
+                self._shards.append(_Shard(bi, a, c, mesh.device_of(s)))
+                self._device_F.append(F_d)
+                self._device_mask.append(m_d)
+                self._device_idx.append(torch.from_numpy(
+                    np.asarray(b.gene_indices[a:c], np.int64)).to(self.device))
+        self._global_idx = None
+        if mesh.process_count > 1:
+            # the gene ids of every process's rows, in the order gather_rows
+            # concatenates them: by process, then as self._shards
+            k = len(mesh.devices)
+            ids = []
+            for r in range(mesh.process_count):
+                for b in self._buckets:
+                    slots = shard_slots(b.F.shape[0], mesh.size)
+                    ids += [b.gene_indices[a:c]
+                            for a, c in slots[r * k:(r + 1) * k]]
+            self._global_idx = torch.from_numpy(
+                np.concatenate(ids).astype(np.int64)).to(self.device)
         self._sync()
         self.timings["upload"] = time.perf_counter() - t0
+
+    def _gather_genes(self, parts: Sequence[torch.Tensor], fill, tail=(),
+                      dtype=None) -> torch.Tensor:
+        """The (n, *tail) tensor on ``self.device`` of per-gene rows, from
+        the rows of this process's shards (``parts``, in ``self._shards``
+        order) and, on a multi-process mesh, every other process's; padding
+        slots are dropped.  ``tail``/``dtype`` shape an empty part list."""
+        t0 = time.perf_counter()
+        parts = [t.to(self.device) for t in parts]
+        if self._global_idx is None:
+            out = _device_scatter(parts, self._device_idx, self._n_genes,
+                                  fill)
+        else:
+            local = (torch.cat(parts) if parts else torch.empty(
+                (0,) + tuple(tail), dtype=dtype, device=self.device))
+            out = _device_scatter([distributed.gather_rows(local)],
+                                  [self._global_idx], self._n_genes, fill)
+        self.timings["gather"] = (self.timings.get("gather", 0.0)
+                                  + time.perf_counter() - t0)
+        return out
 
     def _ds_starts(self, bucket: GeneBucket, iteration: int) -> torch.Tensor:
         """Per-gene systematic-sampling offsets, drawn for the global gene
@@ -251,7 +348,8 @@ class DegNormEngine:
         exact stream, one ``RandomState(seed).choice(rate)`` per gene per
         iteration in input order (nmf.py:422,556).  Genes shorter than the
         rate diverge from the reference exactly as in the JAX package (its
-        engine.py:532)."""
+        engine.py:532).  Returns the whole bucket's offsets, on every
+        process: each shard takes its slice."""
         G = bucket.F.shape[0]
         if self.nmf_cfg.downsample_rate <= 1:
             if G not in self._ds_zero_cache:
@@ -321,15 +419,13 @@ class DegNormEngine:
         self._ds_cache = None
         fingerprint = _data_fingerprint(cov_mats, n)
         reuse = (reuse_device_data and self._buckets
-                 and self._packed_fp == fingerprint
-                 and len(self._device_F) == len(self._buckets))
+                 and self._packed_fp == fingerprint)
         if not reuse:
             self._pack(cov_mats)
             self._packed_fp = fingerprint
         self.timings["pack"] = time.perf_counter() - t0
         dtype = _torch_dtype(self.eng_cfg.dtype)
         dev = self.device
-        idx_parts = self._device_idx
 
         # ---- resume from a checkpoint? ----
         start_iter = 0
@@ -347,19 +443,22 @@ class DegNormEngine:
         # ---- initialization (nmf.py:512-535), float64 on the device ----
         t0 = time.perf_counter()
         x = torch.from_numpy(x_np).to(dev)
+        self.timings["gather"] = 0.0
         if ckpt is not None:
             st = ckpt["state"]
             x_weighted, norm, scale = (
                 torch.from_numpy(np.array(a, np.float64)).to(dev)
                 for a in (st.x_weighted, st.norm_factors, st.scale_factors))
         else:
-            init_out = [_bucket_init(F_d, m_d, self.eng_cfg)
-                        for F_d, m_d in zip(self._device_F,
-                                            self._device_mask)]
-            cov_sums = _device_scatter([cs for cs, _ in init_out], idx_parts,
-                                       n, 0.0)
-            est_sums = _device_scatter([es for _, es in init_out], idx_parts,
-                                       n, 0.0)
+            init_out = [
+                _bucket_init(F_d, m_d, self.eng_cfg,
+                             bucket_genes=self._buckets[sh.bucket].F.shape[0])
+                for sh, F_d, m_d in zip(self._shards, self._device_F,
+                                        self._device_mask)]
+            cov_sums = self._gather_genes([cs for cs, _ in init_out], 0.0,
+                                          (p,), dtype)
+            est_sums = self._gather_genes([es for _, es in init_out], 0.0,
+                                          (p,), dtype)
             x_weighted, norm, _ = outer.device_init_state(cov_sums, est_sums,
                                                           x)
             scale = norm
@@ -374,37 +473,60 @@ class DegNormEngine:
         rho = x_adj = None
         results: List[BucketResult] = []
         kernel_cfg = self.nmf_cfg.kernel_key()
+        by_bucket = [[k for k, sh in enumerate(self._shards) if sh.bucket == bi]
+                     for bi in range(len(self._buckets))]
+        devices = sorted(set(self.mesh.devices), key=str)
         t0 = time.perf_counter()
-        for it in range(start_iter, self.nmf_cfg.degnorm_iter):
-            t_it = time.perf_counter()
-            final = it == self.nmf_cfg.degnorm_iter - 1
-            sf = scale.to(dtype)
-            results = [
-                _bucket_step(F_d, m_d, sf, self._ds_starts(b, it),
-                             kernel_cfg, self.eng_cfg, with_estimates=final)
-                for b, F_d, m_d in zip(self._buckets, self._device_F,
-                                       self._device_mask)]
-            rho_raw = _device_scatter([r.rho for r in results], idx_parts,
-                                      n, 0.0)
-            rho, x_adj, x_weighted, norm, scale = outer.device_iteration_math(
-                rho_raw, x_weighted, scale)
-            ran_cols.append(_device_scatter([r.ran_bs for r in results],
-                                            idx_parts, n, False))
-            self.trim_rounds.append(
-                torch.stack([r.rounds_active.max() for r in results]).tolist())
-            self._sync()
-            self.timings[f"iter_{it}"] = time.perf_counter() - t_it
-            if checkpoint_dir:
-                save_checkpoint(
-                    checkpoint_dir, it,
-                    outer.DeviceState(x, x_weighted, x_adj, rho, norm,
-                                      scale).to_numpy(),
-                    self._ran_matrix(ran_restored, ran_cols), genes)
+        with self._profiler():
+            for it in range(start_iter, self.nmf_cfg.degnorm_iter):
+                t_it = time.perf_counter()
+                final = it == self.nmf_cfg.degnorm_iter - 1
+                sf = {d: scale.to(dtype).to(d) for d in devices}
+                results = [None] * len(self._shards)
+                rounds = []
+                for bi, ks in enumerate(by_bucket):
+                    b = self._buckets[bi]
+                    starts = self._ds_starts(b, it)
+                    # every shard's work of this bucket is queued before the
+                    # host reads any shard's trim state (run_steps)
+                    done = run_steps(
+                        _bucket_steps(
+                            self._device_F[k], self._device_mask[k],
+                            sf[self._shards[k].device],
+                            starts[self._shards[k].start:self._shards[k].stop]
+                            .to(self._shards[k].device),
+                            kernel_cfg, self.eng_cfg, with_estimates=final,
+                            bucket_genes=b.F.shape[0])
+                        for k in ks)
+                    for k, r in zip(ks, done):
+                        results[k] = r
+                    rounds.append(torch.stack(
+                        [r.rounds_active.max().to(dev) for r in done]).max()
+                        if done else torch.zeros((), dtype=torch.int32,
+                                                 device=dev))
+                rho_raw = self._gather_genes([r.rho for r in results], 0.0,
+                                             (p,), dtype)
+                rho, x_adj, x_weighted, norm, scale = \
+                    outer.device_iteration_math(rho_raw, x_weighted, scale)
+                ran_cols.append(self._gather_genes(
+                    [r.ran_bs for r in results], False, (), torch.bool))
+                self.trim_rounds.append(torch.stack(rounds).tolist())
+                self._sync()
+                self.timings[f"iter_{it}"] = time.perf_counter() - t_it
+                if checkpoint_dir:
+                    save_checkpoint(
+                        checkpoint_dir, it,
+                        outer.DeviceState(x, x_weighted, x_adj, rho, norm,
+                                          scale).to_numpy(),
+                        self._ran_matrix(ran_restored, ran_cols), genes)
         self.timings["iterations"] = time.perf_counter() - t0
 
         self._last_results = results
         self._genes = genes
         self._cov_mats = cov_mats
+        self._est_rows = None
+        if self.mesh.process_count > 1:
+            self._est_rows = self._gather_estimates(p)
 
         def f64(t):
             return t.detach().cpu().numpy().astype(np.float64)
@@ -420,6 +542,40 @@ class DegNormEngine:
             norm_factors=norm64, ran_baseline_selection=ran_bs,
             x_weighted=xw64, engine=self)
 
+    def _profiler(self):
+        """A torch.profiler trace of the iterations into
+        ``eng_cfg.profile_dir`` (the JAX engine's jax.profiler trace), or
+        nothing."""
+        out = self.eng_cfg.profile_dir
+        if not out:
+            return contextlib.nullcontext()
+        return _fit_trace(out, [d.type for d in self.mesh.devices],
+                          self.mesh.process_index)
+
+    def _gather_estimates(self, p: int):
+        """A multi-process fit's estimate factors, gathered for the outputs
+        (a collective: every process calls it).  Per bucket, host arrays
+        (est_K, est_E, est_kind) over all its slots on the coordinator;
+        None on the others, which return their result without estimates."""
+        rows = []
+        for bi, b in enumerate(self._buckets):
+            W = b.F.shape[2]
+            parts = [torch.cat([r.est_K.double(), r.est_E.double(),
+                                r.est_kind.double()[:, None]], dim=1)
+                     for sh, r in zip(self._shards, self._last_results)
+                     if sh.bucket == bi]
+            t0 = time.perf_counter()
+            local = (torch.cat([t.to(self.device) for t in parts]) if parts
+                     else torch.empty((0, p + W + 1), dtype=torch.float64,
+                                      device=self.device))
+            allrows = distributed.gather_rows(local)
+            self.timings["gather"] += time.perf_counter() - t0
+            if self.mesh.process_index == 0:
+                a = allrows.cpu().numpy()
+                rows.append((a[:, :p], a[:, p:p + W],
+                             a[:, p + W].astype(np.int8)))
+        return rows if self.mesh.process_index == 0 else None
+
     @staticmethod
     def _ran_matrix(restored: np.ndarray, cols) -> np.ndarray:
         """(n, iterations) baseline-selection tracker: the columns of a
@@ -433,14 +589,23 @@ class DegNormEngine:
         """Reference ``run()`` returns the final iteration's estimated
         coverage matrices (nmf.py:601), computed on coverage scaled by the
         *pre-update* scale factors of that iteration."""
-        if not self._last_results:
+        if self._genes is None:
             raise ValueError("run() has not been called")
+        rows = self._est_rows
+        if rows is None:
+            if self.mesh.process_count > 1:
+                raise ValueError("the estimates of a multi-process fit are "
+                                 "gathered on the coordinator (process 0)")
+            rows = [tuple(np.concatenate(
+                [getattr(r, f).cpu().numpy() for sh, r in
+                 zip(self._shards, self._last_results) if sh.bucket == bi])
+                for f in ("est_K", "est_E", "est_kind"))
+                for bi in range(len(self._buckets))]
         n = len(self._genes)
         out: List[Optional[np.ndarray]] = [None] * n
-        for b, res in zip(self._buckets, self._last_results):
-            est_K = res.est_K.cpu().numpy().astype(np.float64)
-            est_E = res.est_E.cpu().numpy().astype(np.float64)
-            kinds = res.est_kind.cpu().numpy()
+        for b, (est_K, est_E, kinds) in zip(self._buckets, rows):
+            est_K = est_K.astype(np.float64)
+            est_E = est_E.astype(np.float64)
             for slot, gi in enumerate(b.gene_indices):
                 if gi < 0:
                     continue
@@ -449,3 +614,20 @@ class DegNormEngine:
                     F_adj, int(b.lengths[slot]), est_K[slot], est_E[slot],
                     int(kinds[slot]))
         return out
+
+
+@contextlib.contextmanager
+def _fit_trace(out_dir: str, device_types, process_index: int):
+    """torch.profiler over the fit's iterations, written on exit as a
+    Chrome trace ``degnorm_fit[_<process>].pt.trace.json`` into
+    ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if "cuda" in device_types:
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    tag = f"_{process_index}" if process_index else ""
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(out_dir, f"degnorm_fit{tag}.pt.trace.json"))

@@ -7,12 +7,19 @@ own ``nvcc`` process, all started together, then the objects are linked into
 an edited source rebuilds and an unchanged one is reused.  The library is
 loaded with ``ctypes`` and every entry point gets its ``argtypes`` here.
 
+Several processes may build at once (the ranks of a multi-process run each
+build at first use): the build holds an ``fcntl.flock`` on a lock file in
+the build directory, looks again for a finished library once it has the
+lock, compiles into objects and a library named after its own process, and
+moves the library into place.
+
 Nothing runs at import time: ``get_lib()`` builds on first use and raises if
 ``nvcc`` is missing or a compile fails.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -115,33 +122,54 @@ def _run_all(cmds):
     return logs, secs
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the sources if no library with their hash exists; returns the
-    library's path."""
+def build(verbose: bool = False, build_dir: str = BUILD_DIR) -> str:
+    """Compile the sources if no library with their hash exists in
+    ``build_dir``; returns the library's path.  Safe across processes: see
+    the module docstring."""
     cu, hdr = _sources()
     tag = _source_hash(cu, hdr)
-    so_path = os.path.join(BUILD_DIR, f"libdegnorm_{tag}.so")
+    so_path = os.path.join(build_dir, f"libdegnorm_{tag}.so")
     if os.path.isfile(so_path):
         build_info.update(path=so_path, seconds=0.0, cached=True)
         return so_path
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "libdegnorm.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.isfile(so_path):     # another process built it
+                build_info.update(path=so_path, seconds=0.0, cached=True)
+                return so_path
+            _compile(nvcc, cu, tag, so_path, verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return so_path
+
+
+def _compile(nvcc: str, cu, tag: str, so_path: str, verbose: bool) -> None:
+    """Compile every source into an object of this process, link them into a
+    library of this process, move it to ``so_path``; the objects and a
+    library left by a failed step are removed."""
     t0 = time.perf_counter()
     extra = ["-Xptxas", "-v"] if verbose else []
-    objs = [os.path.join(BUILD_DIR, f"{n[:-3]}_{tag}.o") for n in cu]
-    logs, secs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c",
-                            os.path.join(CSRC_DIR, n), "-o", o]
-                           for n, o in zip(cu, objs)])
-    tmp = so_path + f".tmp{os.getpid()}"
-    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
-    os.replace(tmp, so_path)
-    for o in objs:
-        os.remove(o)
+    own = f"{tag}.{os.getpid()}"
+    build_dir = os.path.dirname(so_path)
+    objs = [os.path.join(build_dir, f"{n[:-3]}_{own}.o") for n in cu]
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    try:
+        logs, secs = _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c",
+                                os.path.join(CSRC_DIR, n), "-o", o]
+                               for n, o in zip(cu, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so_path)
+    finally:
+        for f in objs + [tmp]:
+            if os.path.exists(f):
+                os.remove(f)
     build_info.update(path=so_path, seconds=time.perf_counter() - t0,
                       cached=False, nvcc=nvcc, log="\n".join(logs),
                       source_seconds={n: round(t, 2)
                                       for n, t in zip(cu, secs)})
-    return so_path
 
 
 def get_lib(verbose: bool = False) -> ctypes.CDLL:

@@ -309,6 +309,7 @@ def nmf_masked_cuda(
     u0: Optional[torch.Tensor] = None,
     nmf_tol: float = 0.0,
     iters_out: Optional[torch.Tensor] = None,
+    bucket_genes: Optional[int] = None,
     _geometry: Optional[Tuple[str, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``nmf_masked_plain``'s signature: one thread
@@ -318,7 +319,10 @@ def nmf_masked_cuda(
     once frozen.  A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises.  Results differ between the two launches
     by float32 summation order alone.  ``iters_out``: see
-    ``nmf_masked_plain``.
+    ``nmf_masked_plain``.  ``bucket_genes``: the gene count the launch rule
+    reads in place of F's, where F is one shard of a bucket of that many
+    genes (parallel/): every shard then launches as the whole bucket would,
+    and gives its bits.
 
     ``_geometry`` overrides the rule's launch (the timing sweep of
     ``chip_smoke.py --sweep`` and the check of both launches in
@@ -334,7 +338,7 @@ def nmf_masked_cuda(
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
-    kind, threads = _geometry or pick_nmf_geometry(p, W, G)
+    kind, threads = _geometry or pick_nmf_geometry(p, W, bucket_genes or G)
     m8 = _as_u8(mask)
     act8 = None if gene_active is None else _as_u8(gene_active)
     u0c = None if u0 is None else u0.to(torch.float32).contiguous()
@@ -409,6 +413,7 @@ def ratio_rowsums_cuda(
     mask: torch.Tensor,
     *,
     power_iters: int = 30,
+    bucket_genes: Optional[int] = None,
     _geometry: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``ratio_rowsums_plain``'s signature
@@ -416,15 +421,17 @@ def ratio_rowsums_cuda(
     upload as it is (the same bits as its float32 cast).  The kernel reads a
     gene once and writes 2p floats, so a wide bucket costs it time and no
     memory.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises.  ``_geometry`` overrides ``pick_ratio_geometry``
-    (the timing sweep of ``chip_smoke.py --sweep`` passes it)."""
+    the kernel or raises.  ``bucket_genes``: as in ``nmf_masked_cuda``.
+    ``_geometry`` overrides ``pick_ratio_geometry`` (the timing sweep of
+    ``chip_smoke.py --sweep`` passes it)."""
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
     global ratio_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_coverage_input(F, "ratio_rowsums_cuda", int16_ok=True)
     G, p, W = F.shape
-    cl, threads, stage_kb = _geometry or pick_ratio_geometry(p, W, G)
+    cl, threads, stage_kb = _geometry or pick_ratio_geometry(
+        p, W, bucket_genes or G)
     m8 = _as_u8(mask)
     cov = torch.empty((G, p), dtype=torch.float32, device=F.device)
     est = torch.empty((G, p), dtype=torch.float32, device=F.device)

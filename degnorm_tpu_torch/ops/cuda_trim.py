@@ -12,7 +12,7 @@ returns it.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -49,7 +49,40 @@ def _per_bin_sums(res: torch.Tensor, bin_id: torch.Tensor, B: int) -> torch.Tens
         [(res * (bin_id == b)).sum(dim=1) for b in range(B)], dim=1)
 
 
-def trim_loop_plain(
+def run_steps(steps: Iterable) -> List:
+    """Drive step generators to their ends and return their values, in
+    order.  A step generator (``trim_loop_steps``,
+    ``core/baseline.py::baseline_select_steps``) yields a device tensor
+    whose host value it needs next and takes ``bool`` of it back.  Every
+    generator is advanced to its next read before the host waits on any
+    one: shards of a bucket on several cards all have their round queued
+    while the host reads one card's ``active.any()``."""
+    steps = list(steps)
+    out: List = [None] * len(steps)
+    asks = {}
+    for i, g in enumerate(steps):
+        try:
+            asks[i] = next(g)
+        except StopIteration as stop:
+            out[i] = stop.value
+    while asks:
+        nxt = {}
+        for i, t in asks.items():
+            try:
+                nxt[i] = steps[i].send(bool(t))
+            except StopIteration as stop:
+                out[i] = stop.value
+        asks = nxt
+    return out
+
+
+def trim_loop_plain(*args, **kwargs):
+    """``trim_loop_steps`` run to its end (``run_steps``): the plain version
+    of the whole trim loop, with its arguments and return value."""
+    return run_steps([trim_loop_steps(*args, **kwargs)])[0]
+
+
+def trim_loop_steps(
     Fm: torch.Tensor,
     bin_id: torch.Tensor,
     bin_count: torch.Tensor,
@@ -74,7 +107,8 @@ def trim_loop_plain(
     iters_out: Optional[torch.Tensor] = None,
     nmf_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the whole trim loop (reference nmf.py:273-324).
+    """Plain version of the whole trim loop (reference nmf.py:273-324), as
+    a step generator (``run_steps``).
 
     Args mirror the loop state:
       Fm: (G, p, W) length-masked scale-adjusted coverage.
@@ -102,7 +136,8 @@ def trim_loop_plain(
         ``nmf_tol``; the unfused loop has no trim_fast).
 
     The loop reads ``active.any()`` on the host once a round (the
-    counterpart of ``lax.while_loop``'s condition).
+    counterpart of ``lax.while_loop``'s condition): it yields that tensor
+    and takes its ``bool`` back.
 
     Returns (K, rho, ran_bs, rounds_active).  A gene that never enters keeps
     K0, rho0, False, 0.
@@ -148,7 +183,7 @@ def trim_loop_plain(
     rounds_active = torch.zeros(G, dtype=torch.int32, device=Fm.device)
     rounds = 0
 
-    while rounds < max_rounds and bool(active.any()):
+    while rounds < max_rounds and (yield active.any()):
         ran_bs = ran_bs | active                            # nmf.py:276
         ca_f = _col_active_from(bin_active, bin_id).to(dtype)
 

@@ -1,0 +1,4 @@
+"""Gene-sharded fits over several devices and processes (counterpart of
+``degnorm_tpu/parallel/``)."""
+from degnorm_tpu_torch.parallel.sharded import (  # noqa: F401
+    GeneMesh, make_mesh, shard_bucket, shard_slots, sharded_iteration_step)

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from degnorm_tpu_torch.core.degnorm import GlobalState
+from degnorm_tpu_torch.parallel.distributed import is_coordinator
 
 
 def checkpoint_path(output_dir: str) -> str:
@@ -25,8 +26,14 @@ def save_checkpoint(output_dir: str, iteration: int, state,
                     genes) -> str:
     """Snapshot GlobalState after ``iteration`` (0-based, completed),
     in the JAX package's npz format (same keys), so either package resumes
-    the other's run."""
+    the other's run.
+
+    Multi-process: only the coordinator writes (every process reaches this
+    point with the same state and would race ``os.replace`` on one shared
+    path); every process loads the shared checkpoint on resume."""
     path = checkpoint_path(output_dir)
+    if not is_coordinator():
+        return path
     tmp = path + ".tmp"
     np.savez_compressed(
         tmp,

@@ -3,7 +3,10 @@
 
 Cold path: BAM ETL -> merge -> gene filters -> bucketed NMF-OA on the
 device -> output contract.  Warm path: reload a prior run's coverage/counts
-and jump straight to the device loop.  One process drives one device.
+and jump straight to the device loop.  One process drives one device, or
+with a mesh several (gene shards); in a multi-process run
+(parallel/distributed.py) the processes split the ETL by sample and the
+``--plot-genes``, and the coordinator writes every artifact.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from degnorm_tpu_torch.engine import DegNormEngine, resolve_device
 from degnorm_tpu_torch.io.gtf import process_annotation
 from degnorm_tpu_torch.io.merge import merge_coverage, merge_read_counts
 from degnorm_tpu_torch.io.overlap import overlap_structure
+from degnorm_tpu_torch.parallel import distributed
 from degnorm_tpu_torch.pipeline import outputs
 from degnorm_tpu_torch.pipeline.sample import BamSampleProcessor
 from degnorm_tpu_torch.pipeline.warm_start import load_from_previous
@@ -63,9 +67,13 @@ def welcome() -> None:
         log.info(line)
 
 
-def configure_logger(output_dir: Optional[str] = None) -> None:
-    """Stream + degnorm.log file logging (utils.py:16-34 format)."""
-    fmt = logging.Formatter("DegNorm (%(asctime)s) ---- %(message)s")
+def configure_logger(output_dir: Optional[str] = None,
+                     process_tag: Optional[str] = None) -> None:
+    """Stream + degnorm.log file logging (utils.py:16-34 format);
+    ``process_tag`` prefixes messages in multi-process runs (the
+    reference's rank prefix, __main_mpi__.py:33-40)."""
+    tag = f"[{process_tag}] " if process_tag else ""
+    fmt = logging.Formatter(f"DegNorm (%(asctime)s) ---- {tag}%(message)s")
     log.setLevel(logging.DEBUG)
     for old in log.handlers:
         old.close()
@@ -79,18 +87,24 @@ def configure_logger(output_dir: Optional[str] = None) -> None:
         log.addHandler(fh)
 
 
-def _wanted_plot_genes(plot_genes, result_genes):
-    """--plot-genes intersected case-insensitively with the fitted genes
-    (CoverageLoader matches case-insensitively, reference
-    data_access.py:61-63), sorted."""
+def _shard_plot_genes(plot_genes, result_genes,
+                      process_index: int = 0, process_count: int = 1):
+    """This process's round-robin share of --plot-genes: case-insensitive
+    intersection with the fitted genes (CoverageLoader matches
+    case-insensitively, reference data_access.py:61-63), sorted for a
+    deterministic split across processes (the reference scatters plot
+    genes over ranks, __main_mpi__.py:461-488)."""
     canon = {g.upper(): g for g in result_genes}
-    return sorted({canon[g.upper()] for g in plot_genes
-                   if g.upper() in canon})
+    wanted = sorted({canon[g.upper()] for g in plot_genes
+                     if g.upper() in canon})
+    return wanted[process_index::process_count]
 
 
-def _plot_genes(wanted, output_dir: str) -> None:
-    """Plot the coverage of ``wanted`` genes.  Reads the saved run
-    artifacts, so they must have been written first."""
+def _plot_gene_shard(wanted, output_dir: str) -> None:
+    """Plot the coverage of ``wanted`` genes (this process's share).  Reads
+    the saved run artifacts, so they must have been written first."""
+    if not wanted:
+        return
     log.info("plotting coverage for %d gene(s): %s",
              len(wanted), ", ".join(wanted))
     try:
@@ -108,17 +122,26 @@ def _device_name(dev: torch.device) -> str:
     return str(dev)
 
 
-def run_pipeline(cfg: PipelineConfig,
-                 output_dir: Optional[str] = None) -> Dict:
+def run_pipeline(cfg: PipelineConfig, output_dir: Optional[str] = None,
+                 mesh=None, write_outputs: bool = True) -> Dict:
     """Run the full DegNorm pipeline; returns a dict with the fit result,
     gene tables, and the output directory path.
+
+    ``mesh``: a ``parallel.GeneMesh`` to gene-shard the fit over (one
+    process over several devices, or ``parallel.distributed.global_mesh``
+    in a multi-process run).  ``write_outputs``: False on the workers of a
+    multi-process run: the coordinator owns every artifact of the (shared)
+    output directory; a worker keeps to the shared ETL scratch, plots its
+    share of ``--plot-genes`` once the coordinator's artifacts are written,
+    and returns its result without estimates.
 
     The returned dict carries a ``timings`` mapping with wall-clock
     seconds per phase (etl, filters, fit, fit.*, estimates, save, plots,
     report, report_render) — the whole-pipeline observability the
     reference lacks (its only visibility is log timestamps, SURVEY.md
     §5.1)."""
-    resolve_device(cfg.engine.device)      # no GPU: raise before the ETL
+    if mesh is None:
+        resolve_device(cfg.engine.device)  # no GPU: raise before the ETL
     timings: Dict[str, float] = {}
     _t0 = time.perf_counter()
     output_dir = output_dir or create_output_dir(cfg.output_dir)
@@ -126,7 +149,8 @@ def run_pipeline(cfg: PipelineConfig,
     if cfg.warm_start_dir:
         log.info("WARM START: loading preprocessed data from %s",
                  cfg.warm_start_dir)
-        warm = load_from_previous(cfg.warm_start_dir, output_dir)
+        warm = load_from_previous(cfg.warm_start_dir, output_dir,
+                                  copy_artifacts=write_outputs)
         gene_cov_dict = warm["gene_cov_dict"]
         read_count_df = warm["read_count_df"]
         genes_df = warm["genes_df"]
@@ -134,7 +158,7 @@ def run_pipeline(cfg: PipelineConfig,
         exon_df = warm["exon_df"]
     else:
         gene_cov_dict, read_count_df, genes_df, exon_df, sample_ids = (
-            _cold_start(cfg, output_dir))
+            _cold_start(cfg, output_dir, write_outputs=write_outputs))
     timings["etl"] = time.perf_counter() - _t0
 
     # ---- gene filters before NMF (reference __main__.py:221-238, plus the
@@ -172,12 +196,36 @@ def run_pipeline(cfg: PipelineConfig,
     threading.Thread(target=_warm_plot_stack, daemon=True).start()
 
     _t0 = time.perf_counter()
-    engine = DegNormEngine(cfg.nmf, cfg.engine)
+    engine = DegNormEngine(cfg.nmf, cfg.engine, mesh=mesh)
     log.info("fit device: %s", _device_name(engine.device))
+    if engine.mesh.size > 1:
+        log.info("gene mesh: %d shards, %d process(es), this one's on %s",
+                 engine.mesh.size, engine.mesh.process_count,
+                 ", ".join(_device_name(d) for d in engine.mesh.devices))
     counts = read_count_df[sample_ids].values.astype(np.float64)
+    # every process resumes from the shared checkpoint; only the
+    # coordinator writes it (pipeline/checkpoints.py)
     result = engine.run(gene_cov_dict, counts, checkpoint_dir=output_dir)
     timings["fit"] = time.perf_counter() - _t0
     timings.update({f"fit.{k}": v for k, v in engine.timings.items()})
+    wanted = _shard_plot_genes(cfg.plot_genes, result.genes)
+    my_plots = _shard_plot_genes(cfg.plot_genes, result.genes,
+                                 distributed.process_index(),
+                                 distributed.process_count())
+
+    if not write_outputs:
+        # a worker: plots its share of --plot-genes (the reference scatters
+        # them over ranks, __main_mpi__.py:461-488) once the coordinator
+        # has written the artifacts they are read from
+        if wanted:
+            distributed.barrier("degnorm-outputs-written")
+            _plot_gene_shard(my_plots, output_dir)
+        log.info("pipeline phase timings (s): %s",
+                 {k: round(v, 4) for k, v in timings.items()})
+        return {"result": result, "genes_df": genes_df,
+                "read_count_df": read_count_df, "sample_ids": sample_ids,
+                "output_dir": output_dir, "exon_df": exon_df,
+                "timings": timings}
 
     _t0 = time.perf_counter()
     estimates = OrderedDict(zip(result.genes, result.estimates()))
@@ -221,16 +269,17 @@ def run_pipeline(cfg: PipelineConfig,
         result.ran_baseline_selection, estimates, sample_ids)
     timings["save"] = time.perf_counter() - _t0
 
-    wanted = _wanted_plot_genes(cfg.plot_genes, result.genes)
     if wanted:
         _t0 = time.perf_counter()
         # the report writes <chrom>/<gene>_coverage.png for its top and
-        # bottom genes: a plot of one of those waits for the report, so the
-        # two never write one file at once
+        # bottom genes: where one of those is to be plotted, by any
+        # process, the plots wait for the report, so that two writers never
+        # write one file at once
         hi, lo = report_genes(result.rho, result.genes)
         if {g.upper() for g in hi + lo} & {g.upper() for g in wanted}:
             rep_thread.join()
-        _plot_genes(wanted, output_dir)
+        distributed.barrier("degnorm-outputs-written")
+        _plot_gene_shard(my_plots, output_dir)
         timings["plots"] = time.perf_counter() - _t0
 
     # "report" = tail latency beyond the save/plot phases it overlapped;
@@ -248,12 +297,26 @@ def run_pipeline(cfg: PipelineConfig,
             "timings": timings}
 
 
-def _cold_start(cfg: PipelineConfig, output_dir: str):
+def _cold_start(cfg: PipelineConfig, output_dir: str,
+                write_outputs: bool = True):
     """BAM/GTF ETL (reference __main__.py:55-209)."""
     if not cfg.bam_files:
         raise ValueError("no .bam files supplied")
     if not cfg.genome_annotation:
         raise ValueError("no genome annotation (.gtf) supplied")
+
+    # multi-process: the samples are split over the processes (the
+    # reference scatters them over MPI ranks, __main_mpi__.py:236-262) and
+    # the per-(sample, chrom) artifacts in a shared scratch directory of the
+    # output directory are the transport (the reference likewise hands
+    # coverage off through the shared file system, __main_mpi__.py:400-416).
+    # Sample ownership is disjoint, so writes into the scratch never collide.
+    pcount = distributed.process_count()
+    pindex = distributed.process_index()
+    etl_dir = output_dir
+    if pcount > 1:
+        etl_dir = os.path.join(output_dir, ".etl_shared")
+        os.makedirs(etl_dir, exist_ok=True)
 
     bais = (list(cfg.bai_files) if cfg.bai_files
             else [None] * len(cfg.bam_files))
@@ -264,10 +327,13 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
             f"--bai-files count ({len(bais)}) does not match .bam count "
             f"({len(cfg.bam_files)})")
     samples = [BamSampleProcessor(b, unique_alignment=cfg.unique_alignments,
-                                  output_dir=output_dir,
+                                  output_dir=etl_dir,
                                   compat=cfg.cigar_compat, bai_file=bai,
-                                  stream=cfg.stream_etl)
-               for b, bai in zip(cfg.bam_files, bais)]
+                                  # a sample another process owns is loaded
+                                  # from its artifacts, never decoded here
+                                  stream=(cfg.stream_etl
+                                          if i % pcount == pindex else False))
+               for i, (b, bai) in enumerate(zip(cfg.bam_files, bais))]
     sample_ids = [s.sample_id for s in samples]
     if len(set(sample_ids)) < len(sample_ids):
         raise ValueError("duplicate sample IDs among .bam files")
@@ -286,12 +352,18 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
     overlap_by_chrom = {
         c: overlap_structure(gene_df[gene_df.chr == c]) for c in used_chroms}
 
+    owned = [s for i, s in enumerate(samples) if i % pcount == pindex]
+    if pcount > 1:
+        log.info("multi-process ETL: this process owns %d/%d sample(s): %s",
+                 len(owned), len(samples),
+                 ", ".join(s.sample_id for s in owned) or "(none)")
+
     # -p is a TOTAL host-thread budget (the reference's proc-per-node):
     # split it between the sample fan-out and each sample's per-chromosome
     # threads so p samples don't oversubscribe to n_jobs^2 threads.
     # Samples run in parallel host threads (BGZF/BAM decode is native and
     # releases the GIL).
-    sample_workers = min(cfg.n_jobs, max(len(samples), 1))
+    sample_workers = min(cfg.n_jobs, max(len(owned), 1))
     inner_jobs = max(1, cfg.n_jobs // max(sample_workers, 1))
 
     def etl(s: BamSampleProcessor):
@@ -306,14 +378,28 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
         from degnorm_tpu_torch.io import cram_fast
         declined_before = cram_fast.declined
     results = {}
-    if sample_workers > 1 and len(samples) > 1:
+    if sample_workers > 1 and len(owned) > 1:
         with ThreadPoolExecutor(max_workers=sample_workers) as ex:
-            for sid, r in ex.map(etl, samples):
+            for sid, r in ex.map(etl, owned):
                 results[sid] = r
     else:
-        for s in samples:
+        for s in owned:
             sid, r = etl(s)
             results[sid] = r
+
+    if pcount > 1:
+        # every owner has written its artifacts: load the other processes'
+        # samples from the shared scratch (coverage_read_counts is then a
+        # pure load)
+        distributed.barrier("degnorm-etl-shards")
+        for i, s in enumerate(samples):
+            if i % pcount == pindex:
+                continue
+            s.chroms = used_chroms
+            log.info("SAMPLE %s: loading another process's artifacts from "
+                     "the shared ETL scratch", s.sample_id)
+            results[s.sample_id] = s.coverage_read_counts(
+                overlap_by_chrom, gene_df, exon_df, n_jobs=inner_jobs)
 
     if is_cram:
         # the counter is process-wide: log this ETL's share of it
@@ -323,11 +409,19 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
     read_count_df = merge_read_counts(results, sample_ids, used_chroms)
     gene_cov_dict = merge_coverage(results, sample_ids, exon_df)
 
-    # clean up per-sample scratch (reference __main__.py:168-170)
-    for sid in sample_ids:
-        scratch = os.path.join(output_dir, sid)
-        if os.path.isdir(scratch):
-            shutil.rmtree(scratch)
+    # clean up per-sample scratch (reference __main__.py:168-170); in a
+    # multi-process run the shared scratch outlives the barrier, so that
+    # every process has loaded every sample before the coordinator removes
+    # it
+    if pcount > 1:
+        distributed.barrier("degnorm-etl-consumed")
+        if write_outputs:
+            shutil.rmtree(etl_dir)
+    else:
+        for sid in sample_ids:
+            scratch = os.path.join(etl_dir, sid)
+            if os.path.isdir(scratch):
+                shutil.rmtree(scratch)
 
     # order counts/genes by coverage-dict order (reference __main__.py:175-190)
     genes = list(gene_cov_dict.keys())
@@ -339,16 +433,19 @@ def _cold_start(cfg: PipelineConfig, output_dir: str):
     exon_df = exon_df[exon_df.gene.isin(genes)]
 
     # save gene annotation metadata + raw read counts (__main__.py:199-209)
-    exon_df.to_csv(os.path.join(output_dir, "gene_exon_metadata.csv"),
-                   index=False)
-    # reference column order is gene-first: __main__.py:181-190 runs
-    # set_index('gene')/loc[genes]/reset_index before the save
-    rc_cols = (["gene"] + [c for c in read_count_df.columns if c != "gene"])
-    read_count_df[rc_cols].to_csv(
-        os.path.join(output_dir, "read_counts.csv"), index=False)
+    if write_outputs:
+        exon_df.to_csv(os.path.join(output_dir, "gene_exon_metadata.csv"),
+                       index=False)
+        # reference column order is gene-first: __main__.py:181-190 runs
+        # set_index('gene')/loc[genes]/reset_index before the save
+        rc_cols = (["gene"]
+                   + [c for c in read_count_df.columns if c != "gene"])
+        read_count_df[rc_cols].to_csv(
+            os.path.join(output_dir, "read_counts.csv"), index=False)
 
-    # raw coverage matrices pickles (reads_coverage_merge.py:439-452)
-    gene_chrom = dict(zip(genes_df.gene, genes_df.chr))
-    outputs.save_coverage_matrices(output_dir, gene_chrom, gene_cov_dict)
+        # raw coverage matrices pickles (reads_coverage_merge.py:439-452)
+        gene_chrom = dict(zip(genes_df.gene, genes_df.chr))
+        outputs.save_coverage_matrices(output_dir, gene_chrom,
+                                       gene_cov_dict)
 
     return gene_cov_dict, read_count_df, genes_df, exon_df, sample_ids

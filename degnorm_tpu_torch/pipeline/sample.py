@@ -38,7 +38,10 @@ class BamSampleProcessor:
         (memory-bounded; reference-equivalent of pysam's indexed fetch,
         reads.py:225) instead of decoding the whole BAM up front.  None =
         auto: stream when an index exists and the file exceeds
-        ``STREAM_THRESHOLD``."""
+        ``STREAM_THRESHOLD``.  A multi-process run passes False for a
+        sample another process owns (.bam or .cram): it is only loaded from
+        that process's artifacts, never decoded here, and no .bai is built
+        for it here."""
         self.filename = bam_file
         self.sample_id = ".".join(os.path.basename(bam_file).split(".")[:-1])
         self.unique_alignment = unique_alignment
@@ -154,7 +157,9 @@ class BamSampleProcessor:
         if not self.stream:
             # decode the whole file only if some chromosome actually needs
             # computing: when every (sample, chrom) artifact already exists
-            # (mid-ETL resume) this call is a pure load
+            # (mid-ETL resume, or a sample another process of a
+            # multi-process run owns and has written) this call is a pure
+            # load
             if any(not (self.save_dir and self._artifacts_exist(c))
                    for c in self.chroms):
                 self._load_all()

@@ -17,14 +17,20 @@ import numpy as np
 import pandas as pd
 
 
-def load_from_previous(degnorm_dir: str, new_dir: str) -> Dict:
+def load_from_previous(degnorm_dir: str, new_dir: str,
+                       copy_artifacts: bool = True) -> Dict:
+    """``copy_artifacts=False`` loads without copying files into
+    ``new_dir`` (the workers of a multi-process run: the coordinator owns
+    every write into the output directory)."""
     if not os.path.isdir(new_dir):
         raise IOError(f"new DegNorm output directory {new_dir} not found")
 
     exon_file = os.path.join(degnorm_dir, "gene_exon_metadata.csv")
     count_file = os.path.join(degnorm_dir, "read_counts.csv")
-    shutil.copy(exon_file, os.path.join(new_dir, "gene_exon_metadata.csv"))
-    shutil.copy(count_file, os.path.join(new_dir, "read_counts.csv"))
+    if copy_artifacts:
+        shutil.copy(exon_file,
+                    os.path.join(new_dir, "gene_exon_metadata.csv"))
+        shutil.copy(count_file, os.path.join(new_dir, "read_counts.csv"))
     exon_df = pd.read_csv(exon_file, low_memory=False)
     read_count_df = pd.read_csv(count_file, low_memory=False)
 
@@ -41,9 +47,10 @@ def load_from_previous(degnorm_dir: str, new_dir: str) -> Dict:
     for chrom in genes_df.chr.unique().tolist():
         cov_file = os.path.join(degnorm_dir, str(chrom),
                                 f"coverage_matrices_{chrom}.pkl")
-        os.makedirs(os.path.join(new_dir, str(chrom)), exist_ok=True)
-        shutil.copy(cov_file, os.path.join(
-            new_dir, str(chrom), f"coverage_matrices_{chrom}.pkl"))
+        if copy_artifacts:
+            os.makedirs(os.path.join(new_dir, str(chrom)), exist_ok=True)
+            shutil.copy(cov_file, os.path.join(
+                new_dir, str(chrom), f"coverage_matrices_{chrom}.pkl"))
         with open(cov_file, "rb") as f:
             cov_dat = pickle.load(f)
         for gene, mat in cov_dat.items():

@@ -1,8 +1,8 @@
 """PyTorch port, the command: checkpoints that each engine resumes from the
 other's run, the ETL of a multi-chromosome dataset against the JAX
 package's, and the cases of tests/test_pipeline.py on the port's command
-(``--device cpu``): filters, plots, --bam-dir, streaming ETL, flag
-validation, and the flags not ported yet.
+(``--device cpu``): filters, plots, --bam-dir, streaming ETL and flag
+validation.
 """
 import filecmp
 import os
@@ -223,7 +223,7 @@ def test_stream_etl_matches(dataset, tmp_path):
 
 def test_cli_flag_validation(dataset, tmp_path):
     """The JAX command's rejections (reference utils.py:343-344, 398-403,
-    434-436, 443-457, 478-480), and the flags the port does not carry yet."""
+    434-436, 443-457, 478-480), and the flags the port has since carried."""
     parse = tcli.parse_config
     base = ["--bam-files", *dataset["bams"], "-g", dataset["gtf"]]
     for bad in (["-d", "0"], ["--nmf-iter", "0"], ["--iter", "-1"],
@@ -264,10 +264,14 @@ def test_cli_flag_validation(dataset, tmp_path):
              lambda c: (c.nmf.downsample_rate, c.nmf.ds_compat)
              == (2, "keyed"))):
         assert check(parse(base + flag)), flag
-    for flag, item in ((["--multihost"], "item 7"), (["--mesh"], "item 7"),
-                       (["--profile-dir", str(tmp_path)], "Not carried")):
-        with pytest.raises(SystemExit, match=item):
-            parse(base + flag)
+    # every flag of the JAX command is ported: the multi-GPU flags and the
+    # profiler trace are accepted
+    cfg, args = parse(base + ["--multihost"], return_args=True)
+    assert args.multihost and not args.mesh
+    cfg, args = parse(base + ["--mesh"], return_args=True)
+    assert args.mesh and not args.multihost
+    assert parse(base + ["--profile-dir", str(tmp_path)]
+                 ).engine.profile_dir == str(tmp_path)
 
 
 def test_command_runs_on_the_gpu_by_default(dataset, tmp_path):

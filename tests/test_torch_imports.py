@@ -46,6 +46,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import degnorm_tpu_torch.testing, degnorm_tpu_torch.core.prng\n"
         "import degnorm_tpu_torch.data.encode, degnorm_tpu_torch.io.rans\n"
         "import degnorm_tpu_torch.io.cram, degnorm_tpu_torch.io.cram_fast\n"
+        "import degnorm_tpu_torch.parallel\n"
+        "import degnorm_tpu_torch.parallel.sharded\n"
+        "import degnorm_tpu_torch.parallel.distributed\n"
+        "import degnorm_tpu_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'degnorm_tpu' or m.startswith('degnorm_tpu.')]\n"

@@ -329,14 +329,15 @@ def test_eigh_differs_from_the_fused_tpu_path():
     cfg = NMFConfig(nmf_iter=12)
     eng = EngineConfig(device="cpu", rank1_method="eigh")
     calls = []
-    orig = cuda_trim.trim_loop_plain
+    # the unfused loop is the step generator that trim_loop_plain runs
+    orig = cuda_trim.trim_loop_steps
 
     def spy(*a, **k):
         calls.append(k.get("nmf_fn") is not None)
         return orig(*a, **k)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(cuda_trim, "trim_loop_plain", spy)
+        mp.setattr(cuda_trim, "trim_loop_steps", spy)
         mp.setattr(cuda_trim, "trim_loop_cuda",
                    lambda *a, **k: pytest.fail("fused loop taken"))
         tb.baseline_select_bucket(_t(F), _t(mask), cfg, eng)
