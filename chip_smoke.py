@@ -31,16 +31,25 @@ gene shards of the card in one process, bit-equal to phases ``fit`` and
 ``fit_wide``, and ``dryrun_multichip(2)``; phase ``multihost`` runs the
 narrow fit in two processes sharing the card over gloo and in a one-process
 NCCL group, and the ``--multihost`` command in two processes on phase
-``pipeline``'s .bam samples, whose outputs must equal that phase's.  Each
-phase prints one JSON line; any failed phase raises (non-zero exit).  There
+``pipeline``'s .bam samples, whose outputs must equal that phase's.  The
+column-sharded buckets (``parallel/seqpar.py``, kernels 4c and 2c): phase
+``mesh``'s long tail column-shards its W=65536 bucket and is held to the
+parity gate of ``fit_wide``'s; phase ``seqpar`` holds 4c and 2c against
+their plain versions on that bucket cut in two (p = 3, 8, 16, 32) and on one
+110,000-base outlier, reports the long tail's sharded fit, and fits three
+TTN-like genes column-sharded and gene-sharded, each against one device;
+phase ``multihost`` also column-shards the long tail in two gloo processes.
+Each phase prints one JSON line; any failed phase raises (non-zero exit).  There
 is no CPU fallback: without a CUDA device the script exits non-zero and
 prints no result.
 
 Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,
-pipeline,mesh,multihost,modes,oracle`` runs a subset (then no final result
-line is printed unless all ran; ``modes`` reads the default fit of ``fit``
-for its drift, ``mesh`` the fits of ``fit`` and ``fit_wide``, ``multihost``
-those of ``fit`` and ``pipeline``: ``NEEDS``);
+pipeline,mesh,seqpar,multihost,modes,oracle`` runs a subset (then no final
+result line is printed unless all ran; ``modes`` reads the default fit of
+``fit`` for its drift, ``mesh`` the fits of ``fit`` and ``fit_wide``,
+``multihost`` those of ``fit``, ``fit_wide`` and ``pipeline``: ``NEEDS``;
+``seqpar`` fits the long tail on one device itself where ``fit_wide`` did
+not run, and on the mesh where ``mesh`` did not);
 phase ``upload``, run only when ``--phases`` names it, times the direct int16
 upload against a 4-bit delta-encoded one (host encode, upload, decode on
 the card) on the buckets of three fits, the A/B behind the engine's direct
@@ -87,10 +96,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
-              "pipeline", "mesh", "multihost", "modes", "oracle")
+              "pipeline", "mesh", "seqpar", "multihost", "modes", "oracle")
 # what a phase reads from earlier ones
 NEEDS = {"modes": ("fit",), "mesh": ("fit", "fit_wide"),
-         "multihost": ("fit", "pipeline")}
+         "multihost": ("fit", "fit_wide", "pipeline")}
 # run only when named in --phases: the encoded upload's A/B (PERF.md, PR 7)
 OPT_IN_PHASES = ("upload",)
 
@@ -359,12 +368,13 @@ def ptxas_report(log):
 # modes (the last template argument: default, trim_fast, nmf_tol), and the
 # nmf_tol instance of kernel 1's block launch at PMAX = 32 for 16 < p < 32
 # (676 bytes; phase kernels times it at p = 24).  Any other instance of the
-# four kernels that spills fails ``--ptxas``.
+# kernels (4c and 2c included: none spills) that spills fails ``--ptxas``.
 SPILL_ALLOWED = tuple(f"trim_loop_kernel<32,{f},{m}>" for m in range(3)
                       for f in range(2)) + ("nmf_masked_kernel<32,0,1>",)
 SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "trim_loop_kernel", "nmf_streamed_kernel",
-               "ratio_rowsums_kernel")
+               "ratio_rowsums_kernel", "cols_gram_kernel", "cols_sweep_kernel",
+               "cols_finish_kernel", "ratio_cols_sums_kernel")
 
 
 def phase_build(ptxas):
@@ -1496,6 +1506,9 @@ def branch_launches():
             "ratio_rowsums": cuda_nmf.ratio_launches,
             "trim_loop": cuda_trim.trim_launches,
             "nmf_streamed": cuda_stream.stream_launches,
+            "nmf_colsharded": cuda_stream.colsharded_launches,
+            "ratio_colsharded": cuda_nmf.ratio_cols_launches,
+            "nmf_colsharded[nmf_tol]": cuda_stream.colsharded_tol_launches,
             "nmf_masked[nmf_tol]": cuda_nmf.nmf_tol_launches,
             "trim_loop[trim_fast]": cuda_trim.trim_fast_launches,
             "trim_loop[nmf_tol]": cuda_trim.trim_tol_launches}
@@ -1507,6 +1520,8 @@ def zero_launches():
     cuda_nmf.ratio_launches = cuda_stream.stream_launches = 0
     cuda_trim.trim_launches = cuda_trim.trim_fast_launches = 0
     cuda_trim.trim_tol_launches = 0
+    cuda_stream.colsharded_launches = cuda_nmf.ratio_cols_launches = 0
+    cuda_stream.colsharded_tol_launches = 0
 
 
 def drift(a, b):
@@ -2353,14 +2368,16 @@ def batch_invariance(engine):
 
 
 def phase_mesh(cov, X, cov_wide, X_wide, fits):
-    """The gene-sharded engine in one process: the narrow workload and the
-    long tail on ``make_mesh([cuda:0] * MESH_SHARDS)`` (counts to 0 just
-    before each fit, read just after: every kernel launched once a shard,
-    twice the one-device count where the count does not depend on the trim
-    rounds), each held bit-equal to its one-device fit of phases ``fit``
-    and ``fit_wide`` (``compare_or_gate``), a steady refit timed beside the
-    one-device one, the gather seconds and the peak memory; then
-    ``dryrun_multichip(2)`` on the card."""
+    """The sharded engine in one process on ``make_mesh([cuda:0] *
+    MESH_SHARDS)``.  The narrow workload, gene-sharded (counts to 0 just
+    before the fit, read just after: every kernel launched once a shard,
+    twice the one-device count), held bit-equal to phase ``fit``'s
+    (``compare_or_gate``), a steady refit timed beside the one-device one,
+    the gather seconds and the peak memory; the long tail, whose W=65536
+    bucket is column-sharded (``long_tail_mesh_fit``), held to the parity
+    gate of phase ``fit_wide``'s with its difference printed; then
+    ``dryrun_multichip(2)`` (its outlier column-sharded) on the card.
+    Returns the long tail's record for phase ``seqpar``."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.engine import DegNormEngine
@@ -2371,11 +2388,9 @@ def phase_mesh(cov, X, cov_wide, X_wide, fits):
     mesh = make_mesh([dev] * MESH_SHARDS)
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
     out = {}
-    for name, c, x, widths in (("narrow", cov, X, BUCKET_WIDTHS),
-                               ("long_tail", cov_wide, X_wide, None)):
+    for name, c, x, widths in (("narrow", cov, X, BUCKET_WIDTHS),):
         one, one_steady_s, one_launches = fits[name]
-        eng_cfg = (EngineConfig(bucket_widths=widths) if widths
-                   else EngineConfig())
+        eng_cfg = EngineConfig(bucket_widths=widths)
         engine = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh)
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -2397,21 +2412,13 @@ def phase_mesh(cov, X, cov_wide, X_wide, fits):
         if n_shards != MESH_SHARDS * len(engine._buckets):
             raise AssertionError(f"mesh {name}: {n_shards} shards for "
                                  f"{len(engine._buckets)} buckets")
-        fixed = (("nmf_masked", "ratio_rowsums", "trim_loop")
-                 if name == "narrow" else ("ratio_rowsums",))
-        for k in fixed:
+        for k in ("nmf_masked", "ratio_rowsums", "trim_loop"):
             if launches[k] != MESH_SHARDS * one_launches[k]:
                 raise AssertionError(
                     f"mesh {name}: {k} launched {launches[k]} times, not "
                     f"{MESH_SHARDS} x {one_launches[k]} (one a shard)")
-        if name == "long_tail" and DEVICE == "cuda" and not (
-                MESH_SHARDS * len(engine._buckets) * DEGNORM_ITER
-                <= launches["nmf_streamed"]
-                <= MESH_SHARDS * one_launches["nmf_streamed"]):
-            raise AssertionError(f"mesh long tail: nmf_streamed launched "
-                                 f"{launches['nmf_streamed']} times")
         unused = [k for k, v in launches.items()
-                  if (v > 0) != (one_launches[k] > 0)]
+                  if (v > 0) != (one_launches.get(k, 0) > 0)]
         if unused:
             raise AssertionError(f"mesh {name}: kernels {unused} launched "
                                  "on one path and not the other")
@@ -2437,10 +2444,370 @@ def phase_mesh(cov, X, cov_wide, X_wide, fits):
                             if DEVICE == "cuda" else None),
             **check)
         del engine, res
+    one, one_steady_s, one_launches = fits["long_tail"]
+    out["long_tail"] = long_tail_mesh_fit(cov_wide, X_wide, one,
+                                          one_steady_s, one_launches)
     t0 = time.perf_counter()
     dry = dryrun_multichip(MESH_SHARDS, devices=[dev])
     dry["seconds"] = round(time.perf_counter() - t0, 3)
     emit("mesh", **out, dryrun_multichip=dry, smi=smi_line())
+    return out["long_tail"]
+
+
+def long_tail_mesh_fit(cov_wide, X_wide, one, one_steady_s, one_launches):
+    """The long tail through ``DegNormEngine.run`` on ``make_mesh([cuda:0]
+    * MESH_SHARDS)`` with the default config: its W=16384 bucket gene-
+    sharded, its W=65536 bucket column-sharded (kernels 4c and 2c, a
+    reduction across the shards at each reduction point).  Counts to 0 just
+    before the fit, read just after: kernels 4 and 2 launched on the gene-
+    sharded bucket alone (2 a shard), 4c and 2c on the column-sharded one
+    (2c twice a shard), nothing resident.  Held to the parity gate of the
+    one-device fit ``one`` (``compare_or_gate``: the difference printed);
+    a steady refit, the reduce seconds and count, the peak memory."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.parallel import make_mesh
+    dev = torch.device(DEVICE, torch.cuda.current_device()) \
+        if DEVICE == "cuda" else torch.device(DEVICE)
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
+    engine = DegNormEngine(nmf_cfg, EngineConfig(), mesh=mesh)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = engine.run(cov_wide, X_wide)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in branch_launches().items() if "[" not in k}
+    timings = dict(engine.timings)
+    reductions = engine.reductions
+    col = [b.width for b, g in zip(engine._buckets, engine._col_groups)
+           if g is not None]
+    gene = [b.width for b, g in zip(engine._buckets, engine._col_groups)
+            if g is None]
+    if col != [WIDE_WIDTHS[1]] or gene != [WIDE_WIDTHS[0]]:
+        raise AssertionError(f"mesh long tail: column-sharded {col}, "
+                             f"gene-sharded {gene}")
+    want = dict(ratio_rowsums=MESH_SHARDS * len(gene),
+                ratio_colsharded=2 * MESH_SHARDS, nmf_masked=0, trim_loop=0)
+    bad = {k: launches[k] for k, v in want.items() if launches[k] != v}
+    if DEVICE == "cuda" and (bad or not (
+            launches["nmf_streamed"] >= MESH_SHARDS * DEGNORM_ITER
+                   and launches["nmf_colsharded"]
+                   >= MESH_SHARDS * DEGNORM_ITER * (NMF_ITER + 2))):
+        raise AssertionError(f"mesh long tail: launches {launches}, "
+                             f"expected {want}")
+    t0 = time.perf_counter()
+    engine.run(cov_wide, X_wide, reuse_device_data=True)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    steady = time.perf_counter() - t0
+    check = compare_or_gate("mesh_long_tail", res, one, (steady, one_steady_s))
+    n = res.rho.shape[0]
+    rec = dict(
+        genes=n, shards=MESH_SHARDS, devices=[str(d) for d in mesh.devices],
+        column_sharded_widths=col, gene_sharded_widths=gene,
+        launches=launches, launches_one_device=one_launches,
+        wall_s=round(wall, 4), steady_wall_s=round(steady, 4),
+        one_device_steady_wall_s=round(one_steady_s, 4),
+        steady_gene_iter_per_s=round(n * DEGNORM_ITER / steady, 1),
+        steady_vs_one_device=round(steady / one_steady_s - 1, 4),
+        reductions=reductions, reduce_s=round(timings["reduce"], 4),
+        steady_reduce_s=round(engine.timings["reduce"], 4),
+        gather_s=round(timings["gather"], 4),
+        timings={k: round(v, 4) for k, v in timings.items()},
+        peak_mem_bytes=(int(torch.cuda.max_memory_allocated())
+                        if DEVICE == "cuda" else None),
+        rho_max_abs_diff=float(np.abs(res.rho - one.rho).max()),
+        x_adj_max_rel_diff=float(np.abs(res.x_adj / one.x_adj - 1).max()))
+    rec.update(check)
+    del engine, res
+    return rec
+
+
+# phase seqpar: kernels 4c and 2c at the long tail's W=65536 bucket cut in
+# two at these p, and at one outlier gene; three TTN-like genes (the longest
+# human exonic lengths) fitted column-sharded and gene-sharded
+SEQPAR_P = (3, 8, 16, 32)
+OUTLIER_LEN = 110_000
+TTN_GENES = 3
+TTN_LENGTHS = (100_000, 120_000)
+
+
+def cut_columns(raw, lm, n):
+    """A (G, p, W) device bucket cut along its columns as the engine cuts it
+    (``parallel/seqpar.py::column_slots``): ``n`` (coverage, mask) shards,
+    padded to one width and masked off past W."""
+    from degnorm_tpu_torch.parallel.seqpar import column_slots
+    G, p, W = raw.shape
+    slots, width = column_slots(W, n)
+    out = []
+    for a, b in slots:
+        Fs = raw.new_zeros((G, p, width))
+        ms = lm.new_zeros((G, width))
+        Fs[:, :, :b - a] = raw[:, :, a:b]
+        ms[:, :b - a] = lm[:, a:b]
+        out.append((Fs, ms))
+    return out
+
+
+def synth_wide_bucket(lengths, p, W, seed, device):
+    """An int16 (G, p, W) coverage bucket made on the card from ``seed``
+    (a smooth envelope, a degradation ramp and noise a sample) and its
+    length mask, for genes of ``lengths``."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    G = len(lengths)
+    t = torch.linspace(0, 1, W, device=device)
+    lm = (torch.arange(W, device=device)[None, :]
+          < torch.as_tensor(lengths, device=device)[:, None])
+    F = torch.empty((G, p, W), dtype=torch.int16, device=device)
+    for i in range(G):                # a gene at a time: small temporaries
+        amp = torch.rand((p, 1), generator=g, device=device) * 40 + 5
+        ramp = torch.exp(-2 * (1 - t)[None, :]
+                         * torch.rand((p, 1), generator=g, device=device))
+        noise = torch.rand((p, W), generator=g, device=device)
+        v = amp * (torch.sin(torch.pi * t).abs() + 0.2) * ramp * (0.8 + 0.4 * noise)
+        F[i] = (v.round() * lm[i]).to(torch.int16)
+    return F, lm
+
+
+def check_colsharded_at(raw, lm, mesh, reps=2, tol_check=False):
+    """Kernels 4c and 2c on a bucket cut along its columns into one shard a
+    ``mesh`` device (both on the card), each against its plain version on
+    the same shards: 4c on the raw int16 + scale form with every 7th gene
+    from the 7th on inactive (zeros out), K, E, u within STREAM_RTOL of max(|value|, 1), K
+    and u bit-equal on every shard; 2c on the raw int16 upload, the row sums
+    bit-equal on every shard and within STREAM_RTOL.  Beside them kernel 4
+    and kernel 2 on the whole bucket.  Times: one column-sharded call over
+    all shards (its launches and reductions, CUDA events), the plain
+    version's, the bound of the function on the whole bucket; launches and
+    reductions a call.  ``tol_check``: 4c's nmf_tol instances too, at
+    FREEZE_TOL, against the plain adaptive loop on the same shards: K, E, u
+    within 1e-4 of max(|value|, 1) on >= 99% of the genes (a gene whose
+    freeze falls on another iteration in float32 differs more)."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    from degnorm_tpu_torch.ops.cuda_trim import run_steps
+    from degnorm_tpu_torch.parallel.seqpar import ColumnGroup
+    G, p, W = raw.shape
+    group = ColumnGroup(mesh, W)
+    cols = group.columns()
+    shards = cut_columns(raw, lm, len(cols))
+    scale = torch.linspace(0.8, 1.25, p, device=raw.device)
+    act = torch.ones(G, dtype=torch.bool, device=raw.device)
+    act[6::7] = False          # the first gene stays active (the outlier's)
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
+    nkw = dict(baseline._nmf_kwargs(nmf_cfg, EngineConfig()),
+               gene_active=act, scale=scale)
+
+    def nmf(fn):
+        return run_steps(fn(Fs, ms, c, **nkw)
+                         for (Fs, ms), c in zip(shards, cols))
+
+    def ratio(fn):
+        return run_steps(fn(Fs, ms, c, power_iters=EngineConfig().power_iters_cold)
+                         for (Fs, ms), c in zip(shards, cols))
+
+    l0, r0 = cuda_stream.colsharded_launches, group.reductions
+    got = nmf(cuda_stream.nmf_masked_colsharded_cuda)
+    launches, reductions = (cuda_stream.colsharded_launches - l0,
+                            group.reductions - r0)
+    want = nmf(cuda_stream.nmf_masked_colsharded_plain)
+    whole = cuda_stream.nmf_masked_streamed_cuda(raw, lm, **nkw)
+    torch.cuda.synchronize()
+    errs = []
+    for k, (g_, w_) in enumerate(zip(got, want)):
+        for a, b, nm in zip(g_, w_, "KEu"):
+            errs.append(assert_rel(a, b, f"nmf_colsharded {nm} p={p} W={W} "
+                                         f"shard {k}"))
+            if bool((a[~act] != 0).any()):
+                raise AssertionError(f"nmf_colsharded {nm}: inactive gene "
+                                     "not zero")
+        if not (torch.equal(g_[0], got[0][0]) and torch.equal(g_[2], got[0][2])):
+            raise AssertionError(f"nmf_colsharded p={p} W={W}: K or u differ "
+                                 f"between shards 0 and {k}")
+    E = torch.cat([g_[1] for g_ in got], dim=1)[:, :W]
+    vs4 = max(err_stats(a, b)[1] for a, b in zip((got[0][0], E, got[0][2]),
+                                                 whole))
+    del got, want, whole, E
+    tol_rec = None
+    if tol_check:
+        tkw = dict(nkw, nmf_tol=FREEZE_TOL)
+        l0 = cuda_stream.colsharded_tol_launches
+        got = run_steps(cuda_stream.nmf_masked_colsharded_cuda(Fs, ms, c, **tkw)
+                        for (Fs, ms), c in zip(shards, cols))
+        tol_launches = cuda_stream.colsharded_tol_launches - l0
+        want = run_steps(cuda_stream.nmf_masked_colsharded_plain(Fs, ms, c, **tkw)
+                         for (Fs, ms), c in zip(shards, cols))
+        torch.cuda.synchronize()
+        bad = torch.zeros(G, dtype=torch.bool, device=raw.device)
+        for g_, w_ in zip(got, want):
+            for a, b in zip(g_, w_):
+                r = ((a.double() - b.double()).abs()
+                     / b.double().abs().clamp_min(1.0)).amax(dim=1)
+                bad |= r > 1e-4
+        n_act = int(act.sum())
+        if int(bad.sum()) > 0.01 * n_act:
+            raise AssertionError(f"nmf_colsharded[nmf_tol] p={p} W={W}: "
+                                 f"{int(bad.sum())} of {n_act} genes differ")
+        tol_rec = dict(tol=FREEZE_TOL, launches_per_nmf=tol_launches,
+                       genes_off=int(bad.sum()), active_genes=n_act)
+        del got, want
+    b_ms, b_by = bound_stream(raw, lm, act, NMF_ITER)
+    rec4 = dict(
+        shape=[G, p, W], shards=len(cols), shard_width=group.width,
+        launches_per_nmf=launches, reductions_per_nmf=reductions,
+        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+        kernel4_whole_rel_err=vs4, bound_ms=b_ms, bound_by=b_by,
+        ms=time_ms(lambda: nmf(cuda_stream.nmf_masked_colsharded_cuda), reps),
+        kernel4_whole_ms=time_ms(
+            lambda: cuda_stream.nmf_masked_streamed_cuda(raw, lm, **nkw), reps),
+        plain_ms=time_ms(lambda: nmf(cuda_stream.nmf_masked_colsharded_plain),
+                         1, warm=False), nmf_tol=tol_rec)
+    l0, r0 = cuda_nmf.ratio_cols_launches, group.reductions
+    got = ratio(cuda_nmf.ratio_rowsums_colsharded_cuda)
+    launches, reductions = (cuda_nmf.ratio_cols_launches - l0,
+                            group.reductions - r0)
+    want = ratio(cuda_nmf.ratio_rowsums_colsharded_plain)
+    whole = cuda_nmf.ratio_rowsums_cuda(raw, lm, bucket_genes=G)
+    torch.cuda.synchronize()
+    errs = []
+    for k, g_ in enumerate(got):
+        if not all(torch.equal(a, b) for a, b in zip(g_, got[0])):
+            raise AssertionError(f"ratio_colsharded p={p} W={W}: shards 0 "
+                                 f"and {k} differ")
+    for a, b, nm in zip(got[0], want[0], ("cov_sums", "est_sums")):
+        errs.append(assert_rel(a, b, f"ratio_colsharded {nm} p={p} W={W}"))
+    vs2 = max(err_stats(a, b)[1] for a, b in zip(got[0], whole))
+    b2_ms, b2_by = bound_ratio(raw, lm)
+    rec2 = dict(
+        shape=[G, p, W], launches_per_init=launches,
+        reductions_per_init=reductions,
+        max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+        kernel2_whole_rel_err=vs2, bound_ms=b2_ms, bound_by=b2_by,
+        ms=time_ms(lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
+                   RATIO_REPS),
+        kernel2_whole_ms=time_ms(
+            lambda: cuda_nmf.ratio_rowsums_cuda(raw, lm, bucket_genes=G),
+            RATIO_REPS),
+        plain_ms=time_ms(lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_plain),
+                         1, warm=False))
+    del shards
+    return {"nmf_colsharded": rec4, "ratio_colsharded": rec2}
+
+
+def timed_fit(nmf_cfg, eng_cfg, cov, X, mesh=None):
+    """A cold fit with counts set to 0 just before it and read just after,
+    then a steady refit: (result, launches, cold s, steady s, engine)."""
+    import torch
+    from degnorm_tpu_torch.engine import DegNormEngine
+    engine = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh)
+    zero_launches()
+    t0 = time.perf_counter()
+    res = engine.run(cov, X)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {k: v for k, v in branch_launches().items() if "[" not in k}
+    t0 = time.perf_counter()
+    engine.run(cov, X, reuse_device_data=True)
+    torch.cuda.synchronize()
+    return res, launches, cold, time.perf_counter() - t0, engine
+
+
+def phase_seqpar(cov_wide, X_wide, wide, long_tail):
+    """Column-sharded buckets on ``make_mesh([cuda:0] * MESH_SHARDS)``.
+    (1) Kernels 4c and 2c against their plain versions
+    (``check_colsharded_at``) at the long tail's W=65536 bucket cut in two,
+    at p = 8 (the fit's own bucket) and p = 3, 16, 32 (made on the card at
+    its gene lengths), and at one outlier of OUTLIER_LEN bases.  (2) The
+    long tail on the mesh (``long_tail_mesh_fit``, phase ``mesh``'s record
+    where it ran), against the one-device fit of phase ``fit_wide`` (``wide``;
+    fitted here where that phase did not run).  (3) TTN_GENES genes of
+    TTN_LENGTHS bases x P_SAMPLES, on one device, column-sharded on the mesh
+    and gene-sharded on it (``seqpar_width`` above W), each held to the
+    parity gate of the one-device fit, each with its launches and steady
+    seconds.  Returns the kernel records and the long tail's."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.data.buckets import pack_buckets
+    from degnorm_tpu_torch.parallel import make_mesh
+    dev = torch.device(DEVICE, torch.cuda.current_device()) \
+        if DEVICE == "cuda" else torch.device(DEVICE)
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    kres = {}
+    (b,) = [b for b in pack_buckets(list(cov_wide.values()),
+                                    bucket_widths=EngineConfig().bucket_widths,
+                                    dtype=np.int16)
+            if b.width == WIDE_WIDTHS[1]]
+    for p in SEQPAR_P:
+        if p == P_SAMPLES:
+            raw = torch.from_numpy(b.F).to(dev)
+            lm = torch.from_numpy(b.len_mask()).to(dev)
+        else:
+            raw, lm = synth_wide_bucket(b.lengths, p, b.width, SEED + p, dev)
+        kres[f"p{p}"] = check_colsharded_at(raw, lm, mesh,
+                                            tol_check=p == P_SAMPLES)
+        del raw, lm
+        torch.cuda.empty_cache()
+    W = -(-OUTLIER_LEN // 128) * 128
+    raw, lm = synth_wide_bucket([OUTLIER_LEN], P_SAMPLES, W, SEED + 9, dev)
+    kres["outlier"] = check_colsharded_at(raw, lm, mesh)
+    del raw, lm
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
+    if wide is None:
+        one, one_launches, _, one_steady, _ = timed_fit(
+            nmf_cfg, EngineConfig(), cov_wide, X_wide)
+        wide = (one, one_steady, one_launches)
+    if long_tail is None:
+        long_tail = long_tail_mesh_fit(cov_wide, X_wide, *wide)
+    # TTN-like genes: the longest human exonic lengths, a bucket each
+    cov_t, X_t = synth_dataset(
+        TTN_GENES, P_SAMPLES, seed=SEED + 3,
+        lengths_fn=lambda n, rng: rng.integers(*TTN_LENGTHS, n, endpoint=True))
+    one, l_one, c_one, s_one, _ = timed_fit(nmf_cfg, EngineConfig(), cov_t,
+                                            X_t)
+    ttn = dict(genes=TTN_GENES, samples=P_SAMPLES,
+               lengths=[m.shape[1] for m in cov_t.values()],
+               one_device=dict(launches=l_one, wall_s=round(c_one, 4),
+                               steady_wall_s=round(s_one, 4)))
+    for form, kw in (("column_sharded", {}),
+                     ("gene_sharded", dict(seqpar_width=1 << 20))):
+        res, launches, cold, steady, engine = timed_fit(
+            nmf_cfg, EngineConfig(**kw), cov_t, X_t, mesh=mesh)
+        n_col = sum(g is not None for g in engine._col_groups)
+        want_col = len(engine._buckets) if form == "column_sharded" else 0
+        k4, k4c = launches["nmf_streamed"], launches["nmf_colsharded"]
+        if n_col != want_col or DEVICE == "cuda" and (
+                (k4c > 0) != (want_col > 0) or (k4 > 0) == (want_col > 0)):
+            raise AssertionError(f"TTN {form}: {n_col} column-sharded "
+                                 f"buckets, launches {launches}")
+        check = compare_or_gate(f"seqpar_ttn_{form}", res, one,
+                                (steady, s_one))
+        ttn[form] = dict(
+            launches=launches, wall_s=round(cold, 4),
+            steady_wall_s=round(steady, 4),
+            steady_vs_one_device=round(steady / s_one - 1, 4),
+            reductions=engine.reductions,
+            reduce_s=round(engine.timings.get("reduce", 0.0), 4),
+            rho_max_abs_diff=float(np.abs(res.rho - one.rho).max()),
+            x_adj_max_rel_diff=float(np.abs(res.x_adj / one.x_adj - 1).max()),
+            **{k: v for k, v in check.items()
+               if k not in ("rho_max_abs_diff", "x_adj_max_rel_diff")})
+        del engine, res
+    emit("seqpar", kernels={str(k): v for k, v in kres.items()},
+         tolerance="4c: K,E,u within 1e-5 of max(|value|, 1) of the plain "
+                   "version on the same shards, K and u bit-equal on every "
+                   "shard; 2c: row sums within 1e-5, bit-equal on every "
+                   "shard; fits: the parity gate (DI atol 5e-3, adjusted "
+                   "rtol 5e-3, flags equal on >= 99% of genes)",
+         long_tail=long_tail, ttn=ttn, smi=smi_line())
+    return kres, long_tail
 
 
 _ENGINE_RANK = r"""
@@ -2474,11 +2841,13 @@ if device == "cuda":
     torch.cuda.synchronize()
 fit_s = time.perf_counter() - t0
 timings = dict(eng.timings)
-t0 = time.perf_counter()
-eng.run(cov, X, reuse_device_data=True)
-if device == "cuda":
-    torch.cuda.synchronize()
-steady_s = time.perf_counter() - t0
+steady_s = None
+if sys.argv[7:] != ["cold"]:
+    t0 = time.perf_counter()
+    eng.run(cov, X, reuse_device_data=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
 # the collectives themselves, on this group's backend: a gather of CUDA
 # rows, a broadcast string and a barrier
 rows = torch.full((rank + 1, 3), float(rank), device=mesh.devices[0])
@@ -2495,6 +2864,10 @@ print(json.dumps({"rank": rank, "backend": backend,
                   "device": str(mesh.devices[0]),
                   "shards": [[sh.bucket, sh.start, sh.stop]
                              for sh in eng._shards],
+                  "column_shards": [[sh.bucket, sh.cols.offset]
+                                    for sh in eng._shards if sh.cols.sharded],
+                  "reductions": eng.reductions,
+                  "reduce_s": timings.get("reduce", 0.0),
                   "fit_s": fit_s, "steady_s": steady_s,
                   "gather_s": timings["gather"],
                   "wall_s": time.perf_counter() - t_start,
@@ -2540,14 +2913,27 @@ def run_ranks(argv, n, env_extra=(), timeout=600):
     return outs, wall
 
 
-def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold):
+def write_npz(path, cov, X):
+    """A fit's genes for the rank processes: names, lengths, the matrices
+    flattened, and X."""
+    names = list(cov.keys())
+    np.savez(path, genes=np.array(names), X=X,
+             lengths=np.array([cov[g].shape[1] for g in names]),
+             flat=np.concatenate([cov[g].ravel() for g in names]))
+
+
+def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold,
+                    cov_wide, X_wide, wide_fit):
     """Several processes on the one card.  (a) Two processes share it over
     gloo (``DEGNORM_TPU_TORCH_DIST_BACKEND=gloo``: NCCL refuses two ranks
     on one card) and fit the narrow workload, its inputs handed over as an
     .npz; (b) a one-process NCCL group runs the same fit through
     ``initialize_multihost``; each rank's DI is held bit-equal to phase
     ``fit``'s (``compare_or_gate``), and each rank also runs a gather, a
-    broadcast and a barrier.  (c) ``python -m degnorm_tpu_torch
+    broadcast and a barrier.  (a') Two gloo processes fit the long tail,
+    its W=65536 bucket column-sharded across them (one column shard a
+    process, every reduction gathered over the group): both ranks' DI
+    bit-equal, within the parity gate of phase ``fit_wide``'s.  (c) ``python -m degnorm_tpu_torch
     --multihost`` in two processes (gloo) on phase ``pipeline``'s four .bam
     samples: one run directory, no file the single-process run lacks (the
     worker writes none), no .etl_shared left, DI and adjusted-count CSVs
@@ -2561,10 +2947,7 @@ def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold):
     os.makedirs(work)
     device = DEVICE
     data = os.path.join(work, "narrow.npz")
-    names = list(cov.keys())
-    np.savez(data, genes=np.array(names), X=X,
-             lengths=np.array([cov[g].shape[1] for g in names]),
-             flat=np.concatenate([cov[g].ravel() for g in names]))
+    write_npz(data, cov, X)
     argv = [sys.executable, "-c", _ENGINE_RANK, data, work, device,
             str(NMF_ITER), str(DEGNORM_ITER),
             ",".join(str(w) for w in BUCKET_WIDTHS)]
@@ -2597,6 +2980,32 @@ def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold):
                 base_timings["init"] + base_timings["iterations"]
                 + base_timings["pack"], 4),
             one_process_steady_s=round(base_steady_s, 4))
+    # (a') the long tail, its widest bucket column-sharded over two processes
+    from degnorm_tpu_torch import EngineConfig
+    data = os.path.join(work, "long_tail.npz")
+    write_npz(data, cov_wide, X_wide)
+    outs, wall = run_ranks(
+        [sys.executable, "-c", _ENGINE_RANK, data, work, device,
+         str(NMF_ITER), str(DEGNORM_ITER),
+         ",".join(str(w) for w in EngineConfig().bucket_widths), "cold"], 2,
+        {"DEGNORM_TPU_TORCH_DIST_BACKEND": "gloo"})
+    os.remove(data)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    rhos = [np.load(os.path.join(work, f"rho_{r}.npy")) for r in range(2)]
+    if [len(r["column_shards"]) for r in ranks] != [1, 1] or \
+            ranks[0]["column_shards"][0][1] != 0:
+        raise AssertionError(f"long tail over two processes: column shards "
+                             f"{[r['column_shards'] for r in ranks]}")
+    if not np.array_equal(rhos[0], rhos[1]):
+        raise AssertionError("long tail over two processes: the ranks' DI "
+                             "differ")
+    d = float(np.abs(rhos[0] - wide_fit.rho).max())
+    if not d <= 5e-3:          # the parity gate's DI tolerance
+        raise AssertionError(f"long tail over two processes: DI differs from "
+                             f"phase fit_wide's by {d}")
+    fits["gloo_2_processes_long_tail_column_sharded"] = dict(
+        processes=2, wall_s=round(wall, 3), ranks_bit_equal=True,
+        rho_max_abs_diff_one_device=d, ranks=ranks)
     # (c) the command
     base = os.path.join(work, "command")
     os.makedirs(base)
@@ -2670,13 +3079,15 @@ def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold):
 
 
 def kernels_line(kres, launches, launches_wide, launches_pipeline,
-                 launches_modes):
+                 launches_modes, seqpar):
     """The per-kernel records of the result line: kernels 1-3 at the narrow
     fit's main shape (W=1024) with the W=4096 one beside it, kernel 4 at the
     wide fit's W=16384 bucket with its other shapes beside it, then the
     opt-in branches of kernels 1 and 3 at the narrow shapes, each beside its
     kernel's default-mode time, with its launches in its mode's fit (phase
-    ``modes``)."""
+    ``modes``), then kernels 4c and 2c at the long tail's W=65536 bucket cut
+    in two (p=8) with their other shapes beside it, with their launches in
+    the long tail's column-sharded fit (phase ``seqpar``)."""
     main_shape = kres[1024]
     replaces = {
         "nmf_masked": "degnorm_tpu/ops/pallas_nmf.py:687",
@@ -2773,6 +3184,30 @@ def kernels_line(kres, launches, launches_wide, launches_pipeline,
                      "default_ms": kres[4096][kernel]["ms"],
                      **{k: wide[k] for k in extra}},
         })
+    col_kres, long_tail = seqpar
+    for name, src, whole in (
+            ("nmf_colsharded", "degnorm_tpu_torch/csrc/stream_cols.cuh",
+             "kernel4_whole_ms"),
+            ("ratio_colsharded", "degnorm_tpu_torch/csrc/ratio_cols.cu",
+             "kernel2_whole_ms")):
+        m = col_kres[f"p{P_SAMPLES}"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "degnorm_tpu/engine.py:75-84 (none: XLA under GSPMD)",
+            # its main path is the long tail's column-sharded fit
+            "launches": long_tail["launches"][name],
+            "max_abs_err": max(v[name]["max_abs_err"]
+                               for v in col_kres.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": None,
+            "shape": m["shape"], "shards": MESH_SHARDS,
+            "whole_gene_kernel_ms": m[whole],
+            **({"nmf_tol": m["nmf_tol"]} if m.get("nmf_tol") else {}),
+            "other_shapes": [{"at": k, **{f: v[name][f] for f in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")}} for k, v in col_kres.items()
+                if k != f"p{P_SAMPLES}"],
+        })
     return kernels
 
 
@@ -2814,7 +3249,7 @@ def main(argv=None):
          samples=P_SAMPLES, seed=SEED, profile="dense")
     cov_wide = X_wide = None
     if {"kernels", "fit_wide", "parity", "pipeline", "upload",
-            "mesh"} & set(phases):
+            "mesh", "seqpar", "multihost"} & set(phases):
         t0 = time.perf_counter()
         cov_wide, X_wide = synth_dataset(WIDE_GENES, P_SAMPLES, seed=SEED + 1,
                                          lengths_fn=synth_long_lengths)
@@ -2837,14 +3272,20 @@ def main(argv=None):
     launches_pipeline, cold = (
         phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=keep_cold)
         if "pipeline" in phases else (None, None))
+    mesh_long_tail = seqpar = None
     try:
         if "mesh" in phases:
-            phase_mesh(cov, X, cov_wide, X_wide, {
+            mesh_long_tail = phase_mesh(cov, X, cov_wide, X_wide, {
                 "narrow": (base_fit, base_steady_s, launches),
                 "long_tail": (wide_fit, wide_steady_s, launches_wide)})
+        if "seqpar" in phases:
+            seqpar = phase_seqpar(
+                cov_wide, X_wide,
+                ((wide_fit, wide_steady_s, launches_wide)
+                 if "fit_wide" in phases else None), mesh_long_tail)
         if "multihost" in phases:
             phase_multihost(cov, X, base_fit, base_steady_s, base_timings,
-                            cold)
+                            cold, cov_wide, X_wide, wide_fit)
     finally:
         if keep_cold:
             import shutil
@@ -2862,7 +3303,7 @@ def main(argv=None):
         return 0
 
     kernels = kernels_line(kres, launches, launches_wide, launches_pipeline,
-                           launches_modes)
+                           launches_modes, seqpar)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",
                       "seconds": round(time.perf_counter() - t_start, 1)}),

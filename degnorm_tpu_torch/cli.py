@@ -3,8 +3,10 @@
 Same flag set as the JAX package's ``degnorm-tpu`` command (itself the
 reference's argparser, ``utils.py:195-315``), plus ``--device``: the fit runs
 on the GPU (``cuda``) unless the caller asks for ``cpu``.  ``--mesh``
-gene-shards the fit over every visible card in one process; ``--multihost``
-runs one process of a multi-process job (parallel/distributed.py).
+shards the fit over every visible card in one process (the genes of each
+bucket, the columns of a bucket at least ``EngineConfig.seqpar_width``
+wide); ``--multihost`` runs one process of a multi-process job
+(parallel/distributed.py).
 """
 from __future__ import annotations
 
@@ -62,8 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(host:port), DEGNORM_TPU_NUM_PROCESSES and "
                         "DEGNORM_TPU_PROCESS_ID, or torchrun's variables")
     p.add_argument("--mesh", action="store_true",
-                   help="gene-shard the fit over every visible GPU in this "
-                        "process")
+                   help="shard the fit over every visible GPU in this "
+                        "process (genes; the columns of outlier-length "
+                        "buckets)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--rank1-method", default="power",

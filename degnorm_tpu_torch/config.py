@@ -114,6 +114,14 @@ class EngineConfig:
     bucket_widths: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192, 16384, 65536)
     # Cap on genes per device batch within one bucket; 0 = unbounded.
     max_genes_per_batch: int = 0
+    # On a mesh of two or more shards, a bucket at least this wide has its
+    # COLUMNS (positions) cut across the shards instead of its genes
+    # (parallel/seqpar.py): the few genes of such a bucket are the longest of
+    # the annotation.  Each reduction over the columns is then a partial on
+    # each shard and one sum (max, scan) across them.  A mesh of one never
+    # column-shards.  The JAX package's default (its config.py:214), and like
+    # it unchecked: 0 column-shards every bucket.
+    seqpar_width: int = 32768
     # Dominant eigenvector of the p x p Gram in every rank-1 fit: "power"
     # (power iteration, the kernels) or "eigh" (a batched exact
     # eigendecomposition, torch.linalg.eigh).  "eigh" runs every fit through

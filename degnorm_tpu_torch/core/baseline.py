@@ -22,6 +22,12 @@ The trim loop itself lives in ``ops/cuda_trim.py``: one fused CUDA kernel
 for a bucket inside its gate, else a Python ``while`` over tensors whose NMF
 per round is the plain version or, with the kernels on, a kernel launch (the
 unfused loop of a wide bucket).
+
+On a column-sharded bucket (``parallel/seqpar.py``) F is one shard's
+columns of every gene: each reduction over the columns goes through the
+shard's ``Columns`` object (a partial here, reduced across the shards), so
+every shard holds the same per-gene state; a column-sharded bucket always
+takes the unfused loop, as the JAX package's XLA path does.
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from degnorm_tpu_torch.config import (EngineConfig, NMFConfig,
                                      nmf_tol_applies, trim_fast_applies)
 from degnorm_tpu_torch.core.linalg import (masked_rowsum, median_mid,
                                            outer_product)
-from degnorm_tpu_torch.core.nmf import nmf_masked
+from degnorm_tpu_torch.core.nmf import nmf_masked_steps
 from degnorm_tpu_torch.ops import cuda_trim
+from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE, Columns
 
 # estimate materialization kinds (see BucketResult.est_kind)
 EST_INPUT = 0    # estimate is the (scale-adjusted) input F itself
@@ -102,7 +109,12 @@ def _nmf_kwargs(nmf_cfg: NMFConfig, eng_cfg: EngineConfig) -> dict:
     )
 
 
-def trim_inputs(
+def trim_inputs(*args, **kwargs) -> TrimInputs:
+    """``trim_inputs_steps`` run to its end, with its arguments."""
+    return cuda_trim.run_steps([trim_inputs_steps(*args, **kwargs)])[0]
+
+
+def trim_inputs_steps(
     F: torch.Tensor,
     len_mask: torch.Tensor,
     nmf_cfg: NMFConfig,
@@ -111,10 +123,12 @@ def trim_inputs(
     F_raw: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
     bucket_genes: Optional[int] = None,
-) -> TrimInputs:
+    cols: Columns = ONE_DEVICE,
+):
     """High-coverage and downsample masks, bail-outs, the initial NMF and
-    the rank bins (reference nmf.py:220-271).  ``F_raw``/``scale``,
-    ``bucket_genes``: see ``baseline_select_steps``."""
+    the rank bins (reference nmf.py:220-271), as a step generator.
+    ``F_raw``/``scale``, ``bucket_genes``, ``cols``: see
+    ``baseline_select_steps``.  Returns a ``TrimInputs``."""
     G, p, W = F.shape
     dtype = F.dtype
     dev = F.device
@@ -126,33 +140,34 @@ def trim_inputs(
 
     # ---- high-coverage mask (nmf.py:66-76,220) ----
     colmax = Fm.amax(dim=1)                            # (G, W)
-    gmax = colmax.amax(dim=1)                          # (G,)
+    gmax = yield from cols.max_(colmax.amax(dim=1))    # (G,)
     hi = (colmax > 0.1 * gmax[:, None]) & len_mask
 
     # ---- systematic downsampling (nmf.py:222-227,408-426) ----
     if nmf_cfg.downsample_rate > 1:
         if ds_start is None:
             raise ValueError("ds_start required when downsampling")
-        idx = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+        # global column numbers: a column shard starts at its offset
+        idx = torch.arange(cols.offset, cols.offset + W, dtype=torch.int32,
+                           device=dev)[None, :]
         ds_mask = (idx % nmf_cfg.downsample_rate) == ds_start[:, None]
         hi = hi & ds_mask
 
-    n_hi = hi.sum(dim=1).to(torch.int32)               # (G,)
+    hi_here = hi.sum(dim=1)
+    n_hi = (yield from cols.sum_(hi_here)).to(torch.int32)   # (G,)
 
     # ---- bail-outs before NMF (nmf.py:232-242) ----
     bail_low = n_hi < nmf_cfg.effective_min_high_coverage
-    rowsum_start = masked_rowsum(Fm, hi.to(dtype))     # (G, p)
+    rowsum_start = yield from cols.sum_(masked_rowsum(Fm, hi.to(dtype)))
     bail_zero_row = (rowsum_start > 0).sum(dim=1) < p
 
     # ---- initial NMF, unclipped DI scores (nmf.py:245-258) ----
-    K0, E0, u0 = nmf_masked(Fm, hi, gene_active=~(bail_low | bail_zero_row),
-                            use_kernels=eng_cfg.use_kernels,
-                            F_raw=F_raw, scale=scale,
-                            nmf_tol=eng_cfg.nmf_tol,
-                            method=eng_cfg.rank1_method,
-                            bucket_genes=bucket_genes,
-                            **_nmf_kwargs(nmf_cfg, eng_cfg))
-    est_rs0 = K0 * E0.sum(dim=1)[:, None]
+    K0, E0, u0 = yield from nmf_masked_steps(
+        Fm, hi, gene_active=~(bail_low | bail_zero_row),
+        use_kernels=eng_cfg.use_kernels, F_raw=F_raw, scale=scale,
+        nmf_tol=eng_cfg.nmf_tol, method=eng_cfg.rank1_method,
+        bucket_genes=bucket_genes, cols=cols, **_nmf_kwargs(nmf_cfg, eng_cfg))
+    est_rs0 = K0 * (yield from cols.sum_(E0.sum(dim=1)))[:, None]
     rho0 = 1 - rowsum_start / (est_rs0 + 1)
     bail_nonconv = median_mid(1 - rho0, dim=1) > 1
     bailed = bail_low | bail_zero_row | bail_nonconv
@@ -164,7 +179,12 @@ def trim_inputs(
 
     # ---- trim bins over column ranks (utils.py:176-192, nmf.py:269-271) ----
     csize = torch.clamp_min((n_hi + B - 1) // B, 1)    # (G,)
-    rank = torch.cumsum(hi, dim=1).to(torch.int32) - 1
+    csum = torch.cumsum(hi, dim=1)
+    if cols.sharded:
+        # a column shard's ranks continue the shards before it: a trim bin
+        # may straddle a shard boundary
+        csum = csum + (yield from cols.exclusive_scan(hi_here))[:, None]
+    rank = csum.to(torch.int32) - 1
     bin_id = torch.where(hi, rank // csize[:, None],
                          torch.full_like(rank, B))     # B == padding sentinel
     bin_ids = torch.arange(B, dtype=torch.int32, device=dev)
@@ -207,6 +227,7 @@ def baseline_select_steps(
     F_raw: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
     bucket_genes: Optional[int] = None,
+    cols: Columns = ONE_DEVICE,
 ):
     """Run baseline selection for every gene in a padded bucket, as a step
     generator (``cuda_trim.run_steps``): the unfused trim loop yields its
@@ -224,9 +245,14 @@ def baseline_select_steps(
       bucket_genes: where F is one shard of a bucket (parallel/), the whole
         bucket's gene count: the NMF kernel's launch rule reads it, so the
         shard launches as the whole bucket would and gives its bits.
+      cols: where F holds one shard's columns of every gene of a
+        column-sharded bucket (``parallel/seqpar.py``), the shard's
+        ``Columns``: every reduction over the columns is reduced across the
+        bucket's shards, and the loop is the unfused one, its NMF the
+        column-sharded route of ``core/nmf.py``.  ``ONE_DEVICE`` otherwise.
     """
-    ti = trim_inputs(F, len_mask, nmf_cfg, eng_cfg, ds_start, F_raw, scale,
-                     bucket_genes)
+    ti = yield from trim_inputs_steps(F, len_mask, nmf_cfg, eng_cfg, ds_start,
+                                      F_raw, scale, bucket_genes, cols)
     targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
              ti.n_hi, ti.n_bins0, ti.active0)
     tkw = trim_kwargs(nmf_cfg, eng_cfg)
@@ -234,6 +260,7 @@ def baseline_select_steps(
     # the plain unfused loop, as the JAX package's XLA twin does); the
     # opt-in modes apply where the JAX package's own gates say they do
     fused = (eng_cfg.fuse_trim and eng_cfg.rank1_method == "power"
+             and not cols.sharded
              and cuda_trim.fused_trim_supported(F.shape, F.dtype))
     fast = eng_cfg.trim_fast and fused and trim_fast_applies(F.shape)
     if fused and (eng_cfg.use_kernels or fast):
@@ -255,42 +282,47 @@ def baseline_select_steps(
                               or eng_cfg.power_iters_cold))
 
         def round_nmf(col_mask, gene_active, u_prev):
-            return nmf_masked(ti.Fm, col_mask, gene_active=gene_active,
-                              u0=u_prev, use_kernels=eng_cfg.use_kernels,
-                              F_raw=F_raw, scale=scale,
-                              nmf_tol=eng_cfg.nmf_tol,
-                              method=eng_cfg.rank1_method,
-                              bucket_genes=bucket_genes, **resume_kwargs)
+            # a step generator on a column shard (the loop runs it)
+            return nmf_masked_steps(ti.Fm, col_mask, gene_active=gene_active,
+                                    u0=u_prev, use_kernels=eng_cfg.use_kernels,
+                                    F_raw=F_raw, scale=scale,
+                                    nmf_tol=eng_cfg.nmf_tol,
+                                    method=eng_cfg.rank1_method,
+                                    bucket_genes=bucket_genes, cols=cols,
+                                    **resume_kwargs)
 
         K_t, rho_t, ran_bs, rounds_active = yield from \
-            cuda_trim.trim_loop_steps(*targs, nmf_fn=round_nmf, **tkw)
+            cuda_trim.trim_loop_steps(*targs, nmf_fn=round_nmf, cols=cols,
+                                      **tkw)
 
-    return _finalize_bucket(ti.Fm, ti.lm_f, ti.hi.to(F.dtype), len_mask,
-                            ti.K0, ti.E0, ti.rho0, ti.rowsum_start, ti.n_hi,
-                            ti.bailed, ti.entered, K_t, rho_t, ran_bs,
-                            rounds_active, with_estimates)
+    return (yield from _finalize_bucket(
+        ti.Fm, ti.lm_f, ti.hi.to(F.dtype), len_mask, ti.K0, ti.E0, ti.rho0,
+        ti.rowsum_start, ti.n_hi, ti.bailed, ti.entered, K_t, rho_t, ran_bs,
+        rounds_active, with_estimates, cols))
 
 
 def _finalize_bucket(Fm, lm_f, hi_f, len_mask, K0, E0, rho0, rowsum_start,
                      n_hi, bailed, entered, K_t, rho_t, ran_bs,
-                     rounds_active, with_estimates) -> BucketResult:
-    """Post-trim-loop refit / revert (nmf.py:327-365); consumes only K, rho,
-    ran_bs and rounds_active from the loop."""
+                     rounds_active, with_estimates, cols: Columns):
+    """Post-trim-loop refit / revert (nmf.py:327-365), as a step generator
+    (its sums over the columns go through ``cols``); consumes only K, rho,
+    ran_bs and rounds_active from the loop.  Returns a ``BucketResult``,
+    whose ``est_E`` holds this shard's columns."""
     G, p, W = Fm.shape
 
     # ---- post-loop refit / revert (nmf.py:327-353) ----
     conv = rho_t.amax(dim=1) < 0.2
     Kq = _floor_abs_k(K_t)
     E_env = _envelope(Fm, Kq, hi_f)
-    est_rs_env = Kq * E_env.sum(dim=1)[:, None]
+    est_rs_env = Kq * (yield from cols.sum_(E_env.sum(dim=1)))[:, None]
     rho_env = 1 - rowsum_start / (est_rs_env + 1)
     inflate = rho_env.amax(dim=1) > 0.9
 
     use_env = entered & conv & ~inflate
     use_revert = entered & (~conv | inflate)
 
-    est0_clip_rs = masked_rowsum(
-        torch.maximum(outer_product(K0, E0), Fm), hi_f)
+    est0_clip_rs = yield from cols.sum_(masked_rowsum(
+        torch.maximum(outer_product(K0, E0), Fm), hi_f))
     rho_rev = 1 - rowsum_start / (est0_clip_rs + 1)
 
     rho_out = torch.where(
@@ -305,7 +337,7 @@ def _finalize_bucket(Fm, lm_f, hi_f, len_mask, K0, E0, rho0, rowsum_start,
     K_fin = torch.where(use_env[:, None], Kq, K0)
     E_fin = torch.where(use_env[:, None], E_env, E0)
 
-    L = len_mask.sum(dim=1).to(torch.int32)
+    L = (yield from cols.sum_(len_mask.sum(dim=1))).to(torch.int32)
     needs_fw = (~bailed) & (n_hi < L)
     Kq2 = _floor_abs_k(K_fin)
     est_K = torch.where(needs_fw[:, None], Kq2, K_fin)

@@ -8,6 +8,12 @@ plain versions on CPU tensors); otherwise to the plain versions directly.
 
 The final over-approximation clip is intentionally NOT applied here: the
 reference clips selectively at call sites.
+
+On a column shard of a bucket (``parallel/seqpar.py``) the ``*_steps``
+forms take the column-sharded route: kernels 4c and 2c
+(``cuda_stream.nmf_masked_colsharded_cuda``,
+``cuda_nmf.ratio_rowsums_colsharded_cuda``), which return partials that are
+reduced across the shards between their launches.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from degnorm_tpu_torch.config import nmf_tol_applies
 from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE, Columns
 
 
 def nmf_masked(
@@ -93,6 +100,47 @@ def nmf_masked(
                and F_raw.dtype == torch.int16)
     return fn(F_raw if use_raw else F, mask,
               scale=scale if use_raw else None, **kwargs)
+
+
+def nmf_masked_steps(F: torch.Tensor, mask: torch.Tensor, *,
+                     cols: Columns = ONE_DEVICE, **kwargs):
+    """``nmf_masked`` as a step generator.  On a column shard (``cols``) the
+    column-sharded route, whatever the bucket's shape, as the JAX package
+    takes its XLA path for such a bucket: kernel 4c on the raw int16
+    coverage where there is one (``cuda_stream.nmf_masked_colsharded_cuda``,
+    the plain version on the CPU and with ``use_kernels=False``), or the
+    plain version under ``method="eigh"``, which no kernel has.
+    ``nmf_tol`` applies there at any width, as on the JAX package's XLA
+    path.  ``bucket_genes`` is not read: kernel 4c launches a block a gene.
+    Returns (K, E, u), E over the shard's columns."""
+    if not cols.sharded:
+        return nmf_masked(F, mask, **kwargs)
+    use_kernels = kwargs.pop("use_kernels", True)
+    F_raw, scale = kwargs.pop("F_raw", None), kwargs.pop("scale", None)
+    kwargs.pop("bucket_genes", None)
+    plain = kwargs.get("method", "power") == "eigh" or not use_kernels
+    fn = (cuda_stream.nmf_masked_colsharded_plain if plain
+          else cuda_stream.nmf_masked_colsharded_cuda)
+    use_raw = (F_raw is not None and scale is not None
+               and F_raw.dtype == torch.int16)
+    return (yield from fn(F_raw if use_raw else F, mask, cols,
+                          scale=scale if use_raw else None, **kwargs))
+
+
+def ratio_svd_rowsums_steps(F: torch.Tensor, mask: torch.Tensor, *,
+                            cols: Columns = ONE_DEVICE, **kwargs):
+    """``ratio_svd_rowsums`` as a step generator: on a column shard, kernel
+    2c (``cuda_nmf.ratio_rowsums_colsharded_cuda``; its plain version under
+    ``method="eigh"`` or ``use_kernels=False``).  Returns (cov_sums,
+    est_sums), whole on every shard."""
+    if not cols.sharded:
+        return ratio_svd_rowsums(F, mask, **kwargs)
+    kwargs.pop("bucket_genes", None)
+    use_kernels = kwargs.pop("use_kernels", True)
+    plain = kwargs.get("method", "power") == "eigh" or not use_kernels
+    fn = (cuda_nmf.ratio_rowsums_colsharded_plain if plain
+          else cuda_nmf.ratio_rowsums_colsharded_cuda)
+    return (yield from fn(F, mask, cols, **kwargs))
 
 
 def ratio_svd_rowsums(

@@ -1,0 +1,9 @@
+// Kernel 4c (stream_cols.cuh), its ADAPT instances (EngineConfig.nmf_tol >
+// 0) for both input forms and the finishing launch: a translation unit of
+// their own, so that they compile beside the default ones.
+#include "stream_cols.cuh"
+
+int dn_cols_tol(int f_is_i16, int which, const ColsArgs& a) {
+  return f_is_i16 ? cols_launch_form<true, true>(which, a)
+                  : cols_launch_form<false, true>(which, a);
+}

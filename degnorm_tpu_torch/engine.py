@@ -20,7 +20,13 @@ Execution model:
   * on a mesh every bucket is cut into one shard a mesh device
     (parallel/sharded.py): each runs the bucket step on its device, and the
     per-gene rows are gathered before the outer update, which runs on the
-    mesh's first device of every process.
+    mesh's first device of every process;
+  * on a mesh of two or more shards a bucket at least
+    ``EngineConfig.seqpar_width`` wide is cut along its columns instead
+    (parallel/seqpar.py): every shard holds all its genes, each reduction
+    over the columns is reduced across the shards inside the step, and the
+    per-gene rows come out whole on every shard, so the outer update takes
+    the first shard's with no gather.
 """
 from __future__ import annotations
 
@@ -38,12 +44,14 @@ from degnorm_tpu_torch.core import prng
 from degnorm_tpu_torch.core.baseline import (BucketResult,
                                              baseline_select_steps,
                                              materialize_estimate)
-from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums
+from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums_steps
 from degnorm_tpu_torch.data.buckets import (GeneBucket, integral_int16able,
                                             pack_buckets)
 from degnorm_tpu_torch.data.encode import int16able
 from degnorm_tpu_torch.ops.cuda_trim import run_steps
 from degnorm_tpu_torch.parallel import distributed
+from degnorm_tpu_torch.parallel.seqpar import (ONE_DEVICE, ColumnGroup,
+                                               Columns, shard_columns)
 from degnorm_tpu_torch.parallel.sharded import (GeneMesh, make_mesh,
                                                 shard_bucket, shard_slots)
 from degnorm_tpu_torch.pipeline.checkpoints import (load_checkpoint,
@@ -99,9 +107,11 @@ def _bucket_steps(F: torch.Tensor, len_mask: torch.Tensor,
                   ds_start: Optional[torch.Tensor],
                   nmf_cfg: NMFConfig, eng_cfg: EngineConfig,
                   with_estimates: bool = True,
-                  bucket_genes: Optional[int] = None):
+                  bucket_genes: Optional[int] = None,
+                  cols: Columns = ONE_DEVICE):
     """One DegNorm iteration's device work for one bucket (or one shard of
-    it: ``bucket_genes`` is then the whole bucket's gene count), as a step
+    it: ``bucket_genes`` is then the whole bucket's gene count; ``cols`` a
+    column shard's ``Columns``, see ``baseline_select_steps``), as a step
     generator (``ops/cuda_trim.py::run_steps``): scale-adjust the coverage
     (nmf.py:142-146,563) then run batched baseline selection.
     ``F`` may arrive as int16 (integral coverage uploads at half the bytes):
@@ -114,25 +124,31 @@ def _bucket_steps(F: torch.Tensor, len_mask: torch.Tensor,
         F_adj, len_mask, nmf_cfg, eng_cfg, ds_start=ds_start,
         with_estimates=with_estimates, F_raw=F_raw,
         scale=scale_factors if F_raw is not None else None,
-        bucket_genes=bucket_genes))
+        bucket_genes=bucket_genes, cols=cols))
 
 
-def _bucket_init(F: torch.Tensor, len_mask: torch.Tensor,
-                 eng_cfg: EngineConfig, bucket_genes: Optional[int] = None):
-    """Initialization: ratio-SVD row sums on the raw coverage
-    (nmf.py:522-526), at any bucket width.  A float32 engine hands the int16
-    upload over as it is (kernel 2 reads it at half the bytes, and both it
-    and the plain version compute on its exact float32 values); any other
-    upload is cast to the compute dtype first.  ``bucket_genes``: as in
-    ``_bucket_steps``."""
+def _bucket_init(*args, **kwargs):
+    """``_bucket_init_steps`` run to its end, with its arguments."""
+    return run_steps([_bucket_init_steps(*args, **kwargs)])[0]
+
+
+def _bucket_init_steps(F: torch.Tensor, len_mask: torch.Tensor,
+                       eng_cfg: EngineConfig,
+                       bucket_genes: Optional[int] = None,
+                       cols: Columns = ONE_DEVICE):
+    """Initialization as a step generator: ratio-SVD row sums on the raw
+    coverage (nmf.py:522-526), at any bucket width.  A float32 engine hands
+    the int16 upload over as it is (kernel 2 reads it at half the bytes, and
+    both it and the plain version compute on its exact float32 values); any
+    other upload is cast to the compute dtype first.  ``bucket_genes``,
+    ``cols``: as in ``_bucket_steps``."""
     dtype = _torch_dtype(eng_cfg.dtype)
     uncast = F.dtype == torch.int16 and dtype == torch.float32
     Ff = F if uncast else F.to(dtype)
-    return ratio_svd_rowsums(Ff, len_mask,
-                             power_iters=eng_cfg.power_iters_cold,
-                             use_kernels=eng_cfg.use_kernels,
-                             method=eng_cfg.rank1_method,
-                             bucket_genes=bucket_genes)
+    return (yield from ratio_svd_rowsums_steps(
+        Ff, len_mask, power_iters=eng_cfg.power_iters_cold,
+        use_kernels=eng_cfg.use_kernels, method=eng_cfg.rank1_method,
+        bucket_genes=bucket_genes, cols=cols))
 
 
 def _device_scatter(parts: Sequence[torch.Tensor],
@@ -168,11 +184,13 @@ class DegNormResult:
 
 
 class _Shard(NamedTuple):
-    """One of this process's shards: slots [start, stop) of a bucket."""
+    """One of this process's shards: slots [start, stop) of a bucket, or,
+    for a column shard (``cols``), every slot and one range of columns."""
     bucket: int
     start: int
     stop: int
     device: torch.device
+    cols: Columns = ONE_DEVICE
 
 
 class DegNormEngine:
@@ -181,9 +199,11 @@ class DegNormEngine:
                  mesh: Optional[GeneMesh] = None):
         """Runs on ``eng_cfg.device`` (default "cuda"); a CUDA device that
         is absent raises here.  ``mesh``: shard every bucket's genes over
-        the mesh's devices and processes instead (parallel/; then
-        ``eng_cfg.device`` is not read, and the outer update runs on the
-        mesh's first device of this process)."""
+        the mesh's devices and processes instead, and on a mesh of two or
+        more shards the columns of every bucket at least
+        ``eng_cfg.seqpar_width`` wide (parallel/; then ``eng_cfg.device`` is
+        not read, and the outer update runs on the mesh's first device of
+        this process)."""
         self.nmf_cfg = nmf_cfg or NMFConfig()
         self.eng_cfg = eng_cfg or EngineConfig()
         if mesh is None:
@@ -213,6 +233,10 @@ class DegNormEngine:
         self._ds_ref_draws = None
         self._ds_cache = None
         self._ds_zero_cache: Dict[int, torch.Tensor] = {}
+        # per bucket: its ColumnGroup where it is column-sharded, else None
+        self._col_groups: List[Optional[ColumnGroup]] = []
+        # reductions across column shards in the last fit
+        self.reductions = 0
 
     def _sync(self):
         for dev in set(self.mesh.devices):
@@ -273,9 +297,16 @@ class DegNormEngine:
                     f"for one step (7 x {b.F.size * itemsize / 2**30:.2f} "
                     f"GiB), the device has {total / 2**30:.1f} GiB")
 
+    def column_sharded(self, b: GeneBucket) -> bool:
+        """True where bucket ``b`` is cut along its columns: a mesh of two
+        or more shards and ``b.width >= seqpar_width`` (the JAX engine's
+        rule, its engine.py:409-426)."""
+        return self.mesh.size > 1 and b.width >= self.eng_cfg.seqpar_width
+
     def _upload(self):
         """Upload this process's shards of every bucket (one shard a bucket
-        on one device), skipping empty ones."""
+        on one device: its genes, or its columns where
+        ``column_sharded``), skipping empty gene shards."""
         dtype = _torch_dtype(self.eng_cfg.dtype)
         mesh = self.mesh
 
@@ -289,7 +320,22 @@ class DegNormEngine:
         t0 = time.perf_counter()
         self._shards, self._device_F, self._device_mask = [], [], []
         self._device_idx = []
+        self._col_groups = []
         for bi, b in enumerate(self._buckets):
+            if self.column_sharded(b):
+                group = ColumnGroup(mesh, b.width)
+                self._col_groups.append(group)
+                idx = torch.from_numpy(np.asarray(b.gene_indices, np.int64))
+                for s, c, (F_d, m_d) in zip(
+                        mesh.local_shards, group.columns(),
+                        shard_columns(upload_form(b.F), b.len_mask(), mesh)):
+                    self._shards.append(
+                        _Shard(bi, 0, b.F.shape[0], mesh.device_of(s), c))
+                    self._device_F.append(F_d)
+                    self._device_mask.append(m_d)
+                    self._device_idx.append(idx.to(self.device))
+                continue
+            self._col_groups.append(None)
             slots = shard_slots(b.F.shape[0], mesh.size)
             placed = shard_bucket(upload_form(b.F), b.len_mask(), mesh)
             for s, (F_d, m_d) in zip(mesh.local_shards, placed):
@@ -303,12 +349,15 @@ class DegNormEngine:
                     np.asarray(b.gene_indices[a:c], np.int64)).to(self.device))
         self._global_idx = None
         if mesh.process_count > 1:
-            # the gene ids of every process's rows, in the order gather_rows
-            # concatenates them: by process, then as self._shards
+            # the gene ids of every process's rows of the gene-sharded
+            # buckets, in the order gather_rows concatenates them: by
+            # process, then as self._shards
             k = len(mesh.devices)
-            ids = []
+            ids = [np.zeros(0, np.int64)]
             for r in range(mesh.process_count):
                 for b in self._buckets:
+                    if self.column_sharded(b):
+                        continue
                     slots = shard_slots(b.F.shape[0], mesh.size)
                     ids += [b.gene_indices[a:c]
                             for a, c in slots[r * k:(r + 1) * k]]
@@ -322,17 +371,27 @@ class DegNormEngine:
         """The (n, *tail) tensor on ``self.device`` of per-gene rows, from
         the rows of this process's shards (``parts``, in ``self._shards``
         order) and, on a multi-process mesh, every other process's; padding
-        slots are dropped.  ``tail``/``dtype`` shape an empty part list."""
+        slots are dropped.  A column-sharded bucket's rows are whole on each
+        of its shards: the first shard's are taken, with no gather.
+        ``tail``/``dtype`` shape an empty part list."""
         t0 = time.perf_counter()
         parts = [t.to(self.device) for t in parts]
+        first = {}
+        for k, sh in enumerate(self._shards):
+            first.setdefault(sh.bucket, k)
+        gene = [k for k, sh in enumerate(self._shards) if not sh.cols.sharded]
+        col = [k for k in first.values() if self._shards[k].cols.sharded]
         if self._global_idx is None:
-            out = _device_scatter(parts, self._device_idx, self._n_genes,
-                                  fill)
+            keys, rows, idx = gene + col, [], []
         else:
-            local = (torch.cat(parts) if parts else torch.empty(
-                (0,) + tuple(tail), dtype=dtype, device=self.device))
-            out = _device_scatter([distributed.gather_rows(local)],
-                                  [self._global_idx], self._n_genes, fill)
+            keys = col
+            local = (torch.cat([parts[k] for k in gene]) if gene
+                     else torch.empty((0,) + tuple(tail), dtype=dtype,
+                                      device=self.device))
+            rows, idx = [distributed.gather_rows(local)], [self._global_idx]
+        out = _device_scatter([parts[k] for k in keys] + rows,
+                              [self._device_idx[k] for k in keys] + idx,
+                              self._n_genes, fill)
         self.timings["gather"] = (self.timings.get("gather", 0.0)
                                   + time.perf_counter() - t0)
         return out
@@ -444,17 +503,29 @@ class DegNormEngine:
         t0 = time.perf_counter()
         x = torch.from_numpy(x_np).to(dev)
         self.timings["gather"] = 0.0
+        for group in self._col_groups:
+            if group is not None:
+                group.reductions, group.seconds = 0, 0.0
+        by_bucket = [[k for k, sh in enumerate(self._shards) if sh.bucket == bi]
+                     for bi in range(len(self._buckets))]
         if ckpt is not None:
             st = ckpt["state"]
             x_weighted, norm, scale = (
                 torch.from_numpy(np.array(a, np.float64)).to(dev)
                 for a in (st.x_weighted, st.norm_factors, st.scale_factors))
         else:
-            init_out = [
-                _bucket_init(F_d, m_d, self.eng_cfg,
-                             bucket_genes=self._buckets[sh.bucket].F.shape[0])
-                for sh, F_d, m_d in zip(self._shards, self._device_F,
-                                        self._device_mask)]
+            init_out = [None] * len(self._shards)
+            for bi, ks in enumerate(by_bucket):
+                # a column-sharded bucket's shards reduce in lockstep
+                done = run_steps(
+                    _bucket_init_steps(
+                        self._device_F[k], self._device_mask[k],
+                        self.eng_cfg,
+                        bucket_genes=self._buckets[bi].F.shape[0],
+                        cols=self._shards[k].cols)
+                    for k in ks)
+                for k, r in zip(ks, done):
+                    init_out[k] = r
             cov_sums = self._gather_genes([cs for cs, _ in init_out], 0.0,
                                           (p,), dtype)
             est_sums = self._gather_genes([es for _, es in init_out], 0.0,
@@ -473,8 +544,6 @@ class DegNormEngine:
         rho = x_adj = None
         results: List[BucketResult] = []
         kernel_cfg = self.nmf_cfg.kernel_key()
-        by_bucket = [[k for k, sh in enumerate(self._shards) if sh.bucket == bi]
-                     for bi in range(len(self._buckets))]
         devices = sorted(set(self.mesh.devices), key=str)
         t0 = time.perf_counter()
         with self._profiler():
@@ -488,7 +557,8 @@ class DegNormEngine:
                     b = self._buckets[bi]
                     starts = self._ds_starts(b, it)
                     # every shard's work of this bucket is queued before the
-                    # host reads any shard's trim state (run_steps)
+                    # host reads any shard's trim state; column shards reduce
+                    # in lockstep (run_steps)
                     done = run_steps(
                         _bucket_steps(
                             self._device_F[k], self._device_mask[k],
@@ -496,7 +566,8 @@ class DegNormEngine:
                             starts[self._shards[k].start:self._shards[k].stop]
                             .to(self._shards[k].device),
                             kernel_cfg, self.eng_cfg, with_estimates=final,
-                            bucket_genes=b.F.shape[0])
+                            bucket_genes=b.F.shape[0],
+                            cols=self._shards[k].cols)
                         for k in ks)
                     for k, r in zip(ks, done):
                         results[k] = r
@@ -520,6 +591,13 @@ class DegNormEngine:
                                           scale).to_numpy(),
                         self._ran_matrix(ran_restored, ran_cols), genes)
         self.timings["iterations"] = time.perf_counter() - t0
+        groups = [g for g in self._col_groups if g is not None]
+        if groups:
+            # host clock of the reductions across column shards (enqueue
+            # time where the shards share a process; the collectives' waits
+            # where they do not), and how many there were
+            self.timings["reduce"] = sum(g.seconds for g in groups)
+            self.reductions = sum(g.reductions for g in groups)
 
         self._last_results = results
         self._genes = genes
@@ -562,8 +640,10 @@ class DegNormEngine:
             W = b.F.shape[2]
             parts = [torch.cat([r.est_K.double(), r.est_E.double(),
                                 r.est_kind.double()[:, None]], dim=1)
-                     for sh, r in zip(self._shards, self._last_results)
-                     if sh.bucket == bi]
+                     for r in self._bucket_estimates(bi)]
+            if self._col_groups[bi] is not None:
+                # whole on every process: every process's rows are the same
+                parts = parts if self.mesh.process_index == 0 else []
             t0 = time.perf_counter()
             local = (torch.cat([t.to(self.device) for t in parts]) if parts
                      else torch.empty((0, p + W + 1), dtype=torch.float64,
@@ -575,6 +655,20 @@ class DegNormEngine:
                 rows.append((a[:, :p], a[:, p:p + W],
                              a[:, p + W].astype(np.int8)))
         return rows if self.mesh.process_index == 0 else None
+
+    def _bucket_estimates(self, bi: int) -> List[BucketResult]:
+        """Bucket ``bi``'s estimate factors from the last fit: its gene
+        shards' results, in slot order, or, for a column-sharded bucket, one
+        result whose ``est_E`` is joined along the columns from every shard
+        (``ColumnGroup.cat_columns``, a collective on a multi-process
+        mesh)."""
+        mine = [r for sh, r in zip(self._shards, self._last_results)
+                if sh.bucket == bi]
+        group = self._col_groups[bi]
+        if group is None:
+            return mine
+        return [mine[0]._replace(
+            est_E=group.cat_columns([r.est_E for r in mine]))]
 
     @staticmethod
     def _ran_matrix(restored: np.ndarray, cols) -> np.ndarray:
@@ -596,11 +690,12 @@ class DegNormEngine:
             if self.mesh.process_count > 1:
                 raise ValueError("the estimates of a multi-process fit are "
                                  "gathered on the coordinator (process 0)")
-            rows = [tuple(np.concatenate(
-                [getattr(r, f).cpu().numpy() for sh, r in
-                 zip(self._shards, self._last_results) if sh.bucket == bi])
-                for f in ("est_K", "est_E", "est_kind"))
-                for bi in range(len(self._buckets))]
+            rows = []
+            for bi in range(len(self._buckets)):
+                res = self._bucket_estimates(bi)
+                rows.append(tuple(
+                    np.concatenate([getattr(r, f).cpu().numpy() for r in res])
+                    for f in ("est_K", "est_E", "est_kind")))
         n = len(self._genes)
         out: List[Optional[np.ndarray]] = [None] * n
         for b, (est_K, est_E, kinds) in zip(self._buckets, rows):

@@ -22,6 +22,8 @@ from degnorm_tpu_torch.core.linalg import (finish_rank_one, masked_rank_one,
 nmf_launches = 0
 nmf_tol_launches = 0
 ratio_launches = 0
+# kernel 2c (the column-sharded ratio-SVD row sums): both of its launches
+ratio_cols_launches = 0
 
 # Shape gate of the resident loop kernels (kernel 1, the NMF loop, and
 # kernel 3, the fused trim loop; ops/cuda_trim.py uses the same gate).  Each
@@ -446,3 +448,94 @@ def ratio_rowsums_cuda(
     check_launch(code, "dn_ratio_rowsums")
     ratio_launches += 1
     return cov, est
+
+
+# --------------------------------------------------------------------------
+# kernel 2c: ratio-SVD row sums of a column-sharded bucket
+# --------------------------------------------------------------------------
+
+def ratio_rowsums_colsharded_plain(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    cols,
+    *,
+    power_iters: int = 30,
+    method: str = "power",
+):
+    """Plain version of kernel 2c, a step generator: ``ratio_rowsums_plain``
+    on one shard's columns of every gene (``cols``:
+    ``parallel/seqpar.py::Columns``), with the p x p Gram summed across the
+    shards before the power step and the (G, 2p) row sums of A0 and of
+    max(K⊗E, A0) after it.  Returns (cov_sums, est_sums), whole on every
+    shard."""
+    from degnorm_tpu_torch.core.linalg import (_EPS, _dominant, _gram,
+                                               _scale_of)
+    if not F.dtype.is_floating_point:
+        F = F.to(torch.float32)
+    m = mask.to(F.dtype)
+    A = F * m[:, None, :]
+    B = yield from cols.sum_(_gram(A))
+    u = _dominant(B, None, A, power_iters, 0, method)
+    s = _scale_of(B, u)
+    K = u * s[:, None]
+    E = torch.einsum("gpw,gp->gw", A, u) / (s[:, None] + _EPS)
+    est = torch.maximum(outer_product(K, E), A)
+    sums = yield from cols.sum_(torch.cat(
+        [torch.einsum("gpw,gw->gp", F, m), torch.einsum("gpw,gw->gp", est, m)],
+        dim=1))
+    p = F.shape[1]
+    return sums[:, :p], sums[:, p:]
+
+
+def ratio_rowsums_colsharded_cuda(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    cols,
+    *,
+    power_iters: int = 30,
+    method: str = "power",
+):
+    """Kernel wrapper with ``ratio_rowsums_colsharded_plain``'s signature, a
+    step generator (csrc/ratio_cols.cu): one launch writes each gene's
+    partial Gram of A0 over the shard's columns (kernel 4c's launch (a),
+    with no X); after the sum across the shards a second runs the cold power
+    step on the summed Gram and writes the partial row sums of A0 and of
+    max(K⊗E, A0), which are summed in turn.  Takes float32 coverage or the
+    raw int16 upload as it is.  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises (``method="eigh"`` has no
+    kernel)."""
+    if F.device.type == "cpu":
+        return (yield from ratio_rowsums_colsharded_plain(
+            F, mask, cols, power_iters=power_iters, method=method))
+    global ratio_cols_launches
+    from degnorm_tpu_torch.ops.build import check_launch, get_lib
+    name = "ratio_rowsums_colsharded_cuda"
+    if method != "power":
+        raise NotImplementedError(f"{name}: method={method!r} has no kernel")
+    check_coverage_input(F, name, int16_ok=True)
+    G, p, W = F.shape
+    threads = pick_loop_threads(p, W)
+    dev = F.device
+    m8 = _as_u8(mask)
+    i16 = int(F.dtype == torch.int16)
+    part = torch.empty((G, p, p), dtype=torch.float32, device=dev)
+    sums = torch.empty((G, 2 * p), dtype=torch.float32, device=dev)
+    if G == 0:
+        return sums[:, :p], sums[:, p:]
+    lib = get_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(lib.dn_cols_gram(
+            F.data_ptr(), i16, m8.data_ptr(), None, None, None,
+            part.data_ptr(), G, p, W, threads, stream), "dn_cols_gram")
+        ratio_cols_launches += 1
+    B = yield from cols.sum_(part)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(lib.dn_ratio_cols_sums(
+            F.data_ptr(), i16, m8.data_ptr(), B.data_ptr(), sums.data_ptr(),
+            G, p, W, int(power_iters), threads, stream),
+            "dn_ratio_cols_sums")
+        ratio_cols_launches += 1
+    sums = yield from cols.sum_(sums)
+    return sums[:, :p], sums[:, p:]

@@ -21,10 +21,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from degnorm_tpu_torch.core.linalg import outer_product
 from degnorm_tpu_torch.ops import cuda_nmf
 
-# Launch counter (plain int): one is added where the kernel is launched.
+# Launch counters (plain ints): one is added where a kernel is launched;
+# ``colsharded_launches`` counts every launch of kernel 4c (a, b and finish),
+# ``colsharded_tol_launches`` those of its nmf_tol instances (in both).
 stream_launches = 0
+colsharded_launches = 0
+colsharded_tol_launches = 0
 
 # Launch geometry of csrc/stream.cuh.  A gene is a cluster of 1, 2, 4 or 8
 # thread blocks (8 is the largest portable cluster); its columns are dealt to
@@ -79,6 +84,18 @@ def pick_geometry(W: int, p: int) -> Tuple[int, int]:
     return cl, threads
 
 
+def _a0(F, mask, scale):
+    """A0 of the streamed versions' input forms: with ``scale`` (p,), ``F``
+    is the raw coverage (int16 or floating) and A0 = F.to(scale.dtype) /
+    scale * mask, in exactly that order; otherwise A0 = F * mask (integer
+    coverage cast to float32 first)."""
+    if scale is not None:
+        F = F.to(scale.dtype) / scale[None, :, None]
+    elif not F.dtype.is_floating_point:
+        F = F.to(torch.float32)
+    return F * mask.to(F.dtype)[:, None, :]
+
+
 def nmf_masked_streamed_plain(
     F: torch.Tensor,
     mask: torch.Tensor,
@@ -91,17 +108,11 @@ def nmf_masked_streamed_plain(
     u0: Optional[torch.Tensor] = None,
     scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version.  With ``scale`` (p,), ``F`` is the raw coverage (int16
-    or floating) and A0 = F.to(scale.dtype) / scale * mask, in exactly that
-    order; otherwise A0 = F * mask.  Then the loop of
+    """Plain version (A0: ``_a0``), then the loop of
     ``cuda_nmf.nmf_masked_plain``.  Returns (K, E, u); genes outside
     ``gene_active`` return zeros."""
-    if scale is not None:
-        F = F.to(scale.dtype) / scale[None, :, None]
-    elif not F.dtype.is_floating_point:
-        F = F.to(torch.float32)
     return cuda_nmf.nmf_loop_plain(
-        F * mask.to(F.dtype)[:, None, :], mask, nmf_iter=nmf_iter,
+        _a0(F, mask, scale), mask, nmf_iter=nmf_iter,
         power_iters_cold=power_iters_cold, power_iters_warm=power_iters_warm,
         power_warm_plain=power_warm_plain, gene_active=gene_active, u0=u0)
 
@@ -212,3 +223,207 @@ def scaled_quotients_cuda(raw: torch.Tensor, scale: torch.Tensor) -> torch.Tenso
             sc.numel(), stream)
     check_launch(code, "dn_scaled_quotients")
     return out
+
+
+# --------------------------------------------------------------------------
+# kernel 4c: the NMF loop of a column-sharded bucket, cut at its reductions
+# --------------------------------------------------------------------------
+
+def nmf_masked_colsharded_plain(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    cols,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int = 30,
+    power_iters_warm: int = 6,
+    power_warm_plain: int = 0,
+    gene_active: Optional[torch.Tensor] = None,
+    u0: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    nmf_tol: float = 0.0,
+    method: str = "power",
+):
+    """Plain version of kernel 4c, a step generator: the loop of
+    ``nmf_masked_streamed_plain`` on one shard's columns of every gene
+    (``cols``: ``parallel/seqpar.py::Columns``), each p x p Gram summed
+    across the shards before its power step, so that u, s and K are whole
+    and the same on every shard.  ``nmf_tol`` > 0: the adaptive loop of
+    ``cuda_nmf.nmf_masked_plain`` (the JAX package's XLA path honours it at
+    any width); ``method="eigh"``: u from the summed Gram's
+    eigendecomposition.  Returns (K, E, u): E over the shard's columns;
+    genes outside ``gene_active`` return zeros."""
+    from degnorm_tpu_torch.core.linalg import (_EPS, _dominant, _gram,
+                                               _scale_of)
+    A0 = _a0(F, mask, scale)
+    G = A0.shape[0]
+    step = 1.0 / (nmf_iter ** 0.5) if nmf_iter else 0.0
+    gv = "gpw,gp->gw"
+    B = yield from cols.sum_(_gram(A0))
+    u = _dominant(B, u0, A0, power_iters_cold, 0, method)
+    v = torch.einsum(gv, A0, u)
+    X = A0.clone()
+    if nmf_tol > 0:
+        # the (K, E) carry; a gene freezes after the first iteration with
+        # max|dK| <= nmf_tol * max|K| (cuda_nmf._adaptive_loop)
+        s = _scale_of(B, u)
+        K, E = u * s[:, None], v / (s[:, None] + _EPS)
+        done = torch.zeros(G, dtype=torch.bool, device=A0.device)
+        live = (torch.ones_like(done) if gene_active is None
+                else gene_active.to(torch.bool))
+        for _ in range(nmf_iter):
+            if not (yield (live & ~done).any()):
+                break
+            Xn = outer_product(K, E)
+            Xn.sub_(A0).mul_(step)
+            torch.sub(X, Xn, out=Xn)
+            torch.maximum(Xn, A0, out=Xn)
+            B = yield from cols.sum_(_gram(Xn))
+            un = _dominant(B, u, Xn, power_iters_warm, power_warm_plain,
+                           method)
+            sn = _scale_of(B, un)
+            Kn = un * sn[:, None]
+            En = torch.einsum(gv, Xn, un) / (sn[:, None] + _EPS)
+            keep = done[:, None]
+            Xn[done] = X[done]
+            X = Xn
+            Kn = torch.where(keep, K, Kn)
+            En = torch.where(keep, E, En)
+            un = torch.where(keep, u, un)
+            delta = (Kn - K).abs().amax(dim=1)
+            ref = torch.clamp_min(Kn.abs().amax(dim=1), 1e-30)
+            done = done | (delta <= nmf_tol * ref)
+            K, E, u = Kn, En, un
+    else:
+        for _ in range(nmf_iter):
+            est = outer_product(u, v)
+            est.sub_(A0).mul_(step)
+            torch.maximum(X.sub_(est), A0, out=X)
+            B = yield from cols.sum_(_gram(X))
+            u = _dominant(B, u, X, power_iters_warm, power_warm_plain, method)
+            v = torch.einsum(gv, X, u)
+        s = _scale_of(B, u)
+        K, E = u * s[:, None], v / (s[:, None] + _EPS)
+    if gene_active is not None:
+        act = gene_active.to(A0.dtype)[:, None]
+        K, E, u = K * act, E * act, u * act
+    return K, E, u
+
+
+def nmf_masked_colsharded_cuda(
+    F: torch.Tensor,
+    mask: torch.Tensor,
+    cols,
+    *,
+    nmf_iter: int,
+    power_iters_cold: int = 30,
+    power_iters_warm: int = 6,
+    power_warm_plain: int = 0,
+    gene_active: Optional[torch.Tensor] = None,
+    u0: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None,
+    nmf_tol: float = 0.0,
+    method: str = "power",
+):
+    """Kernel wrapper with ``nmf_masked_colsharded_plain``'s signature, a
+    step generator (csrc/stream_cols.cu): launch (a) writes X = A0 and each
+    gene's partial Gram of A0 over the shard's columns; after the Gram is
+    summed across the shards, each of ``nmf_iter`` launches (b) runs the
+    power step on the summed Gram (every shard the same one, so u is
+    bit-equal everywhere), one merged sweep of the shard's columns and the
+    next partial Gram; a finishing launch refits u and s and writes K and
+    the shard's columns of E.  ``nmf_iter + 2`` launches and ``nmf_iter + 1``
+    reductions a call.  ``nmf_tol > 0`` launches the adaptive instances
+    (csrc/stream_cols_tol.cu): a gene freezes on the summed Gram's refit, as
+    in the plain version, and adds zero partials from then on.  Takes
+    float32 coverage, or int16 coverage with or without ``scale``, of any
+    width, 2 <= p <= 32; a gene outside ``gene_active`` writes zero
+    partials, so every shard reduces as often.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises
+    (``method="eigh"`` has no kernel: ``core/nmf.py`` routes it to the plain
+    version).  A block a gene, of ``cuda_nmf.pick_loop_threads`` threads."""
+    kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
+                  power_iters_warm=power_iters_warm,
+                  power_warm_plain=power_warm_plain, gene_active=gene_active,
+                  u0=u0, scale=scale, nmf_tol=nmf_tol, method=method)
+    if F.device.type == "cpu":
+        return (yield from nmf_masked_colsharded_plain(F, mask, cols,
+                                                       **kwargs))
+    global colsharded_launches, colsharded_tol_launches
+    from degnorm_tpu_torch.ops.build import check_launch, get_lib
+    name = "nmf_masked_colsharded_cuda"
+    if method != "power":
+        raise NotImplementedError(f"{name}: method={method!r} has no kernel")
+    if F.dtype not in (torch.float32, torch.int16):
+        raise TypeError(f"{name}: coverage must be float32 or int16, "
+                        f"got {F.dtype}")
+    if not F.is_contiguous():
+        raise ValueError(f"{name}: coverage tensor must be contiguous")
+    G, p, W = F.shape
+    if p > cuda_nmf.MAX_P or p < 2:
+        raise ValueError(
+            f"{name}: p={p} outside the kernels' range 2..{cuda_nmf.MAX_P}")
+    if scale is not None and F.dtype != torch.int16:
+        raise NotImplementedError(
+            f"{name}: float32 coverage with scale is not taken on a CUDA "
+            "tensor; divide it first and pass no scale")
+    f32, dev = torch.float32, F.device
+    threads = cuda_nmf.pick_loop_threads(p, W)
+    ptr = cuda_nmf._ptr
+    m8 = cuda_nmf._as_u8(mask)
+    act8 = None if gene_active is None else cuda_nmf._as_u8(gene_active)
+    sc = None if scale is None else scale.to(f32).contiguous()
+    u_in = None if u0 is None else u0.to(f32).contiguous()
+    i16 = int(F.dtype == torch.int16)
+    X = torch.empty((G, p, W), dtype=f32, device=dev)            # scratch
+    K = torch.empty((G, p), dtype=f32, device=dev)
+    E = torch.empty((G, W), dtype=f32, device=dev)
+    if G == 0:
+        return K, E, torch.empty((G, p), dtype=f32, device=dev)
+    tol = float(nmf_tol)
+    # the adaptive instances carry s and the frozen genes between launches
+    s_in = s_out = done = None
+    if tol > 0:
+        done = torch.zeros(G, dtype=torch.uint8, device=dev)
+    lib = get_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        part = torch.empty((G, p, p), dtype=f32, device=dev)
+        check_launch(lib.dn_cols_gram(
+            F.data_ptr(), i16, m8.data_ptr(), ptr(act8), ptr(sc),
+            X.data_ptr(), part.data_ptr(), G, p, W, threads, stream),
+            "dn_cols_gram")
+        colsharded_launches += 1
+    B = yield from cols.sum_(part)
+    for it in range(nmf_iter):
+        n_sq, n_plain = ((power_iters_cold, 0) if it == 0
+                         else (power_iters_warm, power_warm_plain))
+        u_out = torch.empty((G, p), dtype=f32, device=dev)
+        part = torch.empty((G, p, p), dtype=f32, device=dev)
+        if tol > 0:
+            s_out = torch.empty(G, dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            check_launch(lib.dn_cols_sweep(
+                F.data_ptr(), i16, m8.data_ptr(), ptr(act8), ptr(sc),
+                X.data_ptr(), B.data_ptr(), ptr(u_in), u_out.data_ptr(),
+                part.data_ptr(), ptr(s_in), ptr(s_out), ptr(done), tol, it,
+                G, p, W, int(nmf_iter), int(n_sq), int(n_plain), threads,
+                stream), "dn_cols_sweep")
+            colsharded_launches += 1
+            colsharded_tol_launches += tol > 0
+        u_in, s_in = u_out, s_out
+        B = yield from cols.sum_(part)
+    n_sq, n_plain = ((power_iters_cold, 0) if nmf_iter == 0
+                     else (power_iters_warm, power_warm_plain))
+    u = torch.empty((G, p), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch(lib.dn_cols_finish(
+            m8.data_ptr(), ptr(act8), X.data_ptr(), B.data_ptr(), ptr(u_in),
+            K.data_ptr(), E.data_ptr(), u.data_ptr(), ptr(s_in), ptr(done),
+            tol, G, p, W, int(n_sq), int(n_plain), threads, stream),
+            "dn_cols_finish")
+        colsharded_launches += 1
+        colsharded_tol_launches += tol > 0
+    return K, E, u

@@ -12,12 +12,14 @@ returns it.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
 from degnorm_tpu_torch.core.linalg import masked_rowsum, outer_product
 from degnorm_tpu_torch.ops import cuda_nmf
+from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE, Columns, Reduction
 
 # Launch counters (plain ints): one is added where the kernel is launched.
 # ``trim_fast_launches`` and ``trim_tol_launches`` count the launches that
@@ -56,7 +58,12 @@ def run_steps(steps: Iterable) -> List:
     whose host value it needs next and takes ``bool`` of it back.  Every
     generator is advanced to its next read before the host waits on any
     one: shards of a bucket on several cards all have their round queued
-    while the host reads one card's ``active.any()``."""
+    while the host reads one card's ``active.any()``.
+
+    The column shards of a bucket (``parallel/seqpar.py``) also yield a
+    ``Reduction``; the shards of one bucket ask in lockstep, and each round
+    of asks is answered by ``Reduction.group.combine`` (partials reduced
+    across the shards) instead."""
     steps = list(steps)
     out: List = [None] * len(steps)
     asks = {}
@@ -66,10 +73,19 @@ def run_steps(steps: Iterable) -> List:
         except StopIteration as stop:
             out[i] = stop.value
     while asks:
+        reduce = [i for i, a in asks.items() if isinstance(a, Reduction)]
+        if reduce and len(reduce) != len(asks):
+            raise RuntimeError("column shards diverged: some ask for a "
+                               "reduction while others read the host")
+        if reduce:
+            replies = dict(zip(reduce, asks[reduce[0]].group.combine(
+                [asks[i] for i in reduce])))
+        else:
+            replies = {i: bool(t) for i, t in asks.items()}
         nxt = {}
-        for i, t in asks.items():
+        for i, r in replies.items():
             try:
-                nxt[i] = steps[i].send(bool(t))
+                nxt[i] = steps[i].send(r)
             except StopIteration as stop:
                 out[i] = stop.value
         asks = nxt
@@ -106,6 +122,7 @@ def trim_loop_steps(
     nmf_tol: float = 0.0,
     iters_out: Optional[torch.Tensor] = None,
     nmf_fn: Optional[Callable] = None,
+    cols: Columns = ONE_DEVICE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the whole trim loop (reference nmf.py:273-324), as
     a step generator (``run_steps``).
@@ -133,7 +150,13 @@ def trim_loop_steps(
         a round's NMF on ``Fm`` (resumed from ``u0`` at the resume count);
         the default is ``cuda_nmf.nmf_masked_plain``.  The unfused loop of
         ``core/baseline.py`` passes the kernel route here (with its own
-        ``nmf_tol``; the unfused loop has no trim_fast).
+        ``nmf_tol``; the unfused loop has no trim_fast).  It may return a
+        step generator (``core/nmf.py::nmf_masked_steps``), which the loop
+        runs.
+      cols: the shard's columns of a column-sharded bucket
+        (``parallel/seqpar.py``): the per-bin sums and the row sums over
+        the columns are reduced across the bucket's shards, so every shard
+        holds the same per-gene state and reads the same ``active``.
 
     The loop reads ``active.any()`` on the host once a round (the
     counterpart of ``lax.while_loop``'s condition): it yields that tensor
@@ -196,7 +219,8 @@ def trim_loop_steps(
         z = KE.sub_(Fm).div_(Fm + 1)
         res = z.mul_(z).amax(dim=1) * ca_f
         del KE, z
-        ss_r = _per_bin_sums(res, bin_id, B) / torch.clamp_min(bin_count, 1.0)
+        ss_r = (yield from cols.sum_(_per_bin_sums(res, bin_id, B))) \
+            / torch.clamp_min(bin_count, 1.0)
         ss_masked = torch.where(bin_active, ss_r, neg_inf)
 
         perfect = ss_masked.amax(dim=1) == 0.0              # nmf.py:286-287
@@ -221,9 +245,12 @@ def trim_loop_steps(
         # cold rank-1 resumed from the previous round's left vector at the
         # reduced power_iters_resume count (same unique Perron target)
         round_iters.zero_()
-        Kn, En, un = nmf_fn(can, run_nmf, u)
+        res = nmf_fn(can, run_nmf, u)
+        if inspect.isgenerator(res):
+            res = yield from res
+        Kn, En, un = res
         iters += round_iters
-        est_rs = Kn * En.sum(dim=1)[:, None]
+        est_rs = Kn * (yield from cols.sum_(En.sum(dim=1)))[:, None]
         zero_row = est_rs.amin(dim=1) == 0.0                # nmf.py:315-316
         update_rho = run_nmf & ~zero_row
 
@@ -231,8 +258,8 @@ def trim_loop_steps(
         can_f = can.to(dtype)
         KE_clip = outer_product(Kn, En)
         torch.maximum(KE_clip, Fm, out=KE_clip)
-        rs_F = masked_rowsum(Fm, can_f)
-        rs_KE = masked_rowsum(KE_clip, can_f)
+        rs_F = yield from cols.sum_(masked_rowsum(Fm, can_f))
+        rs_KE = yield from cols.sum_(masked_rowsum(KE_clip, can_f))
         del KE_clip
         rho_new = 1 - rs_F / (rs_KE + 1)
 

@@ -180,3 +180,19 @@ def gather_rows(local: torch.Tensor) -> torch.Tensor:
     dist.all_gather(bufs, padded)
     out = torch.cat([b[:c] for b, c in zip(bufs, counts)])
     return (out.bool() if is_bool else out).to(home)
+
+
+def gather_equal(local: torch.Tensor) -> torch.Tensor:
+    """Every process's ``local``, stacked along a new dim 0 in process
+    order, on every process: one all-gather, for tensors of the same shape
+    and type on every process (the column shards' partials,
+    parallel/seqpar.py; ``gather_rows`` takes rows of any count).  Outside
+    a process group: ``local[None]``.  Under gloo a CUDA tensor goes
+    through the host."""
+    if not dist.is_initialized():
+        return local[None]
+    home = local.device
+    t = local.to(_comm_device()).contiguous()
+    bufs = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(bufs, t)
+    return torch.stack(bufs).to(home)

@@ -2,7 +2,9 @@
 ``__graft_entry__.py::dryrun_multichip``.  An ``n``-shard gene mesh fit on
 small shapes, held against the same fit on one device: one
 ``sharded_iteration_step`` on a single bucket, then a whole
-``DegNormEngine.run`` over several buckets.  On a machine with fewer cards
+``DegNormEngine.run`` over several buckets and one outlier gene just past
+``EngineConfig.seqpar_width``, whose bucket is column-sharded
+(parallel/seqpar.py).  On a machine with fewer cards
 than shards, the shards share the cards in turn (all ``n`` on one card of a
 one-card machine); on the CPU they are CPU devices.
 
@@ -10,7 +12,9 @@ The shards' own kernels launch as the whole bucket's, but PyTorch's batched
 products and reductions may pick another algorithm for a shard's smaller
 batch on a card, so the check is the engine's parity gate (DI atol 5e-3,
 adjusted counts rtol 5e-3, baseline-selection flags equal), and whether the
-bits are equal is reported beside it."""
+bits are equal is reported beside it.  The fit is not bit-equal where it
+has a column-sharded bucket (its reductions sum the columns in another
+order), so ``bit_equal`` is the gene-sharded step's."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -20,24 +24,26 @@ import numpy as np
 import torch
 
 from degnorm_tpu_torch.config import EngineConfig, NMFConfig
+from degnorm_tpu_torch.parallel.seqpar import CHUNK
 from degnorm_tpu_torch.parallel.sharded import (make_mesh, shard_bucket,
                                                 sharded_iteration_step)
 
 
-def _dataset(n_genes: int, p: int, seed: int):
+def _dataset(n_genes: int, p: int, seed: int, outlier: int = 0):
     """Integral coverage of ``n_genes`` genes of 200-3000 bases (two bucket
-    widths) and read counts, from ``seed``."""
+    widths) and read counts, from ``seed``; with ``outlier``, one more gene
+    of that many bases last."""
     rng = np.random.default_rng(seed)
     cov = OrderedDict()
-    for i in range(n_genes):
-        L = int(rng.integers(200, 3000))
+    lengths = [int(rng.integers(200, 3000)) for _ in range(n_genes)]
+    for i, L in enumerate(lengths + ([outlier] if outlier else [])):
         t = np.linspace(0, 1, L)
         base = (np.abs(np.sin(np.pi * t)) + 0.2) * (2 + 8 * rng.random())
         rows = [base * (0.5 + 1.5 * rng.random())
                 * (np.exp(-2 * (1 - t) * rng.random()) if j % 2 else 1.0)
                 for j in range(p)]
         cov[f"g{i}"] = np.round(np.vstack(rows) * 10).astype(np.float32)
-    X = np.round(np.abs(rng.standard_normal((n_genes, p))) * 300 + 30)
+    X = np.round(np.abs(rng.standard_normal((len(cov), p))) * 300 + 30)
     return cov, X
 
 
@@ -62,10 +68,11 @@ def _held(name: str, rho, x_adj, ran, rho1, x_adj1, ran1) -> float:
 
 def dryrun_multichip(n_shards: int, devices: Optional[Sequence] = None,
                      n_genes: int = 96, p: int = 4, seed: int = 3) -> Dict:
-    """Run the gene-sharded step and fit over ``n_shards`` shards on
-    ``devices`` (default: every visible card, in turn; the CPU where there
-    is none) and hold each against one device (see the module docstring).
-    Raises past the gate; returns what it compared."""
+    """Run the gene-sharded step and the fit (its outlier column-sharded)
+    over ``n_shards`` shards on ``devices`` (default: every visible card, in
+    turn; the CPU where there is none) and hold each against one device
+    (see the module docstring).  Raises past the gate, or where the outlier
+    is not column-sharded; returns what it compared."""
     from degnorm_tpu_torch.engine import DegNormEngine
     if devices is None:
         devices = ([torch.device("cuda", i)
@@ -75,7 +82,10 @@ def dryrun_multichip(n_shards: int, devices: Optional[Sequence] = None,
     mesh = make_mesh([devices[s % len(devices)] for s in range(n_shards)])
     first = mesh.devices[0]
     nmf_cfg = NMFConfig(nmf_iter=8, degnorm_iter=2)
-    eng_cfg = EngineConfig(device=str(first), bucket_widths=(1024, 4096))
+    # the outlier's column-sharded bucket at 8,192 bases, not the default
+    # 32,768: a bucket is 64 genes or more, and the CPU runs it too
+    eng_cfg = EngineConfig(device=str(first), bucket_widths=(1024, 4096),
+                           seqpar_width=8192)
 
     # one iteration of one bucket through sharded_iteration_step
     G, W = 8 * n_shards, 1024
@@ -98,9 +108,16 @@ def dryrun_multichip(n_shards: int, devices: Optional[Sequence] = None,
                       host[7], host[11])
     step_equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
 
-    # a whole fit over several buckets
-    cov, X = _dataset(4 * G, p, seed + 1)
-    fit = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh).run(cov, X)
+    # a whole fit over several buckets, and an outlier gene past
+    # seqpar_width in a bucket of its own, column-sharded
+    cov, X = _dataset(4 * G, p, seed + 1,
+                      outlier=eng_cfg.seqpar_width + CHUNK)
+    engine = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh)
+    fit = engine.run(cov, X)
+    n_col = sum(g is not None for g in engine._col_groups)
+    if n_shards > 1 and n_col != 1:
+        raise AssertionError(f"dryrun_multichip: {n_col} column-sharded "
+                             "buckets, not the outlier's one")
     ref = DegNormEngine(nmf_cfg, eng_cfg).run(cov, X)
     fit_diff = _held("the fit", fit.rho, fit.x_adj,
                      fit.ran_baseline_selection, ref.rho, ref.x_adj,
@@ -108,6 +125,8 @@ def dryrun_multichip(n_shards: int, devices: Optional[Sequence] = None,
     fit_equal = all(np.array_equal(getattr(fit, f), getattr(ref, f))
                     for f in ("rho", "x_adj", "ran_baseline_selection"))
     return {"shards": n_shards, "devices": [str(d) for d in mesh.devices],
-            "step_genes": G, "fit_genes": 4 * G, "samples": p,
-            "bit_equal": step_equal and fit_equal,
+            "step_genes": G, "fit_genes": len(cov), "samples": p,
+            "outlier_bases": eng_cfg.seqpar_width + CHUNK,
+            "column_sharded_buckets": n_col,
+            "bit_equal": step_equal, "fit_bit_equal": fit_equal,
             "step_max_diff": step_diff, "fit_max_diff": fit_diff}

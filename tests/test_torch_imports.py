@@ -50,6 +50,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import degnorm_tpu_torch.parallel.sharded\n"
         "import degnorm_tpu_torch.parallel.distributed\n"
         "import degnorm_tpu_torch.parallel.dryrun\n"
+        "import degnorm_tpu_torch.parallel.seqpar\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'degnorm_tpu' or m.startswith('degnorm_tpu.')]\n"

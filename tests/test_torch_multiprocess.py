@@ -93,6 +93,7 @@ eng = DegNormEngine(NMFConfig(**%(nmf)r), EngineConfig(**%(eng)r),
 res = eng.run(cov, X, checkpoint_dir=ckpt)
 np.save(f"{out}/rho_{rank}.npy", res.rho)
 np.save(f"{out}/adj_{rank}.npy", res.x_adj)
+np.save(f"{out}/ran_{rank}.npy", res.ran_baseline_selection)
 if rank == 0:
     ests = res.estimates()
     np.save(f"{out}/est0.npy", np.concatenate([e.ravel() for e in ests]))
@@ -106,15 +107,18 @@ got = distributed.broadcast_string("dir/å-π ok" if rank == 0 else "")
 assert got == "dir/å-π ok", got
 print("rank", rank, "shards", [(s.bucket, s.start, s.stop) for s in eng._shards],
       "gather_s", eng.timings["gather"], flush=True)
+print("rank", rank, "column shards",
+      [(s.bucket, s.cols.offset) for s in eng._shards if s.cols.sharded],
+      "reductions", eng.reductions, flush=True)
 distributed.shutdown()
 print("ENGINE OK", flush=True)
 """
 
 
-def _two_process_fit(tmp_path, cov, X, ckpt=""):
+def _two_process_fit(tmp_path, cov, X, ckpt="", eng=ENG_KW):
     np.savez(tmp_path / "data.npz", n=len(cov), X=X,
              **{g: m for g, m in cov.items()})
-    code = _ENGINE_RANK % {"nmf": NMF_KW, "eng": ENG_KW}
+    code = _ENGINE_RANK % {"nmf": NMF_KW, "eng": eng}
     outs = run_ranks(lambda r: [sys.executable, "-c", code, str(tmp_path),
                                 ckpt])
     assert all("ENGINE OK" in o for o in outs)
@@ -165,6 +169,38 @@ def test_two_process_fit_resumes_a_single_process_checkpoint(tmp_path):
         assert int(z["iteration"]) == NMF_KW["degnorm_iter"] - 1
         np.testing.assert_allclose(z["rho"], resumed.rho, rtol=1e-10)
     assert sorted(os.listdir(duo)) == ["degnorm_checkpoint.npz"]
+
+
+def test_two_processes_column_shard_the_wide_bucket(tmp_path):
+    """Two gloo processes, one shard each: the bucket at least
+    ``seqpar_width`` wide is cut along its columns (one column shard a
+    process, its reductions gathered over the group), every other bucket
+    along its genes.  Both ranks give the same bits, within 1e-9 of the
+    single-process fit, and the coordinator's estimates too."""
+    cov, X = _fit_data(seed=44)
+    rng = np.random.default_rng(45)
+    cov[f"g{len(cov)}"] = random_coverage(rng, 3, 3000, scale=6,
+                                          degraded=True)
+    X = np.vstack([X, np.round(np.abs(rng.standard_normal((1, 3))) * 300
+                               + 30)])
+    eng = dict(ENG_KW, bucket_widths=(512, 1024, 4096), seqpar_width=4096)
+    outs = _two_process_fit(tmp_path, cov, X, eng=eng)
+    single = DegNormEngine(NMFConfig(**NMF_KW), EngineConfig(**eng)).run(
+        cov, X)
+    assert "column shards [(2, 0)]" in outs[0]
+    assert "column shards [(2, 2048)]" in outs[1]
+    for name in ("rho", "adj", "ran"):
+        a, b = (np.load(tmp_path / f"{name}_{r}.npy") for r in range(2))
+        assert np.array_equal(a, b), name
+    np.testing.assert_array_equal(np.load(tmp_path / "ran_0.npy"),
+                                  single.ran_baseline_selection)
+    np.testing.assert_allclose(np.load(tmp_path / "rho_0.npy"), single.rho,
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np.load(tmp_path / "adj_0.npy"), single.x_adj,
+                               rtol=1e-9)
+    want = np.concatenate([e.ravel() for e in single.estimates()])
+    np.testing.assert_allclose(np.load(tmp_path / "est0.npy"), want,
+                               rtol=1e-9, atol=1e-9)
 
 
 # ---------------------------------------------------------------------------

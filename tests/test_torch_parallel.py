@@ -123,9 +123,9 @@ def test_mesh_fit_matches_the_jax_engine():
 
 
 def test_wide_bucket_is_gene_sharded():
-    """A W=65536 bucket, which the JAX package column-shards on a mesh
-    (seqpar, not ported), is gene-sharded here like any other and gives the
-    one-device fit's bits."""
+    """A W=65536 bucket with ``seqpar_width`` above its width (by default
+    it is column-sharded on a mesh: tests/test_torch_seqpar.py) is
+    gene-sharded like any other and gives the one-device fit's bits."""
     rng = np.random.default_rng(4)
     cov = OrderedDict()
     for i in range(3):
@@ -134,11 +134,12 @@ def test_wide_bucket_is_gene_sharded():
                                           degraded=(i % 2 == 0))
     X = np.round(np.abs(rng.standard_normal((3, 3))) * 300 + 30)
     nmf_kw = dict(nmf_iter=3, degnorm_iter=1)
-    kw = dict(dtype="float64", bucket_widths=(65536,))
+    kw = dict(dtype="float64", bucket_widths=(65536,), seqpar_width=65537)
     one_eng, one = port_fit(cov, X, nmf_kw, **kw)
     assert [b.width for b in one_eng._buckets] == [65536]
     eng, got = port_fit(cov, X, nmf_kw, mesh=make_mesh(["cpu"] * 2), **kw)
     assert len(eng._shards) == 2
+    assert not any(sh.cols.sharded for sh in eng._shards)
     for f in ("rho", "x_adj", "ran_baseline_selection"):
         assert np.array_equal(getattr(got, f), getattr(one, f)), f
 
@@ -254,9 +255,14 @@ def test_mesh_flag_runs_the_command(tmp_path):
 
 @pytest.mark.parametrize("n", [2, 3])
 def test_dryrun_multichip_on_cpu_devices(n):
+    """The gene-sharded step bit for bit; the fit, whose outlier gene is
+    column-sharded, within float32 summation order of one device's (DI
+    1e-5, the bound PERF.md states for the card)."""
     out = dryrun_multichip(n, devices=["cpu"])
     assert out["bit_equal"] and out["shards"] == n
     assert out["devices"] == ["cpu"] * n
+    assert out["column_sharded_buckets"] == 1
+    assert out["fit_max_diff"] <= 1e-5
 
 
 # ---------------------------------------------------------------------------
