@@ -35,8 +35,12 @@ NCCL group, and the ``--multihost`` command in two processes on phase
 column-sharded buckets (``parallel/seqpar.py``, kernels 4c and 2c): phase
 ``mesh``'s long tail column-shards its W=65536 bucket and is held to the
 parity gate of ``fit_wide``'s; phase ``seqpar`` holds 4c and 2c against
-their plain versions on that bucket cut in two (p = 3, 8, 16, 32) and on one
-110,000-base outlier, reports the long tail's sharded fit, and fits three
+their plain versions on that bucket cut in two (p = 3, 8, 16, 32), on one
+110,000-base outlier and on a TTN-like bucket of one gene in 64 slots (the
+last two with 4c's nmf_tol instances too; each run twice for the same bits,
+with its picked
+geometry, the host microseconds a sweep and the times before the kernels'
+redesign beside this run's), reports the long tail's sharded fit, and fits three
 TTN-like genes column-sharded and gene-sharded, each against one device;
 phase ``multihost`` also column-shards the long tail in two gloo processes.
 Each phase prints one JSON line; any failed phase raises (non-zero exit).  There
@@ -57,10 +61,11 @@ upload;
 ``--ptxas`` prints the compiler's register/shared-memory report (and keeps
 its raw output in ``degnorm_tpu_torch/_build/ptxas.log``) and fails on a
 kernel instance that spills outside ``SPILL_ALLOWED``;
-``--sweep`` times kernel 4 over launch geometries, kernel 3 over threads a
-block, kernel 1 over its launches (a block or a warp a gene) and kernel 2
-over blocks a gene (the measurements behind the rules in
-``ops/cuda_stream.py::pick_geometry`` and ``ops/cuda_nmf.py::
+``--sweep`` times kernel 4c over blocks a gene (``sweep_colsharded``),
+kernel 4 over launch geometries, kernel 3 over threads a block, kernel 1
+over its launches (a block or a warp a gene) and kernel 2 over blocks a
+gene (the measurements behind the rules in ``ops/cuda_stream.py::
+pick_cols_geometry``, ``pick_geometry`` and ``ops/cuda_nmf.py::
 pick_loop_threads``, ``pick_nmf_geometry``, ``pick_ratio_geometry``) and
 prints no result line.
 """
@@ -1302,6 +1307,66 @@ def sweep_times(run, configs, reps=2):
             for c, a, b in zip(configs, first, second)]
 
 
+COLS_SWEEP_NB = (1, 8, 33, 66, 132, 264, 430)
+
+
+def sweep_colsharded(cov_wide):
+    """Times only (correctness is phase ``seqpar``): kernel 4c over blocks a
+    gene x threads, on two column shards of the card, at the outlier (one
+    gene of OUTLIER_LEN bases), a TTN-like bucket as the engine packs it (one
+    gene of TTN_LENGTHS[1] bases in 64 slots, the group told of one gene)
+    and the long tail's W=65536 bucket, each line beside the choice of
+    ``pick_cols_geometry``."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.data.buckets import pack_buckets
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    from degnorm_tpu_torch.ops.cuda_trim import run_steps
+    from degnorm_tpu_torch.parallel import make_mesh
+    from degnorm_tpu_torch.parallel.seqpar import ColumnGroup
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    mesh = make_mesh([dev] * MESH_SHARDS)
+    nkw = baseline._nmf_kwargs(NMFConfig(nmf_iter=NMF_ITER), EngineConfig())
+
+    def sweep(tag, raw, lm, genes, nbs):
+        G, p, W = raw.shape
+        group = ColumnGroup(mesh, W, genes=genes)
+        cols = group.columns()
+        shards = cut_columns(raw, lm, len(cols))
+        kw = dict(nkw, scale=torch.linspace(0.8, 1.25, p, device=dev))
+        rule = cuda_stream.pick_cols_geometry(genes, p, group.width)
+        top = cuda_nmf.max_loop_threads(p)
+        configs = sorted({(nb, t) for nb in nbs for t in (32, 64, 128, 256, 512)
+                          if t <= top} | {rule})
+
+        def run(c):
+            return run_steps(cuda_stream.nmf_masked_colsharded_cuda(
+                Fs, ms, cc, _geometry=c, **kw)
+                for (Fs, ms), cc in zip(shards, cols))
+
+        emit("sweep_colsharded", case=tag, shape=[G, p, W], shards=len(cols),
+             genes=genes, rule=list(rule),
+             columns=["(blocks a gene, threads)", "ms", "ms (reverse pass)"],
+             times=sweep_times(run, configs))
+
+    W = -(-OUTLIER_LEN // 128) * 128
+    raw, lm = synth_wide_bucket([OUTLIER_LEN], P_SAMPLES, W, SEED + 9, dev)
+    sweep("outlier", raw, lm, 1, COLS_SWEEP_NB)
+    L = TTN_LENGTHS[1]
+    raw, lm = synth_wide_bucket([L] + [0] * 63, P_SAMPLES, -(-L // 128) * 128,
+                                SEED + 10, dev)
+    sweep("TTN-like bucket of 64 slots", raw, lm, 1, COLS_SWEEP_NB)
+    del raw, lm
+    (b,) = [b for b in pack_buckets(list(cov_wide.values()),
+                                    bucket_widths=EngineConfig().bucket_widths,
+                                    dtype=np.int16)
+            if b.width == WIDE_WIDTHS[1]]
+    sweep("long tail W=65536", torch.from_numpy(b.F).to(dev),
+          torch.from_numpy(b.len_mask()).to(dev), b.n_real, (1, 2, 4))
+    torch.cuda.empty_cache()
+
+
 def phase_sweep(cov, cov_wide):
     """Times only (correctness is phase ``kernels``): kernel 4 over launch
     geometries (blocks a gene x threads) at the two whole wide buckets, the
@@ -1350,6 +1415,7 @@ def phase_sweep(cov, cov_wide):
                       "ms (reverse pass)"],
              times=res)
 
+    sweep_colsharded(cov_wide)
     for G, p, W in ((48, 32, 4096), (48, 16, 8192)):
         raw, lm = small_wide_bucket(G, p, W, SEED + p, dev)
         scale = torch.linspace(0.8, 1.25, p, device=dev)
@@ -2483,7 +2549,7 @@ def long_tail_mesh_fit(cov_wide, X_wide, one, one_steady_s, one_launches):
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in branch_launches().items() if "[" not in k}
     timings = dict(engine.timings)
-    reductions = engine.reductions
+    reductions, gathers = engine.reductions, engine.gathers
     col = [b.width for b, g in zip(engine._buckets, engine._col_groups)
            if g is not None]
     gene = [b.width for b, g in zip(engine._buckets, engine._col_groups)
@@ -2517,6 +2583,7 @@ def long_tail_mesh_fit(cov_wide, X_wide, one, one_steady_s, one_launches):
         steady_vs_one_device=round(steady / one_steady_s - 1, 4),
         reductions=reductions, reduce_s=round(timings["reduce"], 4),
         steady_reduce_s=round(engine.timings["reduce"], 4),
+        gathers=gathers, gram_gather_s=round(timings["gram_gather"], 4),
         gather_s=round(timings["gather"], 4),
         timings={k: round(v, 4) for k, v in timings.items()},
         peak_mem_bytes=(int(torch.cuda.max_memory_allocated())
@@ -2575,20 +2642,48 @@ def synth_wide_bucket(lengths, p, W, seed, device):
     return F, lm
 
 
-def check_colsharded_at(raw, lm, mesh, reps=2, tol_check=False):
-    """Kernels 4c and 2c on a bucket cut along its columns into one shard a
-    ``mesh`` device (both on the card), each against its plain version on
-    the same shards: 4c on the raw int16 + scale form with every 7th gene
-    from the 7th on inactive (zeros out), K, E, u within STREAM_RTOL of max(|value|, 1), K
+# Times of kernels 4c and 2c a call before their redesign (one block a gene,
+# the sum across the shards through PyTorch between launches), taken by this
+# script on an NVIDIA H100 80GB HBM3 at 700 W; kept beside this run's in each
+# record as `earlier_ms`
+EARLIER_MS = {"p3": (14.382, 0.478), "p8": (22.663, 0.6784),
+              "p16": (45.636, 1.5759), "p32": (95.465, 3.6461),
+              "outlier": (13.548, 0.645)}
+
+
+def host_us_a_sweep(run, sweeps):
+    """Host microseconds a sweep of one call of ``run`` (its launches, the
+    asks and their answers, no wait for the card), after the card is idle."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return round(secs / sweeps * 1e6, 2)
+
+
+def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
+    """Kernels 4c and 2c on a bucket of ``genes`` real genes (the rest of
+    its slots padding, as the engine packs it) cut along its columns into
+    one shard a ``mesh`` device (both on the card), each against its plain
+    version on the same shards: 4c on the raw int16 + scale form with every
+    7th slot from the 7th on inactive (zeros out), K, E, u within
+    STREAM_RTOL of max(|value|, 1), K
     and u bit-equal on every shard; 2c on the raw int16 upload, the row sums
-    bit-equal on every shard and within STREAM_RTOL.  Beside them kernel 4
-    and kernel 2 on the whole bucket.  Times: one column-sharded call over
-    all shards (its launches and reductions, CUDA events), the plain
-    version's, the bound of the function on the whole bucket; launches and
-    reductions a call.  ``tol_check``: 4c's nmf_tol instances too, at
-    FREEZE_TOL, against the plain adaptive loop on the same shards: K, E, u
-    within 1e-4 of max(|value|, 1) on >= 99% of the genes (a gene whose
-    freeze falls on another iteration in float32 differs more)."""
+    bit-equal on every shard and within STREAM_RTOL.  Each kernel runs
+    twice and must give the same bits.  Beside them kernel 4 and kernel 2
+    on the whole bucket.  Times: one column-sharded call over all shards
+    (its launches and reductions, CUDA events) beside the time before the
+    kernels' redesign (``EARLIER_MS[tag]``, None where there was no such
+    time), the plain version's, the bound of the function on the whole
+    bucket; launches, gather asks and reductions a call; the picked
+    geometry (blocks a gene, threads); the host microseconds a sweep of a
+    call and of the answers to its gather asks (``ColumnGroup.combine``).
+    ``tol_check``: 4c's nmf_tol instances too, at FREEZE_TOL, against the
+    plain adaptive loop on the same shards: K, E, u within 1e-4 of
+    max(|value|, 1) on >= 99% of the genes (a gene whose freeze falls on
+    another iteration in float32 differs more)."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.core import baseline
@@ -2596,28 +2691,41 @@ def check_colsharded_at(raw, lm, mesh, reps=2, tol_check=False):
     from degnorm_tpu_torch.ops.cuda_trim import run_steps
     from degnorm_tpu_torch.parallel.seqpar import ColumnGroup
     G, p, W = raw.shape
-    group = ColumnGroup(mesh, W)
+    group = ColumnGroup(mesh, W, genes=genes)
     cols = group.columns()
     shards = cut_columns(raw, lm, len(cols))
+    geometry = list(cuda_stream.pick_cols_geometry(genes, p, group.width))
+    earlier = EARLIER_MS.get(tag, (None, None))
     scale = torch.linspace(0.8, 1.25, p, device=raw.device)
     act = torch.ones(G, dtype=torch.bool, device=raw.device)
     act[6::7] = False          # the first gene stays active (the outlier's)
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
     nkw = dict(baseline._nmf_kwargs(nmf_cfg, EngineConfig()),
                gene_active=act, scale=scale)
+    power = EngineConfig().power_iters_cold
 
     def nmf(fn):
         return run_steps(fn(Fs, ms, c, **nkw)
                          for (Fs, ms), c in zip(shards, cols))
 
     def ratio(fn):
-        return run_steps(fn(Fs, ms, c, power_iters=EngineConfig().power_iters_cold)
+        return run_steps(fn(Fs, ms, c, power_iters=power)
                          for (Fs, ms), c in zip(shards, cols))
 
-    l0, r0 = cuda_stream.colsharded_launches, group.reductions
+    def same_bits(a, b, what):
+        for k, (x, y) in enumerate(zip(a, b)):
+            if not all(torch.equal(u, v) for u, v in zip(x, y)):
+                raise AssertionError(f"{what} p={p} W={W}: shard {k} gave "
+                                     "other bits on a second run")
+
+    l0, r0, q0 = (cuda_stream.colsharded_launches, group.reductions,
+                  group.gathers)
     got = nmf(cuda_stream.nmf_masked_colsharded_cuda)
-    launches, reductions = (cuda_stream.colsharded_launches - l0,
-                            group.reductions - r0)
+    launches, reductions, gathers = (cuda_stream.colsharded_launches - l0,
+                                     group.reductions - r0,
+                                     group.gathers - q0)
+    same_bits(got, nmf(cuda_stream.nmf_masked_colsharded_cuda),
+              "nmf_colsharded")
     want = nmf(cuda_stream.nmf_masked_colsharded_plain)
     whole = cuda_stream.nmf_masked_streamed_cuda(raw, lm, **nkw)
     torch.cuda.synchronize()
@@ -2643,6 +2751,9 @@ def check_colsharded_at(raw, lm, mesh, reps=2, tol_check=False):
         got = run_steps(cuda_stream.nmf_masked_colsharded_cuda(Fs, ms, c, **tkw)
                         for (Fs, ms), c in zip(shards, cols))
         tol_launches = cuda_stream.colsharded_tol_launches - l0
+        same_bits(got, run_steps(
+            cuda_stream.nmf_masked_colsharded_cuda(Fs, ms, c, **tkw)
+            for (Fs, ms), c in zip(shards, cols)), "nmf_colsharded[nmf_tol]")
         want = run_steps(cuda_stream.nmf_masked_colsharded_plain(Fs, ms, c, **tkw)
                          for (Fs, ms), c in zip(shards, cols))
         torch.cuda.synchronize()
@@ -2660,20 +2771,31 @@ def check_colsharded_at(raw, lm, mesh, reps=2, tol_check=False):
                        genes_off=int(bad.sum()), active_genes=n_act)
         del got, want
     b_ms, b_by = bound_stream(raw, lm, act, NMF_ITER)
+    s0, q0 = group.gather_seconds, group.gathers
+    host4 = host_us_a_sweep(
+        lambda: nmf(cuda_stream.nmf_masked_colsharded_cuda), NMF_ITER + 1)
+    answer4 = round((group.gather_seconds - s0) / (group.gathers - q0) * 1e6,
+                    2)
     rec4 = dict(
         shape=[G, p, W], shards=len(cols), shard_width=group.width,
-        launches_per_nmf=launches, reductions_per_nmf=reductions,
+        geometry=geometry, launches_per_nmf=launches,
+        gathers_per_nmf=gathers, reductions_per_nmf=reductions,
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
         kernel4_whole_rel_err=vs4, bound_ms=b_ms, bound_by=b_by,
         ms=time_ms(lambda: nmf(cuda_stream.nmf_masked_colsharded_cuda), reps),
+        earlier_ms=earlier[0], host_us_a_sweep=host4,
+        host_us_an_answer=answer4,
         kernel4_whole_ms=time_ms(
             lambda: cuda_stream.nmf_masked_streamed_cuda(raw, lm, **nkw), reps),
         plain_ms=time_ms(lambda: nmf(cuda_stream.nmf_masked_colsharded_plain),
                          1, warm=False), nmf_tol=tol_rec)
-    l0, r0 = cuda_nmf.ratio_cols_launches, group.reductions
+    l0, r0, q0 = cuda_nmf.ratio_cols_launches, group.reductions, group.gathers
     got = ratio(cuda_nmf.ratio_rowsums_colsharded_cuda)
-    launches, reductions = (cuda_nmf.ratio_cols_launches - l0,
-                            group.reductions - r0)
+    launches, reductions, gathers = (cuda_nmf.ratio_cols_launches - l0,
+                                     group.reductions - r0,
+                                     group.gathers - q0)
+    same_bits(got, ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
+              "ratio_colsharded")
     want = ratio(cuda_nmf.ratio_rowsums_colsharded_plain)
     whole = cuda_nmf.ratio_rowsums_cuda(raw, lm, bucket_genes=G)
     torch.cuda.synchronize()
@@ -2687,12 +2809,15 @@ def check_colsharded_at(raw, lm, mesh, reps=2, tol_check=False):
     vs2 = max(err_stats(a, b)[1] for a, b in zip(got[0], whole))
     b2_ms, b2_by = bound_ratio(raw, lm)
     rec2 = dict(
-        shape=[G, p, W], launches_per_init=launches,
-        reductions_per_init=reductions,
+        shape=[G, p, W], geometry=geometry, launches_per_init=launches,
+        gathers_per_init=gathers, reductions_per_init=reductions,
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
         kernel2_whole_rel_err=vs2, bound_ms=b2_ms, bound_by=b2_by,
         ms=time_ms(lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
                    RATIO_REPS),
+        earlier_ms=earlier[1],
+        host_us_a_launch=host_us_a_sweep(
+            lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_cuda), 2),
         kernel2_whole_ms=time_ms(
             lambda: cuda_nmf.ratio_rowsums_cuda(raw, lm, bucket_genes=G),
             RATIO_REPS),
@@ -2725,7 +2850,10 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
     (1) Kernels 4c and 2c against their plain versions
     (``check_colsharded_at``) at the long tail's W=65536 bucket cut in two,
     at p = 8 (the fit's own bucket) and p = 3, 16, 32 (made on the card at
-    its gene lengths), and at one outlier of OUTLIER_LEN bases.  (2) The
+    its gene lengths), at one outlier of OUTLIER_LEN bases and at a
+    TTN-like bucket as the engine packs it (one gene of TTN_LENGTHS[1]
+    bases in 64 slots): the last two spread a gene over many blocks, and
+    run 4c's nmf_tol instances too.  (2) The
     long tail on the mesh (``long_tail_mesh_fit``, phase ``mesh``'s record
     where it ran), against the one-device fit of phase ``fit_wide`` (``wide``;
     fitted here where that phase did not run).  (3) TTN_GENES genes of
@@ -2751,13 +2879,20 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
             lm = torch.from_numpy(b.len_mask()).to(dev)
         else:
             raw, lm = synth_wide_bucket(b.lengths, p, b.width, SEED + p, dev)
-        kres[f"p{p}"] = check_colsharded_at(raw, lm, mesh,
+        kres[f"p{p}"] = check_colsharded_at(raw, lm, mesh, f"p{p}",
+                                            b.n_real,
                                             tol_check=p == P_SAMPLES)
         del raw, lm
         torch.cuda.empty_cache()
     W = -(-OUTLIER_LEN // 128) * 128
     raw, lm = synth_wide_bucket([OUTLIER_LEN], P_SAMPLES, W, SEED + 9, dev)
-    kres["outlier"] = check_colsharded_at(raw, lm, mesh)
+    kres["outlier"] = check_colsharded_at(raw, lm, mesh, "outlier", 1,
+                                          tol_check=True)
+    L = TTN_LENGTHS[1]
+    raw, lm = synth_wide_bucket([L] + [0] * 63, P_SAMPLES, -(-L // 128) * 128,
+                                SEED + 10, dev)
+    kres["ttn_bucket"] = check_colsharded_at(raw, lm, mesh, "ttn_bucket", 1,
+                                             tol_check=True)
     del raw, lm
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
     if wide is None:
@@ -2795,6 +2930,8 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
             steady_vs_one_device=round(steady / s_one - 1, 4),
             reductions=engine.reductions,
             reduce_s=round(engine.timings.get("reduce", 0.0), 4),
+            gathers=engine.gathers,
+            gram_gather_s=round(engine.timings.get("gram_gather", 0.0), 4),
             rho_max_abs_diff=float(np.abs(res.rho - one.rho).max()),
             x_adj_max_rel_diff=float(np.abs(res.x_adj / one.x_adj - 1).max()),
             **{k: v for k, v in check.items()
@@ -2868,6 +3005,8 @@ print(json.dumps({"rank": rank, "backend": backend,
                                     for sh in eng._shards if sh.cols.sharded],
                   "reductions": eng.reductions,
                   "reduce_s": timings.get("reduce", 0.0),
+                  "gathers": eng.gathers,
+                  "gram_gather_s": timings.get("gram_gather", 0.0),
                   "fit_s": fit_s, "steady_s": steady_s,
                   "gather_s": timings["gather"],
                   "wall_s": time.perf_counter() - t_start,
@@ -3201,12 +3340,12 @@ def kernels_line(kres, launches, launches_wide, launches_pipeline,
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": None,
             "shape": m["shape"], "shards": MESH_SHARDS,
-            "whole_gene_kernel_ms": m[whole],
+            "geometry": m["geometry"], "whole_gene_kernel_ms": m[whole],
             **({"nmf_tol": m["nmf_tol"]} if m.get("nmf_tol") else {}),
             "other_shapes": [{"at": k, **{f: v[name][f] for f in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "max_abs_err")}} for k, v in col_kres.items()
-                if k != f"p{P_SAMPLES}"],
+                "shape", "geometry", "ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err")}}
+                for k, v in col_kres.items() if k != f"p{P_SAMPLES}"],
         })
     return kernels
 
@@ -3218,7 +3357,8 @@ def main(argv=None):
                          + ",".join(OPT_IN_PHASES))
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--sweep", action="store_true",
-                    help="time kernels 1-4 over their launch geometries "
+                    help="time kernels 1-4 and 4c over their launch "
+                         "geometries "
                          "(phases env, build, fit_wide, then the sweep; no "
                          "result line)")
     args = ap.parse_args(argv)

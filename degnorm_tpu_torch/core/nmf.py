@@ -111,7 +111,8 @@ def nmf_masked_steps(F: torch.Tensor, mask: torch.Tensor, *,
     the plain version on the CPU and with ``use_kernels=False``), or the
     plain version under ``method="eigh"``, which no kernel has.
     ``nmf_tol`` applies there at any width, as on the JAX package's XLA
-    path.  ``bucket_genes`` is not read: kernel 4c launches a block a gene.
+    path.  ``bucket_genes`` is not read: kernel 4c picks its blocks a gene
+    from the column group (``cuda_stream.pick_cols_geometry``).
     Returns (K, E, u), E over the shard's columns."""
     if not cols.sharded:
         return nmf_masked(F, mask, **kwargs)

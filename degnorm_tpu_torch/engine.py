@@ -235,8 +235,10 @@ class DegNormEngine:
         self._ds_zero_cache: Dict[int, torch.Tensor] = {}
         # per bucket: its ColumnGroup where it is column-sharded, else None
         self._col_groups: List[Optional[ColumnGroup]] = []
-        # reductions across column shards in the last fit
+        # reductions across column shards in the last fit, and apart from
+        # them the gather asks of kernels 4c and 2c
         self.reductions = 0
+        self.gathers = 0
 
     def _sync(self):
         for dev in set(self.mesh.devices):
@@ -323,7 +325,7 @@ class DegNormEngine:
         self._col_groups = []
         for bi, b in enumerate(self._buckets):
             if self.column_sharded(b):
-                group = ColumnGroup(mesh, b.width)
+                group = ColumnGroup(mesh, b.width, genes=b.n_real)
                 self._col_groups.append(group)
                 idx = torch.from_numpy(np.asarray(b.gene_indices, np.int64))
                 for s, c, (F_d, m_d) in zip(
@@ -506,6 +508,7 @@ class DegNormEngine:
         for group in self._col_groups:
             if group is not None:
                 group.reductions, group.seconds = 0, 0.0
+                group.gathers, group.gather_seconds = 0, 0.0
         by_bucket = [[k for k, sh in enumerate(self._shards) if sh.bucket == bi]
                      for bi in range(len(self._buckets))]
         if ckpt is not None:
@@ -595,9 +598,13 @@ class DegNormEngine:
         if groups:
             # host clock of the reductions across column shards (enqueue
             # time where the shards share a process; the collectives' waits
-            # where they do not), and how many there were
+            # where they do not), and how many there were; the same of the
+            # gather asks of kernels 4c and 2c (no tensor work where the
+            # shards share a device)
             self.timings["reduce"] = sum(g.seconds for g in groups)
             self.reductions = sum(g.reductions for g in groups)
+            self.timings["gram_gather"] = sum(g.gather_seconds for g in groups)
+            self.gathers = sum(g.gathers for g in groups)
 
         self._last_results = results
         self._genes = genes

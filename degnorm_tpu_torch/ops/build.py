@@ -65,17 +65,19 @@ _SIGNATURES = {
     # raw, scale, out, n, p, stream
     "dn_scaled_quotients": [_P, _P, _P, _I, _I, _P],
     # kernel 4c (and 2c's first launch): F, f_is_i16, mask, act, scale, X,
-    # gram, G, p, W, threads, stream
-    "dn_cols_gram": [_P, _I] + [_P] * 5 + [_I] * 4 + [_P],
-    # F, f_is_i16, mask, act, scale, X, B, u_in, u_out, gram, s_in, s_out,
-    # done, tol, it, G, p, W, nmf_iter, n_squared, n_plain, threads, stream
-    "dn_cols_sweep": [_P, _I] + [_P] * 11 + [_F] + [_I] * 8 + [_P],
-    # mask, act, X, B, u_in, K, E, u_out, s_in, done, tol, G, p, W,
-    # n_squared, n_plain, threads, stream
-    "dn_cols_finish": [_P] * 10 + [_F] + [_I] * 6 + [_P],
-    # kernel 2c's second launch: F, f_is_i16, mask, B, sums, G, p, W,
-    # power_cold, threads, stream
-    "dn_ratio_cols_sums": [_P, _I, _P, _P, _P] + [_I] * 5 + [_P],
+    # gram, bpart, tickets, ncols, G, p, W, nb, threads, stream
+    "dn_cols_gram": [_P, _I] + [_P] * 8 + [_I] * 5 + [_P],
+    # F, f_is_i16, mask, act, scale, X, parts, S, ncols, u_in, u_out, gram,
+    # bpart, tickets, s_in, s_out, done, tol, it, G, p, W, nmf_iter,
+    # n_squared, n_plain, nb, threads, stream
+    "dn_cols_sweep": [_P, _I] + [_P] * 5 + [_I] + [_P] * 9 + [_F]
+                     + [_I] * 9 + [_P],
+    # mask, act, X, parts, S, ncols, u_in, K, E, u_out, s_in, done, tol, G,
+    # p, W, n_squared, n_plain, nb, threads, stream
+    "dn_cols_finish": [_P] * 4 + [_I] + [_P] * 7 + [_F] + [_I] * 7 + [_P],
+    # kernel 2c's second launch: F, f_is_i16, mask, parts, S, ncols, sums,
+    # bpart, tickets, G, p, W, power_cold, nb, threads, stream
+    "dn_ratio_cols_sums": [_P, _I, _P, _P, _I] + [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -497,45 +497,56 @@ def ratio_rowsums_colsharded_cuda(
 ):
     """Kernel wrapper with ``ratio_rowsums_colsharded_plain``'s signature, a
     step generator (csrc/ratio_cols.cu): one launch writes each gene's
-    partial Gram of A0 over the shard's columns (kernel 4c's launch (a),
-    with no X); after the sum across the shards a second runs the cold power
-    step on the summed Gram and writes the partial row sums of A0 and of
-    max(K⊗E, A0), which are summed in turn.  Takes float32 coverage or the
-    raw int16 upload as it is.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises (``method="eigh"`` has no
-    kernel)."""
+    partial Gram of A0 over the shard's columns into this shard's slot of
+    the group's buffer (kernel 4c's launch (a), with no X); a second sums
+    every shard's partial (``cols.gather_``: unsummed, in shard order), runs
+    the cold power step on the sum and writes the partial row sums of A0
+    and of max(K⊗E, A0), which are summed across the shards (``cols.sum_``).
+    Takes float32 coverage or the raw int16 upload as it is; a gene's
+    columns are spread over the blocks of
+    ``cuda_stream.pick_cols_geometry`` for the bucket's genes
+    (``cols.genes``).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises (``method="eigh"`` has no kernel)."""
     if F.device.type == "cpu":
         return (yield from ratio_rowsums_colsharded_plain(
             F, mask, cols, power_iters=power_iters, method=method))
     global ratio_cols_launches
+    from degnorm_tpu_torch.ops import cuda_stream
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "ratio_rowsums_colsharded_cuda"
     if method != "power":
         raise NotImplementedError(f"{name}: method={method!r} has no kernel")
     check_coverage_input(F, name, int16_ok=True)
     G, p, W = F.shape
-    threads = pick_loop_threads(p, W)
+    nb, threads = cuda_stream.pick_cols_geometry(cols.genes, p, W)
     dev = F.device
     m8 = _as_u8(mask)
     i16 = int(F.dtype == torch.int16)
-    part = torch.empty((G, p, p), dtype=torch.float32, device=dev)
     sums = torch.empty((G, 2 * p), dtype=torch.float32, device=dev)
     if G == 0:
         return sums[:, :p], sums[:, p:]
+    ng = cuda_stream.packed_gram_floats(p)
+    slots = cols.partials((G, ng), dev)
+    counts = torch.zeros((2, G), dtype=torch.int32, device=dev)
+    ncols, tickets = counts[0], counts[1]
+    bpart = (torch.empty((G, nb, max(ng, 2 * p)), dtype=torch.float32,
+                         device=dev) if nb > 1 else None)
     lib = get_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         check_launch(lib.dn_cols_gram(
             F.data_ptr(), i16, m8.data_ptr(), None, None, None,
-            part.data_ptr(), G, p, W, threads, stream), "dn_cols_gram")
+            slots[0, cols.shard].data_ptr(), _ptr(bpart), tickets.data_ptr(),
+            ncols.data_ptr(), G, p, W, nb, threads, stream), "dn_cols_gram")
         ratio_cols_launches += 1
-    B = yield from cols.sum_(part)
+    parts = yield from cols.gather_(slots[0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         check_launch(lib.dn_ratio_cols_sums(
-            F.data_ptr(), i16, m8.data_ptr(), B.data_ptr(), sums.data_ptr(),
-            G, p, W, int(power_iters), threads, stream),
-            "dn_ratio_cols_sums")
+            F.data_ptr(), i16, m8.data_ptr(), parts.data_ptr(), cols.count,
+            ncols.data_ptr(), sums.data_ptr(), _ptr(bpart),
+            tickets.data_ptr(), G, p, W, int(power_iters), nb, threads,
+            stream), "dn_ratio_cols_sums")
         ratio_cols_launches += 1
     sums = yield from cols.sum_(sums)
     return sums[:, :p], sums[:, p:]

@@ -84,6 +84,37 @@ def pick_geometry(W: int, p: int) -> Tuple[int, int]:
     return cl, threads
 
 
+# Columns a thread of kernels 4c and 2c is dealt where a gene is spread over
+# several blocks (the committed sweep: ``chip_smoke.py --sweep``, PERF.md).
+COLS_A_THREAD = 4
+
+
+def pick_cols_geometry(G: int, p: int, W: int,
+                       n_sm: int = cuda_nmf.SMS) -> Tuple[int, int]:
+    """(blocks a gene, threads a block) of kernels 4c and 2c on a shard of
+    ``W`` columns of a bucket of ``G`` genes (csrc/stream_cols.cuh), by
+    shape.  A launch must fill the card by itself (the shards of one card
+    launch one after another): a gene gets ``ceil(n_sm / G)`` blocks, at
+    most one a chunk of CHUNK columns, so one where the bucket's genes fill
+    the SMs (the long tail's 384 slots) and a block an SM for one gene.  A
+    block's share of a gene is dealt in chunks round robin
+    (``block_columns``); it gets a thread for ``COLS_A_THREAD`` of its
+    columns, in whole warps within the instance's bound."""
+    chunks = max(1, -(-W // CHUNK))
+    nb = max(1, min(-(-n_sm // max(G, 1)), chunks))
+    share = block_share(W, nb)
+    threads = min(cuda_nmf.max_loop_threads(p),
+                  max(32, (-(-share // COLS_A_THREAD) + 31) // 32 * 32))
+    return nb, threads
+
+
+def packed_gram_floats(p: int) -> int:
+    """Floats of a gene's packed partial Gram in kernels 4c and 2c: the
+    upper triangle at the instance's PMAX."""
+    P = cuda_nmf.pmax_of(p)
+    return P * (P + 1) // 2
+
+
 def _a0(F, mask, scale):
     """A0 of the streamed versions' input forms: with ``scale`` (p,), ``F``
     is the raw coverage (int16 or floating) and A0 = F.to(scale.dtype) /
@@ -324,16 +355,19 @@ def nmf_masked_colsharded_cuda(
     scale: Optional[torch.Tensor] = None,
     nmf_tol: float = 0.0,
     method: str = "power",
+    _geometry: Optional[Tuple[int, int]] = None,
 ):
     """Kernel wrapper with ``nmf_masked_colsharded_plain``'s signature, a
     step generator (csrc/stream_cols.cu): launch (a) writes X = A0 and each
-    gene's partial Gram of A0 over the shard's columns; after the Gram is
-    summed across the shards, each of ``nmf_iter`` launches (b) runs the
-    power step on the summed Gram (every shard the same one, so u is
-    bit-equal everywhere), one merged sweep of the shard's columns and the
-    next partial Gram; a finishing launch refits u and s and writes K and
-    the shard's columns of E.  ``nmf_iter + 2`` launches and ``nmf_iter + 1``
-    reductions a call.  ``nmf_tol > 0`` launches the adaptive instances
+    gene's partial Gram of A0 over the shard's columns into this shard's
+    slot of the group's buffer (``cols.partials``); each of ``nmf_iter``
+    launches (b) sums every shard's partial of the last launch
+    (``cols.gather_``: unsummed, in shard order), runs the power step on
+    the sum (every shard the same one, so u is bit-equal everywhere), one
+    merged sweep of the shard's columns and the next partial Gram; a
+    finishing launch refits u and s and writes K and the shard's columns of
+    E.  ``nmf_iter + 2`` launches and ``nmf_iter + 1`` gathers a call.
+    ``nmf_tol > 0`` launches the adaptive instances
     (csrc/stream_cols_tol.cu): a gene freezes on the summed Gram's refit, as
     in the plain version, and adds zero partials from then on.  Takes
     float32 coverage, or int16 coverage with or without ``scale``, of any
@@ -341,7 +375,12 @@ def nmf_masked_colsharded_cuda(
     partials, so every shard reduces as often.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises
     (``method="eigh"`` has no kernel: ``core/nmf.py`` routes it to the plain
-    version).  A block a gene, of ``cuda_nmf.pick_loop_threads`` threads."""
+    version).  A gene's columns are spread over the blocks of
+    ``pick_cols_geometry`` for the bucket's genes (``cols.genes``);
+    results differ between geometries by float32 summation order alone and
+    are the same bits for the same geometry.  ``_geometry`` overrides
+    (blocks a gene, threads): the timing sweep of ``chip_smoke.py`` passes
+    it, nothing else does."""
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
                   power_iters_warm=power_iters_warm,
                   power_warm_plain=power_warm_plain, gene_active=gene_active,
@@ -367,63 +406,77 @@ def nmf_masked_colsharded_cuda(
         raise NotImplementedError(
             f"{name}: float32 coverage with scale is not taken on a CUDA "
             "tensor; divide it first and pass no scale")
-    f32, dev = torch.float32, F.device
-    threads = cuda_nmf.pick_loop_threads(p, W)
-    ptr = cuda_nmf._ptr
+    f32, i32, dev = torch.float32, torch.int32, F.device
+    nb, threads = _geometry or pick_cols_geometry(cols.genes, p, W)
     m8 = cuda_nmf._as_u8(mask)
     act8 = None if gene_active is None else cuda_nmf._as_u8(gene_active)
     sc = None if scale is None else scale.to(f32).contiguous()
-    u_in = None if u0 is None else u0.to(f32).contiguous()
     i16 = int(F.dtype == torch.int16)
+    # every buffer once a call: X, the outputs, u and s by sweep parity
+    # (a block reads the last launch's while the gene's first block writes
+    # this one's), the gene's last active column and its ticket, the
+    # blocks' partials where a gene has several
     X = torch.empty((G, p, W), dtype=f32, device=dev)            # scratch
     K = torch.empty((G, p), dtype=f32, device=dev)
     E = torch.empty((G, W), dtype=f32, device=dev)
+    u = torch.empty((G, p), dtype=f32, device=dev)
     if G == 0:
-        return K, E, torch.empty((G, p), dtype=f32, device=dev)
+        return K, E, u
+    ng = packed_gram_floats(p)
+    slots = cols.partials((G, ng), dev)          # (2, shards, G, ng)
+    us = torch.empty((2, G, p), dtype=f32, device=dev)
+    counts = torch.zeros((2, G), dtype=i32, device=dev)  # ncols, tickets
+    bpart = (torch.empty((G, nb, ng), dtype=f32, device=dev) if nb > 1
+             else None)
     tol = float(nmf_tol)
     # the adaptive instances carry s and the frozen genes between launches
-    s_in = s_out = done = None
+    ss = done = None
     if tol > 0:
+        ss = torch.empty((2, G), dtype=f32, device=dev)
         done = torch.zeros(G, dtype=torch.uint8, device=dev)
-    lib = get_lib()
+    ncols, tickets = counts[0], counts[1]
+    me, S = cols.shard, cols.count
+    # the pointers of a sweep, taken once a call: the host's share of a
+    # sweep is the launch and the gather ask alone
+    lib, ptr = get_lib(), cuda_nmf._ptr
+    views = (slots[0], slots[1])
+    mine = (slots[0, me].data_ptr(), slots[1, me].data_ptr())
+    u_at = (us[0].data_ptr(), us[1].data_ptr())
+    s_at = (None, None) if ss is None else (ss[0].data_ptr(), ss[1].data_ptr())
+    f_p, m_p, a_p, sc_p, x_p = (F.data_ptr(), m8.data_ptr(), ptr(act8),
+                                ptr(sc), X.data_ptr())
+    b_p, t_p, n_p, d_p = (ptr(bpart), tickets.data_ptr(), ncols.data_ptr(),
+                          ptr(done))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        part = torch.empty((G, p, p), dtype=f32, device=dev)
         check_launch(lib.dn_cols_gram(
-            F.data_ptr(), i16, m8.data_ptr(), ptr(act8), ptr(sc),
-            X.data_ptr(), part.data_ptr(), G, p, W, threads, stream),
-            "dn_cols_gram")
-        colsharded_launches += 1
-    B = yield from cols.sum_(part)
+            f_p, i16, m_p, a_p, sc_p, x_p, mine[0], b_p, t_p, n_p, G, p, W,
+            nb, threads, stream), "dn_cols_gram")
+    colsharded_launches += 1
+    parts = yield from cols.gather_(views[0])
+    u_in = None if u0 is None else u0.to(f32).contiguous()
+    u_p, s_p = ptr(u_in), None
     for it in range(nmf_iter):
+        q = (it + 1) & 1
         n_sq, n_plain = ((power_iters_cold, 0) if it == 0
                          else (power_iters_warm, power_warm_plain))
-        u_out = torch.empty((G, p), dtype=f32, device=dev)
-        part = torch.empty((G, p, p), dtype=f32, device=dev)
-        if tol > 0:
-            s_out = torch.empty(G, dtype=f32, device=dev)
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
             check_launch(lib.dn_cols_sweep(
-                F.data_ptr(), i16, m8.data_ptr(), ptr(act8), ptr(sc),
-                X.data_ptr(), B.data_ptr(), ptr(u_in), u_out.data_ptr(),
-                part.data_ptr(), ptr(s_in), ptr(s_out), ptr(done), tol, it,
-                G, p, W, int(nmf_iter), int(n_sq), int(n_plain), threads,
+                f_p, i16, m_p, a_p, sc_p, x_p, parts.data_ptr(), S, n_p, u_p,
+                u_at[q], mine[q], b_p, t_p, s_p, s_at[q], d_p, tol, it, G, p,
+                W, int(nmf_iter), int(n_sq), int(n_plain), nb, threads,
                 stream), "dn_cols_sweep")
-            colsharded_launches += 1
-            colsharded_tol_launches += tol > 0
-        u_in, s_in = u_out, s_out
-        B = yield from cols.sum_(part)
-    n_sq, n_plain = ((power_iters_cold, 0) if nmf_iter == 0
-                     else (power_iters_warm, power_warm_plain))
-    u = torch.empty((G, p), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        check_launch(lib.dn_cols_finish(
-            m8.data_ptr(), ptr(act8), X.data_ptr(), B.data_ptr(), ptr(u_in),
-            K.data_ptr(), E.data_ptr(), u.data_ptr(), ptr(s_in), ptr(done),
-            tol, G, p, W, int(n_sq), int(n_plain), threads, stream),
-            "dn_cols_finish")
         colsharded_launches += 1
         colsharded_tol_launches += tol > 0
+        u_p, s_p = u_at[q], s_at[q]
+        parts = yield from cols.gather_(views[q])
+    n_sq, n_plain = ((power_iters_cold, 0) if nmf_iter == 0
+                     else (power_iters_warm, power_warm_plain))
+    with torch.cuda.device(dev):
+        check_launch(lib.dn_cols_finish(
+            m_p, a_p, x_p, parts.data_ptr(), S, n_p, u_p, K.data_ptr(),
+            E.data_ptr(), u.data_ptr(), s_p, d_p, tol, G, p, W, int(n_sq),
+            int(n_plain), nb, threads, stream), "dn_cols_finish")
+    colsharded_launches += 1
+    colsharded_tol_launches += tol > 0
     return K, E, u

@@ -26,7 +26,14 @@ device code path and its bits do not change.
 ``combine`` reduces in global shard order on the first local shard's device
 and copies the result to every shard; on a multi-process mesh the shards'
 partials are first gathered from every process (``distributed.gather_equal``,
-one all-gather) and each process reduces them in the same order.  Every
+one all-gather) and each process reduces them in the same order.  One more
+ask, ``gather_``, hands the partials back UNSUMMED, in global shard order:
+kernels 4c and 2c sum them inside their next launch.  A shard writes its
+partial straight into its slot of a buffer the group owns (``partials``:
+one a device, two parities); where the shards share a device the answer is
+that buffer itself and the host does no tensor work, across devices each
+buffer gets the other devices' slots by peer copies, and across processes
+the answer is the one all-gather's output.  Every
 shard of every process so ends with the same bits, which the step needs: the
 power steps, ``active`` and every bail-out are decided on reduced values,
 and a shard that decided otherwise would leave the trim loop while another
@@ -85,7 +92,7 @@ class Reduction(NamedTuple):
     """What a shard's step generator yields to ask for a reduction across
     its bucket's shards (answered by ``group.combine``)."""
     group: "ColumnGroup"
-    op: str                 # "sum", "max" or "scan" (exclusive)
+    op: str                 # "sum", "max", "scan" (exclusive), "gather"
     value: torch.Tensor
 
 
@@ -96,13 +103,45 @@ class Columns:
     ``ONE_DEVICE``) each returns its argument (a scan: zeros) at once."""
 
     def __init__(self, group: Optional["ColumnGroup"] = None,
-                 offset: int = 0):
+                 offset: int = 0, shard: int = 0):
         self.group = group
         self.offset = offset
+        self.shard = shard
 
     @property
     def sharded(self) -> bool:
         return self.group is not None
+
+    @property
+    def count(self) -> int:
+        """Shards of the bucket, over all processes."""
+        return 1 if self.group is None else self.group.mesh.size
+
+    @property
+    def genes(self) -> int:
+        """The bucket's genes (its slots that hold one), which the launch
+        geometry of kernels 4c and 2c reads: the group's."""
+        if self.group is None:
+            raise ValueError("a bucket on one device has no column group")
+        return self.group.genes
+
+    def partials(self, shape: Sequence[int],
+                 device: torch.device) -> torch.Tensor:
+        """The ``(2, count, *shape)`` float32 buffer on ``device`` whose row
+        ``[q, shard]`` takes this shard's partial of parity ``q`` (a sweep's
+        parity: a later launch of one shard never overwrites a slot that
+        another's launch of the same sweep has yet to read).  The group's,
+        made once; without a group a new one."""
+        if self.group is None:
+            return torch.empty((2, 1) + tuple(shape), dtype=torch.float32,
+                               device=device)
+        return self.group.partials(shape, device)
+
+    def gather_(self, buf: torch.Tensor):
+        """Every shard's partial, unsummed, as a ``(count, ...)`` tensor on
+        this shard's device in global shard order.  ``buf`` is one parity
+        of ``partials(...)``, its row ``shard`` written by this shard."""
+        return (yield from self._ask("gather", buf))
 
     def sum_(self, t: torch.Tensor):
         return (yield from self._ask("sum", t))
@@ -127,23 +166,42 @@ ONE_DEVICE = Columns()
 class ColumnGroup:
     """The column shards of one bucket over a mesh: ``mesh.size`` shards of
     ``width`` columns each (``column_slots``), this process holding
-    ``mesh.local_shards``.  Counts its reductions and their host seconds."""
+    ``mesh.local_shards``; ``genes`` of its slots hold a gene.  Counts its
+    reductions (sums, maxima, scans) and their host seconds, and apart from
+    them its gather asks and theirs."""
 
-    def __init__(self, mesh: GeneMesh, W: int):
+    def __init__(self, mesh: GeneMesh, W: int, genes: int):
         self.mesh = mesh
         self.W = W
+        self.genes = genes
         self.width = column_slots(W, mesh.size)[1]
         self.reductions = 0
         self.seconds = 0.0
+        self.gathers = 0
+        self.gather_seconds = 0.0
+        self._partials = {}
 
     def columns(self) -> List[Columns]:
         """The ``Columns`` of this process's shards, in shard order."""
-        return [Columns(self, s * self.width) for s in self.mesh.local_shards]
+        return [Columns(self, s * self.width, s)
+                for s in self.mesh.local_shards]
+
+    def partials(self, shape: Sequence[int],
+                 device: torch.device) -> torch.Tensor:
+        """The group's ``(2, mesh.size, *shape)`` float32 buffer on
+        ``device`` (``Columns.partials``), made at the first ask."""
+        key = (tuple(shape), torch.device(device))
+        if key not in self._partials:
+            self._partials[key] = torch.empty(
+                (2, self.mesh.size) + tuple(shape), dtype=torch.float32,
+                device=device)
+        return self._partials[key]
 
     def combine(self, asks: Sequence[Reduction]) -> List[torch.Tensor]:
         """Answer one reduction of every local shard (``asks`` in shard
         order): the partials reduced in global shard order, the same bits
-        on every shard, each on its shard's device."""
+        on every shard, each on its shard's device; a ``gather`` ask gets
+        them unsummed (``_gather``)."""
         t0 = time.perf_counter()
         ops = {a.op for a in asks}
         if len(asks) != len(self.mesh.devices) or len(ops) != 1:
@@ -151,6 +209,11 @@ class ColumnGroup:
                 f"column shards diverged: {len(asks)} of "
                 f"{len(self.mesh.devices)} local shards asked for {ops}")
         op = ops.pop()
+        if op == "gather":
+            res = self._gather([a.value for a in asks])
+            self.gathers += 1
+            self.gather_seconds += time.perf_counter() - t0
+            return res
         home = asks[0].value.device
         parts = torch.stack([a.value.to(home) for a in asks])
         if self.mesh.process_count > 1:
@@ -180,6 +243,26 @@ class ColumnGroup:
         self.reductions += 1
         self.seconds += time.perf_counter() - t0
         return res
+
+    def _gather(self, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Answer a ``gather_`` ask: ``bufs`` one parity of each local
+        shard's ``partials`` buffer, row ``shard`` written by that shard.
+        Across processes: the local rows, one all-gather, its output for
+        every local shard.  In one process: each buffer gets the other
+        buffers' rows of their shards (no copy where the shards share a
+        buffer: one device) and is its shard's answer."""
+        shards = self.mesh.local_shards
+        if self.mesh.process_count > 1:
+            home = bufs[0].device
+            local = torch.stack([b[s].to(home) for b, s in zip(bufs, shards)])
+            full = distributed.gather_equal(local).flatten(0, 1)
+            return [full if b.device == home else full.to(b.device)
+                    for b in bufs]
+        for b in bufs:
+            for o, s in zip(bufs, shards):
+                if o.data_ptr() != b.data_ptr():
+                    b[s].copy_(o[s])
+        return list(bufs)
 
     def cat_columns(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The (G, W) tensor of a per-column quantity from this process's

@@ -203,6 +203,54 @@ def test_two_processes_column_shard_the_wide_bucket(tmp_path):
                                rtol=1e-9, atol=1e-9)
 
 
+_GATHER_RANK = r"""
+import sys
+import numpy as np, torch
+from degnorm_tpu_torch.ops.cuda_trim import run_steps
+from degnorm_tpu_torch.parallel import distributed
+from degnorm_tpu_torch.parallel.seqpar import ColumnGroup
+out = sys.argv[1]
+distributed.initialize_multihost(device="cpu")
+rank = distributed.process_index()
+group = ColumnGroup(distributed.global_mesh("cpu"), 2 * 128, genes=5)
+(cols,) = group.columns()
+rng = np.random.default_rng(70 + rank)
+t = torch.from_numpy((rng.standard_normal((5, 36))
+                      * 10 ** rng.uniform(-3, 3, (5, 36))).astype(np.float32))
+
+def step():
+    buf = cols.partials(t.shape, t.device)[0]
+    buf[cols.shard] = t
+    got = yield from cols.gather_(buf)
+    red = yield from cols.sum_(t)
+    return got, red
+
+((got, red),) = run_steps([step()])
+np.save(f"{out}/part_{rank}.npy", t.numpy())
+np.save(f"{out}/got_{rank}.npy", got.numpy())
+np.save(f"{out}/red_{rank}.npy", red.numpy())
+distributed.shutdown()
+print("GATHER OK", flush=True)
+"""
+
+
+def test_two_processes_gather_the_partials_unsummed(tmp_path):
+    """Two gloo processes, one column shard each: the gather ask of kernels
+    4c and 2c answers both with both shards' partials in global shard order
+    (one all-gather), and their left-to-right float32 sum is the bits the
+    sum ask answers."""
+    outs = run_ranks(lambda r: [sys.executable, "-c", _GATHER_RANK,
+                                str(tmp_path)])
+    assert all("GATHER OK" in o for o in outs)
+    parts = [np.load(tmp_path / f"part_{r}.npy") for r in range(2)]
+    for r in range(2):
+        got = np.load(tmp_path / f"got_{r}.npy")
+        np.testing.assert_array_equal(got, np.stack(parts))
+        red = np.load(tmp_path / f"red_{r}.npy")
+        np.testing.assert_array_equal(got[0] + got[1], red)
+        assert red.dtype == np.float32
+
+
 # ---------------------------------------------------------------------------
 # the command
 # ---------------------------------------------------------------------------

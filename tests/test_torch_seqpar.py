@@ -5,6 +5,9 @@ JAX package's seqpar engine (its 8 CPU devices, ``tests/conftest.py``), the
 partitioning edges (a trim bin cut by a shard boundary, high-coverage
 columns in one shard, ``-d 3`` at shard offsets that are not multiples of
 3), the plain versions of kernels 4c and 2c against the whole-gene ones, the
+launch geometry of kernels 4c and 2c (``pick_cols_geometry``: every chunk
+up to a gene's last active column dealt to one block), the partials handed
+back unsummed for the kernels' next launch (``Columns.gather_``), the
 estimates, checkpoints across the two forms and the opt-in modes.
 
 Tolerances: float64 throughout.  The column-sharded fit sums each reduction
@@ -97,6 +100,115 @@ def test_column_slots_cover_every_column_once(W, n):
     assert [c for a, b in slots for c in range(a, b)] == list(range(W))
 
 
+# kernels 4c and 2c: a gene's shard over several blocks
+# (``cuda_stream.pick_cols_geometry``; the kernels deal the chunks as
+# ``cuda_stream.block_columns`` mirrors them) and the partials handed back
+# unsummed (``Columns.gather_``) for the next launch to sum
+
+@pytest.mark.parametrize("G,p,W,ncols", [
+    (1, 8, 55040, 55040), (1, 8, 55040, 31000), (1, 8, 110080, 110000),
+    (1, 32, 59584, 59000), (3, 8, 59584, 700), (64, 8, 59584, 59500),
+    (384, 8, 32768, 32700), (5, 3, 2048, 2048), (2, 16, 256, 1)])
+def test_cols_geometry_deals_every_chunk_up_to_the_last_once(G, p, W, ncols):
+    nb, threads = cuda_stream.pick_cols_geometry(G, p, W, 132)
+    assert 1 <= nb <= -(-W // CHUNK)
+    assert threads % 32 == 0 and 32 <= threads <= cuda_nmf.max_loop_threads(p)
+    dealt = [c for r in range(nb)
+             for c in cuda_stream.block_columns(ncols, W, nb, r)]
+    assert sorted(dealt) == list(range(min(-(-ncols // CHUNK) * CHUNK, W)))
+    assert len(dealt) == len(set(dealt))
+
+
+def test_cols_geometry_one_block_where_genes_fill_the_card():
+    # the long tail's W=65536 bucket cut in two: 384 slots
+    assert cuda_stream.pick_cols_geometry(384, 8, 32768, 132)[0] == 1
+    assert cuda_stream.pick_cols_geometry(132, 16, 32768, 132)[0] == 1
+
+
+@pytest.mark.parametrize("W", [110080, 55040])
+def test_cols_geometry_spreads_one_outlier_gene_over_the_sms(W):
+    # one 110,000-base gene, whole or one of two column shards
+    nb, _ = cuda_stream.pick_cols_geometry(1, 8, W, 132)
+    assert nb >= 132
+    assert cuda_stream.pick_cols_geometry(3, 8, W, 132)[0] * 3 >= 132
+
+
+def _gather_and_sum(cols, parts):
+    """Each shard writes its partial into its slot of the group's buffer
+    and asks for every shard's (``gather_``), then for their sum
+    (``sum_``)."""
+    def step(c, t):
+        buf = c.partials(t.shape, t.device)[1]
+        buf[c.shard] = t
+        got = yield from c.gather_(buf)
+        red = yield from c.sum_(t)
+        return got, red
+    return run_steps(step(c, t) for c, t in zip(cols, parts))
+
+
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_gather_hands_back_the_partials_in_shard_order(S):
+    """On S CPU shards: every shard gets the S partials unsummed, in global
+    shard order, as the group's one buffer (no copy where the shards share
+    a device), and their left-to-right float32 sum is the bits ``sum_``
+    answers."""
+    rng = np.random.default_rng(S)
+    parts = [torch.from_numpy((rng.standard_normal((7, 10)) * 10 ** rng
+                               .uniform(-3, 3, (7, 10))).astype(np.float32))
+             for _ in range(S)]
+    group = ColumnGroup(make_mesh(["cpu"] * S), S * CHUNK, genes=7)
+    out = _gather_and_sum(group.columns(), parts)
+    assert (group.reductions, group.gathers) == (1, 1)
+    for got, red in out:
+        assert got.dtype == torch.float32
+        assert torch.equal(got, torch.stack(parts))
+        assert got.data_ptr() == out[0][0].data_ptr()
+        acc = got[0].clone()
+        for t in got[1:]:
+            acc = acc + t
+        assert torch.equal(acc, red)
+
+
+def test_gather_copies_the_rows_between_buffers():
+    """Shards whose buffers differ (shards on several devices) each get the
+    other shards' rows copied into theirs: the answer of ``combine`` to a
+    gather ask, read from each shard's own buffer."""
+    from degnorm_tpu_torch.parallel.seqpar import Reduction
+    S = 3
+    group = ColumnGroup(make_mesh(["cpu"] * S), S * CHUNK, genes=7)
+    rng = np.random.default_rng(9)
+    parts = torch.from_numpy(rng.standard_normal((S, 4, 6)).astype(np.float32))
+    bufs = [torch.full((S, 4, 6), np.nan, dtype=torch.float32)
+            for _ in range(S)]
+    for s, b in enumerate(bufs):
+        b[s] = parts[s]
+    got = group.combine([Reduction(group, "gather", b) for b in bufs])
+    for b, g in zip(bufs, got):
+        assert g is b and torch.equal(g, parts)
+
+
+def test_gather_on_one_device_is_the_buffer_itself():
+    from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE
+    buf = ONE_DEVICE.partials((3, 4), torch.device("cpu"))
+    assert tuple(buf.shape) == (2, 1, 3, 4) and ONE_DEVICE.count == 1
+
+    def step():
+        return (yield from ONE_DEVICE.gather_(buf[0]))
+    (got,) = run_steps([step()])
+    assert got.data_ptr() == buf[0].data_ptr()
+
+
+def test_columns_read_the_genes_of_their_group():
+    """The launch geometry of kernels 4c and 2c reads the bucket's genes
+    from the column group alone: every shard's ``Columns`` gives the
+    group's, and a bucket on one device has none to give."""
+    from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE
+    group = ColumnGroup(make_mesh(["cpu"] * 2), 2 * CHUNK, genes=1)
+    assert [c.genes for c in group.columns()] == [1, 1]
+    with pytest.raises(ValueError):
+        ONE_DEVICE.genes
+
+
 def test_only_wide_buckets_are_column_sharded():
     """On two shards exactly the bucket with W >= seqpar_width is cut along
     its columns, into shards of equal padded width; on a mesh of one, and
@@ -161,7 +273,7 @@ def colsharded_step(F, mask, n_shards, nmf_cfg, eng_cfg, ds_start=None):
     (G, p, W) numpy bucket; returns the first shard's result with its E
     joined along the columns, and every shard's result."""
     mesh = make_mesh(["cpu"] * n_shards)
-    group = ColumnGroup(mesh, F.shape[2])
+    group = ColumnGroup(mesh, F.shape[2], genes=F.shape[0])
     ds = None if ds_start is None else torch.from_numpy(ds_start)
     res = run_steps(
         tb.baseline_select_steps(Fs, ms, nmf_cfg, eng_cfg, ds_start=ds,
@@ -255,7 +367,7 @@ def test_downsample_rate_3_at_offsets_off_the_rate():
 
 def shards_of(F, mask, k):
     mesh = make_mesh(["cpu"] * k)
-    group = ColumnGroup(mesh, F.shape[2])
+    group = ColumnGroup(mesh, F.shape[2], genes=F.shape[0])
     return shard_columns(F, mask, mesh), group
 
 

@@ -1,0 +1,83 @@
+"""Bit comparison of the port's fits between two trees of the repo.
+
+    python3 tools/torch_fit_bits.py save TREE OUT.npz
+    python3 tools/torch_fit_bits.py compare A.npz B.npz
+
+``save`` runs, on the card, the fits of ``TREE`` (a checkout of the repo:
+its ``degnorm_tpu_torch`` and its ``chip_smoke.py`` come first on the path)
+on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
+(rho), adjusted counts and baseline-selection flags:
+
+* ``fit``: the narrow dataset on one device (phase ``fit``'s config);
+* ``fit_wide``: the long tail on one device (phase ``fit_wide``'s);
+* ``long_tail_cols``: the long tail on two shards of the card, its W=65536
+  bucket column-sharded (phases ``mesh`` and ``seqpar``);
+* ``ttn_cols``: the TTN-like genes on two shards, column-sharded (phase
+  ``seqpar``).
+
+``compare`` prints one JSON object: for each array, whether the two files
+hold the same bits, and the largest absolute difference.  Run ``save`` for
+both trees in one call to the card, so that both fits meet the same card.
+"""
+import json
+import os
+import sys
+
+import numpy as np
+
+CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols")
+
+
+def save(tree, out):
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import chip_smoke as cs
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.engine import DegNormEngine
+    from degnorm_tpu_torch.parallel import make_mesh
+    if os.path.dirname(os.path.abspath(cs.__file__)) != os.path.abspath(tree):
+        raise RuntimeError(f"chip_smoke.py not taken from {tree}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh([dev] * 2)
+    nmf = NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.DEGNORM_ITER)
+    narrow = cs.synth_dataset(cs.N_GENES, cs.P_SAMPLES)
+    wide = cs.synth_dataset(cs.WIDE_GENES, cs.P_SAMPLES, seed=cs.SEED + 1,
+                            lengths_fn=cs.synth_long_lengths)
+    ttn = cs.synth_dataset(
+        cs.TTN_GENES, cs.P_SAMPLES, seed=cs.SEED + 3,
+        lengths_fn=lambda n, rng: rng.integers(*cs.TTN_LENGTHS, n,
+                                               endpoint=True))
+    runs = {"fit": (narrow, EngineConfig(bucket_widths=cs.BUCKET_WIDTHS),
+                    None),
+            "fit_wide": (wide, EngineConfig(), None),
+            "long_tail_cols": (wide, EngineConfig(), mesh),
+            "ttn_cols": (ttn, EngineConfig(), mesh)}
+    arrays = {}
+    for case in CASES:
+        (cov, X), cfg, m = runs[case]
+        res = DegNormEngine(nmf, cfg, mesh=m).run(cov, X)
+        torch.cuda.synchronize()
+        arrays[f"{case}.rho"] = res.rho
+        arrays[f"{case}.x_adj"] = res.x_adj
+        arrays[f"{case}.ran"] = res.ran_baseline_selection
+        print(f"saved {case} of {tree}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez(out, **arrays)
+
+
+def compare(a_path, b_path):
+    a, b = np.load(a_path), np.load(b_path)
+    out = {}
+    for k in a.files:
+        x, y = a[k], b[k]
+        same = x.shape == y.shape and bool(np.array_equal(x, y))
+        diff = (float(np.abs(x.astype(np.float64) - y.astype(np.float64))
+                      .max()) if x.shape == y.shape else None)
+        out[k] = {"same_bits": same, "max_abs_diff": diff}
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 4 or sys.argv[1] not in ("save", "compare"):
+        sys.exit(__doc__)
+    (save if sys.argv[1] == "save" else compare)(sys.argv[2], sys.argv[3])
