@@ -48,8 +48,8 @@ is no CPU fallback: without a CUDA device the script exits non-zero and
 prints no result.
 
 Options (none needed): ``--phases env,build,kernels,fit,fit_wide,parity,
-pipeline,mesh,seqpar,multihost,modes,oracle`` runs a subset (then no final
-result line is printed unless all ran; ``modes`` reads the default fit of
+pipeline,mesh,seqpar,multihost,modes,oracle,wide_p`` runs a subset (then no
+final result line is printed unless all ran; ``modes`` reads the default fit of
 ``fit`` for its drift, ``mesh`` the fits of ``fit`` and ``fit_wide``,
 ``multihost`` those of ``fit``, ``fit_wide`` and ``pipeline``: ``NEEDS``;
 ``seqpar`` fits the long tail on one device itself where ``fit_wide`` did
@@ -77,6 +77,7 @@ import subprocess
 import sys
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -89,6 +90,7 @@ P32_GENES = 1024            # phase kernels' timed p > 16 buckets (W = 1024)
 TIMED_WIDE_P = (32, 24)
 PARITY_GENES = 512
 SEED = 7
+SYNTH_THREADS = 4         # synth_dataset's chunks made at once
 DEVICE = "cuda"             # the script runs nowhere else
 # the long tail of a human-scale annotation: genes past the resident gate
 WIDE_GENES = 2048
@@ -101,7 +103,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
-              "pipeline", "mesh", "seqpar", "multihost", "modes", "oracle")
+              "pipeline", "mesh", "seqpar", "multihost", "modes", "oracle",
+              "wide_p")
 # what a phase reads from earlier ones
 NEEDS = {"modes": ("fit",), "mesh": ("fit", "fit_wide"),
          "multihost": ("fit", "fit_wide", "pipeline")}
@@ -143,16 +146,18 @@ def synth_dataset(n, p, seed=SEED, profile="dense", lengths_fn=synth_lengths):
     amp = 0.5 + rng.random((n, p)) * 1.5
     decay = rng.random((n, p))
     mats = [None] * n
-    odd = (np.arange(p) % 2 == 1)[None, :, None]
     order = np.argsort(lengths, kind="stable")
+    chunks = []
     s = 0
     while s < n:
         # genes sorted by length, at most 512 a step and about 2M columns
         k = 512
         while k > 1 and k * lengths[order[min(s + k, n) - 1]] > 2_100_000:
             k //= 2
-        idx = order[s:s + k]
+        chunks.append(order[s:s + k])
         s += k
+
+    def make(idx):
         Lk = lengths[idx][:, None].astype(np.float64)
         Lmax = int(lengths[idx].max())
         j = np.arange(Lmax, dtype=np.float64)[None, :]
@@ -160,11 +165,19 @@ def synth_dataset(n, p, seed=SEED, profile="dense", lengths_fn=synth_lengths):
         base = np.abs(np.sin(np.pi * t) + 0.2)
         m = (amp[idx][:, :, None] * base_scale[idx][:, None, None]
              * base[:, None, :])
-        dec = np.exp(-2.0 * (1 - t)[:, None, :] * decay[idx][:, :, None])
-        m = np.where(degraded[idx][:, None, None] & odd, m * dec, m)
+        # the odd samples of a degraded gene decay toward its 5' end
+        deg = np.flatnonzero(degraded[idx])
+        if deg.size:
+            m[deg, 1::2] *= np.exp(-2.0 * (1 - t[deg])[:, None, :]
+                                   * decay[idx[deg]][:, 1::2, None])
         m = np.round(np.maximum(m, 0.0) * 20).astype(np.float32)
         for k, gi in enumerate(idx):
             mats[gi] = np.ascontiguousarray(m[k, :, :int(lengths[gi])])
+
+    # numpy's loops release the GIL; each chunk is made alone, so the data
+    # are the same at any number of threads
+    with ThreadPoolExecutor(SYNTH_THREADS) as pool:
+        list(pool.map(make, chunks))
     cov = OrderedDict((f"g{i}", mats[i]) for i in range(n))
     X = np.round(np.abs(rng.standard_normal((n, p))) * 300 + 30)
     return cov, X
@@ -379,7 +392,9 @@ SPILL_ALLOWED = tuple(f"trim_loop_kernel<32,{f},{m}>" for m in range(3)
 SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "trim_loop_kernel", "nmf_streamed_kernel",
                "ratio_rowsums_kernel", "cols_gram_kernel", "cols_sweep_kernel",
-               "cols_finish_kernel", "ratio_cols_sums_kernel")
+               "cols_finish_kernel", "ratio_cols_sums_kernel",
+               "nmf_wide_kernel", "trim_wide_kernel", "nmf_stream_wide_kernel",
+               "ratio_wide_kernel")
 
 
 def phase_build(ptxas):
@@ -482,11 +497,12 @@ def nmf_geometries(p, W, G):
 
 
 def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
-                     freeze=False):
+                     freeze=False, branches=True, keep=None):
     """Kernels 1-3 against their plain versions on one bucket (kernel 2 on
-    its raw int16 form ``raw``), the opt-in branches too (``freeze``: also
-    where most genes freeze, ``check_branches_at``); returns per-kernel
-    measurements."""
+    its raw int16 form ``raw``), the opt-in branches too where ``branches``
+    (``freeze``: also where most genes freeze, ``check_branches_at``);
+    returns per-kernel measurements.  ``keep``: a dict that receives the
+    kernels' inputs (``ti``, ``act``, ``nkw``, ``targs``, ``tkw``)."""
     import torch
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
@@ -555,8 +571,12 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
     out["trim_loop"] = check_trim_at(ti, targs, tkw, nmf_cfg, timed)
 
     # the opt-in branches of kernels 1 and 3, on the same inputs
-    out.update(check_branches_at(ti, act, nkw, targs, tkw, nmf_cfg, timed,
-                                 out["trim_loop"]["lagrangian_iters"], freeze))
+    if branches:
+        out.update(check_branches_at(
+            ti, act, nkw, targs, tkw, nmf_cfg, timed,
+            out["trim_loop"]["lagrangian_iters"], freeze))
+    if keep is not None:
+        keep.update(ti=ti, act=act, nkw=nkw, targs=targs, tkw=tkw)
     return out
 
 
@@ -855,7 +875,9 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
     # (d) another launch geometry: the same function within the tolerance,
     # and the same bits from two runs of one geometry
     auto = cuda_stream.pick_geometry(W, p)
-    other = (1, cuda_nmf.max_loop_threads(p)) if auto[0] > 1 else (8, 128)
+    other = ((1, cuda_nmf.max_loop_threads(p)) if auto[0] > 1
+             else (8, 128) if p <= cuda_nmf.NARROW_MAX_P
+             else (8, cuda_nmf.WIDE_THREADS))
     got_g = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
                                                  _geometry=other, **nkw)
     got_g2 = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
@@ -896,6 +918,25 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
     if with_ratio:
         out["ratio_rowsums"] = check_ratio_at(raw, lm, eng_cfg)
     return out
+
+
+def resident_bucket(G, p, W, device, rng, mats=None):
+    """G genes of the narrow workload's lengths at p samples (seed SEED + p;
+    ``mats``: the first p rows of these genes' coverage instead), each cut
+    to at most W less 0-39 columns (``rng``): float32 coverage, its length
+    mask and its int16 form."""
+    import torch
+    if mats is None:
+        mats = list(synth_dataset(G, p, seed=SEED + p)[0].values())
+    F = np.zeros((G, p, W), np.float32)
+    lens = np.zeros(G, np.int64)
+    for i, m in enumerate(mats[:G]):
+        L = min(m.shape[1], W - int(rng.integers(0, 40)))
+        F[i, :, :L] = m[:p, :L]
+        lens[i] = L
+    lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(device)
+    return (torch.from_numpy(F).to(device), lm,
+            torch.from_numpy(F.astype(np.int16)).to(device))
 
 
 def small_wide_bucket(G, p, W, seed, device):
@@ -952,16 +993,7 @@ def phase_kernels(cov, cov_wide):
     rng = np.random.default_rng(SEED + 1)
 
     def odd_bucket(G, p, W):
-        small, _ = synth_dataset(G, p, seed=SEED + p)
-        F = np.zeros((G, p, W), np.float32)
-        lens = np.zeros(G, np.int64)
-        for i, m in enumerate(small.values()):
-            L = min(m.shape[1], W - int(rng.integers(0, 40)))
-            F[i, :, :L] = m[:, :L]
-            lens[i] = L
-        lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(dev)
-        return (torch.from_numpy(F).to(dev), lm,
-                torch.from_numpy(F.astype(np.int16)).to(dev))
+        return resident_bucket(G, p, W, dev, rng)
 
     for p, W, G, bins in ((3, 384, 48, 20), (16, 512, 32, 20),
                           (8, 512, 48, 48), (32, 2048, 32, 20)):
@@ -1080,7 +1112,8 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
     ours = {}
     for tag in ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                 "ratio_rowsums_kernel", "trim_loop_kernel",
-                "nmf_streamed_kernel"):
+                "nmf_streamed_kernel", "nmf_wide_kernel", "ratio_wide_kernel",
+                "trim_wide_kernel", "nmf_stream_wide_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -1577,7 +1610,20 @@ def branch_launches():
             "nmf_colsharded[nmf_tol]": cuda_stream.colsharded_tol_launches,
             "nmf_masked[nmf_tol]": cuda_nmf.nmf_tol_launches,
             "trim_loop[trim_fast]": cuda_trim.trim_fast_launches,
-            "trim_loop[nmf_tol]": cuda_trim.trim_tol_launches}
+            "trim_loop[nmf_tol]": cuda_trim.trim_tol_launches,
+            **wide_launches()}
+
+
+def wide_launches():
+    """Launch counts of the wide instances (p > 32), by instance."""
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
+    return {"nmf_masked[wide]": cuda_nmf.nmf_wide_launches,
+            "nmf_masked[wide,nmf_tol]": cuda_nmf.nmf_wide_tol_launches,
+            "ratio_rowsums[wide]": cuda_nmf.ratio_wide_launches,
+            "trim_loop[wide]": cuda_trim.trim_wide_launches,
+            "trim_loop[wide,trim_fast]": cuda_trim.trim_wide_fast_launches,
+            "trim_loop[wide,nmf_tol]": cuda_trim.trim_wide_tol_launches,
+            "nmf_streamed[wide]": cuda_stream.stream_wide_launches}
 
 
 def zero_launches():
@@ -1588,6 +1634,10 @@ def zero_launches():
     cuda_trim.trim_tol_launches = 0
     cuda_stream.colsharded_launches = cuda_nmf.ratio_cols_launches = 0
     cuda_stream.colsharded_tol_launches = 0
+    cuda_nmf.nmf_wide_launches = cuda_nmf.nmf_wide_tol_launches = 0
+    cuda_nmf.ratio_wide_launches = cuda_stream.stream_wide_launches = 0
+    cuda_trim.trim_wide_launches = cuda_trim.trim_wide_fast_launches = 0
+    cuda_trim.trim_wide_tol_launches = 0
 
 
 def drift(a, b):
@@ -3217,6 +3267,426 @@ def phase_multihost(cov, X, base_fit, base_steady_s, base_timings, cold,
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase wide_p: studies of 33 to 128 samples -----------------------------
+# the wide instances of kernels 1-4 (csrc/wide.cuh, csrc/*_wide.cuh)
+WIDE_P = (33, 48, 64, 96, 128)
+# (a) the resident buckets of kernels 1-3 (and 2): p -> (W, with the opt-in
+# branches), so that every instance (PMAX 48, 64, 96, 128) meets its plain
+# version in every branch, each at a shape where the engine runs it: the
+# modes apply (trim_fast_applies) at 48 x 1024, 64 x 512, 96 x 512 and
+# 128 x 256, not at 128 x 512
+WIDE_P_RESIDENT = {33: ((1024, False),), 48: ((1024, True),),
+                   64: ((1024, False), (512, True)), 96: ((512, True),),
+                   128: ((512, False), (256, True))}
+WIDE_P_GENES = 1024              # (a) kernels 1-3 and 2 at G x p x W
+WIDE_P_STREAM = (256, 16384)     # (a) kernel 4 (and 2) at 256 x p x 16384
+WIDE_P_BRANCH_P = 48             # the opt-in branches' main shape: 48 x 1024
+WIDE_P_MODE_P = (48, 64, 96, 128)   # the fits under each mode
+WIDE_P_MODE_GENES = 1024
+WIDE_P_FIT_P = 64                # (b) the narrow fit
+WIDE_P_TAIL_P = 48               # (c) the long tail
+WIDE_P_STREAM_P = 128            # (d) the default bucket widths at p = 128
+WIDE_P_STREAM_GENES = 4096
+WIDE_P_MESH_P = 40               # (e) the long tail on a two-shard mesh
+WIDE_PMAX = (48, 64, 96, 128)    # the instances of csrc/wide.cuh
+# DegNorm iterations of the fits (b)-(e) and the modes' fits: (b) at full
+# depth, the others cut to keep the phase short (PERF.md §4)
+WIDE_P_ITER = dict(b=DEGNORM_ITER, c=1, d=1, e=1, modes=1)
+WIDE_P_TAIL_GENES = WIDE_GENES   # (c); (e) takes those of its W=65536 bucket
+# the new instances: name -> (source, the TPU kernel, where its launches
+# are read: the phase's fit that runs it)
+WIDE_INSTANCES = OrderedDict([
+    ("nmf_masked[wide]", ("degnorm_tpu_torch/csrc/nmf_wide.cu",
+                          "degnorm_tpu/ops/pallas_nmf.py:687", "b")),
+    ("nmf_masked[wide,nmf_tol]", ("degnorm_tpu_torch/csrc/nmf_wide_tol.cu",
+                                  "degnorm_tpu/ops/pallas_nmf.py:440",
+                                  "nmf_tol_p48")),
+    ("ratio_rowsums[wide]", ("degnorm_tpu_torch/csrc/ratio_wide.cuh",
+                             "degnorm_tpu/ops/pallas_nmf.py:562", "b")),
+    ("trim_loop[wide]", ("degnorm_tpu_torch/csrc/trim_wide.cu",
+                         "degnorm_tpu/ops/pallas_trim.py:324", "b")),
+    ("trim_loop[wide,trim_fast]", ("degnorm_tpu_torch/csrc/trim_wide_fast.cu",
+                                   "degnorm_tpu/ops/pallas_trim.py:135",
+                                   "trim_fast_p48")),
+    ("trim_loop[wide,nmf_tol]", ("degnorm_tpu_torch/csrc/trim_wide_tol.cu",
+                                 "degnorm_tpu/ops/pallas_trim.py:177",
+                                 "nmf_tol_p48")),
+    ("nmf_streamed[wide]", ("degnorm_tpu_torch/csrc/stream_wide.cuh",
+                            "degnorm_tpu/ops/pallas_stream.py:266", "b")),
+])
+
+
+def wide_same_bits(keep, raw, lm, eng_cfg, branches):
+    """Each wide instance run twice on the inputs of its check: the same
+    bits.  Returns the instances checked."""
+    import torch
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
+    ti, act, nkw = keep["ti"], keep["act"], keep["nkw"]
+    targs, tkw = keep["targs"], keep["tkw"]
+    runs = {
+        "ratio_rowsums[wide]": lambda: cuda_nmf.ratio_rowsums_cuda(
+            raw, lm, power_iters=eng_cfg.power_iters_cold),
+        "nmf_masked[wide]": lambda: cuda_nmf.nmf_masked_cuda(
+            ti.Fm, ti.hi, gene_active=act, **nkw),
+        "trim_loop[wide]": lambda: cuda_trim.trim_loop_cuda(*targs, **tkw)}
+    if branches:
+        runs.update({
+            "nmf_masked[wide,nmf_tol]": lambda: cuda_nmf.nmf_masked_cuda(
+                ti.Fm, ti.hi, gene_active=act, **dict(nkw, nmf_tol=MODE_TOL)),
+            "trim_loop[wide,trim_fast]": lambda: cuda_trim.trim_loop_cuda(
+                *targs, **tkw, trim_fast=True),
+            "trim_loop[wide,nmf_tol]": lambda: cuda_trim.trim_loop_cuda(
+                *targs, **tkw, nmf_tol=MODE_TOL)})
+    for name, fn in runs.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name} p={ti.Fm.shape[1]}: two runs "
+                                     f"differ on {int((x != y).sum())} values")
+    return list(runs)
+
+
+def wide_fit(tag, cov, X, nmf_cfg, eng_cfg, mesh=None, steady=True,
+             profile=False):
+    """A fit of phase wide_p through DegNormEngine.run: counts set to 0 just
+    before it and read just after, peak device memory; a steady refit and a
+    profiled one where asked (without the steady refit, the profiled fit is
+    reported beside the cold fit's wall).  Returns (result, record,
+    engine)."""
+    import torch
+    from degnorm_tpu_torch.engine import DegNormEngine
+    engine = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = engine.run(cov, X)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {k: v for k, v in branch_launches().items() if v}
+    n, p = res.rho.shape
+    if not (np.isfinite(res.rho).all() and res.rho.min() >= 0
+            and res.rho.max() <= 0.9 and np.isfinite(res.x_adj).all()):
+        raise AssertionError(f"wide_p {tag}: non-finite or out-of-range DI")
+    if not res.ran_baseline_selection.any():
+        raise AssertionError(f"wide_p {tag}: no gene ran baseline selection")
+    iters = nmf_cfg.degnorm_iter
+    compute = engine.timings["init"] + engine.timings["iterations"]
+    rec = dict(genes=n, samples=p, degnorm_iter=iters,
+               buckets=[[b.width, int(b.F.shape[0]), b.n_real]
+                        for b in engine._buckets],
+               launches=launches, wall_s=round(cold, 3),
+               timings={k: round(v, 4) for k, v in engine.timings.items()},
+               gene_iter_per_s=round(n * iters / compute, 1),
+               genes_ran_bs=int(res.ran_baseline_selection.any(axis=1).sum()),
+               trim_rounds=[list(r) for r in engine.trim_rounds])
+    if steady:
+        t0 = time.perf_counter()
+        res2 = engine.run(cov, X, reuse_device_data=True)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        np.testing.assert_allclose(res2.rho, res.rho, rtol=0, atol=1e-6)
+        rec.update(steady_wall_s=round(wall2, 3),
+                   steady_gene_iter_per_s=round(n * iters / wall2, 1))
+        if profile:
+            rec["profile"] = profile_fit(engine, cov, X, wall2)
+    rec["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated())
+    if profile and not steady:
+        rec["profile"] = profile_fit(engine, cov, X, cold)
+    return res, rec, engine
+
+
+def phase_wide_p():
+    """Studies of 33 to 128 samples (the wide instances of kernels 1-4,
+    csrc/wide.cuh).  (a) each new instance against its plain version at
+    p = 33, 48, 64, 96, 128: kernels 1-3 (and 2) on WIDE_P_GENES genes at
+    the resident widths of WIDE_P_RESIDENT (every PMAX instance, the opt-in
+    branches at 48, 64, 96 and 128), kernel 4 (and 2) at 256 x p x 16384,
+    raw int16 + scale bit-equal to float32, each at phase kernels'
+    tolerances and run twice for the same bits, every p on the first p
+    samples of one dataset made at p = 128; then the narrow genes at each p
+    of WIDE_P_MODE_P (the first p samples of one dataset) under each opt-in
+    mode, with the default bucket widths (the launches of every instance in
+    each branch).  (b) the narrow
+    fit at p = 64 (the bench gene set, seed 7: kernels 2, 1 and 3 at
+    W = 1024, kernel 4 with the unfused loop at W = 4096), cold and a
+    profiled steady refit, held to ``compare_fits`` against use_kernels=False on its
+    first PARITY_GENES genes.  (c) the long tail at p = 48 (phase
+    fit_wide's genes, seed 8, all through kernel 4), held the same way on
+    PARITY_WIDE_GENES of its genes.  (d) p = 128 on WIDE_P_STREAM_GENES
+    narrow genes with the default bucket widths: W <= 512 resident
+    (kernels 1 and 3), W >= 1024 streamed (kernel 4).  (e) the long tail's
+    genes of its W = 65536 bucket at p = 40 (the first 40 samples of (c)'s
+    data) on two gene shards of the card: the bucket is gene-sharded by the
+    engine's rule (``colshard_declined``), against one device's fit.
+    DegNorm iterations: WIDE_P_ITER.  Every instance must launch at every
+    PMAX in the phase's fits.  Returns the kernels' records, the launches of
+    each instance on its fit and its launches by PMAX."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.config import trim_fast_applies
+    from degnorm_tpu_torch.ops import cuda_nmf
+    from degnorm_tpu_torch.parallel.sharded import make_mesh
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
+    eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
+    rng = np.random.default_rng(SEED + 11)
+    kres = {"resident": OrderedDict(), "stream": OrderedDict()}
+    secs = {}
+
+    # (a) every instance against its plain version, each p on the first p
+    # samples of one dataset at the largest p
+    t0 = time.perf_counter()
+    top = max(WIDE_P)
+    base = list(synth_dataset(WIDE_P_GENES, top, seed=SEED + top)[0].values())
+    raw_top, lm_top = small_wide_bucket(WIDE_P_STREAM[0], top,
+                                        WIDE_P_STREAM[1], SEED + top, dev)
+    secs["a_data"] = time.perf_counter() - t0
+    for p in WIDE_P:
+        t1 = time.perf_counter()
+        for W, branches in WIDE_P_RESIDENT[p]:
+            F, lm, raw = resident_bucket(WIDE_P_GENES, p, W, dev, rng,
+                                         mats=base)
+            assert cuda_nmf.kernels_supported(F.shape, torch.float32)
+            assert not branches or trim_fast_applies(F.shape)
+            keep = {}
+            rec = check_kernels_at(F, lm, nmf_cfg, eng_cfg, raw,
+                                   branches=branches, keep=keep)
+            rec["same_bits"] = wide_same_bits(keep, raw, lm, eng_cfg,
+                                              branches)
+            kres["resident"][f"p{p}_W{W}"] = rec
+            del F, lm, raw, keep, rec
+        t2 = time.perf_counter()
+        secs[f"a_resident_p{p}"] = t2 - t1
+        raw = raw_top[:, :p].contiguous()
+        assert not cuda_nmf.kernels_supported(raw.shape, torch.float32)
+        kres["stream"][f"p{p}_W{WIDE_P_STREAM[1]}"] = check_stream_at(
+            raw, lm_top, nmf_cfg, EngineConfig())
+        del raw
+        torch.cuda.empty_cache()
+        secs[f"a_stream_p{p}"] = time.perf_counter() - t2
+    del base, raw_top, lm_top
+    secs["a"] = time.perf_counter() - t0
+
+    # the narrow genes under each opt-in mode at every PMAX, with the
+    # default bucket widths: the branches' instances on a fit's path
+    t0 = time.perf_counter()
+    modes = {}
+    cov_top, X_top = synth_dataset(WIDE_P_MODE_GENES, max(WIDE_P_MODE_P))
+    for p in WIDE_P_MODE_P:
+        cov_m = OrderedDict((k, np.ascontiguousarray(m[:p]))
+                            for k, m in cov_top.items())
+        X_m = np.ascontiguousarray(X_top[:, :p])
+        for mode, kw in MODES:
+            _, rec, _ = wide_fit(
+                f"{mode}_p{p}", cov_m, X_m,
+                NMFConfig(nmf_iter=NMF_ITER,
+                          degnorm_iter=WIDE_P_ITER["modes"]),
+                EngineConfig(**kw), steady=False)
+            modes[f"{mode}_p{p}"] = rec
+        del cov_m, X_m
+    del cov_top, X_top
+    secs["modes"] = time.perf_counter() - t0
+
+    # (b) the narrow fit at p = 64
+    t0 = time.perf_counter()
+    cov_b, X_b = synth_dataset(N_GENES, WIDE_P_FIT_P)
+    secs["b_data"] = time.perf_counter() - t0
+    nmf_b = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=WIDE_P_ITER["b"])
+    # the steady refit is the profiled one (the profiler cost 0.1% of it)
+    fit_b, rec_b, eng_b = wide_fit("b", cov_b, X_b, nmf_b, eng_cfg,
+                                   steady=False, profile=True)
+    if isinstance(rec_b["profile"], dict):
+        rec_b["steady_profiled_wall_s"] = rec_b["profile"]["wall_s"]
+    widths = sorted(b.width for b in eng_b._buckets)
+    if widths != sorted(BUCKET_WIDTHS):
+        raise AssertionError(f"wide_p (b): buckets {widths}")
+    need = ("ratio_rowsums[wide]", "nmf_masked[wide]", "trim_loop[wide]",
+            "nmf_streamed[wide]")
+    if any(rec_b["launches"].get(k, 0) < 1 for k in need):
+        raise AssertionError(f"wide_p (b): launches {rec_b['launches']}")
+    del eng_b
+    torch.cuda.empty_cache()
+    secs["b_fit"] = time.perf_counter() - t0 - secs["b_data"]
+    keys = list(cov_b)[:PARITY_GENES]
+    sub = OrderedDict((k, cov_b[k]) for k in keys)
+    Xs = X_b[:PARITY_GENES]
+    t1 = time.perf_counter()
+    on, _, _ = wide_fit("b_parity_on", sub, Xs, nmf_b, eng_cfg, steady=False)
+    t2 = time.perf_counter()
+    off, _, _ = wide_fit("b_parity_off", sub, Xs, nmf_b,
+                         dataclasses.replace(eng_cfg, use_kernels=False),
+                         steady=False)
+    compare_fits("wide_p_parity_b", on, off,
+                 (t2 - t1, time.perf_counter() - t2), samples=WIDE_P_FIT_P)
+    del cov_b, X_b, fit_b, sub, on, off
+    secs["b"] = time.perf_counter() - t0
+
+    # (c) the long tail at p = 48
+    t0 = time.perf_counter()
+    cov_c, X_c = synth_dataset(WIDE_P_TAIL_GENES, WIDE_P_TAIL_P,
+                               seed=SEED + 1, lengths_fn=synth_long_lengths)
+    secs["c_data"] = time.perf_counter() - t0
+    nmf_c = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=WIDE_P_ITER["c"])
+    wide_cfg = EngineConfig()
+    fit_c, rec_c, eng_c = wide_fit("c", cov_c, X_c, nmf_c, wide_cfg,
+                                   steady=False, profile=True)
+    if sorted(b.width for b in eng_c._buckets) != sorted(WIDE_WIDTHS):
+        raise AssertionError("wide_p (c): long genes did not pack into the "
+                             "wide buckets")
+    if (rec_c["launches"].get("nmf_streamed[wide]", 0) < 1
+            or rec_c["launches"].get("trim_loop", 0)
+            or rec_c["launches"].get("nmf_masked", 0)):
+        raise AssertionError(f"wide_p (c): launches {rec_c['launches']}")
+    del eng_c
+    torch.cuda.empty_cache()
+    secs["c_fit"] = time.perf_counter() - t0 - secs["c_data"]
+    lens = np.array([m.shape[1] for m in cov_c.values()])
+    pick = np.concatenate([
+        np.flatnonzero(lens <= WIDE_WIDTHS[0])[:PARITY_WIDE_GENES[0]],
+        np.flatnonzero(lens > WIDE_WIDTHS[0])[:PARITY_WIDE_GENES[1]]])
+    keys = list(cov_c)
+    sub = OrderedDict((keys[i], cov_c[keys[i]]) for i in pick)
+    t1 = time.perf_counter()
+    on, _, _ = wide_fit("c_parity_on", sub, X_c[pick], nmf_c, wide_cfg,
+                        steady=False)
+    t2 = time.perf_counter()
+    off, _, _ = wide_fit("c_parity_off", sub, X_c[pick], nmf_c,
+                         dataclasses.replace(wide_cfg, use_kernels=False),
+                         steady=False)
+    compare_fits("wide_p_parity_c", on, off,
+                 (t2 - t1, time.perf_counter() - t2), samples=WIDE_P_TAIL_P)
+    del fit_c, sub, on, off
+    secs["c"] = time.perf_counter() - t0
+
+    # (d) p = 128 with the default bucket widths: W <= 512 resident, the
+    # rest streamed
+    t0 = time.perf_counter()
+    cov_d, X_d = synth_dataset(WIDE_P_STREAM_GENES, WIDE_P_STREAM_P)
+    _, rec_d, eng_d = wide_fit(
+        "d", cov_d, X_d,
+        NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=WIDE_P_ITER["d"]),
+        EngineConfig(), steady=False)
+    resident = sorted(b.width for b in eng_d._buckets
+                      if cuda_nmf.kernels_supported(b.F.shape, torch.float32))
+    if (resident != [256, 512]
+            or set(rec_d["launches"]) - {"ratio_rowsums", "nmf_masked",
+                                         "trim_loop", "nmf_streamed",
+                                         *(k + "[wide]" for k in (
+                                             "ratio_rowsums", "nmf_masked",
+                                             "trim_loop", "nmf_streamed"))}
+            or any(rec_d["launches"].get(k + "[wide]", 0) < 1 for k in (
+                "nmf_masked", "trim_loop", "nmf_streamed"))):
+        raise AssertionError(f"wide_p (d): resident widths {resident}, "
+                             f"launches {rec_d['launches']}")
+    del cov_d, X_d, eng_d
+    torch.cuda.empty_cache()
+    secs["d"] = time.perf_counter() - t0
+
+    # (e) the long tail at p = 40 on two gene shards of the card: its genes
+    # of the W=65536 bucket, the one the JAX engine would column-shard
+    t0 = time.perf_counter()
+    rows = [i for i, m in enumerate(cov_c.values())
+            if m.shape[1] > WIDE_WIDTHS[0]]
+    keys = list(cov_c)
+    cov_e = OrderedDict(
+        (keys[i], np.ascontiguousarray(cov_c[keys[i]][:WIDE_P_MESH_P]))
+        for i in rows)
+    X_e = np.ascontiguousarray(X_c[rows, :WIDE_P_MESH_P])
+    del cov_c, X_c
+    nmf_e = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=WIDE_P_ITER["e"])
+    one, rec_one, _ = wide_fit("e_one", cov_e, X_e, nmf_e, wide_cfg,
+                               steady=False)
+    torch.cuda.empty_cache()
+    mesh = make_mesh([DEVICE] * MESH_SHARDS)
+    two, rec_two, eng_two = wide_fit("e_mesh", cov_e, X_e, nmf_e, wide_cfg,
+                                     mesh=mesh, steady=False)
+    declined = eng_two.colshard_declined
+    if declined < 1 or rec_two["launches"].get("nmf_colsharded", 0) or \
+            rec_two["launches"].get("ratio_colsharded", 0):
+        raise AssertionError(
+            f"wide_p (e): {declined} buckets declined, launches "
+            f"{rec_two['launches']}")
+    gap = compare_or_gate("wide_p_mesh", two, one,
+                          (rec_two["wall_s"], rec_one["wall_s"]),
+                          samples=WIDE_P_MESH_P)
+    del cov_e, X_e, one, two, eng_two
+    torch.cuda.empty_cache()
+    secs["e"] = time.perf_counter() - t0
+
+    runs = {"b": rec_b, "c": rec_c, "d": rec_d, "e_one": rec_one,
+            "e_mesh": rec_two, **modes}
+    launches = {name: runs[where]["launches"].get(name, 0)
+                for name, (_, _, where) in WIDE_INSTANCES.items()}
+    by_pmax = {name: {pm: sum(r["launches"].get(name, 0)
+                              for r in runs.values()
+                              if cuda_nmf.pmax_of(r["samples"]) == pm)
+                      for pm in WIDE_PMAX}
+               for name in WIDE_INSTANCES}
+    if not all(n for v in by_pmax.values() for n in v.values()):
+        raise AssertionError(f"wide_p: an instance never launched at some "
+                             f"PMAX: {by_pmax}")
+    emit("wide_p", samples=list(WIDE_P), nmf_iter=NMF_ITER,
+         degnorm_iter=WIDE_P_ITER,
+         degnorm_iter_cut={k: v < DEGNORM_ITER
+                           for k, v in WIDE_P_ITER.items()},
+         tolerance="as phase kernels; each instance run twice: the same bits",
+         kernels=kres, fits=runs,
+         mesh=dict(shards=MESH_SHARDS, colshard_declined=declined, **gap),
+         instance_launches=launches, launches_by_pmax=by_pmax,
+         seconds={k: round(v, 2) for k, v in secs.items()},
+         phase_seconds=round(time.perf_counter() - t_phase, 1))
+    return kres, launches, by_pmax
+
+
+# where each wide instance's records sit in a resident bucket's checks
+WIDE_CHECK_KEY = {"nmf_masked[wide]": "nmf_masked",
+                  "nmf_masked[wide,nmf_tol]": "nmf_masked[nmf_tol]",
+                  "ratio_rowsums[wide]": "ratio_rowsums",
+                  "trim_loop[wide]": "trim_loop",
+                  "trim_loop[wide,trim_fast]": "trim_loop[trim_fast]",
+                  "trim_loop[wide,nmf_tol]": "trim_loop[nmf_tol]"}
+
+
+def wide_kernel_records(wide):
+    """The result line's records of the wide instances: each at its main
+    shape (kernels 1-3 and 2 at WIDE_P_GENES x 64 x 1024, kernel 4 at 256 x
+    64 x 16384, the branches at 48 x 1024), with every shape it was held at
+    beside it (``by_shape``, keyed p{p}_W{W}) and its launches in the phase's
+    fits by PMAX."""
+    kres, launches, by_pmax = wide
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    out = []
+    for name, (src, repl, _) in WIDE_INSTANCES.items():
+        if name == "nmf_streamed[wide]":
+            recs = dict(kres["stream"])
+        else:
+            key = WIDE_CHECK_KEY[name]
+            recs = {k: r[key] for k, r in kres["resident"].items()
+                    if key in r}
+            if key == "ratio_rowsums":   # also at kernel 4's shape
+                recs.update((k, r["ratio_rowsums"])
+                            for k, r in kres["stream"].items())
+        main = (f"p{WIDE_P_BRANCH_P}_W1024" if name in (
+            "nmf_masked[wide,nmf_tol]", "trim_loop[wide,trim_fast]",
+            "trim_loop[wide,nmf_tol]")
+            else f"p{WIDE_P_FIT_P}_W{WIDE_P_STREAM[1]}"
+            if name == "nmf_streamed[wide]" else f"p{WIDE_P_FIT_P}_W1024")
+        m = recs[main]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "shape": main,
+            "launches_by_pmax": by_pmax[name],
+            "by_shape": {k: {f: r[f] for f in keys if f in r}
+                         for k, r in recs.items()}})
+    return out
+
+
 def kernels_line(kres, launches, launches_wide, launches_pipeline,
                  launches_modes, seqpar):
     """The per-kernel records of the result line: kernels 1-3 at the narrow
@@ -3434,6 +3904,7 @@ def main(argv=None):
                       if "modes" in phases else None)
     if "oracle" in phases:
         phase_oracle()
+    wide = phase_wide_p() if "wide_p" in phases else None
     if "upload" in phases:
         phase_upload(cov, cov_wide)
     if args.sweep:
@@ -3443,7 +3914,7 @@ def main(argv=None):
         return 0
 
     kernels = kernels_line(kres, launches, launches_wide, launches_pipeline,
-                           launches_modes, seqpar)
+                           launches_modes, seqpar) + wide_kernel_records(wide)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",
                       "seconds": round(time.perf_counter() - t_start, 1)}),

@@ -146,6 +146,14 @@ class EngineConfig:
     # Write a torch.profiler trace of the fit's DegNorm iterations into this
     # directory (the JAX engine's jax.profiler trace; ``--profile-dir``).
     profile_dir: Optional[str] = None
+    # Where the outer update between bucket steps runs (the JAX field, its
+    # config.py:227).  None (the default) and True: float64 on the device
+    # (core/degnorm.py's torch twins), no host sync an iteration beyond the
+    # trim loop's.  False: the host numpy float64 loop of core/degnorm.py
+    # (the original parity reference), the per-gene rows fetched to the
+    # host every iteration.  A mesh that spans processes runs the device
+    # loop whatever this says, as the JAX engine does (its engine.py:674).
+    device_loop: Optional[bool] = None
 
     def __post_init__(self):
         if not self.stream_nmf:

@@ -3,7 +3,8 @@
 #include "nmf.cuh"
 
 // X: (G, p, W) float32 scratch; tol > 0 runs the nmf_tol branch; iters:
-// (G) int32 or null.
+// (G) int32 or null.  p > 32 takes the wide instances (nmf_wide.cuh), whose
+// block is DN_WIDE_THREADS threads.
 extern "C" int dn_nmf_masked(const float* F, const uint8_t* mask,
                              const uint8_t* act, const float* u0, float* X,
                              float* K, float* E, float* u, int G, int p, int W,
@@ -15,6 +16,7 @@ extern "C" int dn_nmf_masked(const float* F, const uint8_t* mask,
                      G,          p,          W,       nmf_iter, power_cold,
                      power_warm, warm_plain, tol,     threads,
                      (cudaStream_t)stream};
+  if (p > 32) return tol > 0.f ? dn_nmf_wide_tol(a) : dn_nmf_wide(a);
   return tol > 0.f ? dn_nmf_block_tol(a) : launch_block<false>(a);
 }
 

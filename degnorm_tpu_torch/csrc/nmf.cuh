@@ -305,3 +305,7 @@ int launch_warp_any(const NmfArgs& a) {
 // the nmf_tol instances (nmf_tol.cu)
 int dn_nmf_block_tol(const NmfArgs& a);
 int dn_nmf_warp_tol(const NmfArgs& a);
+// the block launch for 33 <= p <= 128 (nmf_wide.cuh: nmf_wide.cu and, for
+// nmf_tol, nmf_wide_tol.cu)
+int dn_nmf_wide(const NmfArgs& a);
+int dn_nmf_wide_tol(const NmfArgs& a);

@@ -383,3 +383,7 @@ static int launch_ratio_form(const RatioArgs& a) {
 
 int dn_ratio_f32(const RatioArgs& a);
 int dn_ratio_i16(const RatioArgs& a);
+// the instances for 33 <= p <= 128 (ratio_wide.cuh: ratio_wide_f32.cu,
+// ratio_wide_i16.cu): one block of DN_WIDE_THREADS a gene
+int dn_ratio_wide_f32(const RatioArgs& a);
+int dn_ratio_wide_i16(const RatioArgs& a);

@@ -1,0 +1,8 @@
+// Kernel 2 for 33 <= p <= 128 (ratio_wide.cuh), the instances for
+// the raw int16 upload: one translation unit an input form, so that they compile
+// side by side.
+#include "ratio_wide.cuh"
+
+int dn_ratio_wide_i16(const RatioArgs& a) {
+  return launch_ratio_wide<true>(a);
+}

@@ -3,7 +3,8 @@
 #include "stream.cuh"
 
 // X: (G, p, W) float32 scratch.  cl: blocks a gene, 1, 2, 4 or 8.  threads:
-// a multiple of 32, at most 512 (256 for p > 8).
+// a multiple of 32, at most 512 (256 for p > 8; exactly 256 for p > 32, the
+// wide instances of stream_wide.cuh).
 extern "C" int dn_nmf_streamed(const void* F, int f_is_i16,
                                const uint8_t* mask, const uint8_t* act,
                                const float* scale, const float* u0, float* X,
@@ -28,8 +29,10 @@ extern "C" int dn_nmf_streamed(const void* F, int f_is_i16,
     code = f_is_i16 ? dn_stream_p8_i16(a) : dn_stream_p8_f32(a);
   else if (p <= 16)
     code = f_is_i16 ? dn_stream_p16_i16(a) : dn_stream_p16_f32(a);
-  else
+  else if (p <= 32)
     code = f_is_i16 ? dn_stream_p32_i16(a) : dn_stream_p32_f32(a);
+  else
+    code = f_is_i16 ? dn_stream_wide_i16(a) : dn_stream_wide_f32(a);
   if (code != 0) return code;
   return (int)cudaGetLastError();
 }

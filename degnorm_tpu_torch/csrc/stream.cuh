@@ -418,3 +418,7 @@ int dn_stream_p16_f32(const StreamArgs& a);
 int dn_stream_p16_i16(const StreamArgs& a);
 int dn_stream_p32_f32(const StreamArgs& a);
 int dn_stream_p32_i16(const StreamArgs& a);
+// the instances for 33 <= p <= 128 (stream_wide.cuh: stream_wide_f32.cu,
+// stream_wide_i16.cu), whose block is DN_WIDE_THREADS threads
+int dn_stream_wide_f32(const StreamArgs& a);
+int dn_stream_wide_i16(const StreamArgs& a);

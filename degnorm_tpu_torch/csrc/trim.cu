@@ -4,7 +4,8 @@
 #include "trim.cuh"
 
 // X: (G, p, W) float32 scratch; fast != 0 runs the trim_fast branch, else
-// tol > 0 the nmf_tol one; iters: (G) int32 or null.
+// tol > 0 the nmf_tol one; iters: (G) int32 or null.  p > 32 takes the wide
+// instances (trim_wide.cuh), whose block is DN_WIDE_THREADS threads.
 extern "C" int dn_trim_loop(
     const float* Fm, const int* bin_id, const float* bin_count,
     const float* K0, float* E, const float* rho0, const float* u0,
@@ -22,6 +23,11 @@ extern "C" int dn_trim_loop(
                       B,          nmf_iter,     power_resume, power_warm,
                       warm_plain, max_rounds,   min_bins,   min_gene_len,
                       tol,        threads,      (cudaStream_t)stream};
+  if (p > 32) {
+    if (fast) return dn_trim_wide_fast(a);
+    if (tol > 0.f) return dn_trim_wide_tol(a);
+    return dn_trim_wide(a);
+  }
   if (fast) return dn_trim_fast(a);
   if (tol > 0.f) return dn_trim_tol(a);
   return launch_trim<DN_TRIM_DEFAULT>(a);

@@ -338,5 +338,10 @@ int launch_trim(const TrimArgs& a) {
 // the trim_fast and nmf_tol instances (trim_fast.cu, trim_tol.cu)
 int dn_trim_fast(const TrimArgs& a);
 int dn_trim_tol(const TrimArgs& a);
+// the instances for 33 <= p <= 128 (trim_wide.cuh: trim_wide.cu,
+// trim_wide_fast.cu, trim_wide_tol.cu)
+int dn_trim_wide(const TrimArgs& a);
+int dn_trim_wide_fast(const TrimArgs& a);
+int dn_trim_wide_tol(const TrimArgs& a);
 
 

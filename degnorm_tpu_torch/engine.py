@@ -48,6 +48,7 @@ from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums_steps
 from degnorm_tpu_torch.data.buckets import (GeneBucket, integral_int16able,
                                             pack_buckets)
 from degnorm_tpu_torch.data.encode import int16able
+from degnorm_tpu_torch.ops import cuda_nmf
 from degnorm_tpu_torch.ops.cuda_trim import run_steps
 from degnorm_tpu_torch.parallel import distributed
 from degnorm_tpu_torch.parallel.seqpar import (ONE_DEVICE, ColumnGroup,
@@ -95,6 +96,11 @@ def _data_fingerprint(cov_mats, n) -> tuple:
             float(np.asarray(f0[:, -1]).sum()),
             float(np.asarray(f1[:, 0]).sum()),
             float(np.asarray(f1[:, -1]).sum()))
+
+
+def _f64(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host float64 array."""
+    return t.detach().cpu().numpy().astype(np.float64)
 
 
 def _bucket_step(*args, **kwargs) -> BucketResult:
@@ -239,6 +245,10 @@ class DegNormEngine:
         # them the gather asks of kernels 4c and 2c
         self.reductions = 0
         self.gathers = 0
+        # buckets the JAX engine would column-shard that have more samples
+        # than kernels 4c and 2c take, gene-sharded instead
+        # (``column_sharded``), counted at the last upload
+        self.colshard_declined = 0
 
     def _sync(self):
         for dev in set(self.mesh.devices):
@@ -302,7 +312,18 @@ class DegNormEngine:
     def column_sharded(self, b: GeneBucket) -> bool:
         """True where bucket ``b`` is cut along its columns: a mesh of two
         or more shards and ``b.width >= seqpar_width`` (the JAX engine's
-        rule, its engine.py:409-426)."""
+        rule, its engine.py:409-426), and at most
+        ``cuda_nmf.COLS_MAX_P`` (32) samples.  The last is the port's shape
+        rule: kernels 4c and 2c, the column-sharded route, have no instance
+        above 32 samples, so a bucket of more is gene-sharded (kernel 4 at
+        its wide instance) and counted in ``colshard_declined``; the plain
+        versions follow the same rule, on every device."""
+        return (self._past_seqpar_width(b)
+                and b.F.shape[1] <= cuda_nmf.COLS_MAX_P)
+
+    def _past_seqpar_width(self, b: GeneBucket) -> bool:
+        """The JAX engine's rule alone: a mesh of two or more shards and a
+        bucket at least ``seqpar_width`` wide."""
         return self.mesh.size > 1 and b.width >= self.eng_cfg.seqpar_width
 
     def _upload(self):
@@ -323,6 +344,9 @@ class DegNormEngine:
         self._shards, self._device_F, self._device_mask = [], [], []
         self._device_idx = []
         self._col_groups = []
+        self.colshard_declined = sum(
+            self._past_seqpar_width(b) and not self.column_sharded(b)
+            for b in self._buckets)
         for bi, b in enumerate(self._buckets):
             if self.column_sharded(b):
                 group = ColumnGroup(mesh, b.width, genes=b.n_real)
@@ -487,6 +511,7 @@ class DegNormEngine:
         self.timings["pack"] = time.perf_counter() - t0
         dtype = _torch_dtype(self.eng_cfg.dtype)
         dev = self.device
+        device_loop = self.outer_on_device()
 
         # ---- resume from a checkpoint? ----
         start_iter = 0
@@ -501,9 +526,11 @@ class DegNormEngine:
             else:
                 ckpt = None
 
-        # ---- initialization (nmf.py:512-535), float64 on the device ----
+        # ---- initialization (nmf.py:512-535), float64 on the device or,
+        # without device_loop, on the host ----
         t0 = time.perf_counter()
         x = torch.from_numpy(x_np).to(dev)
+        state = None        # the host loop's GlobalState
         self.timings["gather"] = 0.0
         for group in self._col_groups:
             if group is not None:
@@ -513,9 +540,14 @@ class DegNormEngine:
                      for bi in range(len(self._buckets))]
         if ckpt is not None:
             st = ckpt["state"]
-            x_weighted, norm, scale = (
-                torch.from_numpy(np.array(a, np.float64)).to(dev)
-                for a in (st.x_weighted, st.norm_factors, st.scale_factors))
+            if device_loop:
+                x_weighted, norm, scale = (
+                    torch.from_numpy(np.array(a, np.float64)).to(dev)
+                    for a in (st.x_weighted, st.norm_factors,
+                              st.scale_factors))
+            else:
+                state = outer.GlobalState(*(np.array(a, np.float64)
+                                            for a in st))
         else:
             init_out = [None] * len(self._shards)
             for bi, ks in enumerate(by_bucket):
@@ -533,9 +565,13 @@ class DegNormEngine:
                                           (p,), dtype)
             est_sums = self._gather_genes([es for _, es in init_out], 0.0,
                                           (p,), dtype)
-            x_weighted, norm, _ = outer.device_init_state(cov_sums, est_sums,
-                                                          x)
-            scale = norm
+            if device_loop:
+                x_weighted, norm, _ = outer.device_init_state(cov_sums,
+                                                              est_sums, x)
+                scale = norm
+            else:
+                state = outer.init_state(outer.rho_from_ratio_svd(
+                    _f64(cov_sums), _f64(est_sums)), x_np)
         # the per-phase timings are host clocks closed by a device sync;
         # next to a bucket step the sync costs nothing
         self._sync()
@@ -553,6 +589,8 @@ class DegNormEngine:
             for it in range(start_iter, self.nmf_cfg.degnorm_iter):
                 t_it = time.perf_counter()
                 final = it == self.nmf_cfg.degnorm_iter - 1
+                if not device_loop:
+                    scale = torch.from_numpy(state.scale_factors).to(dev)
                 sf = {d: scale.to(dtype).to(d) for d in devices}
                 results = [None] * len(self._shards)
                 rounds = []
@@ -580,8 +618,12 @@ class DegNormEngine:
                                                  device=dev))
                 rho_raw = self._gather_genes([r.rho for r in results], 0.0,
                                              (p,), dtype)
-                rho, x_adj, x_weighted, norm, scale = \
-                    outer.device_iteration_math(rho_raw, x_weighted, scale)
+                if device_loop:
+                    rho, x_adj, x_weighted, norm, scale = \
+                        outer.device_iteration_math(rho_raw, x_weighted,
+                                                    scale)
+                else:
+                    state = outer.iteration_update(state, _f64(rho_raw))
                 ran_cols.append(self._gather_genes(
                     [r.ran_bs for r in results], False, (), torch.bool))
                 self.trim_rounds.append(torch.stack(rounds).tolist())
@@ -591,7 +633,8 @@ class DegNormEngine:
                     save_checkpoint(
                         checkpoint_dir, it,
                         outer.DeviceState(x, x_weighted, x_adj, rho, norm,
-                                          scale).to_numpy(),
+                                          scale).to_numpy()
+                        if device_loop else state,
                         self._ran_matrix(ran_restored, ran_cols), genes)
         self.timings["iterations"] = time.perf_counter() - t0
         groups = [g for g in self._col_groups if g is not None]
@@ -613,11 +656,11 @@ class DegNormEngine:
         if self.mesh.process_count > 1:
             self._est_rows = self._gather_estimates(p)
 
-        def f64(t):
-            return t.detach().cpu().numpy().astype(np.float64)
-
-        rho64, xadj64, xw64 = f64(rho), f64(x_adj), f64(x_weighted)
-        norm64, scale64 = f64(norm), f64(scale)
+        if device_loop:
+            state = outer.DeviceState(x, x_weighted, x_adj, rho, norm,
+                                      scale).to_numpy()
+        rho64, xadj64, xw64 = state.rho, state.x_adj, state.x_weighted
+        norm64, scale64 = state.norm_factors, state.scale_factors
         # estimates are computed on coverage scaled by the PRE-update scale
         # factors of the final iteration
         self._final_scale = scale64 / norm64
@@ -626,6 +669,13 @@ class DegNormEngine:
             genes=genes, rho=rho64, x_adj=xadj64, scale_factors=scale64,
             norm_factors=norm64, ran_baseline_selection=ran_bs,
             x_weighted=xw64, engine=self)
+
+    def outer_on_device(self) -> bool:
+        """Whether the outer update runs on the device
+        (``EngineConfig.device_loop``: None and True, and on a mesh that
+        spans processes whatever it says) or on the host."""
+        loop = self.eng_cfg.device_loop
+        return loop is None or bool(loop) or self.mesh.process_count > 1
 
     def _profiler(self):
         """A torch.profiler trace of the iterations into

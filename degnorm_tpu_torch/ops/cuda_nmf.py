@@ -22,6 +22,11 @@ from degnorm_tpu_torch.core.linalg import (finish_rank_one, masked_rank_one,
 nmf_launches = 0
 nmf_tol_launches = 0
 ratio_launches = 0
+# the launches of the wide instances (p > NARROW_MAX_P: csrc/nmf_wide.cuh,
+# csrc/ratio_wide.cuh), in the counts above too
+nmf_wide_launches = 0
+nmf_wide_tol_launches = 0
+ratio_wide_launches = 0
 # kernel 2c (the column-sharded ratio-SVD row sums): both of its launches
 ratio_cols_launches = 0
 
@@ -34,13 +39,21 @@ ratio_cols_launches = 0
 #     keep their working sets in the 50 MB L2 cache;
 #   * W <= MAX_W, kernel 3 only: its per-column residual buffer (4 * W bytes)
 #     lives in shared memory;
-#   * p <= MAX_P, every kernel: the largest template instance.
+#   * p <= MAX_P, kernels 1-4: the largest template instance.
 # Kernel 2 (ratio-SVD row sums) has no scratch and no width-sized buffer: it
 # takes any W (``check_coverage_input``).  A bucket outside the gate takes the
 # cluster kernel of ops/cuda_stream.py for its NMF and the unfused trim loop.
-MAX_P = 32
+# p above NARROW_MAX_P runs the wide instances of kernels 1-4
+# (csrc/wide.cuh: the Gram in shared memory and the power step the block's,
+# a block of WIDE_THREADS threads); kernels 4c and 2c have no wide instance
+# and stop at COLS_MAX_P (the engine gene-shards such a bucket:
+# ``engine.DegNormEngine.column_sharded``).
+MAX_P = 128
+NARROW_MAX_P = 32
+COLS_MAX_P = 32
 MAX_W = 8192
 MAX_PW = 65536
+WIDE_THREADS = 256
 
 
 def kernels_supported(shape, dtype) -> bool:
@@ -51,19 +64,22 @@ def kernels_supported(shape, dtype) -> bool:
             and p * W <= MAX_PW)
 
 
-def check_coverage_input(F: torch.Tensor, name: str,
-                         int16_ok: bool = False) -> None:
+def check_coverage_input(F: torch.Tensor, name: str, int16_ok: bool = False,
+                         max_p: int = MAX_P) -> None:
     """What every kernel needs of its coverage tensor (and all that kernel 2
-    needs): float32 (or int16 where ``int16_ok``: kernel 2 reads the raw
-    upload), contiguous, 2 <= p <= MAX_P.  Raises; never falls back."""
+    needs): float32 (or int16 where ``int16_ok``: kernels 2, 4, 4c and 2c
+    read the raw upload), contiguous, 2 <= p <= ``max_p``, the limit of the
+    kernel in question (MAX_P for kernels 1-4, COLS_MAX_P for 4c and 2c).
+    Raises; never falls back."""
     if F.dtype != torch.float32 and not (int16_ok and F.dtype == torch.int16):
         raise TypeError(f"{name}: the CUDA kernels are float32"
                         f"{' or int16' if int16_ok else ''}, got {F.dtype}")
     if not F.is_contiguous():
         raise ValueError(f"{name}: coverage tensor must be contiguous")
     p = F.shape[1]
-    if p > MAX_P or p < 2:
-        raise ValueError(f"{name}: p={p} outside the kernels' range 2..{MAX_P}")
+    if p > max_p or p < 2:
+        raise ValueError(f"{name}: p={p} outside this kernel's range "
+                         f"2..{max_p}")
 
 
 def check_kernel_input(F: torch.Tensor, name: str) -> None:
@@ -93,7 +109,9 @@ def pick_loop_threads(p: int, W: int) -> int:
     few warps a gene win while enough genes are in flight (the measurements:
     PERF.md, ``chip_smoke.py --sweep``).  A thread's column slots must fit
     the kernels' 64-bit mask of active slots, which any W inside the gate
-    does."""
+    does.  p > NARROW_MAX_P: the wide instances' WIDE_THREADS, whatever W."""
+    if p > NARROW_MAX_P:
+        return WIDE_THREADS
     return min(max_loop_threads(p), max(32, (W // 16 + 31) // 32 * 32))
 
 
@@ -103,8 +121,12 @@ SMS = 132
 
 
 def pmax_of(p: int) -> int:
-    """The template instance a p runs in (``DN_DISPATCH_P``)."""
-    return 4 if p <= 4 else 8 if p <= 8 else 16 if p <= 16 else 32
+    """The template instance a p runs in (``DN_DISPATCH_P``, and
+    ``DN_DISPATCH_WIDE_P`` of csrc/wide.cuh above NARROW_MAX_P)."""
+    for pm in (4, 8, 16, 32, 48, 64, 96):
+        if p <= pm:
+            return pm
+    return 128
 
 
 def warp_slots(p: int) -> int:
@@ -159,7 +181,10 @@ def pick_ratio_geometry(p: int, W: int, G: int) -> Tuple[int, int, int]:
     waits on a cold power step of serial matvecs, so there the number of
     blocks in flight decides), else 256 (few genes: more loads in flight
     each).  No dtype enters, so int16 and float32 input share a launch and
-    give the same bits."""
+    give the same bits.  p > NARROW_MAX_P: the wide instance, one block of
+    WIDE_THREADS a gene and no copy."""
+    if p > NARROW_MAX_P:
+        return 1, WIDE_THREADS, 0
     for cl in (1, 2, 4, 8):
         if p * -(-W // cl) * 2 <= 65536:
             break
@@ -336,7 +361,8 @@ def nmf_masked_cuda(
                   iters_out=iters_out)
     if F.device.type == "cpu":
         return nmf_masked_plain(F, mask, **kwargs)
-    global nmf_launches, nmf_tol_launches
+    global nmf_launches, nmf_tol_launches, nmf_wide_launches
+    global nmf_wide_tol_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
@@ -380,6 +406,10 @@ def nmf_masked_cuda(
     nmf_launches += 1
     if nmf_tol > 0:
         nmf_tol_launches += 1
+    if p > NARROW_MAX_P:
+        nmf_wide_launches += 1
+        if nmf_tol > 0:
+            nmf_wide_tol_launches += 1
     return K, E, u
 
 
@@ -428,7 +458,7 @@ def ratio_rowsums_cuda(
     ``chip_smoke.py --sweep`` passes it)."""
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
-    global ratio_launches
+    global ratio_launches, ratio_wide_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_coverage_input(F, "ratio_rowsums_cuda", int16_ok=True)
     G, p, W = F.shape
@@ -447,6 +477,8 @@ def ratio_rowsums_cuda(
             threads, stage_kb, stream)
     check_launch(code, "dn_ratio_rowsums")
     ratio_launches += 1
+    if p > NARROW_MAX_P:
+        ratio_wide_launches += 1
     return cov, est
 
 
@@ -516,7 +548,7 @@ def ratio_rowsums_colsharded_cuda(
     name = "ratio_rowsums_colsharded_cuda"
     if method != "power":
         raise NotImplementedError(f"{name}: method={method!r} has no kernel")
-    check_coverage_input(F, name, int16_ok=True)
+    check_coverage_input(F, name, int16_ok=True, max_p=COLS_MAX_P)
     G, p, W = F.shape
     nb, threads = cuda_stream.pick_cols_geometry(cols.genes, p, W)
     dev = F.device

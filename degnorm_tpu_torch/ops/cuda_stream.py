@@ -28,6 +28,9 @@ from degnorm_tpu_torch.ops import cuda_nmf
 # ``colsharded_launches`` counts every launch of kernel 4c (a, b and finish),
 # ``colsharded_tol_launches`` those of its nmf_tol instances (in both).
 stream_launches = 0
+# the launches of its wide instances (p > cuda_nmf.NARROW_MAX_P:
+# csrc/stream_wide.cuh), in stream_launches too
+stream_wide_launches = 0
 colsharded_launches = 0
 colsharded_tol_launches = 0
 
@@ -40,6 +43,9 @@ CHUNK = 128
 # 8 can keep to it (the kernel keeps a 64-bit mask of a thread's active slots
 # in a register and rereads the mask past 64: csrc/common.cuh).
 RULE_SLOTS = 32
+# The most columns of a gene a block of a wide instance (p > 32) is dealt
+# while a cluster of 8 can keep to it.
+WIDE_BLOCK_COLS = 4096
 
 
 def block_share(W: int, cl: int) -> int:
@@ -72,7 +78,17 @@ def pick_geometry(W: int, p: int) -> Tuple[int, int]:
     block every sweep, so it is worth its cost only where a thread would
     have more columns than that, each of them about p * p operations.  The
     count of active genes does not enter: a larger cluster for a late trim
-    round of few genes gained under 0.1 ms a launch."""
+    round of few genes gained under 0.1 ms a launch.
+
+    p > ``cuda_nmf.NARROW_MAX_P`` (the wide instances, csrc/stream_wide.cuh):
+    WIDE_THREADS threads, and the smallest cluster that leaves a block at
+    most WIDE_BLOCK_COLS of a gene's columns (a wide cluster pays two
+    cluster barriers and p^2 remote reads a block every sweep, so it is
+    kept for the widest buckets)."""
+    if p > cuda_nmf.NARROW_MAX_P:
+        cl = next((c for c in CLUSTERS if block_share(W, c) <= WIDE_BLOCK_COLS),
+                  CLUSTERS[-1])
+        return cl, cuda_nmf.WIDE_THREADS
     max_threads = cuda_nmf.max_loop_threads(p)
     max_slots = min(RULE_SLOTS, max(1, 256 // p))
 
@@ -164,8 +180,9 @@ def nmf_masked_streamed_cuda(
     """Kernel wrapper with ``nmf_masked_streamed_plain``'s signature: one
     cluster of thread blocks per gene runs the whole loop (csrc/stream.cuh).
     Takes float32 coverage, or int16 coverage with or without ``scale``, of
-    any width and 2 <= p <= 32.  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises.
+    any width and 2 <= p <= ``cuda_nmf.MAX_P`` (128; p > 32 the wide
+    instances of csrc/stream_wide.cuh).  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.
 
     The launch geometry comes from ``pick_geometry``; results differ between
     geometries by float32 summation order alone and are the same bits for
@@ -178,18 +195,11 @@ def nmf_masked_streamed_cuda(
             power_iters_warm=power_iters_warm,
             power_warm_plain=power_warm_plain, gene_active=gene_active,
             u0=u0, scale=scale)
-    global stream_launches
+    global stream_launches, stream_wide_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "nmf_masked_streamed_cuda"
-    if F.dtype not in (torch.float32, torch.int16):
-        raise TypeError(f"{name}: coverage must be float32 or int16, "
-                        f"got {F.dtype}")
-    if not F.is_contiguous():
-        raise ValueError(f"{name}: coverage tensor must be contiguous")
+    cuda_nmf.check_coverage_input(F, name, int16_ok=True)
     G, p, W = F.shape
-    if p > cuda_nmf.MAX_P or p < 2:
-        raise ValueError(
-            f"{name}: p={p} outside the kernels' range 2..{cuda_nmf.MAX_P}")
     if scale is not None and tuple(scale.shape) != (p,):
         raise ValueError(f"{name}: scale must have shape ({p},), "
                          f"got {tuple(scale.shape)}")
@@ -231,6 +241,8 @@ def nmf_masked_streamed_cuda(
             int(power_warm_plain), cl, threads, stream)
     check_launch(code, "dn_nmf_streamed")
     stream_launches += 1
+    if p > cuda_nmf.NARROW_MAX_P:
+        stream_wide_launches += 1
     return K, E, u
 
 
@@ -371,8 +383,8 @@ def nmf_masked_colsharded_cuda(
     (csrc/stream_cols_tol.cu): a gene freezes on the summed Gram's refit, as
     in the plain version, and adds zero partials from then on.  Takes
     float32 coverage, or int16 coverage with or without ``scale``, of any
-    width, 2 <= p <= 32; a gene outside ``gene_active`` writes zero
-    partials, so every shard reduces as often.  A CPU tensor takes the plain
+    width, 2 <= p <= ``cuda_nmf.COLS_MAX_P`` (32); a gene outside
+    ``gene_active`` writes zero partials, so every shard reduces as often.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises
     (``method="eigh"`` has no kernel: ``core/nmf.py`` routes it to the plain
     version).  A gene's columns are spread over the blocks of
@@ -393,15 +405,9 @@ def nmf_masked_colsharded_cuda(
     name = "nmf_masked_colsharded_cuda"
     if method != "power":
         raise NotImplementedError(f"{name}: method={method!r} has no kernel")
-    if F.dtype not in (torch.float32, torch.int16):
-        raise TypeError(f"{name}: coverage must be float32 or int16, "
-                        f"got {F.dtype}")
-    if not F.is_contiguous():
-        raise ValueError(f"{name}: coverage tensor must be contiguous")
+    cuda_nmf.check_coverage_input(F, name, int16_ok=True,
+                                  max_p=cuda_nmf.COLS_MAX_P)
     G, p, W = F.shape
-    if p > cuda_nmf.MAX_P or p < 2:
-        raise ValueError(
-            f"{name}: p={p} outside the kernels' range 2..{cuda_nmf.MAX_P}")
     if scale is not None and F.dtype != torch.int16:
         raise NotImplementedError(
             f"{name}: float32 coverage with scale is not taken on a CUDA "

@@ -27,6 +27,11 @@ from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE, Columns, Reduction
 trim_launches = 0
 trim_fast_launches = 0
 trim_tol_launches = 0
+# the launches of the wide instances (p > cuda_nmf.NARROW_MAX_P:
+# csrc/trim_wide.cuh), in the counts above too, by branch
+trim_wide_launches = 0
+trim_wide_fast_launches = 0
+trim_wide_tol_launches = 0
 
 MAX_BINS = 64          # the kernel keeps per-bin state in shared memory
 
@@ -307,7 +312,8 @@ def trim_loop_cuda(
     """Kernel wrapper with ``trim_loop_plain``'s signature: one thread block
     per gene runs the whole loop while its own gene is active
     (csrc/trim.cu; the trim_fast and nmf_tol branches are the instances of
-    csrc/trim_fast.cu and csrc/trim_tol.cu).  A CPU tensor takes the plain
+    csrc/trim_fast.cu and csrc/trim_tol.cu; p > 32 the wide instances of
+    csrc/trim_wide.cuh).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  ``_threads``
     overrides ``cuda_nmf.pick_loop_threads`` (the timing sweep of
     ``chip_smoke.py --sweep`` passes it; nothing else does)."""
@@ -322,6 +328,7 @@ def trim_loop_cuda(
         return trim_loop_plain(Fm, bin_id, bin_count, K0, E0, rho0, u0,
                                n_hi, n_bins, active0, **kwargs)
     global trim_launches, trim_fast_launches, trim_tol_launches
+    global trim_wide_launches, trim_wide_fast_launches, trim_wide_tol_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     cuda_nmf.check_kernel_input(Fm, "trim_loop_cuda")
     G, p, W = Fm.shape
@@ -375,4 +382,10 @@ def trim_loop_cuda(
         trim_fast_launches += 1
     elif nmf_tol > 0:
         trim_tol_launches += 1
+    if p > cuda_nmf.NARROW_MAX_P:
+        trim_wide_launches += 1
+        if trim_fast:
+            trim_wide_fast_launches += 1
+        elif nmf_tol > 0:
+            trim_wide_tol_launches += 1
     return K, rho, ran_bs.bool(), rounds_active

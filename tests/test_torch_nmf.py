@@ -164,7 +164,10 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     ((64, 8, 4096), torch.float32, True),
     ((64, 32, 2048), torch.float32, True),
     ((64, 8, 16384), torch.float32, False),     # the streamed kernel's
-    ((64, 33, 256), torch.float32, False),
+    ((64, 33, 256), torch.float32, True),       # a wide instance (p > 32)
+    ((64, 64, 1024), torch.float32, True),
+    ((64, 64, 2048), torch.float32, False),     # p * W past the gate
+    ((64, 129, 256), torch.float32, False),     # past the largest instance
     ((64, 8, 1024), torch.float64, False),
 ])
 def test_kernel_shape_gate(shape, dtype, ok):
