@@ -104,7 +104,7 @@ PEAK_F32_FLOPS = 67e12
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
               "pipeline", "mesh", "seqpar", "multihost", "modes", "oracle",
-              "wide_p")
+              "wide_p", "panels")
 # what a phase reads from earlier ones
 NEEDS = {"modes": ("fit",), "mesh": ("fit", "fit_wide"),
          "multihost": ("fit", "fit_wide", "pipeline")}
@@ -196,8 +196,8 @@ def smi_line():
 
 def time_ms(fn, reps, warm=True):
     """Mean milliseconds of ``fn`` over ``reps`` launches, by CUDA events,
-    after one warm-up launch (``warm=False`` skips it: for a plain version
-    that runs for seconds, after the same code has run on the card)."""
+    after one warm-up launch (``warm=False`` skips it: after the same call
+    has run on the card)."""
     import torch
     if warm:
         fn()
@@ -210,6 +210,21 @@ def time_ms(fn, reps, warm=True):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed_once(fn):
+    """``fn()`` once, and its milliseconds by CUDA events from an idle card:
+    a plain version's checking call (it runs for up to seconds) is its
+    timing too, with no warm-up."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def err_stats(got, want, sel=None):
@@ -394,7 +409,8 @@ SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "ratio_rowsums_kernel", "cols_gram_kernel", "cols_sweep_kernel",
                "cols_finish_kernel", "ratio_cols_sums_kernel",
                "nmf_wide_kernel", "trim_wide_kernel", "nmf_stream_wide_kernel",
-               "ratio_wide_kernel")
+               "ratio_wide_kernel", "nmf_panel_kernel", "ratio_panel_kernel",
+               "nmf_stream_panel_kernel", "trim_panel_kernel")
 
 
 def phase_build(ptxas):
@@ -524,7 +540,8 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
     act = ~ti.bailed
     act[::7] = False
     geo, other = nmf_geometries(p, W, G)
-    want = cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act, **nkw)
+    want, want_ms = timed_once(lambda: cuda_nmf.nmf_masked_plain(
+        ti.Fm, ti.hi, gene_active=act, **nkw))
     errs = []
     for g in (geo, other)[:2 if other else 1]:
         got = cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
@@ -560,9 +577,7 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
         out["nmf_masked"]["ms"] = time_ms(
             lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
                                              **nkw), reps)
-        out["nmf_masked"]["plain_ms"] = time_ms(
-            lambda: cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act,
-                                              **nkw), 1, warm=False)
+        out["nmf_masked"]["plain_ms"] = want_ms
 
     # kernel 3: the whole trim loop
     targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
@@ -602,9 +617,9 @@ def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
     it_w = torch.zeros_like(it_g)
     K_g, rho_g, ran_g, rounds_g = cuda_trim.trim_loop_cuda(
         *targs, iters_out=it_g, **tkw, **mode)
-    K_w, rho_w, ran_w, rounds_w = cuda_trim.trim_loop_plain(
-        *targs, iters_out=it_w, **tkw, **mode)
-    torch.cuda.synchronize()
+    (K_w, rho_w, ran_w, rounds_w), plain_ms = timed_once(
+        lambda: cuda_trim.trim_loop_plain(*targs, iters_out=it_w, **tkw,
+                                          **mode))
     same = (ran_g == ran_w) & (rounds_g == rounds_w)
     n_same = int(same.sum())
     # 99% of the genes that enter the loop: the rest of a whole bucket
@@ -655,9 +670,7 @@ def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
     if timed:
         rec["ms"] = time_ms(
             lambda: cuda_trim.trim_loop_cuda(*targs, **tkw, **mode), 2)
-        rec["plain_ms"] = time_ms(
-            lambda: cuda_trim.trim_loop_plain(*targs, **tkw, **mode), 1,
-            warm=False)
+        rec["plain_ms"] = plain_ms
     return rec
 
 
@@ -696,8 +709,8 @@ def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
     G, p, W = ti.Fm.shape
     kw = dict(nkw, nmf_tol=tol)
     it_w = torch.zeros(G, dtype=torch.int32, device=ti.Fm.device)
-    want = cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act,
-                                     iters_out=it_w, **kw)
+    want, want_ms = timed_once(lambda: cuda_nmf.nmf_masked_plain(
+        ti.Fm, ti.hi, gene_active=act, iters_out=it_w, **kw))
     frozen = int((act & (it_w < nmf_cfg.nmf_iter)).sum())
     n_act = int(act.sum())
     what = f"nmf_masked[nmf_tol={tol:g}] p={p} W={W}"
@@ -742,9 +755,7 @@ def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
         rec["ms"] = time_ms(
             lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
                                              **kw), 3)
-        rec["plain_ms"] = time_ms(
-            lambda: cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act,
-                                              **kw), 1, warm=False)
+        rec["plain_ms"] = want_ms
     return rec
 
 
@@ -808,15 +819,18 @@ def check_quotients(scale):
     return int(got.numel())
 
 
-def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
+def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True,
+                    time_f32=True):
     """Kernel 4 against its plain version on one wide bucket as the engine
     holds it: ``raw`` the int16 upload, the mask the high-coverage columns
     the initial NMF of a bucket step sees.  (a) float32 pre-adjusted input;
     (b) raw int16 + scale, equal to (a) bit for bit; (c) every 7th gene and
     the bailed ones inactive (zeros out), then a u0 resume at the resume
-    count; (d) a second launch geometry; (e) the exhaustive quotient check.
-    Also kernel 2 on the same bucket (``check_ratio_at``).  Returns
-    measurements."""
+    count; (d) a second launch geometry (none past 128 samples: the panel
+    instance has one); (e) the exhaustive quotient check.  Timed over
+    ``reps`` launches on raw int16, and on float32 input where
+    ``time_f32``.  Also kernel 2 on the same bucket (``check_ratio_at``).
+    Returns measurements."""
     import torch
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
@@ -834,8 +848,8 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
 
     # (a) float32 input, every gene
     got_a = cuda_stream.nmf_masked_streamed_cuda(F_adj, hi, **nkw)
-    want = cuda_stream.nmf_masked_streamed_plain(F_adj, hi, **nkw)
-    torch.cuda.synchronize()
+    want, want_ms = timed_once(
+        lambda: cuda_stream.nmf_masked_streamed_plain(F_adj, hi, **nkw))
     for g_, w_, nm in zip(got_a, want, names):
         errs.append(assert_rel(g_, w_, f"nmf_streamed {nm} p={p} W={W} (f32)"))
     # (b) raw int16 + scale: the same bits, and the same bits again
@@ -873,27 +887,32 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
         errs.append(assert_rel(g_, w_, f"nmf_streamed {nm} p={p} W={W} "
                                         "(u0 resume)"))
     # (d) another launch geometry: the same function within the tolerance,
-    # and the same bits from two runs of one geometry
+    # and the same bits from two runs of one geometry (the panel instance,
+    # p > 128, has one: a block a gene)
     auto = cuda_stream.pick_geometry(W, p)
-    other = ((1, cuda_nmf.max_loop_threads(p)) if auto[0] > 1
+    other = (None if p > cuda_nmf.WIDE_MAX_P
+             else (1, cuda_nmf.max_loop_threads(p)) if auto[0] > 1
              else (8, 128) if p <= cuda_nmf.NARROW_MAX_P
              else (8, cuda_nmf.WIDE_THREADS))
-    got_g = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
-                                                 _geometry=other, **nkw)
-    got_g2 = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
-                                                  _geometry=other, **nkw)
-    torch.cuda.synchronize()
     geo_err = 0.0
-    for g_, g2_, w_, nm in zip(got_g, got_g2, want, names):
-        if not torch.equal(g_, g2_):
-            raise AssertionError(f"nmf_streamed {nm} p={p} W={W}: two runs at "
-                                 f"geometry {other} differ")
-        geo_err = max(geo_err, assert_rel(
-            g_, w_, f"nmf_streamed {nm} p={p} W={W} (geometry {other})")[1])
+    if other is not None:
+        got_g = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                     _geometry=other, **nkw)
+        got_g2 = cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                      _geometry=other, **nkw)
+        torch.cuda.synchronize()
+        for g_, g2_, w_, nm in zip(got_g, got_g2, want, names):
+            if not torch.equal(g_, g2_):
+                raise AssertionError(f"nmf_streamed {nm} p={p} W={W}: two "
+                                     f"runs at geometry {other} differ")
+            geo_err = max(geo_err, assert_rel(
+                g_, w_, f"nmf_streamed {nm} p={p} W={W} (geometry {other})"
+            )[1])
+        del got_g, got_g2
     # (e) the quotient of the int16 + scale form against the IEEE divide,
     # for every int16 numerator and this launch's scales
     n_quot = check_quotients(scale)
-    del got_a, got_b, again, got_c, got_r, want_r, hi2, got_g, got_g2
+    del got_a, got_b, again, got_c, got_r, want_r, hi2
     all_on = torch.ones_like(act)
     b_ms, b_by = bound_stream(raw, hi, all_on, nmf_cfg.nmf_iter)
 
@@ -906,15 +925,15 @@ def check_stream_at(raw, lm, nmf_cfg, eng_cfg, reps=2, with_ratio=True):
         max_rel_err=max(e[1] for e in errs), raw_equals_f32=True,
         inactive_genes=int((~act).sum()), active_columns=int(hi.sum()),
         bound_ms=b_ms, bound_by=b_by, geometry=list(auto),
-        other_geometry=list(other), other_geometry_rel_err=geo_err,
+        other_geometry=list(other) if other else None,
+        other_geometry_rel_err=geo_err,
         quotients_equal_ieee=n_quot,
-        ms=time_ms(run_raw, reps),
-        f32_input_ms=time_ms(
+        # (no warm-up launch: (b) and (c) ran these inputs)
+        ms=time_ms(run_raw, reps, warm=False), plain_ms=want_ms)
+    if time_f32:
+        out["f32_input_ms"] = time_ms(
             lambda: cuda_stream.nmf_masked_streamed_cuda(F_adj, hi, **nkw),
-            reps),
-        plain_ms=time_ms(
-            lambda: cuda_stream.nmf_masked_streamed_plain(F_adj, hi, **nkw),
-            1, warm=False))
+            reps)
     if with_ratio:
         out["ratio_rowsums"] = check_ratio_at(raw, lm, eng_cfg)
     return out
@@ -1113,7 +1132,9 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
     for tag in ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                 "ratio_rowsums_kernel", "trim_loop_kernel",
                 "nmf_streamed_kernel", "nmf_wide_kernel", "ratio_wide_kernel",
-                "trim_wide_kernel", "nmf_stream_wide_kernel"):
+                "trim_wide_kernel", "nmf_stream_wide_kernel",
+                "nmf_panel_kernel", "ratio_panel_kernel", "trim_panel_kernel",
+                "nmf_stream_panel_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -1400,6 +1421,42 @@ def sweep_colsharded(cov_wide):
     torch.cuda.empty_cache()
 
 
+# the wide kernel 4's cluster sweep: (W, genes) of the long tail's two
+# buckets (its W=65536 bucket cut to the genes that fit one card at p = 128)
+WIDE_SWEEP_BUCKETS = ((16384, 256), (65536, 96))
+WIDE_SWEEP_P = (48, 64, 128)
+
+
+def sweep_wide_clusters():
+    """Kernel 4's wide instances over blocks a gene (1, 2, 4, 8: the
+    cluster rule's WIDE_BLOCK_COLS) at p = 48, 64 and 128 on buckets of the
+    long tail's two widths, raw int16 + scale, every p the first p samples
+    of one bucket made at p = 128; each line names the rule's choice."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    dev = torch.device(DEVICE)
+    nkw = baseline._nmf_kwargs(NMFConfig(nmf_iter=NMF_ITER), EngineConfig())
+    for W, G in WIDE_SWEEP_BUCKETS:
+        raw_top, lm = small_wide_bucket(G, max(WIDE_SWEEP_P), W, SEED + W, dev)
+        for p in WIDE_SWEEP_P:
+            raw = raw_top[:, :p].contiguous()
+            scale = torch.linspace(0.8, 1.25, p, device=dev)
+            res = sweep_times(
+                lambda c: cuda_stream.nmf_masked_streamed_cuda(
+                    raw, lm, scale=scale, _geometry=c, **nkw),
+                [(cl, cuda_nmf.WIDE_THREADS) for cl in cuda_stream.CLUSTERS])
+            emit("sweep_wide_clusters", shape=[G, p, W],
+                 rule=list(cuda_stream.pick_geometry(W, p)),
+                 block_cols=cuda_stream.WIDE_BLOCK_COLS,
+                 columns=["(blocks a gene, threads)", "ms",
+                          "ms (reverse pass)"], times=res)
+            del raw
+        del raw_top, lm
+        torch.cuda.empty_cache()
+
+
 def phase_sweep(cov, cov_wide):
     """Times only (correctness is phase ``kernels``): kernel 4 over launch
     geometries (blocks a gene x threads) at the two whole wide buckets, the
@@ -1448,6 +1505,7 @@ def phase_sweep(cov, cov_wide):
                       "ms (reverse pass)"],
              times=res)
 
+    sweep_wide_clusters()
     sweep_colsharded(cov_wide)
     for G, p, W in ((48, 32, 4096), (48, 16, 8192)):
         raw, lm = small_wide_bucket(G, p, W, SEED + p, dev)
@@ -1611,19 +1669,25 @@ def branch_launches():
             "nmf_masked[nmf_tol]": cuda_nmf.nmf_tol_launches,
             "trim_loop[trim_fast]": cuda_trim.trim_fast_launches,
             "trim_loop[nmf_tol]": cuda_trim.trim_tol_launches,
-            **wide_launches()}
+            **wide_launches(), **wide_launches("panel")}
 
 
-def wide_launches():
-    """Launch counts of the wide instances (p > 32), by instance."""
+def wide_launches(tag="wide"):
+    """Launch counts of the wide instances (33 <= p <= 128), or with
+    ``tag="panel"`` of the panel instances (p > 128), by instance."""
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
-    return {"nmf_masked[wide]": cuda_nmf.nmf_wide_launches,
-            "nmf_masked[wide,nmf_tol]": cuda_nmf.nmf_wide_tol_launches,
-            "ratio_rowsums[wide]": cuda_nmf.ratio_wide_launches,
-            "trim_loop[wide]": cuda_trim.trim_wide_launches,
-            "trim_loop[wide,trim_fast]": cuda_trim.trim_wide_fast_launches,
-            "trim_loop[wide,nmf_tol]": cuda_trim.trim_wide_tol_launches,
-            "nmf_streamed[wide]": cuda_stream.stream_wide_launches}
+    return {f"nmf_masked[{tag}]": getattr(cuda_nmf, f"nmf_{tag}_launches"),
+            f"nmf_masked[{tag},nmf_tol]": getattr(
+                cuda_nmf, f"nmf_{tag}_tol_launches"),
+            f"ratio_rowsums[{tag}]": getattr(cuda_nmf,
+                                             f"ratio_{tag}_launches"),
+            f"trim_loop[{tag}]": getattr(cuda_trim, f"trim_{tag}_launches"),
+            f"trim_loop[{tag},trim_fast]": getattr(
+                cuda_trim, f"trim_{tag}_fast_launches"),
+            f"trim_loop[{tag},nmf_tol]": getattr(
+                cuda_trim, f"trim_{tag}_tol_launches"),
+            f"nmf_streamed[{tag}]": getattr(cuda_stream,
+                                            f"stream_{tag}_launches")}
 
 
 def zero_launches():
@@ -1638,6 +1702,10 @@ def zero_launches():
     cuda_nmf.ratio_wide_launches = cuda_stream.stream_wide_launches = 0
     cuda_trim.trim_wide_launches = cuda_trim.trim_wide_fast_launches = 0
     cuda_trim.trim_wide_tol_launches = 0
+    cuda_nmf.nmf_panel_launches = cuda_nmf.nmf_panel_tol_launches = 0
+    cuda_nmf.ratio_panel_launches = cuda_stream.stream_panel_launches = 0
+    cuda_trim.trim_panel_launches = cuda_trim.trim_panel_fast_launches = 0
+    cuda_trim.trim_panel_tol_launches = 0
 
 
 def drift(a, b):
@@ -1753,7 +1821,7 @@ def phase_modes(cov, X, base_fit, base_steady_s):
 
 
 # phase oracle: the port's engine on the card against its float64 oracle
-ORACLE_SYNTH_GENES = 64
+ORACLE_SYNTH_GENES = 32     # (ARPACK on the host: about a second a gene)
 ORACLE_SYNTH_ITER = 2       # DegNorm iterations: keeps ARPACK under a minute
 GOLDEN = os.path.join(REPO, "tests", "data", "golden_nmfoa.npz")
 
@@ -3316,26 +3384,26 @@ WIDE_INSTANCES = OrderedDict([
 ])
 
 
-def wide_same_bits(keep, raw, lm, eng_cfg, branches):
-    """Each wide instance run twice on the inputs of its check: the same
-    bits.  Returns the instances checked."""
+def wide_same_bits(keep, raw, lm, eng_cfg, branches, tag="wide"):
+    """Each wide (or, ``tag="panel"``, panel) instance run twice on the
+    inputs of its check: the same bits.  Returns the instances checked."""
     import torch
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
     ti, act, nkw = keep["ti"], keep["act"], keep["nkw"]
     targs, tkw = keep["targs"], keep["tkw"]
     runs = {
-        "ratio_rowsums[wide]": lambda: cuda_nmf.ratio_rowsums_cuda(
+        f"ratio_rowsums[{tag}]": lambda: cuda_nmf.ratio_rowsums_cuda(
             raw, lm, power_iters=eng_cfg.power_iters_cold),
-        "nmf_masked[wide]": lambda: cuda_nmf.nmf_masked_cuda(
+        f"nmf_masked[{tag}]": lambda: cuda_nmf.nmf_masked_cuda(
             ti.Fm, ti.hi, gene_active=act, **nkw),
-        "trim_loop[wide]": lambda: cuda_trim.trim_loop_cuda(*targs, **tkw)}
+        f"trim_loop[{tag}]": lambda: cuda_trim.trim_loop_cuda(*targs, **tkw)}
     if branches:
         runs.update({
-            "nmf_masked[wide,nmf_tol]": lambda: cuda_nmf.nmf_masked_cuda(
+            f"nmf_masked[{tag},nmf_tol]": lambda: cuda_nmf.nmf_masked_cuda(
                 ti.Fm, ti.hi, gene_active=act, **dict(nkw, nmf_tol=MODE_TOL)),
-            "trim_loop[wide,trim_fast]": lambda: cuda_trim.trim_loop_cuda(
+            f"trim_loop[{tag},trim_fast]": lambda: cuda_trim.trim_loop_cuda(
                 *targs, **tkw, trim_fast=True),
-            "trim_loop[wide,nmf_tol]": lambda: cuda_trim.trim_loop_cuda(
+            f"trim_loop[{tag},nmf_tol]": lambda: cuda_trim.trim_loop_cuda(
                 *targs, **tkw, nmf_tol=MODE_TOL)})
     for name, fn in runs.items():
         a, b = fn(), fn()
@@ -3687,6 +3755,213 @@ def wide_kernel_records(wide):
     return out
 
 
+# ---- phase panels: studies of more than 128 samples --------------------------
+# the panel instances of kernels 1-4 (csrc/panel.cuh, csrc/*_panel.cu)
+# kernels 1-3 (and 2) resident on PANEL_GENES genes: (p, W, the opt-in
+# branches where the engine's mode gate lets them run: 129 x 256 only)
+PANEL_RESIDENT = ((129, 256, True), (256, 256, False), (512, 128, False))
+PANEL_GENES = 512
+# kernels 4 and 2 at G x p x 16384, one dataset made at the largest p
+PANEL_STREAM = ((64, 129), (64, 192), (64, 256), (16, 512))
+PANEL_STREAM_W = 16384
+PANEL_MODE_P = 160               # the narrow genes under each opt-in mode
+PANEL_MODE_GENES = 512           # (the first genes and samples of the fit's)
+PANEL_FIT_P = 256                # the narrow genes at the default widths
+PANEL_FIT_GENES = 2048
+PANEL_PARITY_GENES = 256
+PANEL_ITER = 1                   # DegNorm iterations of its fits (cut from 5)
+# name -> (source, the TPU kernel, the phase's fit that runs it)
+PANEL_INSTANCES = OrderedDict([
+    ("nmf_masked[panel]", ("degnorm_tpu_torch/csrc/nmf_panel.cu",
+                           "degnorm_tpu/ops/pallas_nmf.py:687", "fit")),
+    ("nmf_masked[panel,nmf_tol]", ("degnorm_tpu_torch/csrc/nmf_panel.cu",
+                                   "degnorm_tpu/ops/pallas_nmf.py:440",
+                                   "nmf_tol")),
+    ("ratio_rowsums[panel]", ("degnorm_tpu_torch/csrc/ratio_panel.cu",
+                              "degnorm_tpu/ops/pallas_nmf.py:562", "fit")),
+    ("trim_loop[panel]", ("degnorm_tpu_torch/csrc/trim_panel.cu",
+                          "degnorm_tpu/ops/pallas_trim.py:324", "fit")),
+    ("trim_loop[panel,trim_fast]", ("degnorm_tpu_torch/csrc/trim_panel.cu",
+                                    "degnorm_tpu/ops/pallas_trim.py:135",
+                                    "trim_fast")),
+    ("trim_loop[panel,nmf_tol]", ("degnorm_tpu_torch/csrc/trim_panel.cu",
+                                  "degnorm_tpu/ops/pallas_trim.py:177",
+                                  "nmf_tol")),
+    ("nmf_streamed[panel]", ("degnorm_tpu_torch/csrc/stream_panel.cu",
+                             "degnorm_tpu/ops/pallas_stream.py:266", "fit")),
+])
+
+
+def short_lengths(n, rng):
+    """Genes of 200-299 bases: cut to a resident width of 256 or 128."""
+    return rng.integers(200, 300, n)
+
+
+def phase_panels():
+    """Studies of more than 128 samples (the panel instance of kernels 1-4,
+    csrc/panel.cuh).  Each panel instance against its plain version at phase
+    kernels' tolerances, run twice for the same bits: kernels 1-3 and 2
+    resident on PANEL_GENES genes at the shapes of PANEL_RESIDENT (the
+    opt-in branches at 129 x 256, where the engine's gate lets them run),
+    kernels 4 and 2 at G x p x 16384 for PANEL_STREAM (raw int16 + scale
+    bit-equal to float32), every p on the first p samples of one dataset
+    made at the largest.  Then the narrow genes at p = PANEL_FIT_P with the
+    default bucket widths (W = 256 resident, the rest streamed) held to
+    ``compare_fits`` against use_kernels=False on its first PARITY genes,
+    and their first genes and samples (p = PANEL_MODE_P) under each opt-in
+    mode (the branches on a fit's path).  No p > 128 may reach a plain version: every
+    fit must launch the panel instances.  Returns the kernels' records and
+    the launches of each instance on its fit."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.config import trim_fast_applies
+    from degnorm_tpu_torch.ops import cuda_nmf
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
+    eng_cfg = EngineConfig(bucket_widths=BUCKET_WIDTHS)
+    rng = np.random.default_rng(SEED + 13)
+    kres = {"resident": OrderedDict(), "stream": OrderedDict()}
+    secs = {}
+
+    t0 = time.perf_counter()
+    top = max(p for p, _, _ in PANEL_RESIDENT)
+    base = list(synth_dataset(PANEL_GENES, top, seed=SEED + top,
+                              lengths_fn=short_lengths)[0].values())
+    for p, W, branches in PANEL_RESIDENT:
+        F, lm, raw = resident_bucket(PANEL_GENES, p, W, dev, rng, mats=base)
+        assert cuda_nmf.kernels_supported(F.shape, torch.float32)
+        assert cuda_nmf.instance_of(p) == "panel"
+        assert branches == trim_fast_applies(F.shape)
+        keep = {}
+        rec = check_kernels_at(F, lm, nmf_cfg, eng_cfg, raw,
+                               branches=branches, keep=keep)
+        rec["same_bits"] = wide_same_bits(keep, raw, lm, eng_cfg, branches,
+                                          tag="panel")
+        kres["resident"][f"p{p}_W{W}"] = rec
+        del F, lm, raw, keep, rec
+        torch.cuda.empty_cache()
+    del base
+    secs["resident"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    G_top = max(g for g, _ in PANEL_STREAM)
+    p_top = max(p for _, p in PANEL_STREAM)
+    raw_top, lm_top = small_wide_bucket(G_top, p_top, PANEL_STREAM_W,
+                                        SEED + p_top, dev)
+    for G, p in PANEL_STREAM:
+        raw = raw_top[:G, :p].contiguous()
+        # (one timed launch, no float32 timing: a launch is 0.6-2.4 s)
+        kres["stream"][f"p{p}_W{PANEL_STREAM_W}"] = check_stream_at(
+            raw, lm_top[:G], nmf_cfg, EngineConfig(), reps=1, time_f32=False)
+        del raw
+        torch.cuda.empty_cache()
+    del raw_top, lm_top
+    secs["stream"] = time.perf_counter() - t0
+
+    # the narrow genes at p = PANEL_FIT_P with the default bucket widths
+    t0 = time.perf_counter()
+    runs = {}
+    cov_f, X_f = synth_dataset(PANEL_FIT_GENES, PANEL_FIT_P)
+    secs["fit_data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nmf_f = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=PANEL_ITER)
+    _, runs["fit"], eng_f = wide_fit("panel_fit", cov_f, X_f, nmf_f,
+                                     EngineConfig(), steady=False)
+    resident = sorted(b.width for b in eng_f._buckets
+                      if cuda_nmf.kernels_supported(b.F.shape, torch.float32))
+    need = ("ratio_rowsums[panel]", "nmf_masked[panel]", "trim_loop[panel]",
+            "nmf_streamed[panel]")
+    if resident != [256] or any(runs["fit"]["launches"].get(k, 0) < 1
+                                for k in need):
+        raise AssertionError(f"panels fit: resident widths {resident}, "
+                             f"launches {runs['fit']['launches']}")
+    del eng_f
+    torch.cuda.empty_cache()
+    keys = list(cov_f)[:PANEL_PARITY_GENES]
+    sub = OrderedDict((k, cov_f[k]) for k in keys)
+    Xs = X_f[:PANEL_PARITY_GENES]
+    # (its device time by kernel: one more run of it under the profiler)
+    on, runs["parity_on"], _ = wide_fit("panel_parity_on", sub, Xs, nmf_f,
+                                        EngineConfig(), steady=False,
+                                        profile=True)
+    t2 = time.perf_counter()
+    off, _, _ = wide_fit("panel_parity_off", sub, Xs, nmf_f,
+                         EngineConfig(use_kernels=False), steady=False)
+    compare_fits("panels_parity", on, off,
+                 (runs["parity_on"]["wall_s"], time.perf_counter() - t2),
+                 samples=PANEL_FIT_P)
+    del sub, on, off
+    secs["fit"] = time.perf_counter() - t0
+
+    # their first genes and samples under each opt-in mode: the branches on
+    # a fit's path
+    t0 = time.perf_counter()
+    cov_m = OrderedDict((k, cov_f[k][:PANEL_MODE_P])
+                        for k in list(cov_f)[:PANEL_MODE_GENES])
+    X_m = X_f[:PANEL_MODE_GENES, :PANEL_MODE_P]
+    for mode, kw in MODES:
+        _, runs[mode], _ = wide_fit(
+            f"panel_{mode}", cov_m, X_m, nmf_f, EngineConfig(**kw),
+            steady=False)
+    del cov_f, X_f, cov_m, X_m
+    secs["modes"] = time.perf_counter() - t0
+
+    # every launch at p > 128 went to a panel instance, and each instance
+    # ran on its fit
+    for tag, r in runs.items():
+        counts = r["launches"]
+        for k in ("nmf_masked", "ratio_rowsums", "trim_loop", "nmf_streamed"):
+            if counts.get(k, 0) != counts.get(f"{k}[panel]", 0):
+                raise AssertionError(f"panels {tag}: {k} launched outside "
+                                     f"the panel instance: {counts}")
+    launches = {name: runs[where]["launches"].get(name, 0)
+                for name, (_, _, where) in PANEL_INSTANCES.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"panels: an instance never launched on its "
+                             f"fit: {launches}")
+    emit("panels", nmf_iter=NMF_ITER, degnorm_iter=PANEL_ITER,
+         degnorm_iter_cut=PANEL_ITER < DEGNORM_ITER,
+         tolerance="as phase kernels; each instance run twice: the same bits",
+         kernels=kres, fits=runs, instance_launches=launches,
+         seconds={k: round(v, 2) for k, v in secs.items()},
+         phase_seconds=round(time.perf_counter() - t_phase, 1))
+    return kres, launches
+
+
+def panel_kernel_records(panels):
+    """The result line's records of the panel instances: each at its main
+    shape (kernels 1-3 and 2 at PANEL_GENES x 256 x 256, the branches at 129
+    x 256, kernel 4 at 64 x 256 x 16384), with every shape it was held at
+    beside it and its launches on its fit."""
+    kres, launches = panels
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    out = []
+    for name, (src, repl, _) in PANEL_INSTANCES.items():
+        if name == "nmf_streamed[panel]":
+            recs = dict(kres["stream"])
+            main = f"p{PANEL_FIT_P}_W{PANEL_STREAM_W}"
+        else:
+            key = WIDE_CHECK_KEY[name.replace("panel", "wide")]
+            recs = {k: r[key] for k, r in kres["resident"].items()
+                    if key in r}
+            if key == "ratio_rowsums":   # also at kernel 4's shapes
+                recs.update((k, r["ratio_rowsums"])
+                            for k, r in kres["stream"].items())
+            main = ("p129_W256" if "," in name else f"p{PANEL_FIT_P}_W256")
+        m = recs[main]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "shape": main,
+            "by_shape": {k: {f: r[f] for f in keys if f in r}
+                         for k, r in recs.items()}})
+    return out
+
+
 def kernels_line(kres, launches, launches_wide, launches_pipeline,
                  launches_modes, seqpar):
     """The per-kernel records of the result line: kernels 1-3 at the narrow
@@ -3828,7 +4103,7 @@ def main(argv=None):
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--sweep", action="store_true",
                     help="time kernels 1-4 and 4c over their launch "
-                         "geometries "
+                         "geometries, the wide kernel 4 over blocks a gene "
                          "(phases env, build, fit_wide, then the sweep; no "
                          "result line)")
     args = ap.parse_args(argv)
@@ -3850,9 +4125,19 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    walls = OrderedDict()       # seconds of each phase, for the total line
+    t_last = [t_start]
+
+    def lap(phase):
+        now = time.perf_counter()
+        if phase in phases or phase == "data":
+            walls[phase] = round(now - t_last[0], 1)
+        t_last[0] = now
+
     smi = phase_env() if "env" in phases else smi_line()
     if "build" in phases:
         phase_build(args.ptxas)
+    lap("build")
     t0 = time.perf_counter()
     cov, X = synth_dataset(N_GENES, P_SAMPLES)
     emit("data", seconds=round(time.perf_counter() - t0, 2), genes=N_GENES,
@@ -3870,41 +4155,55 @@ def main(argv=None):
              per_width=[int((lens <= WIDE_WIDTHS[0]).sum()),
                         int((lens > WIDE_WIDTHS[0]).sum())],
              host_bytes=int(sum(m.nbytes for m in cov_wide.values())))
+    lap("data")
     kres = phase_kernels(cov, cov_wide) if "kernels" in phases else None
+    lap("kernels")
     launches, base_fit, base_steady_s, base_timings = (
         phase_fit(cov, X) if "fit" in phases else (None,) * 4)
+    lap("fit")
     launches_wide, wide_fit, wide_steady_s = (
         phase_fit_wide(cov_wide, X_wide) if "fit_wide" in phases
         else (None,) * 3)
+    lap("fit_wide")
     if "parity" in phases:
         phase_parity(cov, X, cov_wide, X_wide)
+    lap("parity")
     keep_cold = "multihost" in phases
     launches_pipeline, cold = (
         phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=keep_cold)
         if "pipeline" in phases else (None, None))
+    lap("pipeline")
     mesh_long_tail = seqpar = None
     try:
         if "mesh" in phases:
             mesh_long_tail = phase_mesh(cov, X, cov_wide, X_wide, {
                 "narrow": (base_fit, base_steady_s, launches),
                 "long_tail": (wide_fit, wide_steady_s, launches_wide)})
+        lap("mesh")
         if "seqpar" in phases:
             seqpar = phase_seqpar(
                 cov_wide, X_wide,
                 ((wide_fit, wide_steady_s, launches_wide)
                  if "fit_wide" in phases else None), mesh_long_tail)
+        lap("seqpar")
         if "multihost" in phases:
             phase_multihost(cov, X, base_fit, base_steady_s, base_timings,
                             cold, cov_wide, X_wide, wide_fit)
+        lap("multihost")
     finally:
         if keep_cold:
             import shutil
             shutil.rmtree(PIPE_DIR, ignore_errors=True)
     launches_modes = (phase_modes(cov, X, base_fit, base_steady_s)
                       if "modes" in phases else None)
+    lap("modes")
     if "oracle" in phases:
         phase_oracle()
+    lap("oracle")
     wide = phase_wide_p() if "wide_p" in phases else None
+    lap("wide_p")
+    panels = phase_panels() if "panels" in phases else None
+    lap("panels")
     if "upload" in phases:
         phase_upload(cov, cov_wide)
     if args.sweep:
@@ -3913,12 +4212,13 @@ def main(argv=None):
         print(json.dumps({"ok": False, "partial": phases}))
         return 0
 
-    kernels = kernels_line(kres, launches, launches_wide, launches_pipeline,
-                           launches_modes, seqpar) + wide_kernel_records(wide)
+    kernels = (kernels_line(kres, launches, launches_wide, launches_pipeline,
+                            launches_modes, seqpar) + wide_kernel_records(wide)
+               + panel_kernel_records(panels))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",
-                      "seconds": round(time.perf_counter() - t_start, 1)}),
-          flush=True)
+                      "seconds": round(time.perf_counter() - t_start, 1),
+                      "by_phase": walls}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,18 +4,24 @@
 
 // X: (G, p, W) float32 scratch; tol > 0 runs the nmf_tol branch; iters:
 // (G) int32 or null.  p > 32 takes the wide instances (nmf_wide.cuh), whose
-// block is DN_WIDE_THREADS threads.
+// block is DN_WIDE_THREADS threads, and p > 128 the panel instance
+// (nmf_panel.cu), which also takes ws: ws_slots workspaces of
+// dn_panel_ws_floats(p) floats (null and 0 below).
 extern "C" int dn_nmf_masked(const float* F, const uint8_t* mask,
                              const uint8_t* act, const float* u0, float* X,
                              float* K, float* E, float* u, int G, int p, int W,
                              int nmf_iter, int power_cold, int power_warm,
                              int warm_plain, float tol, int* iters,
-                             int threads, void* stream) {
-  const NmfArgs a = {F,          mask,       act,     u0,      nullptr,
-                     X,          K,          E,       u,       iters,
-                     G,          p,          W,       nmf_iter, power_cold,
-                     power_warm, warm_plain, tol,     threads,
-                     (cudaStream_t)stream};
+                             int threads, float* ws, int ws_slots,
+                             void* stream) {
+  NmfArgs a = {F,          mask,       act,     u0,      nullptr,
+               X,          K,          E,       u,       iters,
+               G,          p,          W,       nmf_iter, power_cold,
+               power_warm, warm_plain, tol,     threads,
+               (cudaStream_t)stream};
+  a.ws = ws;
+  a.ws_slots = ws_slots;
+  if (p > 128) return dn_nmf_panel(a);
   if (p > 32) return tol > 0.f ? dn_nmf_wide_tol(a) : dn_nmf_wide(a);
   return tol > 0.f ? dn_nmf_block_tol(a) : launch_block<false>(a);
 }

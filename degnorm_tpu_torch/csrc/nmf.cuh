@@ -61,6 +61,8 @@ struct NmfArgs {
   float tol;
   int threads;
   cudaStream_t stream;
+  float* ws = nullptr;  // p > 128: the panel instance's workspace,
+  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
 };
 
 
@@ -309,3 +311,6 @@ int dn_nmf_warp_tol(const NmfArgs& a);
 // nmf_tol, nmf_wide_tol.cu)
 int dn_nmf_wide(const NmfArgs& a);
 int dn_nmf_wide_tol(const NmfArgs& a);
+// the block launch for p > 128 (nmf_panel.cu: panel.cuh's core), both
+// branches
+int dn_nmf_panel(const NmfArgs& a);

@@ -66,7 +66,7 @@ int launch_nmf_wide(const NmfArgs& a) {
   if (a.G == 0) return 0;
 #define CALL(PM)                                                            \
   do {                                                                      \
-    const size_t dyn = sizeof(float) * wide_work_floats<PM>();              \
+    const size_t dyn = sizeof(float) * wide_sync_floats<PM>();              \
     cudaError_t e = cudaFuncSetAttribute(                                   \
         nmf_wide_kernel<PM, ADAPT>,                                         \
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);             \

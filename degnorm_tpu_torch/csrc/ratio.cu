@@ -6,17 +6,24 @@
 // 8.  threads: a multiple of 32, at most 256.  stage_kb: the most shared
 // memory a block copies its share of a gene into (0: read it from device
 // memory twice).  p > 32 takes the wide instances (ratio_wide.cuh): cl 1 and
-// DN_WIDE_THREADS threads.
+// DN_WIDE_THREADS threads; p > 128 the panel instance (ratio_panel.cu), which
+// also takes ws: ws_slots workspaces of dn_panel_ws_floats(p) floats (null
+// and 0 below).
 extern "C" int dn_ratio_rowsums(const void* F, int f_is_i16,
                                 const uint8_t* mask, float* cov_sums,
                                 float* est_sums, int G, int p, int W,
                                 int power_cold, int cl, int threads,
-                                int stage_kb, void* stream) {
+                                int stage_kb, float* ws, int ws_slots,
+                                void* stream) {
   if (p > 32) {  // the wide instances: cl 1, DN_WIDE_THREADS threads
-    const RatioArgs a = {F,        mask, cov_sums,   est_sums, G,
-                         p,        W,    power_cold, cl,       threads,
-                         stage_kb, (cudaStream_t)stream};
-    const int code = f_is_i16 ? dn_ratio_wide_i16(a) : dn_ratio_wide_f32(a);
+    RatioArgs a = {F,        mask, cov_sums,   est_sums, G,
+                   p,        W,    power_cold, cl,       threads,
+                   stage_kb, (cudaStream_t)stream};
+    a.ws = ws;
+    a.ws_slots = ws_slots;
+    const int code = p > 128        ? dn_ratio_panel(a, f_is_i16)
+                     : f_is_i16     ? dn_ratio_wide_i16(a)
+                                    : dn_ratio_wide_f32(a);
     if (code != 0) return code;
     return (int)cudaGetLastError();
   }

@@ -367,6 +367,8 @@ struct RatioArgs {
   float* est;
   int G, p, W, power_cold, cl, threads, stage_kb;
   cudaStream_t st;
+  float* ws = nullptr;  // p > 128: the panel instance's workspace,
+  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
 };
 
 template <bool I16>
@@ -387,3 +389,5 @@ int dn_ratio_i16(const RatioArgs& a);
 // ratio_wide_i16.cu): one block of DN_WIDE_THREADS a gene
 int dn_ratio_wide_f32(const RatioArgs& a);
 int dn_ratio_wide_i16(const RatioArgs& a);
+// the instances for p > 128 (ratio_panel.cu: panel.cuh's core), both forms
+int dn_ratio_panel(const RatioArgs& a, int f_is_i16);

@@ -4,26 +4,33 @@
 
 // X: (G, p, W) float32 scratch.  cl: blocks a gene, 1, 2, 4 or 8.  threads:
 // a multiple of 32, at most 512 (256 for p > 8; exactly 256 for p > 32, the
-// wide instances of stream_wide.cuh).
+// wide instances of stream_wide.cuh).  p > 128 takes the panel instance
+// (stream_panel.cu: cl 1), which also takes ws: ws_slots workspaces of
+// dn_panel_ws_floats(p) floats (null and 0 below).
 extern "C" int dn_nmf_streamed(const void* F, int f_is_i16,
                                const uint8_t* mask, const uint8_t* act,
                                const float* scale, const float* u0, float* X,
                                float* K, float* E, float* u, int G, int p,
                                int W, int nmf_iter, int power_cold,
                                int power_warm, int warm_plain, int cl,
-                               int threads, void* stream) {
+                               int threads, float* ws, int ws_slots,
+                               void* stream) {
   if (threads % 32 != 0 || threads < 32 || cl < 1 ||
       cl > DN_STREAM_MAX_CLUSTER || (cl & (cl - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   // two input forms: raw int16 with its scales, or finished float32
   if ((f_is_i16 != 0) != (scale != nullptr)) return (int)cudaErrorInvalidValue;
-  const StreamArgs a = {F,  mask,     act,        scale,      u0,
-                        X,  K,        E,          u,          G,
-                        p,  W,        nmf_iter,   power_cold, power_warm,
-                        warm_plain,   cl,         threads,
-                        (cudaStream_t)stream};
+  StreamArgs a = {F,  mask,     act,        scale,      u0,
+                  X,  K,        E,          u,          G,
+                  p,  W,        nmf_iter,   power_cold, power_warm,
+                  warm_plain,   cl,         threads,
+                  (cudaStream_t)stream};
+  a.ws = ws;
+  a.ws_slots = ws_slots;
   int code;
-  if (p <= 4)
+  if (p > 128)
+    code = dn_stream_panel(a);
+  else if (p <= 4)
     code = f_is_i16 ? dn_stream_p4_i16(a) : dn_stream_p4_f32(a);
   else if (p <= 8)
     code = f_is_i16 ? dn_stream_p8_i16(a) : dn_stream_p8_f32(a);

@@ -12,12 +12,16 @@
 // its last active column; int16 + scale takes stream.cuh's scaled_i16, the
 // IEEE quotient, so that it gives the float32 form's bits.  Bound on this
 // card: float32 operations (wide.cuh).  X stays in the global scratch (a
-// block's share of X at p = 128 outgrows its shared memory, which the Gram
-// and the tile take).  The cluster's blocks sum their Gram partials in rank
-// order through distributed shared memory between two cluster barriers
-// (there is no room to double-buffer the p x p partial), and every block
-// runs the power step on the same sum, so u is bit-equal across the
-// cluster.  A gene outside `act` returns zeros from every block of its
+// block's share of X at p = 128 outgrows its shared memory, which the Gram,
+// the two tile buffers and the copy stage take); the copy stage brings the
+// raw int16 rows in as they are stored (2 bytes an element) and the tile
+// threads divide them on the way into the tile, beside the gram threads'
+// triangle.  The cluster's blocks sum their Gram partials in rank order
+// through distributed shared memory between two cluster barriers (the
+// double buffer of the p x p partial does not fit beside the copy stage),
+// and every block runs the power step on the same sum, so u is bit-equal
+// across the cluster.  A gene outside `act` returns zeros from every block
+// of its
 // cluster before the first barrier.
 #pragma once
 #include "stream.cuh"
@@ -27,9 +31,14 @@
 // l is column ((l / CH) * cl + rank) * CH + l % CH, as in stream.cuh.
 template <int PMAX, bool I16>
 struct WideStreamSrc {
+  using AType = typename std::conditional<I16, int16_t, float>::type;
+  // dozens of tiles a block: the pipelined sweep, but at PMAX = 128, where
+  // its two roles spilled registers at one block an SM
+  static constexpr bool PIPE = PMAX <= 96;
   const void* F;  // the gene's (p, W) rows, float32 or int16
   const uint8_t* __restrict__ mask;
-  const float* ss;  // PMAX scales, then PMAX reciprocals (I16)
+  const float* ss;  // the scales (I16) ...
+  const float* rs;  // ... and their reciprocals
   float* Xg;        // the gene's (p, W) rows of the global scratch
   float* E;
   int W, rank, cl, nloc;
@@ -44,10 +53,26 @@ struct WideStreamSrc {
     const int w = col(l);
     return w < W && mask[w] != 0;
   }
+  __device__ __forceinline__ float a0v(AType a, int i) const {
+    if constexpr (I16) return scaled_i16(a, ss[i], rs[i]);
+    return a;
+  }
   __device__ __forceinline__ float a0(int l, int i) const {
-    const size_t at = (size_t)i * W + col(l);
-    if (I16) return scaled_i16(((const int16_t*)F)[at], ss[i], ss[PMAX + i]);
-    return ((const float*)F)[at];
+    return a0v(((const AType*)F)[(size_t)i * W + col(l)], i);
+  }
+  // the copy stage's view: a tile's columns l0 .. l0 + 63 lie in one chunk
+  // (DN_STREAM_CHUNK is a multiple of the tile), contiguous in memory,
+  // 16-byte aligned when W is a multiple of 8
+  __device__ __forceinline__ bool vec() const { return W % 8 == 0; }
+  __device__ __forceinline__ int valid_cols(int l0) const {
+    const int left = W - col(l0);
+    return left < 0 ? 0 : left < DN_WIDE_TC ? left : DN_WIDE_TC;
+  }
+  __device__ __forceinline__ const float* xrow(int i, int l0) const {
+    return Xg + (size_t)i * W + col(l0);
+  }
+  __device__ __forceinline__ const AType* arow(int i, int l0) const {
+    return (const AType*)F + (size_t)i * W + col(l0);
   }
   __device__ __forceinline__ float x(int l, int i) const {
     return Xg[(size_t)i * W + col(l)];
@@ -63,11 +88,13 @@ struct WideStreamSrc {
 };
 
 // The cluster's reduction: every block's Gram partial into its w.B, one
-// cluster barrier, each thread sums its R x R block over the ranks in rank
-// order, a second barrier (no block's w.B is read any more), the sum into
-// w.B.  A cluster of one is a block barrier.
+// cluster barrier, each gram thread sums its entries of the triangle (and
+// each diagonal tile thread its entry) over the ranks in rank order, a
+// second barrier (no block's w.B is read any more), the sum and its mirror
+// into w.B.  A cluster of one is a block barrier.
 struct WideClusterRed {
   int cl;
+  // the synchronous sweep's full register tile (PMAX = 128)
   template <int PMAX>
   __device__ __forceinline__ void reduce(WideGram<PMAX>& g,
                                          WideWork<PMAX>& w) const {
@@ -79,10 +106,7 @@ struct WideClusterRed {
     }
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int s = 0; s < R; ++s) g.acc[r][s] = 0.f;
+    g.zero();
     for (int k = 0; k < cl; ++k) {
       const float* Bk = cluster.map_shared_rank(w.B, k);
 #pragma unroll
@@ -95,10 +119,41 @@ struct WideClusterRed {
     g.store(w.B);
     __syncthreads();
   }
+  // the pipelined sweep's triangle
+  template <int PMAX>
+  __device__ __forceinline__ void reduce(WideTri<PMAX>& tri,
+                                         WideDiag<PMAX>& dg,
+                                         WideWork<PMAX>& w) const {
+    constexpr int R = WideShape<PMAX>::R, LD = WideShape<PMAX>::LD;
+    wide_tri_store(tri, dg, w);
+    if (cl == 1) return;
+    const bool gram = threadIdx.x < DN_WIDE_GRAM_THREADS;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (gram) tri.zero();
+    float d = 0.f;
+    for (int k = 0; k < cl; ++k) {
+      const float* Bk = cluster.map_shared_rank(w.B, k);
+      if (gram) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int s = 0; s < R; ++s) {
+            int i, j;
+            tri.entry(r, s, i, j);
+            tri.acc[r][s] += Bk[i * LD + j];
+          }
+      }
+      if (dg.row >= 0) d += Bk[dg.row * LD + dg.row];
+    }
+    dg.acc = d;
+    cluster.sync();
+    wide_tri_store(tri, dg, w);
+  }
 };
 
 template <int PMAX, bool I16>
-__global__ void __launch_bounds__(DN_WIDE_THREADS, dn_wide_min_blocks<PMAX>())
+__global__ void __launch_bounds__(DN_WIDE_THREADS, dn_wide_core_blocks<PMAX>())
     nmf_stream_wide_kernel(const void* __restrict__ F,
                            const uint8_t* __restrict__ mask,
                            const uint8_t* __restrict__ act,
@@ -159,6 +214,7 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, dn_wide_min_blocks<PMAX>())
               : (const void*)((const float*)F + g * p * W);
   src.mask = mg;
   src.ss = s_scale;
+  src.rs = s_scale + PMAX;
   src.Xg = Xscratch + g * p * W;
   src.E = Eg;
   src.W = W;
@@ -187,7 +243,9 @@ int launch_stream_wide(const StreamArgs& a) {
 #define CALL(PM)                                                              \
   do {                                                                        \
     auto kern = nmf_stream_wide_kernel<PM, I16>;                              \
-    const size_t dyn = sizeof(float) * wide_work_floats<PM>();                \
+    constexpr bool pipe = WideStreamSrc<PM, I16>::PIPE;                       \
+    const size_t dyn = sizeof(float) * (pipe ? wide_work_floats<PM>()         \
+                                             : wide_sync_floats<PM>());       \
     cudaError_t e = cudaFuncSetAttribute(                                     \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);         \
     if (e != cudaSuccess) return (int)e;                                      \

@@ -5,7 +5,9 @@
 
 // X: (G, p, W) float32 scratch; fast != 0 runs the trim_fast branch, else
 // tol > 0 the nmf_tol one; iters: (G) int32 or null.  p > 32 takes the wide
-// instances (trim_wide.cuh), whose block is DN_WIDE_THREADS threads.
+// instances (trim_wide.cuh), whose block is DN_WIDE_THREADS threads, and
+// p > 128 the panel instance (trim_panel.cu), which also takes ws: ws_slots
+// workspaces of dn_panel_ws_floats(p) floats (null and 0 below).
 extern "C" int dn_trim_loop(
     const float* Fm, const int* bin_id, const float* bin_count,
     const float* K0, float* E, const float* rho0, const float* u0,
@@ -14,15 +16,20 @@ extern "C" int dn_trim_loop(
     int* rounds_active, int* iters, int G, int p, int W, int B, int nmf_iter,
     int power_resume, int power_warm, int warm_plain, int max_rounds,
     int min_bins, int min_gene_len, int fast, float tol, int threads,
-    void* stream) {
-  const TrimArgs a = {Fm,         bin_id,       bin_count,  K0,
-                      E,          rho0,         u0,         n_hi,
-                      n_bins,     active0,      X,          colmask,
-                      K,          rho,          ran_bs,     rounds_active,
-                      iters,      G,            p,          W,
-                      B,          nmf_iter,     power_resume, power_warm,
-                      warm_plain, max_rounds,   min_bins,   min_gene_len,
-                      tol,        threads,      (cudaStream_t)stream};
+    float* ws, int ws_slots, void* stream) {
+  TrimArgs a = {Fm,         bin_id,       bin_count,  K0,
+                E,          rho0,         u0,         n_hi,
+                n_bins,     active0,      X,          colmask,
+                K,          rho,          ran_bs,     rounds_active,
+                iters,      G,            p,          W,
+                B,          nmf_iter,     power_resume, power_warm,
+                warm_plain, max_rounds,   min_bins,   min_gene_len,
+                tol,        threads,      (cudaStream_t)stream};
+  a.ws = ws;
+  a.ws_slots = ws_slots;
+  if (p > 128)
+    return dn_trim_panel(a, fast ? DN_TRIM_FAST
+                            : tol > 0.f ? DN_TRIM_TOL : DN_TRIM_DEFAULT);
   if (p > 32) {
     if (fast) return dn_trim_wide_fast(a);
     if (tol > 0.f) return dn_trim_wide_tol(a);

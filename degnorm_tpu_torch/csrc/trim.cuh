@@ -306,6 +306,8 @@ struct TrimArgs {
   float tol;
   int threads;
   cudaStream_t stream;
+  float* ws = nullptr;  // p > 128: the panel instance's workspace,
+  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
 };
 
 template <int MODE>
@@ -343,5 +345,7 @@ int dn_trim_tol(const TrimArgs& a);
 int dn_trim_wide(const TrimArgs& a);
 int dn_trim_wide_fast(const TrimArgs& a);
 int dn_trim_wide_tol(const TrimArgs& a);
+// the instances for p > 128 (trim_panel.cu: panel.cuh's core), every mode
+int dn_trim_panel(const TrimArgs& a, int mode);
 
 

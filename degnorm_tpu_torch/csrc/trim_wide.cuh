@@ -64,7 +64,7 @@ trim_wide_kernel(
 
   WideWork<PMAX> wk;
   wk.init((float*)dyn4);
-  float* s_res = (float*)dyn4 + wide_work_floats<PMAX>();
+  float* s_res = (float*)dyn4 + wide_sync_floats<PMAX>();
   const int* bid = bin_id + g * W;
   float* Eg = E + g * W;
   uint8_t* cm = colmask + g * W;
@@ -234,7 +234,7 @@ int launch_trim_wide(const TrimArgs& a) {
   if (a.G == 0) return 0;
 #define CALL(PM)                                                              \
   do {                                                                        \
-    const size_t dyn = sizeof(float) * ((size_t)wide_work_floats<PM>() + a.W); \
+    const size_t dyn = sizeof(float) * ((size_t)wide_sync_floats<PM>() + a.W); \
     cudaError_t e = cudaFuncSetAttribute(                                     \
         trim_wide_kernel<PM, MODE>,                                           \
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);               \

@@ -276,8 +276,12 @@ class DegNormEngine:
         # of it to the resident forms.  On a mesh the cap is the smallest
         # device's, over every process (all must pack the same buckets), and
         # is not scaled by the shards: shards may share a card, and the
-        # one-device layout keeps a sharded fit bit-equal to that fit.
-        total = min(_device_memory(d) for d in set(self.mesh.devices))
+        # one-device layout keeps a sharded fit bit-equal to that fit.  At
+        # p > 128 a launch also holds the panel instance's workspace (its
+        # Gram a block in flight, whatever the bucket), set aside first.
+        p = cov_mats[0].shape[0] if len(cov_mats) else 0
+        total = min(_device_memory(d) - cuda_nmf.panel_workspace_bytes(p, d)
+                    for d in set(self.mesh.devices))
         if self.mesh.process_count > 1:
             total = int(distributed.gather_rows(
                 torch.tensor([total], device=self.device)).min())

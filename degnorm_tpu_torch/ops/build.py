@@ -46,22 +46,24 @@ _F = ctypes.c_float
 # int would be passed as a 32-bit C int and cut the pointer).
 _SIGNATURES = {
     # F, mask, act, u0, X, K, E, u, G, p, W, nmf_iter, power_cold,
-    # power_warm, warm_plain, tol, iters, threads, stream
-    "dn_nmf_masked": [_P] * 8 + [_I] * 7 + [_F, _P, _I, _P],
+    # power_warm, warm_plain, tol, iters, threads, ws, ws_slots, stream
+    "dn_nmf_masked": [_P] * 8 + [_I] * 7 + [_F, _P, _I, _P, _I, _P],
     # F, mask, act, u0, next, X, K, E, u, G, p, W, nmf_iter, power_cold,
     # power_warm, warm_plain, tol, iters, threads, stream
     "dn_nmf_masked_warp": [_P] * 9 + [_I] * 7 + [_F, _P, _I, _P],
     # F, f_is_i16, mask, cov_sums, est_sums, G, p, W, power_cold, cl,
-    # threads, stage_kb, stream
-    "dn_ratio_rowsums": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P],
+    # threads, stage_kb, ws, ws_slots, stream
+    "dn_ratio_rowsums": [_P, _I, _P, _P, _P] + [_I] * 7 + [_P, _I, _P],
     # Fm, bin_id, bin_count, K0, E, rho0, u0, n_hi, n_bins, active0,
     # X, colmask, K, rho, ran_bs, rounds_active, iters,
     # G, p, W, B, nmf_iter, power_resume, power_warm, warm_plain,
-    # max_rounds, min_bins, min_gene_len, fast, tol, threads, stream
-    "dn_trim_loop": [_P] * 17 + [_I] * 12 + [_F, _I, _P],
+    # max_rounds, min_bins, min_gene_len, fast, tol, threads, ws, ws_slots,
+    # stream
+    "dn_trim_loop": [_P] * 17 + [_I] * 12 + [_F, _I, _P, _I, _P],
     # F, f_is_i16, mask, act, scale, u0, X, K, E, u, G, p, W, nmf_iter,
-    # power_cold, power_warm, warm_plain, cl, threads, stream
-    "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 9 + [_P],
+    # power_cold, power_warm, warm_plain, cl, threads, ws, ws_slots, stream
+    # (ws: p > 128, the panel instance's workspace, else null and 0)
+    "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 9 + [_P, _I, _P],
     # raw, scale, out, n, p, stream
     "dn_scaled_quotients": [_P, _P, _P, _I, _I, _P],
     # kernel 4c (and 2c's first launch): F, f_is_i16, mask, act, scale, X,

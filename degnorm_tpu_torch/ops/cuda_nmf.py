@@ -22,11 +22,16 @@ from degnorm_tpu_torch.core.linalg import (finish_rank_one, masked_rank_one,
 nmf_launches = 0
 nmf_tol_launches = 0
 ratio_launches = 0
-# the launches of the wide instances (p > NARROW_MAX_P: csrc/nmf_wide.cuh,
-# csrc/ratio_wide.cuh), in the counts above too
+# the launches of the wide instances (NARROW_MAX_P < p <= WIDE_MAX_P:
+# csrc/nmf_wide.cuh, csrc/ratio_wide.cuh) and of the panel instances (p >
+# WIDE_MAX_P: csrc/nmf_panel.cu, csrc/ratio_panel.cu), in the counts above
+# too
 nmf_wide_launches = 0
 nmf_wide_tol_launches = 0
 ratio_wide_launches = 0
+nmf_panel_launches = 0
+nmf_panel_tol_launches = 0
+ratio_panel_launches = 0
 # kernel 2c (the column-sharded ratio-SVD row sums): both of its launches
 ratio_cols_launches = 0
 
@@ -38,18 +43,21 @@ ratio_cols_launches = 0
 #     512 KB at the limit) must stay small enough that the blocks in flight
 #     keep their working sets in the 50 MB L2 cache;
 #   * W <= MAX_W, kernel 3 only: its per-column residual buffer (4 * W bytes)
-#     lives in shared memory;
-#   * p <= MAX_P, kernels 1-4: the largest template instance.
-# Kernel 2 (ratio-SVD row sums) has no scratch and no width-sized buffer: it
-# takes any W (``check_coverage_input``).  A bucket outside the gate takes the
-# cluster kernel of ops/cuda_stream.py for its NMF and the unfused trim loop.
+#     lives in shared memory.
+# No limit on p: kernels 1-4 take every p >= 2.  Kernel 2 (ratio-SVD row
+# sums) has no scratch and no width-sized buffer: it takes any W
+# (``check_coverage_input``).  A bucket outside the gate takes the cluster
+# kernel of ops/cuda_stream.py for its NMF and the unfused trim loop.
 # p above NARROW_MAX_P runs the wide instances of kernels 1-4
 # (csrc/wide.cuh: the Gram in shared memory and the power step the block's,
-# a block of WIDE_THREADS threads); kernels 4c and 2c have no wide instance
-# and stop at COLS_MAX_P (the engine gene-shards such a bucket:
+# a block of WIDE_THREADS threads), p above WIDE_MAX_P their panel instance
+# (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS in a workspace in
+# device memory, ``panel_workspace``); kernels 4c and 2c have neither and
+# stop at COLS_MAX_P (the engine gene-shards such a bucket:
 # ``engine.DegNormEngine.column_sharded``).
-MAX_P = 128
 NARROW_MAX_P = 32
+WIDE_MAX_P = 128
+PANEL_ROWS = 128
 COLS_MAX_P = 32
 MAX_W = 8192
 MAX_PW = 65536
@@ -60,26 +68,26 @@ def kernels_supported(shape, dtype) -> bool:
     """True when a (G, p, W) bucket of this dtype is inside the gate of the
     resident loop kernels (kernels 1 and 3)."""
     _, p, W = shape
-    return (dtype == torch.float32 and 2 <= p <= MAX_P and W <= MAX_W
+    return (dtype == torch.float32 and 2 <= p and W <= MAX_W
             and p * W <= MAX_PW)
 
 
 def check_coverage_input(F: torch.Tensor, name: str, int16_ok: bool = False,
-                         max_p: int = MAX_P) -> None:
+                         max_p: Optional[int] = None) -> None:
     """What every kernel needs of its coverage tensor (and all that kernel 2
     needs): float32 (or int16 where ``int16_ok``: kernels 2, 4, 4c and 2c
-    read the raw upload), contiguous, 2 <= p <= ``max_p``, the limit of the
-    kernel in question (MAX_P for kernels 1-4, COLS_MAX_P for 4c and 2c).
-    Raises; never falls back."""
+    read the raw upload), contiguous, p >= 2 and, where the kernel has a
+    limit, p <= ``max_p`` (COLS_MAX_P for 4c and 2c; kernels 1-4 have
+    none).  Raises; never falls back."""
     if F.dtype != torch.float32 and not (int16_ok and F.dtype == torch.int16):
         raise TypeError(f"{name}: the CUDA kernels are float32"
                         f"{' or int16' if int16_ok else ''}, got {F.dtype}")
     if not F.is_contiguous():
         raise ValueError(f"{name}: coverage tensor must be contiguous")
     p = F.shape[1]
-    if p > max_p or p < 2:
+    if p < 2 or (max_p is not None and p > max_p):
         raise ValueError(f"{name}: p={p} outside this kernel's range "
-                         f"2..{max_p}")
+                         f"2..{max_p or ''}")
 
 
 def check_kernel_input(F: torch.Tensor, name: str) -> None:
@@ -121,12 +129,62 @@ SMS = 132
 
 
 def pmax_of(p: int) -> int:
-    """The template instance a p runs in (``DN_DISPATCH_P``, and
-    ``DN_DISPATCH_WIDE_P`` of csrc/wide.cuh above NARROW_MAX_P)."""
-    for pm in (4, 8, 16, 32, 48, 64, 96):
+    """The rows the instance that runs p carries: its template instance
+    up to WIDE_MAX_P (``DN_DISPATCH_P``, and ``DN_DISPATCH_WIDE_P`` of
+    csrc/wide.cuh above NARROW_MAX_P); above it the panel instance, one for
+    every p, whose rows are whole panels of PANEL_ROWS (``dn_panel_np`` of
+    csrc/panel.cuh)."""
+    for pm in (4, 8, 16, 32, 48, 64, 96, 128):
         if p <= pm:
             return pm
-    return 128
+    return -(-p // PANEL_ROWS) * PANEL_ROWS
+
+
+def instance_of(p: int) -> str:
+    """The name of the instance that runs p in kernels 1-4: ``p<PMAX>`` up
+    to NARROW_MAX_P, ``wide<PMAX>`` up to WIDE_MAX_P, ``panel`` above."""
+    if p > WIDE_MAX_P:
+        return "panel"
+    return ("wide" if p > NARROW_MAX_P else "p") + str(pmax_of(p))
+
+
+# The panel instance's workspace a block (``dn_panel_ws_floats`` of
+# csrc/panel.cuh): the gene's Gram B and B^2, p x p each, then PANEL_VECS
+# vectors of ``pmax_of(p)`` floats.
+PANEL_VECS = 9
+
+
+def panel_ws_floats(p: int) -> int:
+    return 2 * p * p + PANEL_VECS * pmax_of(p)
+
+
+def panel_slots(G: int, device) -> int:
+    """Blocks a launch of the panel instance runs, each with its slot of
+    the workspace: one an SM of the card (its launch bound: one block an
+    SM), fewer for fewer genes."""
+    if device.type != "cuda":
+        return min(G, SMS)
+    return min(G, torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def panel_workspace(G: int, p: int, device):
+    """(workspace, slots) of a launch at p: for p > WIDE_MAX_P the panel
+    instance's ``panel_slots`` workspaces of ``panel_ws_floats(p)`` floats,
+    sized by the genes in flight and not by the bucket; else (None, 0)."""
+    if p <= WIDE_MAX_P or G == 0:
+        return None, 0
+    slots = panel_slots(G, device)
+    return (torch.empty(slots * panel_ws_floats(p), dtype=torch.float32,
+                        device=device), slots)
+
+
+def panel_workspace_bytes(p: int, device: torch.device) -> int:
+    """Bytes of the largest panel workspace a launch at p takes on
+    ``device``: what the engine's memory guard sets aside on a card (0 at
+    p <= WIDE_MAX_P and off a card, where the plain versions run)."""
+    if p <= WIDE_MAX_P or device.type != "cuda":
+        return 0
+    return 4 * panel_slots(1 << 30, device) * panel_ws_floats(p)
 
 
 def warp_slots(p: int) -> int:
@@ -362,7 +420,7 @@ def nmf_masked_cuda(
     if F.device.type == "cpu":
         return nmf_masked_plain(F, mask, **kwargs)
     global nmf_launches, nmf_tol_launches, nmf_wide_launches
-    global nmf_wide_tol_launches
+    global nmf_wide_tol_launches, nmf_panel_launches, nmf_panel_tol_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
@@ -385,6 +443,7 @@ def nmf_masked_cuda(
     u = torch.empty((G, p), dtype=torch.float32, device=dev)
     if G == 0:
         return K, E, u
+    ws, slots = panel_workspace(G, p, dev)
     loop = (int(nmf_iter), int(power_iters_cold), int(power_iters_warm),
             int(power_warm_plain), float(nmf_tol), _ptr(iters_out), threads)
     with torch.cuda.device(dev):
@@ -394,7 +453,7 @@ def nmf_masked_cuda(
             code = get_lib().dn_nmf_masked(
                 F.data_ptr(), m8.data_ptr(), _ptr(act8), _ptr(u0c),
                 X.data_ptr(), K.data_ptr(), E.data_ptr(), u.data_ptr(),
-                G, p, W, *loop, stream)
+                G, p, W, *loop, _ptr(ws), slots, stream)
         else:
             name = "dn_nmf_masked_warp"
             nxt = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -406,10 +465,12 @@ def nmf_masked_cuda(
     nmf_launches += 1
     if nmf_tol > 0:
         nmf_tol_launches += 1
-    if p > NARROW_MAX_P:
+    if p > WIDE_MAX_P:
+        nmf_panel_launches += 1
+        nmf_panel_tol_launches += nmf_tol > 0
+    elif p > NARROW_MAX_P:
         nmf_wide_launches += 1
-        if nmf_tol > 0:
-            nmf_wide_tol_launches += 1
+        nmf_wide_tol_launches += nmf_tol > 0
     return K, E, u
 
 
@@ -458,7 +519,7 @@ def ratio_rowsums_cuda(
     ``chip_smoke.py --sweep`` passes it)."""
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
-    global ratio_launches, ratio_wide_launches
+    global ratio_launches, ratio_wide_launches, ratio_panel_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_coverage_input(F, "ratio_rowsums_cuda", int16_ok=True)
     G, p, W = F.shape
@@ -469,15 +530,18 @@ def ratio_rowsums_cuda(
     est = torch.empty((G, p), dtype=torch.float32, device=F.device)
     if G == 0:
         return cov, est
+    ws, slots = panel_workspace(G, p, F.device)
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_ratio_rowsums(
             F.data_ptr(), int(F.dtype == torch.int16), m8.data_ptr(),
             cov.data_ptr(), est.data_ptr(), G, p, W, int(power_iters), cl,
-            threads, stage_kb, stream)
+            threads, stage_kb, _ptr(ws), slots, stream)
     check_launch(code, "dn_ratio_rowsums")
     ratio_launches += 1
-    if p > NARROW_MAX_P:
+    if p > WIDE_MAX_P:
+        ratio_panel_launches += 1
+    elif p > NARROW_MAX_P:
         ratio_wide_launches += 1
     return cov, est
 

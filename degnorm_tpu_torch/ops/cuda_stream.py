@@ -28,9 +28,11 @@ from degnorm_tpu_torch.ops import cuda_nmf
 # ``colsharded_launches`` counts every launch of kernel 4c (a, b and finish),
 # ``colsharded_tol_launches`` those of its nmf_tol instances (in both).
 stream_launches = 0
-# the launches of its wide instances (p > cuda_nmf.NARROW_MAX_P:
-# csrc/stream_wide.cuh), in stream_launches too
+# the launches of its wide instances (cuda_nmf.NARROW_MAX_P < p <=
+# cuda_nmf.WIDE_MAX_P: csrc/stream_wide.cuh) and of its panel instance (p >
+# cuda_nmf.WIDE_MAX_P: csrc/stream_panel.cu), in stream_launches too
 stream_wide_launches = 0
+stream_panel_launches = 0
 colsharded_launches = 0
 colsharded_tol_launches = 0
 
@@ -84,7 +86,10 @@ def pick_geometry(W: int, p: int) -> Tuple[int, int]:
     WIDE_THREADS threads, and the smallest cluster that leaves a block at
     most WIDE_BLOCK_COLS of a gene's columns (a wide cluster pays two
     cluster barriers and p^2 remote reads a block every sweep, so it is
-    kept for the widest buckets)."""
+    kept for the widest buckets).  p > ``cuda_nmf.WIDE_MAX_P`` (the panel
+    instance, csrc/stream_panel.cu): one block of WIDE_THREADS a gene."""
+    if p > cuda_nmf.WIDE_MAX_P:
+        return 1, cuda_nmf.WIDE_THREADS
     if p > cuda_nmf.NARROW_MAX_P:
         cl = next((c for c in CLUSTERS if block_share(W, c) <= WIDE_BLOCK_COLS),
                   CLUSTERS[-1])
@@ -180,8 +185,9 @@ def nmf_masked_streamed_cuda(
     """Kernel wrapper with ``nmf_masked_streamed_plain``'s signature: one
     cluster of thread blocks per gene runs the whole loop (csrc/stream.cuh).
     Takes float32 coverage, or int16 coverage with or without ``scale``, of
-    any width and 2 <= p <= ``cuda_nmf.MAX_P`` (128; p > 32 the wide
-    instances of csrc/stream_wide.cuh).  A CPU tensor takes the plain
+    any width and any p >= 2 (p > 32 the wide instances of
+    csrc/stream_wide.cuh, p > 128 the panel instance of
+    csrc/stream_panel.cu, with its workspace).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.
 
     The launch geometry comes from ``pick_geometry``; results differ between
@@ -195,7 +201,7 @@ def nmf_masked_streamed_cuda(
             power_iters_warm=power_iters_warm,
             power_warm_plain=power_warm_plain, gene_active=gene_active,
             u0=u0, scale=scale)
-    global stream_launches, stream_wide_launches
+    global stream_launches, stream_wide_launches, stream_panel_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "nmf_masked_streamed_cuda"
     cuda_nmf.check_coverage_input(F, name, int16_ok=True)
@@ -231,6 +237,7 @@ def nmf_masked_streamed_cuda(
     if G == 0:
         return K, E, u
     ptr = cuda_nmf._ptr
+    ws, slots = cuda_nmf.panel_workspace(G, p, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_nmf_streamed(
@@ -238,10 +245,12 @@ def nmf_masked_streamed_cuda(
             ptr(act8), ptr(sc), ptr(u0c), X.data_ptr(), K.data_ptr(),
             E.data_ptr(), u.data_ptr(), G, p, W, int(nmf_iter),
             int(power_iters_cold), int(power_iters_warm),
-            int(power_warm_plain), cl, threads, stream)
+            int(power_warm_plain), cl, threads, ptr(ws), slots, stream)
     check_launch(code, "dn_nmf_streamed")
     stream_launches += 1
-    if p > cuda_nmf.NARROW_MAX_P:
+    if p > cuda_nmf.WIDE_MAX_P:
+        stream_panel_launches += 1
+    elif p > cuda_nmf.NARROW_MAX_P:
         stream_wide_launches += 1
     return K, E, u
 

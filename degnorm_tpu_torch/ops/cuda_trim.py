@@ -27,11 +27,16 @@ from degnorm_tpu_torch.parallel.seqpar import ONE_DEVICE, Columns, Reduction
 trim_launches = 0
 trim_fast_launches = 0
 trim_tol_launches = 0
-# the launches of the wide instances (p > cuda_nmf.NARROW_MAX_P:
-# csrc/trim_wide.cuh), in the counts above too, by branch
+# the launches of the wide instances (cuda_nmf.NARROW_MAX_P < p <=
+# cuda_nmf.WIDE_MAX_P: csrc/trim_wide.cuh) and of the panel instances (p >
+# cuda_nmf.WIDE_MAX_P: csrc/trim_panel.cu), in the counts above too, by
+# branch
 trim_wide_launches = 0
 trim_wide_fast_launches = 0
 trim_wide_tol_launches = 0
+trim_panel_launches = 0
+trim_panel_fast_launches = 0
+trim_panel_tol_launches = 0
 
 MAX_BINS = 64          # the kernel keeps per-bin state in shared memory
 
@@ -313,7 +318,8 @@ def trim_loop_cuda(
     per gene runs the whole loop while its own gene is active
     (csrc/trim.cu; the trim_fast and nmf_tol branches are the instances of
     csrc/trim_fast.cu and csrc/trim_tol.cu; p > 32 the wide instances of
-    csrc/trim_wide.cuh).  A CPU tensor takes the plain
+    csrc/trim_wide.cuh, p > 128 their panel instances, csrc/trim_panel.cu,
+    with a workspace).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  ``_threads``
     overrides ``cuda_nmf.pick_loop_threads`` (the timing sweep of
     ``chip_smoke.py --sweep`` passes it; nothing else does)."""
@@ -329,6 +335,8 @@ def trim_loop_cuda(
                                n_hi, n_bins, active0, **kwargs)
     global trim_launches, trim_fast_launches, trim_tol_launches
     global trim_wide_launches, trim_wide_fast_launches, trim_wide_tol_launches
+    global trim_panel_launches, trim_panel_fast_launches
+    global trim_panel_tol_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     cuda_nmf.check_kernel_input(Fm, "trim_loop_cuda")
     G, p, W = Fm.shape
@@ -362,6 +370,7 @@ def trim_loop_cuda(
     rounds_active = torch.empty((G,), dtype=i32, device=dev)
     if G == 0:
         return K, rho, ran_bs.bool(), rounds_active
+    ws, slots = cuda_nmf.panel_workspace(G, p, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_trim_loop(
@@ -375,14 +384,21 @@ def trim_loop_cuda(
             int(power_iters_resume or power_iters_cold),
             int(power_iters_warm), int(power_warm_plain),
             int(max_rounds), int(min_bins), int(min_gene_len),
-            int(bool(trim_fast)), float(nmf_tol), threads, stream)
+            int(bool(trim_fast)), float(nmf_tol), threads,
+            cuda_nmf._ptr(ws), slots, stream)
     check_launch(code, "dn_trim_loop")
     trim_launches += 1
     if trim_fast:
         trim_fast_launches += 1
     elif nmf_tol > 0:
         trim_tol_launches += 1
-    if p > cuda_nmf.NARROW_MAX_P:
+    if p > cuda_nmf.WIDE_MAX_P:
+        trim_panel_launches += 1
+        if trim_fast:
+            trim_panel_fast_launches += 1
+        elif nmf_tol > 0:
+            trim_panel_tol_launches += 1
+    elif p > cuda_nmf.NARROW_MAX_P:
         trim_wide_launches += 1
         if trim_fast:
             trim_wide_fast_launches += 1

@@ -167,7 +167,8 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     ((64, 33, 256), torch.float32, True),       # a wide instance (p > 32)
     ((64, 64, 1024), torch.float32, True),
     ((64, 64, 2048), torch.float32, False),     # p * W past the gate
-    ((64, 129, 256), torch.float32, False),     # past the largest instance
+    ((64, 129, 256), torch.float32, True),      # the panel instance (p > 128)
+    ((64, 257, 256), torch.float32, False),     # p * W past the gate
     ((64, 8, 1024), torch.float64, False),
 ])
 def test_kernel_shape_gate(shape, dtype, ok):
@@ -196,7 +197,7 @@ GATE_WIDTHS = sorted(set(range(8, cuda_nmf.MAX_W + 1, 8)) | {1, 31, 100, 383})
 SMEM_PER_BLOCK = 232448     # the H100's opt-in shared memory a block
 
 
-@pytest.mark.parametrize("p", range(2, cuda_nmf.MAX_P + 1))
+@pytest.mark.parametrize("p", [*range(2, cuda_nmf.WIDE_MAX_P + 1), 129, 256])
 def test_pick_nmf_geometry_gives_a_legal_launch(p):
     """For every width inside the gate and bucket sizes from one gene to
     more than the card's warps: threads in whole warps within the kernel's

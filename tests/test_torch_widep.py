@@ -1,7 +1,8 @@
-"""PyTorch port, studies of 33 to 128 samples: the wide instances of kernels
-1-4 (csrc/wide.cuh) and their dispatch, the route of wide buckets through
-the engine, the port against the JAX engine at p = 40 and 64, and
-``EngineConfig.device_loop``.
+"""PyTorch port, studies of more than 32 samples: the wide instances of
+kernels 1-4 (csrc/wide.cuh, 33 to 128 samples), their panel instance
+(csrc/panel.cuh, more than 128) and their dispatch, the route of wide
+buckets through the engine, the port against the JAX engine at p = 40, 64
+and 160, and ``EngineConfig.device_loop``.
 
 On the CPU every wrapper takes its plain version, so what the kernels
 compute is checked on the card (``chip_smoke.py`` phase ``wide_p``); here
@@ -36,31 +37,70 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 SMEM_PER_BLOCK = 232448        # the H100's opt-in shared memory a block
 INSTANCES = (4, 8, 16, 32, 48, 64, 96, 128)
 WIDTHS = (512, 1024)
+# p above the wide instances: the panel instance, one for every p
+PANEL_P = (129, 160, 192, 255, 256, 257, 384, 512, 1000)
 
 
 WIDE_TC = 64                   # columns of a wide instance's tile
 
 
+# the largest PMAX whose streamed genes take the pipelined sweep (with its
+# copy stage; WideStreamSrc::PIPE of csrc/stream_wide.cuh), and whose copy
+# stage has two slots (WideShape::NST of csrc/wide.cuh)
+PIPE_MAX, NST2_MAX = 96, 48
+
+
+def stage_slots(P):
+    """Slots of a wide instance's copy stage (``WideShape::NST``)."""
+    return 2 if P <= NST2_MAX else 1
+
+
 def wide_work_bytes(p):
     """Shared memory of a wide instance's core (mirror of
-    ``wide_work_floats`` in csrc/wide.cuh): the tiles S and A and the Gram
-    B, rows of PMAX + 4 floats, the v partials, five p-vectors, 32
-    floats."""
+    ``wide_work_floats`` in csrc/wide.cuh): the two tile buffers and the
+    Gram B, rows of PMAX + 4 floats, the v partials, five p-vectors, 32
+    floats, eight flags and the copy stage (a slot: PMAX x 64 floats of X
+    and of A0); the panel instance's (``panel_smem_floats`` in
+    csrc/panel.cuh) above 128: two tiles of rows of 128 + 4 floats, the v
+    partials, 32 floats, whatever p."""
+    if p > cuda_nmf.WIDE_MAX_P:
+        return 4 * (2 * WIDE_TC * (cuda_nmf.PANEL_ROWS + 4) + 4 * WIDE_TC + 32)
     P = cuda_nmf.pmax_of(p)
     ld = P + 4
-    return 4 * (2 * WIDE_TC * ld + P * ld + 4 * WIDE_TC + 5 * P + 32)
+    return 4 * (2 * WIDE_TC * ld + P * ld + 4 * WIDE_TC + 5 * P + 32 + 8
+                + 2 * stage_slots(P) * P * WIDE_TC)
+
+
+def wide_sync_bytes(p):
+    """The synchronous sweep's share of it (``wide_sync_floats``: kernels 1
+    and 3): without the flags and the copy stage."""
+    P = cuda_nmf.pmax_of(p)
+    return wide_work_bytes(p) - 4 * (8 + 2 * stage_slots(P) * P * WIDE_TC)
+
+
+def wide_core_bytes(p):
+    """Kernel 2's share of it (``wide_core_floats``): without the second
+    buffer either."""
+    P = cuda_nmf.pmax_of(p)
+    return wide_sync_bytes(p) - 4 * WIDE_TC * (P + 4)
 
 
 def wide_smem_bytes(kernel, p, W):
-    """Shared memory one block of a wide instance takes, dynamic and static
-    (mirror of the launches in csrc/*_wide.cuh): the core (kernel 2's
-    without the tile A), kernel 3's W residual scores, K, rho, two row sums
-    of p and the per-bin state, kernel 4's scales."""
-    P = cuda_nmf.pmax_of(p)
-    static = {"nmf": 0, "ratio": 0, "stream": 4 * 2 * P + 4,
+    """Shared memory one block of a wide or panel instance takes, dynamic
+    and static (mirror of the launches in csrc/*_wide.cuh and
+    csrc/*_panel.cu): the core (a wide kernel 2's without the tile A),
+    kernel 3's W residual scores and per-bin state, and K, rho, two row
+    sums of p (the panel instance: one float each, its vectors are in its
+    workspace), kernel 4's scales (the panel instance: its last column
+    alone)."""
+    panel = p > cuda_nmf.WIDE_MAX_P
+    P = 1 if panel else cuda_nmf.pmax_of(p)
+    static = {"nmf": 0, "ratio": 0, "stream": (0 if panel else 4 * 2 * P) + 4,
               "trim": 4 * 4 * P + 12 * cuda_trim.MAX_BINS + 12}[kernel]
-    core = wide_work_bytes(p) - (4 * WIDE_TC * (P + 4) if kernel == "ratio"
-                                 else 0)
+    core = (wide_work_bytes(p) if panel
+            else wide_core_bytes(p) if kernel == "ratio"
+            else wide_work_bytes(p) if kernel == "stream" and P <= PIPE_MAX
+            else wide_sync_bytes(p))
     return core + (4 * W if kernel == "trim" else 0) + static
 
 
@@ -93,16 +133,31 @@ def _assert_parity(rt, rj, rho_atol=5e-3, rtol=5e-3):
 
 # ---- dispatch and the shared-memory mirror ----------------------------------
 
-@pytest.mark.parametrize("p", range(2, cuda_nmf.MAX_P + 1))
+@pytest.mark.parametrize("p", [*range(2, cuda_nmf.WIDE_MAX_P + 1), *PANEL_P])
 def test_every_p_runs_in_an_instance_that_holds_it(p):
-    """The instance chosen for p is the smallest that holds it; above 32
-    every launch rule picks the wide instances' geometry, and a block's
-    shared memory (the mirror of the kernels' launches) stays within the
-    card's per-block limit at every geometry the rules pick."""
+    """The instance chosen for p is the smallest that holds it (above 128
+    the panel instance, whose rows are the whole panels that hold p); above
+    32 every launch rule picks the wide instances' geometry (above 128 one
+    block a gene for kernel 4 too), a block's shared memory (the mirror of
+    the kernels' launches) stays within the card's per-block limit at every
+    geometry the rules pick, and the panel instance's workspace is sized by
+    the blocks in flight, not by the bucket."""
     P = cuda_nmf.pmax_of(p)
-    assert P >= p and P in INSTANCES
-    assert all(q < p for q in INSTANCES if q < P)
-    assert cuda_stream.packed_gram_floats(p) == P * (P + 1) // 2
+    if p > cuda_nmf.WIDE_MAX_P:
+        assert cuda_nmf.instance_of(p) == "panel"
+        assert P % cuda_nmf.PANEL_ROWS == 0
+        assert P - cuda_nmf.PANEL_ROWS < p <= P
+        assert cuda_nmf.panel_ws_floats(p) == 2 * p * p + 9 * P
+        ws, slots = cuda_nmf.panel_workspace(24576, p, torch.device("cpu"))
+        assert slots == cuda_nmf.SMS and ws.numel() == \
+            cuda_nmf.SMS * cuda_nmf.panel_ws_floats(p)
+        assert cuda_nmf.panel_workspace(24576, 128, torch.device("cpu")) == \
+            (None, 0)
+    else:
+        assert P >= p and P in INSTANCES
+        assert all(q < p for q in INSTANCES if q < P)
+        assert cuda_stream.packed_gram_floats(p) == P * (P + 1) // 2
+        assert cuda_nmf.instance_of(p).endswith(str(P))
     if p <= cuda_nmf.NARROW_MAX_P:
         return
     wt = cuda_nmf.WIDE_THREADS
@@ -121,10 +176,14 @@ def test_every_p_runs_in_an_instance_that_holds_it(p):
         assert wide_smem_bytes("ratio", p, W) <= SMEM_PER_BLOCK
         cl, threads = cuda_stream.pick_geometry(W, p)
         assert threads == wt and cl in cuda_stream.CLUSTERS
-        assert (cuda_stream.block_share(W, cl) <= cuda_stream.WIDE_BLOCK_COLS
-                or cl == cuda_stream.CLUSTERS[-1])
-        assert cl == 1 or cuda_stream.block_share(
-            W, cl // 2) > cuda_stream.WIDE_BLOCK_COLS
+        if p > cuda_nmf.WIDE_MAX_P:
+            assert cl == 1
+        else:
+            assert (cuda_stream.block_share(W, cl)
+                    <= cuda_stream.WIDE_BLOCK_COLS
+                    or cl == cuda_stream.CLUSTERS[-1])
+            assert cl == 1 or cuda_stream.block_share(
+                W, cl // 2) > cuda_stream.WIDE_BLOCK_COLS
         assert wide_smem_bytes("stream", p, W) <= SMEM_PER_BLOCK
 
 
@@ -133,15 +192,27 @@ def _define(src, name):
 
 
 def test_wide_mirror_matches_the_sources():
-    """The Python mirror of csrc/wide.cuh: threads a block, columns a tile,
-    the largest p, the instances of DN_DISPATCH_WIDE_P, and the core's
-    shared memory (wide_work_floats) at every instance."""
+    """The Python mirror of csrc/wide.cuh and csrc/panel.cuh: threads a
+    block, columns a tile, the largest p of the wide instances and the
+    first of the panel instance, the instances of DN_DISPATCH_WIDE_P, the
+    core's shared memory (wide_work_floats) at every instance, the panel
+    instance's rows, vectors and shared memory."""
     with open(os.path.join(CSRC, "wide.cuh")) as f:
         src = f.read()
+    with open(os.path.join(CSRC, "panel.cuh")) as f:
+        panel = f.read()
     assert _define(src, "DN_WIDE_THREADS") == cuda_nmf.WIDE_THREADS
     assert _define(src, "DN_WIDE_TC") == WIDE_TC
-    assert _define(src, "DN_WIDE_MAX_P") == cuda_nmf.MAX_P
+    assert _define(src, "DN_WIDE_MAX_P") == cuda_nmf.WIDE_MAX_P
     assert _define(src, "DN_WIDE_MIN_P") == cuda_nmf.NARROW_MAX_P + 1
+    assert _define(panel, "DN_PANEL_MIN_P") == cuda_nmf.WIDE_MAX_P + 1
+    assert _define(panel, "DN_PANEL_ROWS") == cuda_nmf.PANEL_ROWS
+    assert _define(panel, "DN_PANEL_VECS") == cuda_nmf.PANEL_VECS
+    body = re.search(r"panel_smem_floats\(\) \{\s*return (.*?);", panel,
+                     re.S).group(1)
+    expr = (body.replace("DN_PANEL_LD", f"({cuda_nmf.PANEL_ROWS} + 4)")
+            .replace("DN_WIDE_TC", str(WIDE_TC)))
+    assert 4 * eval(" ".join(expr.split()), {}) == wide_work_bytes(129)
     disp = src[src.index("#define DN_DISPATCH_WIDE_P"):]
     assert [int(x) for x in re.findall(r"CALL\((\d+)\)", disp)[:4]] == \
         [48, 64, 96, 128]
@@ -150,40 +221,57 @@ def test_wide_mirror_matches_the_sources():
     def floats(name, P):
         body = re.search(name + r"\(\) \{\s*return (.*?);", src,
                          re.S).group(1)
-        if "wide_core_floats" in body:
-            body = body.replace("wide_core_floats<PMAX>()",
-                                str(floats("wide_core_floats", P)))
+        for inner in ("wide_core_floats", "wide_sync_floats"):
+            if inner in body:
+                body = body.replace(f"{inner}<PMAX>()",
+                                    str(floats(inner, P)))
         expr = (body.replace("WideShape<PMAX>::LD", str(P + 4))
+                .replace("WideShape<PMAX>::NST", str(stage_slots(P)))
                 .replace("DN_WIDE_TC", str(WIDE_TC)).replace("PMAX", str(P)))
         return eval(" ".join(expr.split()), {})
 
+    assert f"NST = PMAX <= {NST2_MAX} ? 2 : 1;" in src
+    with open(os.path.join(CSRC, "stream_wide.cuh")) as f:
+        assert f"PIPE = PMAX <= {PIPE_MAX};" in f.read()
     for P in (48, 64, 96, 128):
         assert 4 * floats("wide_work_floats", P) == wide_work_bytes(P)
-        assert 4 * floats("wide_core_floats", P) == wide_work_bytes(P) \
-            - 4 * WIDE_TC * (P + 4)
+        assert 4 * floats("wide_sync_floats", P) == wide_sync_bytes(P)
+        assert 4 * floats("wide_core_floats", P) == wide_core_bytes(P)
 
 
 @pytest.mark.parametrize("kind", ["ratio", "nmf", "stream", "trim",
                                   "cols_nmf", "cols_ratio"])
 def test_each_kernel_names_its_own_limit(kind):
-    """p above a kernel's largest instance raises ValueError naming that
-    kernel's limit before anything is launched: 128 for kernels 1-4, 32 for
-    4c and 2c (the engine gene-shards such a bucket instead).  Meta tensors
-    stand for the card's: they take the wrappers' CUDA branch."""
-    over = {"cols_nmf": cuda_nmf.COLS_MAX_P + 1,
-            "cols_ratio": cuda_nmf.COLS_MAX_P + 1}.get(kind,
-                                                       cuda_nmf.MAX_P + 1)
+    """Kernels 1-4 have no limit on p: p = 129, 256 and 1,000 pass their
+    input checks and reach the panel instance through the dispatch and
+    launch rules, within the card's shared memory a block.  Kernels 4c and
+    2c stop at 32: p = 33 raises ValueError naming that limit before
+    anything is launched (the engine gene-shards such a bucket instead).
+    Meta tensors stand for the card's: they take the wrappers' CUDA
+    branch."""
+    if not kind.startswith("cols"):
+        wt = cuda_nmf.WIDE_THREADS
+        for p in (129, 256, 1000):
+            W = 256 if p * 256 <= cuda_nmf.MAX_PW else 64
+            F = torch.empty((2, p, W), dtype=torch.float32, device="meta")
+            cuda_nmf.check_coverage_input(F, kind, int16_ok=True)
+            assert cuda_nmf.kernels_supported(F.shape, torch.float32)
+            cuda_nmf.check_kernel_input(F, kind)
+            assert cuda_nmf.instance_of(p) == "panel"
+            geometry = {
+                "ratio": (cuda_nmf.pick_ratio_geometry(p, W, 2), (1, wt, 0)),
+                "nmf": (cuda_nmf.pick_nmf_geometry(p, W, 2), ("block", wt)),
+                "stream": (cuda_stream.pick_geometry(16384, p), (1, wt)),
+                "trim": (cuda_nmf.pick_loop_threads(p, W), wt)}[kind]
+            assert geometry[0] == geometry[1]
+            assert wide_smem_bytes(kind, p, W) <= SMEM_PER_BLOCK
+        assert not cuda_nmf.kernels_supported((2, 257, 256), torch.float32)
+        return
+    over = cuda_nmf.COLS_MAX_P + 1
     limit = over - 1
     F = torch.empty((2, over, 256), dtype=torch.float32, device="meta")
     m = torch.empty((2, 256), dtype=torch.bool, device="meta")
     calls = {
-        "ratio": lambda: cuda_nmf.ratio_rowsums_cuda(F, m),
-        "nmf": lambda: cuda_nmf.nmf_masked_cuda(F, m, nmf_iter=2),
-        "stream": lambda: cuda_stream.nmf_masked_streamed_cuda(F, m,
-                                                               nmf_iter=2),
-        "trim": lambda: cuda_trim.trim_loop_cuda(
-            F, *([None] * 9), nmf_iter=2, power_iters_cold=2,
-            power_iters_warm=2, max_rounds=2, min_bins=1, min_gene_len=2),
         "cols_nmf": lambda: next(cuda_stream.nmf_masked_colsharded_cuda(
             F, m, None, nmf_iter=2)),
         "cols_ratio": lambda: next(cuda_nmf.ratio_rowsums_colsharded_cuda(
@@ -191,8 +279,6 @@ def test_each_kernel_names_its_own_limit(kind):
     }
     with pytest.raises(ValueError, match=rf"p={over} .*2\.\.{limit}\b"):
         calls[kind]()
-    assert not cuda_nmf.kernels_supported((2, cuda_nmf.MAX_P + 1, 256),
-                                          torch.float32)
 
 
 # ---- the route of wide buckets -----------------------------------------------
@@ -315,6 +401,57 @@ def test_run_matches_pallas_interpret_at_p40():
         EngineConfig(device="cpu", bucket_widths=WIDTHS,
                      power_warm_plain=1)).run(cov, X)
     print("p=40 gap to the Pallas interpret path:", _gap(rt, rj))
+    _assert_parity(rt, rj)
+
+
+PANEL_WIDTHS = (256, 1024)     # at p = 160: W=256 resident, W=1024 streamed
+PANEL_LENGTHS = (200, 240, 700, 900)
+
+
+def test_run_matches_jax_engine_at_p160(monkeypatch):
+    """Past 128 samples (the panel instances of kernels 1-4 on the card): at
+    p = 160 the W = 256 bucket stays resident (kernels 2, 1 and the fused
+    trim kernel 3) and the W = 1024 bucket streams (kernels 2 and 4 with the
+    unfused loop); the port's fit against the JAX engine's XLA twin on the
+    same numpy data at PARITY.md's gate (the gap is printed)."""
+    calls = _record(monkeypatch)
+    cov, X = make_dataset(seed=12, n=len(PANEL_LENGTHS), p=160,
+                          lengths=PANEL_LENGTHS)
+    # six bins keep the trim loop's rounds (and the plain versions' time at
+    # p = 160) short
+    nmf_kw = dict(nmf_iter=5, degnorm_iter=2, bins=6)
+    rj = jengine.DegNormEngine(
+        JNmf(**nmf_kw), JEng(device_loop=False, use_pallas=False,
+                             bucket_widths=PANEL_WIDTHS)).run(cov, X)
+    rt = tengine.DegNormEngine(
+        NMFConfig(**nmf_kw),
+        EngineConfig(device="cpu", bucket_widths=PANEL_WIDTHS)).run(cov, X)
+    print("p=160 gap to the JAX XLA twin:", _gap(rt, rj))
+    assert {("ratio_rowsums_cuda", (160, 256)),
+            ("nmf_masked_cuda", (160, 256)),
+            ("trim_loop_cuda", (160, 256)),
+            ("ratio_rowsums_cuda", (160, 1024)),
+            ("nmf_masked_streamed_cuda", (160, 1024))} <= set(calls)
+    assert ("nmf_masked_cuda", (160, 1024)) not in calls
+    assert rt.ran_baseline_selection.any()
+    _assert_parity(rt, rj)
+
+
+def test_run_matches_pallas_interpret_at_p160():
+    """The port's plain versions at p = 160 against the JAX engine's Pallas
+    kernels in interpret mode (the fused kernels' warm scheme, one plain
+    matvec), three genes across a resident and a streamed bucket."""
+    cov, X = make_dataset(seed=13, n=3, p=160, lengths=(220, 240, 600))
+    nmf_kw = dict(nmf_iter=4, degnorm_iter=2, bins=6)
+    rj = jengine.DegNormEngine(
+        JNmf(**nmf_kw),
+        JEng(device_loop=False, use_pallas=True, pallas_interpret=True,
+             gram_mode="vpu", bucket_widths=PANEL_WIDTHS)).run(cov, X)
+    rt = tengine.DegNormEngine(
+        NMFConfig(**nmf_kw),
+        EngineConfig(device="cpu", bucket_widths=PANEL_WIDTHS,
+                     power_warm_plain=1)).run(cov, X)
+    print("p=160 gap to the Pallas interpret path:", _gap(rt, rj))
     _assert_parity(rt, rj)
 
 

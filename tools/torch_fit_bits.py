@@ -13,7 +13,13 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
 * ``long_tail_cols``: the long tail on two shards of the card, its W=65536
   bucket column-sharded (phases ``mesh`` and ``seqpar``);
 * ``ttn_cols``: the TTN-like genes on two shards, column-sharded (phase
-  ``seqpar``).
+  ``seqpar``);
+* ``narrow_x64``: the narrow genes at 64 samples on one device, phase
+  ``wide_p`` (b)'s parity subset (its first PARITY_GENES genes, 5
+  iterations: the wide kernels 1-4);
+* ``long_tail_x48``: the long tail at 48 samples, phase ``wide_p`` (c)'s
+  parity subset (PARITY_WIDE_GENES of either width, 1 iteration: the wide
+  kernels 2 and 4).
 
 ``compare`` prints one JSON object: for each array, whether the two files
 hold the same bits, and the largest absolute difference.  Run ``save`` for
@@ -25,7 +31,8 @@ import sys
 
 import numpy as np
 
-CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols")
+CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols", "narrow_x64",
+         "long_tail_x48")
 
 
 def save(tree, out):
@@ -48,14 +55,34 @@ def save(tree, out):
         lengths_fn=lambda n, rng: rng.integers(*cs.TTN_LENGTHS, n,
                                                endpoint=True))
     runs = {"fit": (narrow, EngineConfig(bucket_widths=cs.BUCKET_WIDTHS),
-                    None),
-            "fit_wide": (wide, EngineConfig(), None),
-            "long_tail_cols": (wide, EngineConfig(), mesh),
-            "ttn_cols": (ttn, EngineConfig(), mesh)}
+                    None, nmf),
+            "fit_wide": (wide, EngineConfig(), None, nmf),
+            "long_tail_cols": (wide, EngineConfig(), mesh, nmf),
+            "ttn_cols": (ttn, EngineConfig(), mesh, nmf)}
+    # phase wide_p's parity subsets of its fits (b) and (c)
+    cov, X = cs.synth_dataset(cs.N_GENES, cs.WIDE_P_FIT_P)
+    keys = list(cov)[:cs.PARITY_GENES]
+    runs["narrow_x64"] = (
+        ({k: cov[k] for k in keys}, X[:cs.PARITY_GENES]),
+        EngineConfig(bucket_widths=cs.BUCKET_WIDTHS), None,
+        NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.WIDE_P_ITER["b"]))
+    cov, X = cs.synth_dataset(cs.WIDE_P_TAIL_GENES, cs.WIDE_P_TAIL_P,
+                              seed=cs.SEED + 1,
+                              lengths_fn=cs.synth_long_lengths)
+    lens = np.array([m.shape[1] for m in cov.values()])
+    pick = np.concatenate([
+        np.flatnonzero(lens <= cs.WIDE_WIDTHS[0])[:cs.PARITY_WIDE_GENES[0]],
+        np.flatnonzero(lens > cs.WIDE_WIDTHS[0])[:cs.PARITY_WIDE_GENES[1]]])
+    keys = list(cov)
+    runs["long_tail_x48"] = (
+        ({keys[i]: cov[keys[i]] for i in pick}, X[pick]), EngineConfig(),
+        None, NMFConfig(nmf_iter=cs.NMF_ITER,
+                        degnorm_iter=cs.WIDE_P_ITER["c"]))
+    del cov, X
     arrays = {}
     for case in CASES:
-        (cov, X), cfg, m = runs[case]
-        res = DegNormEngine(nmf, cfg, mesh=m).run(cov, X)
+        (cov, X), cfg, m, nmf_case = runs[case]
+        res = DegNormEngine(nmf_case, cfg, mesh=m).run(cov, X)
         torch.cuda.synchronize()
         arrays[f"{case}.rho"] = res.rho
         arrays[f"{case}.x_adj"] = res.x_adj
