@@ -410,7 +410,9 @@ SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "cols_finish_kernel", "ratio_cols_sums_kernel",
                "nmf_wide_kernel", "trim_wide_kernel", "nmf_stream_wide_kernel",
                "ratio_wide_kernel", "nmf_panel_kernel", "ratio_panel_kernel",
-               "nmf_stream_panel_kernel", "trim_panel_kernel")
+               "nmf_stream_panel_kernel", "trim_panel_kernel",
+               "nmf_panel_block_kernel", "nmf_stream_panel_block_kernel",
+               "trim_panel_block_kernel")
 
 
 def phase_build(ptxas):
@@ -1134,7 +1136,8 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
                 "nmf_streamed_kernel", "nmf_wide_kernel", "ratio_wide_kernel",
                 "trim_wide_kernel", "nmf_stream_wide_kernel",
                 "nmf_panel_kernel", "ratio_panel_kernel", "trim_panel_kernel",
-                "nmf_stream_panel_kernel"):
+                "nmf_stream_panel_kernel", "nmf_panel_block_kernel",
+                "trim_panel_block_kernel", "nmf_stream_panel_block_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -3764,6 +3767,19 @@ PANEL_GENES = 512
 # kernels 4 and 2 at G x p x 16384, one dataset made at the largest p
 PANEL_STREAM = ((64, 129), (64, 192), (64, 256), (16, 512))
 PANEL_STREAM_W = 16384
+# the edges of the cluster layout, on data of their own: kernels 1-3 and 2
+# resident on PANEL_GENES genes at (p, W) at its largest p (5 blocks of
+# three pairs) and past it (the block layout), kernels 4 and 2 on G x p x W
+# at three panels (a cluster of 3 blocks of two pairs), at its largest p
+# and past it
+PANEL_EDGE = ((640, 64), (704, 64))
+PANEL_EDGE_STREAM = ((8, 384, 16384), (8, 640, 16384), (4, 700, 2048))
+# ... and kernels 1-3 at (p, W) where a block holds several pairs and genes
+# enter the trim loop (a gene of min_gene_len = 200 columns fits p * W <=
+# MAX_PW up to p = 327), with the opt-in branches on the kernels' wrappers:
+# their mode gates (W a multiple of 128) admit them past p = 208 only at W =
+# 128, where no gene has the columns to enter the loop
+PANEL_MULTI = (288, 224)
 PANEL_MODE_P = 160               # the narrow genes under each opt-in mode
 PANEL_MODE_GENES = 512           # (the first genes and samples of the fit's)
 PANEL_FIT_P = 256                # the narrow genes at the default widths
@@ -3805,13 +3821,16 @@ def phase_panels():
     opt-in branches at 129 x 256, where the engine's gate lets them run),
     kernels 4 and 2 at G x p x 16384 for PANEL_STREAM (raw int16 + scale
     bit-equal to float32), every p on the first p samples of one dataset
-    made at the largest.  Then the narrow genes at p = PANEL_FIT_P with the
-    default bucket widths (W = 256 resident, the rest streamed) held to
-    ``compare_fits`` against use_kernels=False on its first PARITY genes,
-    and their first genes and samples (p = PANEL_MODE_P) under each opt-in
-    mode (the branches on a fit's path).  No p > 128 may reach a plain version: every
-    fit must launch the panel instances.  Returns the kernels' records and
-    the launches of each instance on its fit."""
+    made at the largest; the edges of the cluster layout (PANEL_EDGE,
+    PANEL_EDGE_STREAM) and PANEL_MULTI, with the branches and genes that
+    run trim rounds on blocks of several pairs, on data of their own.  Then the narrow genes at p =
+    PANEL_FIT_P with the default bucket widths (W = 256 resident, the rest
+    streamed) held to ``compare_fits`` against use_kernels=False on its
+    first PARITY genes, and their first genes and samples (p =
+    PANEL_MODE_P) under each opt-in mode (the branches on a fit's path).
+    No p > 128 may reach a plain version: every fit must launch the panel
+    instances.  Returns the kernels' records and the launches of each
+    instance on its fit."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.config import trim_fast_applies
@@ -3858,6 +3877,48 @@ def phase_panels():
         torch.cuda.empty_cache()
     del raw_top, lm_top
     secs["stream"] = time.perf_counter() - t0
+
+    # the cluster layout's edges
+    t0 = time.perf_counter()
+    assert [cuda_nmf.panel_cluster(p) for p, _ in PANEL_EDGE] == [True, False]
+    p_top = max(p for p, _ in PANEL_EDGE)
+    edge = list(synth_dataset(PANEL_GENES, p_top, seed=SEED + p_top,
+                              lengths_fn=short_lengths)[0].values())
+    for p_e, W_e in PANEL_EDGE:
+        F, lm, raw = resident_bucket(PANEL_GENES, p_e, W_e, dev, rng,
+                                     mats=edge)
+        keep = {}
+        rec = check_kernels_at(F, lm, nmf_cfg, eng_cfg, raw, branches=False,
+                               keep=keep)
+        rec["same_bits"] = wide_same_bits(keep, raw, lm, eng_cfg, False,
+                                          tag="panel")
+        kres["resident"][f"p{p_e}_W{W_e}"] = rec
+        del F, lm, raw, keep, rec
+    p_b, W_b = PANEL_MULTI
+    assert (cuda_nmf.panel_cluster(p_b) and cuda_nmf.pcl_held(p_b) > 1
+            and p_b * W_b <= cuda_nmf.MAX_PW)
+    F, lm, raw = resident_bucket(PANEL_GENES, p_b, W_b, dev, rng, mats=edge)
+    keep = {}
+    rec = check_kernels_at(F, lm, nmf_cfg, eng_cfg, raw, branches=True,
+                           keep=keep)
+    rec["same_bits"] = wide_same_bits(keep, raw, lm, eng_cfg, True,
+                                      tag="panel")
+    # the check is not vacuous: genes ran trim rounds in every mode
+    for k in ("trim_loop", "trim_loop[trim_fast]", "trim_loop[nmf_tol]"):
+        if not (rec[k]["entered"] > 0 and rec[k]["mean_rounds"] > 0):
+            raise AssertionError(f"panels p{p_b}_W{W_b} {k}: no gene ran a "
+                                 f"trim round: {rec[k]}")
+    kres["resident"][f"p{p_b}_W{W_b}"] = rec
+    del edge, F, lm, raw, keep, rec
+    assert [cuda_nmf.panel_cluster(p)
+            for _, p, _ in PANEL_EDGE_STREAM] == [True, True, False]
+    for G_s, p_s, W_s in PANEL_EDGE_STREAM:
+        raw, lm = small_wide_bucket(G_s, p_s, W_s, SEED + p_s, dev)
+        kres["stream"][f"p{p_s}_W{W_s}"] = check_stream_at(
+            raw, lm, nmf_cfg, EngineConfig(), reps=1, time_f32=False)
+        del raw, lm
+    torch.cuda.empty_cache()
+    secs["edge"] = time.perf_counter() - t0
 
     # the narrow genes at p = PANEL_FIT_P with the default bucket widths
     t0 = time.perf_counter()

@@ -51,8 +51,10 @@ ratio_cols_launches = 0
 # p above NARROW_MAX_P runs the wide instances of kernels 1-4
 # (csrc/wide.cuh: the Gram in shared memory and the power step the block's,
 # a block of WIDE_THREADS threads), p above WIDE_MAX_P their panel instance
-# (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS in a workspace in
-# device memory, ``panel_workspace``); kernels 4c and 2c have neither and
+# (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS, on a cluster of
+# blocks a gene for kernels 1, 3 and 4 up to PCL_MAX_P, ``panel_cluster``,
+# else in a workspace in device memory, ``panel_workspace``); kernels 4c
+# and 2c have neither and
 # stop at COLS_MAX_P (the engine gene-shards such a bucket:
 # ``engine.DegNormEngine.column_sharded``).
 NARROW_MAX_P = 32
@@ -181,10 +183,116 @@ def panel_workspace(G: int, p: int, device):
 def panel_workspace_bytes(p: int, device: torch.device) -> int:
     """Bytes of the largest panel workspace a launch at p takes on
     ``device``: what the engine's memory guard sets aside on a card (0 at
-    p <= WIDE_MAX_P and off a card, where the plain versions run)."""
+    p <= WIDE_MAX_P and off a card, where the plain versions run): kernel
+    2's at every p > WIDE_MAX_P (kernels 1, 3 and 4 take one of its size
+    above the cluster layout, ``kernel_workspace``), or theirs on the
+    cluster layout where a block holds several pairs."""
     if p <= WIDE_MAX_P or device.type != "cuda":
         return 0
-    return 4 * panel_slots(1 << 30, device) * panel_ws_floats(p)
+    sms = panel_slots(1 << 30, device)
+    cluster = (sms // pcl_size(p) * pcl_ws_floats(p)
+               if panel_cluster(p) else 0)
+    return 4 * max(sms * panel_ws_floats(p), cluster)
+
+
+# The cluster layout of the panel instances of kernels 1, 3 and 4 (mirror
+# of csrc/panel.cuh's pcl_* code): for WIDE_MAX_P < p <= PCL_MAX_P a gene's
+# T = pmax_of(p) / PANEL_ROWS row panels give T(T+1)/2 panel pairs over a
+# cluster of at most PCL_MAX_C blocks (``pcl_size``), ``pcl_held`` pairs a
+# block, the diagonal pairs first.  Where a block holds one pair (T = 2) B
+# and B^2 live in the cluster's shared memory and the launch takes no
+# workspace; where it holds several, in a workspace a cluster in flight
+# (``pcl_ws_floats``).  Above PCL_MAX_P they keep the block-a-gene layout
+# and its workspace (``panel_workspace``).
+PCL_MAX_P = 640
+PCL_NX = 2      # p-vectors of the kernel's own
+# most blocks of a cluster: an H100 holds 39 clusters of 3 at once but 7 of
+# 10 or 15 (a cluster's blocks on one of its GPCs, an SM a block)
+PCL_MAX_C = 5
+
+
+def panel_cluster(p: int) -> bool:
+    """True where kernels 1, 3 and 4 run p on the cluster layout."""
+    return WIDE_MAX_P < p <= PCL_MAX_P
+
+
+def pcl_pairs(p: int) -> int:
+    """Panel pairs of a gene at p (``dn_pcl_pairs``)."""
+    T = pmax_of(p) // PANEL_ROWS
+    return T * (T + 1) // 2
+
+
+def pcl_held(p: int) -> int:
+    """Pairs a block of the cluster holds (``dn_pcl_held``)."""
+    return -(-pcl_pairs(p) // PCL_MAX_C)
+
+
+def pcl_size(p: int) -> int:
+    """Blocks of a gene's cluster at p (``dn_pcl_size``): the pairs,
+    ``pcl_held`` a block."""
+    return -(-pcl_pairs(p) // pcl_held(p))
+
+
+def pcl_ws_floats(p: int) -> int:
+    """Floats of a cluster's workspace (``dn_pcl_ws_floats``): B, B^2 and
+    B^T of every pair where a block holds several, else 0."""
+    if pcl_held(p) == 1:
+        return 0
+    return pcl_pairs(p) * (2 * PANEL_ROWS * (PANEL_ROWS + 4)
+                           + PANEL_ROWS * PANEL_ROWS)
+
+
+def pcl_pair(T: int, e: int) -> Tuple[int, int]:
+    """Panels (I, J), I <= J, of pair e (block e of the cluster) of T
+    panels (``dn_pcl_pair``): the diagonal pairs first, then the others in
+    row order."""
+    if e < T:
+        return e, e
+    e -= T
+    i = 0
+    while e >= T - 1 - i:
+        e -= T - 1 - i
+        i += 1
+    return i, i + 1 + e
+
+
+def pcl_smem_bytes(p: int) -> int:
+    """Dynamic shared memory of a block of the cluster layout
+    (``dn_pcl_smem_floats``): two tiles (after a sweep B and B^2), the
+    copies of A0 (two slots of int16 or one of float32; B^2's staging in
+    the power step), the v partials, the published partials, scratch and
+    4 + PCL_NX p-vectors."""
+    pair = PANEL_ROWS * (PANEL_ROWS + 4)
+    stage_a = 2 * PANEL_ROWS * 64
+    return 4 * (2 * pair + stage_a + 6 * 64 + 32 + 4
+                + (4 + PCL_NX) * pmax_of(p))
+
+
+def pcl_ldx(p: int) -> int:
+    """Floats a column of a gene's X takes in the scratch of the cluster
+    layout (``dn_pcl_ldx``: X stored column by column, p rounded up to a
+    multiple of 4)."""
+    return -(-p // 4) * 4
+
+
+def scratch_shape(G: int, p: int, W: int) -> Tuple[int, int, int]:
+    """Shape of kernels 1, 3 and 4's X scratch at (G, p, W): (G, W,
+    pcl_ldx(p)) on the cluster layout, else (G, p, W)."""
+    return (G, W, pcl_ldx(p)) if panel_cluster(p) else (G, p, W)
+
+
+def kernel_workspace(G: int, p: int, device):
+    """(workspace, slots) of a launch of kernel 1, 3 or 4 at p: on the
+    cluster layout ``pcl_ws_floats`` a cluster the card can hold at once
+    (one an SM a block; none where a block holds one pair), else
+    ``panel_workspace``."""
+    if not panel_cluster(p):
+        return panel_workspace(G, p, device)
+    if pcl_held(p) == 1 or G == 0:
+        return None, 0
+    slots = min(G, panel_slots(1 << 30, device) // pcl_size(p))
+    return (torch.empty(slots * pcl_ws_floats(p), dtype=torch.float32,
+                        device=device), slots)
 
 
 def warp_slots(p: int) -> int:
@@ -437,13 +545,14 @@ def nmf_masked_cuda(
     # Scratch and converted inputs may be dropped as soon as this returns:
     # the caching allocator reuses a block only for work queued later on
     # this same stream, after the kernel.
-    X = torch.empty((G, p, W), dtype=torch.float32, device=dev)   # scratch
+    X = torch.empty(scratch_shape(G, p, W), dtype=torch.float32,
+                    device=dev)  # scratch
     K = torch.empty((G, p), dtype=torch.float32, device=dev)
     E = torch.empty((G, W), dtype=torch.float32, device=dev)
     u = torch.empty((G, p), dtype=torch.float32, device=dev)
     if G == 0:
         return K, E, u
-    ws, slots = panel_workspace(G, p, dev)
+    ws, slots = kernel_workspace(G, p, dev)
     loop = (int(nmf_iter), int(power_iters_cold), int(power_iters_warm),
             int(power_warm_plain), float(nmf_tol), _ptr(iters_out), threads)
     with torch.cuda.device(dev):

@@ -187,8 +187,9 @@ def nmf_masked_streamed_cuda(
     Takes float32 coverage, or int16 coverage with or without ``scale``, of
     any width and any p >= 2 (p > 32 the wide instances of
     csrc/stream_wide.cuh, p > 128 the panel instance of
-    csrc/stream_panel.cu, with its workspace).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
+    csrc/stream_panel.cu: up to ``cuda_nmf.PCL_MAX_P`` a cluster of blocks a
+    gene, above one block a gene with a workspace).  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises.
 
     The launch geometry comes from ``pick_geometry``; results differ between
     geometries by float32 summation order alone and are the same bits for
@@ -230,14 +231,15 @@ def nmf_masked_streamed_cuda(
     # Scratch and converted inputs may be dropped as soon as this returns:
     # the caching allocator reuses a block only for work queued later on
     # this same stream, after the kernel.
-    X = torch.empty((G, p, W), dtype=f32, device=dev)            # scratch
+    X = torch.empty(cuda_nmf.scratch_shape(G, p, W), dtype=f32,
+                    device=dev)  # scratch
     K = torch.empty((G, p), dtype=f32, device=dev)
     E = torch.empty((G, W), dtype=f32, device=dev)
     u = torch.empty((G, p), dtype=f32, device=dev)
     if G == 0:
         return K, E, u
     ptr = cuda_nmf._ptr
-    ws, slots = cuda_nmf.panel_workspace(G, p, dev)
+    ws, slots = cuda_nmf.kernel_workspace(G, p, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_nmf_streamed(

@@ -318,8 +318,9 @@ def trim_loop_cuda(
     per gene runs the whole loop while its own gene is active
     (csrc/trim.cu; the trim_fast and nmf_tol branches are the instances of
     csrc/trim_fast.cu and csrc/trim_tol.cu; p > 32 the wide instances of
-    csrc/trim_wide.cuh, p > 128 their panel instances, csrc/trim_panel.cu,
-    with a workspace).  A CPU tensor takes the plain
+    csrc/trim_wide.cuh, p > 128 their panel instances, csrc/trim_panel.cu:
+    up to ``cuda_nmf.PCL_MAX_P`` a cluster of blocks a gene, above
+    one block a gene with a workspace).  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.  ``_threads``
     overrides ``cuda_nmf.pick_loop_threads`` (the timing sweep of
     ``chip_smoke.py --sweep`` passes it; nothing else does)."""
@@ -362,7 +363,8 @@ def trim_loop_cuda(
     act8 = cuda_nmf._as_u8(active0)
     # scratch: the multipliers X (with trim_fast, carried from round to
     # round: its first round starts from Fm) and the column mask
-    X = torch.empty((G, p, W), dtype=f32, device=dev)
+    X = torch.empty(cuda_nmf.scratch_shape(G, p, W), dtype=f32,
+                    device=dev)
     colmask = torch.empty((G, W), dtype=torch.uint8, device=dev)
     K = torch.empty((G, p), dtype=f32, device=dev)
     rho = torch.empty((G, p), dtype=f32, device=dev)
@@ -370,7 +372,7 @@ def trim_loop_cuda(
     rounds_active = torch.empty((G,), dtype=i32, device=dev)
     if G == 0:
         return K, rho, ran_bs.bool(), rounds_active
-    ws, slots = cuda_nmf.panel_workspace(G, p, dev)
+    ws, slots = cuda_nmf.kernel_workspace(G, p, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_trim_loop(

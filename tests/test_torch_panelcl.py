@@ -1,0 +1,207 @@
+"""The cluster layout of the panel instances of kernels 1, 3 and 4 (p >
+128: csrc/panel.cuh's ``pcl_*`` code, csrc/nmf_panel.cu,
+csrc/stream_panel.cu, csrc/trim_panel.cu) against its Python mirror in
+ops/cuda_nmf.py: the cluster by p, the panel pairs and their order, each
+block's shared memory at every p from 129 to 1,000, the X scratch's
+layout, the workspaces and the engine's memory guard.
+The kernels themselves run only on the card (``chip_smoke.py`` phase
+``panels``); their arithmetic is the plain versions', which
+tests/test_torch_widep.py holds against the JAX package."""
+import os
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from degnorm_tpu_torch import EngineConfig, NMFConfig
+from degnorm_tpu_torch import engine as tengine
+from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "degnorm_tpu_torch", "csrc")
+SMEM_PER_BLOCK = 232448        # the H100's opt-in shared memory a block
+MAX_CLUSTER = 8                # the largest portable cluster
+STATIC = {"nmf": 0, "stream": 4, "trim": 12 * cuda_trim.MAX_BINS + 12}
+
+
+def _panel_src():
+    with open(os.path.join(CSRC, "panel.cuh")) as f:
+        return f.read()
+
+
+def _define(src, name):
+    return int(re.search(rf"#define {name} \(?(\d+)", src).group(1))
+
+
+def _body(src, fn):
+    """The returned expression of a one-line C function of panel.cuh, as
+    Python."""
+    body = re.search(fn + r"\([^)]*\) \{\s*(?:const int (?:T = dn_pcl_T|h = "
+                     r"dn_pcl_held)\(p\);\s*)?return (.*?);\s*\}", src,
+                     re.S).group(1)
+    return " ".join(body.split())
+
+
+def _c_eval(expr, **names):
+    """An int expression of C (one top-level ``a ? b : c`` at most)."""
+    expr = expr.replace("/", "//")
+    m = re.fullmatch(r"(.*?) \? (.*?) : (.*)", expr)
+    if m:
+        expr = f"({m.group(2)}) if ({m.group(1)}) else ({m.group(3)})"
+    return eval(expr, {}, names)
+
+
+def test_cluster_mirror_matches_the_sources():
+    """The constants and formulas of csrc/panel.cuh's cluster layout equal
+    the mirror's: its largest p (the launches of kernels 1, 3 and 4 take
+    it up to there), the kernel's vectors, the pairs, pairs a block and
+    blocks of a cluster, the workspace, the scratch's column length and the
+    shared memory."""
+    src = _panel_src()
+    assert _define(src, "DN_PCL_MAX_P") == cuda_nmf.PCL_MAX_P
+    for name in ("nmf_panel.cu", "trim_panel.cu", "stream_panel.cu"):
+        with open(os.path.join(CSRC, name)) as f:
+            launch = f.read()
+        assert launch.count("if (a.p <= DN_PCL_MAX_P) {") == 1, name
+    assert _define(src, "DN_PCL_NX") == cuda_nmf.PCL_NX
+    assert _define(src, "DN_PANEL_MIN_P") == cuda_nmf.WIDE_MAX_P + 1
+    assert _define(src, "DN_PCL_MAX_C") == cuda_nmf.PCL_MAX_C
+    assert _body(src, "dn_pcl_pairs") == "T * (T + 1) / 2"
+    assert _body(src, "dn_pcl_held") == \
+        "(dn_pcl_pairs(p) + DN_PCL_MAX_C - 1) / DN_PCL_MAX_C"
+    assert _body(src, "dn_pcl_size") == "(dn_pcl_pairs(p) + h - 1) / h"
+    assert ("return (size_t)dn_pcl_pairs(p) *\n"
+            "         (2 * DN_PCL_PAIR + DN_PANEL_ROWS * DN_PANEL_ROWS);") in src
+    # a cluster of dn_pcl_size(p) blocks, block `rank` holding the pairs
+    # rank, rank + C, ...
+    assert "const int C = dn_pcl_size(p);" in src
+    assert "attr[0].val.clusterDim.x = (unsigned)C;" in src
+    assert "const int e = rank + h * C;" in src
+    ldx = _body(src, "dn_pcl_ldx")
+    smem = (_body(src, "dn_pcl_smem_floats")
+            .replace("DN_PCL_PAIR", "(DN_PANEL_ROWS * DN_PANEL_LD)")
+            .replace("DN_PCL_STAGE_A", "(2 * DN_PANEL_ROWS * DN_WIDE_TC)")
+            .replace("DN_PANEL_LD", "(DN_PANEL_ROWS + 4)")
+            .replace("DN_PANEL_ROWS", str(cuda_nmf.PANEL_ROWS))
+            .replace("DN_WIDE_TC", "64")
+            .replace("DN_PCL_NX", str(cuda_nmf.PCL_NX)))
+    for p in range(cuda_nmf.WIDE_MAX_P + 1, cuda_nmf.PCL_MAX_P + 1):
+        assert _c_eval(ldx, p=p) == cuda_nmf.pcl_ldx(p)
+        assert 4 * _c_eval(smem.replace("dn_panel_np(p)",
+                                        str(cuda_nmf.pmax_of(p)))) == \
+            cuda_nmf.pcl_smem_bytes(p)
+        T = cuda_nmf.pmax_of(p) // cuda_nmf.PANEL_ROWS
+        n, h, C = (cuda_nmf.pcl_pairs(p), cuda_nmf.pcl_held(p),
+                   cuda_nmf.pcl_size(p))
+        assert n == T * (T + 1) // 2
+        assert h == -(-n // cuda_nmf.PCL_MAX_C) and C == -(-n // h)
+        assert cuda_nmf.pcl_ws_floats(p) == (
+            0 if h == 1 else n * (2 * 128 * 132 + 128 * 128))
+
+
+@pytest.mark.parametrize("T", range(1, 9))
+def test_pairs_are_the_upper_triangle_diagonal_first(T):
+    """Pair e of T panels (``dn_pcl_pair``, mirrored by ``pcl_pair``) runs
+    over every I <= J once, the diagonal pairs first (block P of a cluster
+    holds panel P's diagonal pair, whose v partial it publishes), and the
+    source's ``dn_pcl_index`` is its inverse."""
+    index = _body(_panel_src(), "dn_pcl_index")
+    pairs = [cuda_nmf.pcl_pair(T, e) for e in range(T * (T + 1) // 2)]
+    assert sorted(pairs) == [(i, j) for i in range(T) for j in range(i, T)]
+    assert pairs[:T] == [(i, i) for i in range(T)]
+    assert pairs[T:] == sorted(pairs[T:])
+    for e, (i, j) in enumerate(pairs):
+        assert _c_eval(index, T=T, I=i, J=j) == e
+
+
+def test_every_p_to_1000_fits_a_block_and_a_cluster():
+    """At every p from 129 to 1,000, for kernel 4 (streamed genes) and for
+    kernels 1 and 3 (resident ones): on the cluster layout (p <=
+    PCL_MAX_P) the T(T+1)/2 pairs
+    over a portable cluster of at least T blocks (the diagonal pairs are
+    its first T blocks' first pairs), each block's shared memory (the
+    core's, the kernel's static state and, for kernel 3, the W residual
+    scores of its widest bucket) within the card's limit, a workspace only
+    where a block holds several pairs (one slot a cluster the card holds),
+    and an X scratch column by column; above it the block-a-gene layout,
+    within the limit too, with its workspace."""
+    from tests.test_torch_widep import wide_smem_bytes
+    dev = torch.device("cpu")
+    for p in range(cuda_nmf.WIDE_MAX_P + 1, 1001):
+        W_trim = min(cuda_nmf.MAX_W, cuda_nmf.MAX_PW // p)
+        for kernel, W in (("nmf", W_trim), ("stream", 16384),
+                          ("trim", W_trim)):
+            cluster = cuda_nmf.panel_cluster(p)
+            assert cluster == (p <= cuda_nmf.PCL_MAX_P)
+            smem = wide_smem_bytes(kernel, p, W)
+            assert smem <= SMEM_PER_BLOCK, (p, kernel, smem)
+            ws, slots = cuda_nmf.kernel_workspace(24576, p, dev)
+            if cluster:
+                T = cuda_nmf.pmax_of(p) // cuda_nmf.PANEL_ROWS
+                C, h = cuda_nmf.pcl_size(p), cuda_nmf.pcl_held(p)
+                assert T <= C <= MAX_CLUSTER
+                assert (C - 1) * h < T * (T + 1) // 2 <= C * h
+                assert smem == (cuda_nmf.pcl_smem_bytes(p) + STATIC[kernel]
+                                + (4 * W if kernel == "trim" else 0))
+                if h == 1:
+                    assert (ws, slots) == (None, 0)
+                else:
+                    assert slots == cuda_nmf.SMS // C
+                    assert ws.numel() == slots * cuda_nmf.pcl_ws_floats(p)
+                assert cuda_nmf.scratch_shape(3, p, 40) == \
+                    (3, 40, -(-p // 4) * 4)
+            else:
+                assert slots == cuda_nmf.SMS and ws.numel() == \
+                    slots * cuda_nmf.panel_ws_floats(p)
+                assert cuda_nmf.scratch_shape(3, p, 40) == (3, p, 40)
+    assert not cuda_nmf.panel_cluster(cuda_nmf.WIDE_MAX_P)
+    assert cuda_nmf.kernel_workspace(8, 128, dev) == (None, 0)
+
+
+@pytest.fixture
+def a_card(monkeypatch):
+    """An H100's SM count and memory where there is no card: enough for
+    the workspace rule and the engine's memory guard."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(tengine, "_device_memory", lambda d: 80 << 30)
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("p", [129, 256, 512, 640, 641, 1000])
+def test_memory_guard_sets_aside_the_largest_workspace(p, a_card,
+                                                       monkeypatch):
+    """``panel_workspace_bytes`` is the largest workspace any launch at p
+    takes on a card (kernel 2's always, 1, 3 and 4 the same above the
+    cluster layout, a smaller one on it where a block holds several pairs),
+    and ``DegNormEngine._pack_host``'s memory guard caps
+    a bucket at a twelfth of the card's memory less exactly that."""
+    slots = cuda_nmf.panel_slots(1 << 30, a_card)
+    one = 4 * slots * cuda_nmf.panel_ws_floats(p)
+    cluster = 4 * (slots // cuda_nmf.pcl_size(p)) * cuda_nmf.pcl_ws_floats(p)
+    per_launch = {"kernel 2": one,
+                  "kernels 1, 3, 4": cluster if cuda_nmf.panel_cluster(p)
+                  else one}
+    ws = cuda_nmf.panel_workspace_bytes(p, a_card)
+    assert ws == max(per_launch.values()) > 0
+    assert cuda_nmf.panel_workspace_bytes(p, torch.device("cpu")) == 0
+    assert cuda_nmf.panel_workspace_bytes(128, a_card) == 0
+
+    seen = {}
+    pack = tengine.pack_buckets
+
+    def spy(*a, **kw):
+        seen["cap"] = kw["max_bucket_bytes"]
+        return pack(*a, **kw)
+
+    monkeypatch.setattr(tengine, "pack_buckets", spy)
+    eng = tengine.DegNormEngine(NMFConfig(nmf_iter=2),
+                                EngineConfig(device="cpu"))
+    eng.mesh = types.SimpleNamespace(devices=(a_card,), process_count=1)
+    rng = np.random.default_rng(p)
+    eng._pack_host([rng.integers(0, 40, (p, 300)).astype(np.float64)
+                    for _ in range(3)])
+    assert seen["cap"] == max(((80 << 30) - ws) // 12, 512 << 20)

@@ -1,6 +1,6 @@
 """Bit comparison of the port's fits between two trees of the repo.
 
-    python3 tools/torch_fit_bits.py save TREE OUT.npz
+    python3 tools/torch_fit_bits.py save TREE OUT.npz [CASE ...]
     python3 tools/torch_fit_bits.py compare A.npz B.npz
 
 ``save`` runs, on the card, the fits of ``TREE`` (a checkout of the repo:
@@ -19,7 +19,12 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
   iterations: the wide kernels 1-4);
 * ``long_tail_x48``: the long tail at 48 samples, phase ``wide_p`` (c)'s
   parity subset (PARITY_WIDE_GENES of either width, 1 iteration: the wide
-  kernels 2 and 4).
+  kernels 2 and 4);
+* ``panel_x256``: phase ``panels``' fit, its narrow genes at 256 samples
+  with the default bucket widths (PANEL_FIT_GENES, PANEL_ITER iterations:
+  the panel instances of kernels 1-4).
+
+Every case by default; naming CASEs saves only those.
 
 ``compare`` prints one JSON object: for each array, whether the two files
 hold the same bits, and the largest absolute difference.  Run ``save`` for
@@ -32,10 +37,10 @@ import sys
 import numpy as np
 
 CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols", "narrow_x64",
-         "long_tail_x48")
+         "long_tail_x48", "panel_x256")
 
 
-def save(tree, out):
+def save(tree, out, cases=CASES):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import chip_smoke as cs
@@ -78,9 +83,12 @@ def save(tree, out):
         ({keys[i]: cov[keys[i]] for i in pick}, X[pick]), EngineConfig(),
         None, NMFConfig(nmf_iter=cs.NMF_ITER,
                         degnorm_iter=cs.WIDE_P_ITER["c"]))
+    runs["panel_x256"] = (
+        cs.synth_dataset(cs.PANEL_FIT_GENES, cs.PANEL_FIT_P), EngineConfig(),
+        None, NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
     del cov, X
     arrays = {}
-    for case in CASES:
+    for case in cases:
         (cov, X), cfg, m, nmf_case = runs[case]
         res = DegNormEngine(nmf_case, cfg, mesh=m).run(cov, X)
         torch.cuda.synchronize()
@@ -105,6 +113,11 @@ def compare(a_path, b_path):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 4 or sys.argv[1] not in ("save", "compare"):
+    cmd, args = sys.argv[1:2], sys.argv[2:]
+    if cmd == ["compare"] and len(args) == 2:
+        compare(*args)
+    elif (cmd == ["save"] and len(args) >= 2
+          and all(c in CASES for c in args[2:])):
+        save(args[0], args[1], tuple(args[2:]) or CASES)
+    else:
         sys.exit(__doc__)
-    (save if sys.argv[1] == "save" else compare)(sys.argv[2], sys.argv[3])
