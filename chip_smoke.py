@@ -101,6 +101,7 @@ PARITY_WIDE_GENES = (96, 32)       # of either width
 # NVIDIA H100 SXM data-sheet peaks used for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12   # dense, the tensor cores' TF32 rate
 
 ALL_PHASES = ("env", "build", "kernels", "fit", "fit_wide", "parity",
               "pipeline", "mesh", "seqpar", "multihost", "modes", "oracle",
@@ -253,11 +254,18 @@ def assert_close(got, want, rtol, atol, what, sel=None):
 
 # ---- least-time bounds from this run's inputs ------------------------------
 
-def nmf_ops_per_column(p, nmf_iter):
+def nmf_ops_per_column(p, nmf_iter, tc=False):
     """float32 operations per active column of one NMF loop: the Gram
     (p(p+1) per pass, nmf_iter + 1 passes), v = X^T u (2p), the multiplier
-    update (6p) per iteration, and the final E (2p)."""
-    return (nmf_iter + 1) * p * (p + 1) + nmf_iter * 8 * p + 2 * p
+    update (6p) per iteration, and the final E (2p).  ``tc``: the bound of
+    the resident core's design (csrc/wide_res.cuh), the Gram's operations
+    run three times (3xTF32) at the tensor cores' PEAK_TF32_FLOPS, counted
+    here as the float32 operations that take as long at PEAK_F32_FLOPS, and
+    added to the others' time."""
+    gram = (nmf_iter + 1) * p * (p + 1)
+    if tc:
+        gram *= 3 * PEAK_F32_FLOPS / PEAK_TF32_FLOPS
+    return gram + nmf_iter * 8 * p + 2 * p
 
 
 def bound(bytes_moved, ops):
@@ -266,18 +274,20 @@ def bound(bytes_moved, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def bound_nmf(F, mask, act, nmf_iter, iters=None):
+def bound_nmf(F, mask, act, nmf_iter, iters=None, tc=False):
     """Kernel 1; ``iters``: the Lagrangian iterations each gene ran (the
-    nmf_tol branch reports them), else ``nmf_iter`` for every gene."""
+    nmf_tol branch reports them), else ``nmf_iter`` for every gene; ``tc``:
+    the tensor-core bound (``nmf_ops_per_column``)."""
     G, p, W = F.shape
     ga = int(act.sum())
     cols_g = mask.double().sum(dim=1) * act.double()
     byts = ga * (p * W * 4 + W) + G * (W * 4 + 2 * p * 4) + G
     if iters is None:
-        return bound(byts, float(cols_g.sum()) * nmf_ops_per_column(p, nmf_iter))
+        return bound(byts, float(cols_g.sum())
+                     * nmf_ops_per_column(p, nmf_iter, tc))
     # nmf_ops_per_column is affine in the iterations
-    fixed = nmf_ops_per_column(p, 0)
-    per_it = nmf_ops_per_column(p, 1) - fixed
+    fixed = nmf_ops_per_column(p, 0, tc)
+    per_it = nmf_ops_per_column(p, 1, tc) - fixed
     return bound(byts, float(cols_g.sum()) * fixed
                  + float((cols_g * iters.double()).sum()) * per_it)
 
@@ -312,7 +322,7 @@ TRIM_BOUND_NOTE = (
     "less than one bin's columns in each later round of that gene")
 
 
-def bound_trim(ti, rounds_active, nmf_iter, iters=None):
+def bound_trim(ti, rounds_active, nmf_iter, iters=None, tc=False):
     """Work this run's data needs.  A gene active for R rounds scores its
     residuals R times (6p operations a column, round r on the columns left
     after r - 1 drops) and runs R NMF loops and DI refreshes (4p a column,
@@ -322,7 +332,8 @@ def bound_trim(ti, rounds_active, nmf_iter, iters=None):
     dropped bin is counted as a full one (TRIM_BOUND_NOTE).  ``iters``: the
     Lagrangian iterations each gene ran over its rounds, as the kernel
     reports them (trim_fast, nmf_tol), spread over its rounds' columns in
-    proportion to the rounds (exact where every round runs as many)."""
+    proportion to the rounds (exact where every round runs as many).
+    ``tc``: the tensor-core bound (``nmf_ops_per_column``)."""
     G, p, W = ti.Fm.shape
     B = ti.bin_count.shape[1]
     R = rounds_active.double()
@@ -335,10 +346,11 @@ def bound_trim(ti, rounds_active, nmf_iter, iters=None):
     byts = (ga * (p * W * 4 + W * 4 + W * 4 + B * 4 + 3 * p * 4)
             + G * (2 * p * 4 + 1 + 4 + 1 + 8))
     if iters is None:
-        nmf_ops = float(after.sum()) * (nmf_ops_per_column(p, nmf_iter) + 4 * p)
+        nmf_ops = float(after.sum()) * (nmf_ops_per_column(p, nmf_iter, tc)
+                                        + 4 * p)
     else:
-        fixed = nmf_ops_per_column(p, 0) + 4 * p
-        per_it = nmf_ops_per_column(p, 1) - nmf_ops_per_column(p, 0)
+        fixed = nmf_ops_per_column(p, 0, tc) + 4 * p
+        per_it = nmf_ops_per_column(p, 1, tc) - nmf_ops_per_column(p, 0, tc)
         nmf_ops = (float(after.sum()) * fixed + float(
             (after / R.clamp_min(1) * iters.double()).sum()) * per_it)
     ops = nmf_ops + float(before.sum()) * 6 * p
@@ -412,7 +424,7 @@ SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "ratio_wide_kernel", "nmf_panel_kernel", "ratio_panel_kernel",
                "nmf_stream_panel_kernel", "trim_panel_kernel",
                "nmf_panel_block_kernel", "nmf_stream_panel_block_kernel",
-               "trim_panel_block_kernel")
+               "trim_panel_block_kernel", "nmf_res_kernel", "trim_res_kernel")
 
 
 def phase_build(ptxas):
@@ -575,6 +587,11 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
         inactive_genes=int((~act).sum()), geometry=list(geo),
         other_geometry=list(other) if other else None, bound_ms=b_ms,
         bound_by=b_by)
+    if cuda_nmf.res_core(p):
+        out["nmf_masked"].update(
+            bound_tc_ms=bound_nmf(ti.Fm, ti.hi, act, nmf_cfg.nmf_iter,
+                                  tc=True)[0],
+            res_geometry=list(cuda_nmf.res_geometry(p, W)))
     if timed:
         out["nmf_masked"]["ms"] = time_ms(
             lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
@@ -611,7 +628,7 @@ def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
     freeze, at most 90% of them.  The kernel's iterations go into the
     bound."""
     import torch
-    from degnorm_tpu_torch.ops import cuda_trim
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
     G, p, W = ti.Fm.shape
     what = "trim_loop" + "".join(f"[{k}]" if v is True else f"[{k}={v:g}]"
                                  for k, v in mode.items())
@@ -669,6 +686,10 @@ def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
         mean_rounds=float(rounds_g.double().mean()),
         lagrangian_iters=int(it_g.sum()),
         bound_ms=b_ms, bound_by=b_by)
+    if cuda_nmf.res_core(p):
+        rec["bound_tc_ms"] = bound_trim(ti, rounds_g, nmf_cfg.nmf_iter,
+                                        iters=it_g if mode else None,
+                                        tc=True)[0]
     if timed:
         rec["ms"] = time_ms(
             lambda: cuda_trim.trim_loop_cuda(*targs, **tkw, **mode), 2)
@@ -753,6 +774,9 @@ def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
         plain_genes_frozen_early=frozen,
         nmf_iter=nmf_cfg.nmf_iter, geometry=list(geo),
         bound_ms=b_ms, bound_by=b_by)
+    if cuda_nmf.res_core(ti.Fm.shape[1]):
+        rec["bound_tc_ms"] = bound_nmf(ti.Fm, ti.hi, act, nmf_cfg.nmf_iter,
+                                       iters=it_rule, tc=True)[0]
     if timed:
         rec["ms"] = time_ms(
             lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
@@ -1103,6 +1127,10 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a kernel and a sync before the fit: its first launches (kernel 2's)
+        # are recorded once the device's tracing is under way
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.run(cov, X, reuse_device_data=True)
         torch.cuda.synchronize()
@@ -1137,7 +1165,8 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
                 "trim_wide_kernel", "nmf_stream_wide_kernel",
                 "nmf_panel_kernel", "ratio_panel_kernel", "trim_panel_kernel",
                 "nmf_stream_panel_kernel", "nmf_panel_block_kernel",
-                "trim_panel_block_kernel", "nmf_stream_panel_block_kernel"):
+                "trim_panel_block_kernel", "nmf_stream_panel_block_kernel",
+                "nmf_res_kernel", "trim_res_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -3349,6 +3378,14 @@ WIDE_P = (33, 48, 64, 96, 128)
 WIDE_P_RESIDENT = {33: ((1024, False),), 48: ((1024, True),),
                    64: ((1024, False), (512, True)), 96: ((512, True),),
                    128: ((512, False), (256, True))}
+# the resident core's layout (csrc/wide_res.cuh) at its edges, at each PMAX:
+# a bucket of the widest W the gate admits (its genes on clusters of two),
+# one of the widest W whose genes a block holds alone, and clusters of three
+# (p = 65 and 97 at the gate's widest W); every gene fills its W but every
+# RES_EDGE_FEW-th, which holds a few columns (one block)
+WIDE_P_RES_EDGE_GENES = 128
+RES_EDGE_FEW = 16
+RES_EDGE_THREE = ((65, 1008), (97, 675))
 WIDE_P_GENES = 1024              # (a) kernels 1-3 and 2 at G x p x W
 WIDE_P_STREAM = (256, 16384)     # (a) kernel 4 (and 2) at 256 x p x 16384
 WIDE_P_BRANCH_P = 48             # the opt-in branches' main shape: 48 x 1024
@@ -3385,6 +3422,69 @@ WIDE_INSTANCES = OrderedDict([
     ("nmf_streamed[wide]", ("degnorm_tpu_torch/csrc/stream_wide.cuh",
                             "degnorm_tpu/ops/pallas_stream.py:266", "b")),
 ])
+
+
+def res_edges():
+    """(p, W, what) of the resident core's edge buckets (RES_EDGE_THREE and,
+    at each PMAX, the gate's widest W and the widest W of a cluster of
+    one)."""
+    from degnorm_tpu_torch.ops import cuda_nmf
+    out = []
+    for pm in WIDE_PMAX:
+        if pm not in cuda_nmf.RES_PMAX:
+            continue
+        w_max = min(cuda_nmf.MAX_W, cuda_nmf.MAX_PW // pm)
+        w_one = max(W for W in range(8, w_max + 1, 8)
+                    if cuda_nmf.res_gene_cluster(
+                        W, cuda_nmf.res_geometry(pm, W)[0]) == 1)
+        out += [(pm, w_max, "widest"), (pm, w_one, "one block")]
+    out += [(p, W, "cluster of three") for p, W in RES_EDGE_THREE
+            if cuda_nmf.pmax_of(p) in cuda_nmf.RES_PMAX]
+    return out
+
+
+def check_res_geometry():
+    """The resident core's geometry as its launcher computes it
+    (``dn_res_geometry``) against its mirror ``cuda_nmf.res_geometry``, at
+    every p of the wide instances and every seventh W the gate admits (and
+    the widest).  Returns the shapes checked."""
+    import ctypes
+    from degnorm_tpu_torch.ops import build, cuda_nmf
+    lib = build.get_lib()
+    out = (ctypes.c_int * (2 + cuda_nmf.RES_MAX_CLUSTER))()
+    n = 0
+    for p in range(cuda_nmf.NARROW_MAX_P + 1, cuda_nmf.WIDE_MAX_P + 1):
+        w_max = min(cuda_nmf.MAX_W, cuda_nmf.MAX_PW // p)
+        for W in [*range(1, w_max + 1, 7), w_max]:
+            lib.dn_res_geometry(p, W, out)
+            capmax, launches = cuda_nmf.res_geometry(p, W)
+            want = [capmax, len(launches), *[x[2] for x in launches]]
+            want += [0] * (len(out) - len(want))
+            if list(out) != want:
+                raise AssertionError(f"res_geometry p={p} W={W}: the "
+                                     f"launcher's {list(out)}, the mirror's "
+                                     f"{want}")
+            n += 1
+    return n
+
+
+def res_edge_bucket(G, p, W, seed, device):
+    """G genes of exactly W positions at p samples (seed ``seed``), every
+    RES_EDGE_FEW-th cut to 1-8 columns: float32 coverage, its length mask
+    and its int16 form."""
+    import torch
+    rng = np.random.default_rng(seed)
+    mats, _ = synth_dataset(G, p, seed=seed,
+                            lengths_fn=lambda n, r: np.full(n, W))
+    F = np.zeros((G, p, W), np.float32)
+    lens = np.full(G, W)
+    for i, m in enumerate(mats.values()):
+        if i % RES_EDGE_FEW == RES_EDGE_FEW - 1:
+            lens[i] = int(rng.integers(1, 9))
+        F[i, :, :lens[i]] = m[:, :lens[i]]
+    lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(device)
+    return (torch.from_numpy(F).to(device), lm,
+            torch.from_numpy(F.astype(np.int16)).to(device))
 
 
 def wide_same_bits(keep, raw, lm, eng_cfg, branches, tag="wide"):
@@ -3539,6 +3639,28 @@ def phase_wide_p():
         secs[f"a_stream_p{p}"] = time.perf_counter() - t2
     del base, raw_top, lm_top
     secs["a"] = time.perf_counter() - t0
+
+    # the resident core's edges: every branch of kernels 1 and 3 (and 2)
+    # against its plain version, twice for the same bits
+    t0 = time.perf_counter()
+    kres["res_edges"] = OrderedDict()
+    for p, W, what in res_edges():
+        F, lm, raw = res_edge_bucket(WIDE_P_RES_EDGE_GENES, p, W,
+                                     SEED + 3 * p + W, dev)
+        keep = {}
+        rec = check_kernels_at(F, lm, nmf_cfg, eng_cfg, raw, timed=False,
+                               branches=True, keep=keep)
+        rec["same_bits"] = wide_same_bits(keep, raw, lm, eng_cfg, True)
+        rec.update(edge=what, res_geometry=list(cuda_nmf.res_geometry(p, W)))
+        if rec["trim_loop"]["entered"] < WIDE_P_RES_EDGE_GENES // 2:
+            raise AssertionError(f"wide_p res edge p={p} W={W}: "
+                                 f"{rec['trim_loop']['entered']} genes in "
+                                 "the trim loop")
+        kres["res_edges"][f"p{p}_W{W}"] = rec
+        del F, lm, raw, keep, rec
+    torch.cuda.empty_cache()
+    secs["res_edges"] = time.perf_counter() - t0
+    kres["res_geometry_checked"] = check_res_geometry()
 
     # the narrow genes under each opt-in mode at every PMAX, with the
     # default bucket widths: the branches' instances on a fit's path
@@ -3727,7 +3849,8 @@ def wide_kernel_records(wide):
     beside it (``by_shape``, keyed p{p}_W{W}) and its launches in the phase's
     fits by PMAX."""
     kres, launches, by_pmax = wide
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_tc_ms",
+            "max_abs_err")
     out = []
     for name, (src, repl, _) in WIDE_INSTANCES.items():
         if name == "nmf_streamed[wide]":
@@ -3751,6 +3874,8 @@ def wide_kernel_records(wide):
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            **({"bound_tc_ms": m["bound_tc_ms"]} if "bound_tc_ms" in m
+               else {}),
             "library_ms": None, "shape": main,
             "launches_by_pmax": by_pmax[name],
             "by_shape": {k: {f: r[f] for f in keys if f in r}

@@ -64,6 +64,8 @@ _SIGNATURES = {
     # power_cold, power_warm, warm_plain, cl, threads, ws, ws_slots, stream
     # (ws: p > 128, the panel instance's workspace, else null and 0)
     "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 9 + [_P, _I, _P],
+    # p, W, out (4 int32): the resident core's geometry (wide_res.cuh)
+    "dn_res_geometry": [_I, _I, _P],
     # raw, scale, out, n, p, stream
     "dn_scaled_quotients": [_P, _P, _P, _I, _I, _P],
     # kernel 4c (and 2c's first launch): F, f_is_i16, mask, act, scale, X,

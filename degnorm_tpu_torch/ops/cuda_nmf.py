@@ -9,7 +9,7 @@ launches in a module-level int.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -64,6 +64,88 @@ COLS_MAX_P = 32
 MAX_W = 8192
 MAX_PW = 65536
 WIDE_THREADS = 256
+
+
+# The resident core of the wide kernels 1 and 3 (csrc/wide_res.cuh, mirror
+# of its dn_res_* functions): a gene's X held in the shared memory of a
+# cluster of blocks for the whole loop, the Gram on the tensor cores.  A
+# block holds at most ``res_capmax`` column slots (a multiple of 8) of PMAX
+# rows; a gene of n active columns takes ``res_gene_cluster(n, capmax)``
+# blocks; a bucket is launched once a cluster size up to its widest gene's
+# (``res_geometry``).  RES_PMAX: the PMAX instances that run the core (the
+# compile-time rule ``dn_res_on``; the others keep csrc/wide.cuh's
+# synchronous sweep).
+RES_PMAX = (48, 64)
+RES_MAX_CLUSTER = 3
+SMEM_BLOCK_BYTES = 232448       # shared memory a block of an H100 may use
+
+
+def res_core(p: int) -> bool:
+    """True where kernels 1 and 3 run p on the resident core."""
+    return NARROW_MAX_P < p <= WIDE_MAX_P and pmax_of(p) in RES_PMAX
+
+
+def res_ldc(cap: int) -> int:
+    """Floats a row of a block's X at ``cap`` slots (``dn_res_ldc``): 8
+    more than a multiple of 32, so that the Gram's 8-byte fragment loads
+    miss no bank."""
+    return cap + (8 - cap % 32) % 32
+
+
+def res_smem_bytes(pmax: int, W: int, cap: int) -> int:
+    """Shared memory of a block holding ``cap`` slots
+    (``dn_res_dyn_bytes`` + ``dn_res_static_bytes``): X (pmax x ldc
+    floats), B (pmax x (pmax + 4)), five pmax-vectors, 40 floats of
+    scratch, kernel 3's W residual scores, the slots' columns (uint16) and
+    bins (uint8), and at most 16 pmax + 1,024 bytes of kernel 3's static
+    loop state."""
+    floats = (pmax * res_ldc(cap) + pmax * (pmax + 4) + 5 * pmax + 40
+              + (W + 3) // 4 * 4)
+    return (4 * floats + (2 * cap + 15) // 16 * 16 + (cap + 15) // 16 * 16
+            + 16 * pmax + 1024)
+
+
+def res_capmax(pmax: int, W: int) -> int:
+    """The most slots a block holds at (pmax, W) (``dn_res_capmax``): a
+    multiple of 8, no more than W rounded up; 0 where not even 8 fit."""
+    cap = (W + 7) // 8 * 8
+    while cap > 0 and res_smem_bytes(pmax, W, cap) > SMEM_BLOCK_BYTES:
+        cap -= 8
+    return cap
+
+
+def res_gene_cluster(n: int, capmax: int) -> int:
+    """Blocks of the cluster of a gene of ``n`` active columns
+    (``dn_res_gene_cluster``): the fewest whose equal shares fit."""
+    return 1 if n <= capmax else -(-n // capmax)
+
+
+def res_cap(W: int, cl: int, capmax: int) -> int:
+    """Slots a block of the launch of clusters of ``cl`` holds
+    (``dn_res_cap``): the share of a gene of all W columns, at most
+    ``capmax``."""
+    return min((-(-W // cl) + 7) // 8 * 8, capmax)
+
+
+def res_geometry(p: int, W: int) -> Tuple[int, List[Tuple[int, int, int]]]:
+    """(capmax, launches) of the resident core at a (p, W) bucket: the most
+    slots a block holds, and for each cluster size cl = 1 .. the widest
+    gene's, (cl, slots a block, bytes of shared memory a block).  A gene's
+    blocks depend on its own active columns alone
+    (``res_gene_cluster``), so its bits do not depend on the other genes of
+    its bucket.  Raises outside the wide instances' p or where a gene of W
+    columns would need more than RES_MAX_CLUSTER blocks."""
+    if not NARROW_MAX_P < p <= WIDE_MAX_P:
+        raise ValueError(f"res_geometry: p={p} is not a wide instance's")
+    pmax = pmax_of(p)
+    capmax = res_capmax(pmax, W)
+    ncl = res_gene_cluster(W, capmax) if capmax else RES_MAX_CLUSTER + 1
+    if ncl > RES_MAX_CLUSTER:
+        raise ValueError(f"res_geometry: p={p}, W={W} needs more than "
+                         f"{RES_MAX_CLUSTER} blocks a gene")
+    return capmax, [(cl, res_cap(W, cl, capmax),
+                     res_smem_bytes(pmax, W, res_cap(W, cl, capmax)))
+                    for cl in range(1, ncl + 1)]
 
 
 def kernels_supported(shape, dtype) -> bool:
@@ -279,6 +361,12 @@ def scratch_shape(G: int, p: int, W: int) -> Tuple[int, int, int]:
     """Shape of kernels 1, 3 and 4's X scratch at (G, p, W): (G, W,
     pcl_ldx(p)) on the cluster layout, else (G, p, W)."""
     return (G, W, pcl_ldx(p)) if panel_cluster(p) else (G, p, W)
+
+
+def loop_scratch_shape(G: int, p: int, W: int) -> Tuple[int, ...]:
+    """Shape of kernels 1 and 3's X scratch: none where the resident core
+    holds X in shared memory (``res_core``), else ``scratch_shape``."""
+    return (0,) if res_core(p) else scratch_shape(G, p, W)
 
 
 def kernel_workspace(G: int, p: int, device):
@@ -545,7 +633,7 @@ def nmf_masked_cuda(
     # Scratch and converted inputs may be dropped as soon as this returns:
     # the caching allocator reuses a block only for work queued later on
     # this same stream, after the kernel.
-    X = torch.empty(scratch_shape(G, p, W), dtype=torch.float32,
+    X = torch.empty(loop_scratch_shape(G, p, W), dtype=torch.float32,
                     device=dev)  # scratch
     K = torch.empty((G, p), dtype=torch.float32, device=dev)
     E = torch.empty((G, W), dtype=torch.float32, device=dev)

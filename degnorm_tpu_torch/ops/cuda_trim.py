@@ -363,7 +363,7 @@ def trim_loop_cuda(
     act8 = cuda_nmf._as_u8(active0)
     # scratch: the multipliers X (with trim_fast, carried from round to
     # round: its first round starts from Fm) and the column mask
-    X = torch.empty(cuda_nmf.scratch_shape(G, p, W), dtype=f32,
+    X = torch.empty(cuda_nmf.loop_scratch_shape(G, p, W), dtype=f32,
                     device=dev)
     colmask = torch.empty((G, W), dtype=torch.uint8, device=dev)
     K = torch.empty((G, p), dtype=f32, device=dev)

@@ -27,7 +27,9 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
 Every case by default; naming CASEs saves only those.
 
 ``compare`` prints one JSON object: for each array, whether the two files
-hold the same bits, and the largest absolute difference.  Run ``save`` for
+hold the same bits, the largest absolute and relative differences and how
+many values differ (of ``*.ran``: the baseline-selection flags that
+flipped).  Run ``save`` for
 both trees in one call to the card, so that both fits meet the same card.
 """
 import json
@@ -106,9 +108,15 @@ def compare(a_path, b_path):
     for k in a.files:
         x, y = a[k], b[k]
         same = x.shape == y.shape and bool(np.array_equal(x, y))
-        diff = (float(np.abs(x.astype(np.float64) - y.astype(np.float64))
-                      .max()) if x.shape == y.shape else None)
-        out[k] = {"same_bits": same, "max_abs_diff": diff}
+        rec = {"same_bits": same}
+        if x.shape == y.shape:
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            rec.update(
+                max_abs_diff=float(d.max()) if d.size else 0.0,
+                max_rel_diff=float((d / np.maximum(np.abs(
+                    y.astype(np.float64)), 1e-30)).max()) if d.size else 0.0,
+                values_differing=int((x != y).sum()))
+        out[k] = rec
     print(json.dumps(out), flush=True)
 
 

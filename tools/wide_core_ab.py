@@ -8,11 +8,12 @@ Each TREE is a checkout of the repo (e.g. a parent commit's ``git
 archive``, or a copy with another version of the core), timed with its own
 sources as they are.  Prints one JSON line a tree: CUDA-event ms of kernel
 4 on 256 genes x p x 16,384 columns of raw int16 + scale (p = 48, 64, 96,
-128), and of kernels 1 and 3 on 1,024 narrow genes at 64 x 1024 and 128 x
-512, on ``chip_smoke.py``'s data (its seeds; every p the first p samples of
-one dataset made at 128), with the card's name and power limit and the wide
-instances that spill registers in the build.  Compare trees only within one
-run.
+128), and of kernels 1 and 3 with their branches (1w, 1aw: nmf_tol; 3w,
+3aw: trim_fast, 3bw: nmf_tol) on 1,024 narrow genes at 48 x 1024, 64 x
+1024, 96 x 512 and 128 x 512, on ``chip_smoke.py``'s data (its seeds; every p the
+first p samples of one dataset made at 128), with the card's name and power
+limit and the wide and resident instances that spill registers in the
+build.  Compare trees only within one run.
 """
 import dataclasses
 import json
@@ -36,7 +37,8 @@ def one(tree):
     build.get_lib(verbose=True)
     spilled = {r["kernel"]: r["spill_bytes"]
                for r in cs.ptxas_report(str(build.build_info.get("log", "")))
-               if r["spill_bytes"] and "wide" in r["kernel"]}
+               if r["spill_bytes"] and ("wide" in r["kernel"]
+                                         or "_res_" in r["kernel"])}
     dev = torch.device("cuda")
     nmf_cfg = NMFConfig(nmf_iter=cs.NMF_ITER)
     eng = EngineConfig(bucket_widths=cs.BUCKET_WIDTHS)
@@ -58,19 +60,31 @@ def one(tree):
     base = list(cs.synth_dataset(1024, 128, seed=cs.SEED + 128)[0].values())
     rng = np.random.default_rng(cs.SEED + 11)
     plain = dataclasses.replace(eng, use_kernels=False)
-    for p, W in ((64, 1024), (128, 512)):
+    for p, W in ((48, 1024), (64, 1024), (96, 512), (128, 512)):
         F, lm, _ = cs.resident_bucket(1024, p, W, dev, rng, mats=base)
         ti = baseline.trim_inputs(F, lm, nmf_cfg, plain)
         act = ~ti.bailed
         nk = baseline._nmf_kwargs(nmf_cfg, eng)
-        out[f"1w_p{p}_W{W}"] = cs.time_ms(
-            lambda: cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
-                                             **nk), 3)
         targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0,
                  ti.u0, ti.n_hi, ti.n_bins0, ti.active0)
         tkw = baseline.trim_kwargs(nmf_cfg, eng)
-        out[f"3w_p{p}_W{W}"] = cs.time_ms(
-            lambda: cuda_trim.trim_loop_cuda(*targs, **tkw), 2)
+        # each instance: 1w, 1aw (nmf_tol), 3w, 3aw (trim_fast), 3bw
+        # (nmf_tol)
+        runs = {
+            "1w": lambda: cuda_nmf.nmf_masked_cuda(
+                ti.Fm, ti.hi, gene_active=act, **nk),
+            "1aw": lambda: cuda_nmf.nmf_masked_cuda(
+                ti.Fm, ti.hi, gene_active=act, nmf_tol=cs.MODE_TOL, **nk),
+            "3w": lambda: cuda_trim.trim_loop_cuda(*targs, **tkw),
+            "3aw": lambda: cuda_trim.trim_loop_cuda(*targs, **tkw,
+                                                    trim_fast=True),
+            "3bw": lambda: cuda_trim.trim_loop_cuda(*targs, **tkw,
+                                                    nmf_tol=cs.MODE_TOL)}
+        for name, fn in runs.items():
+            out[f"{name}_p{p}_W{W}"] = cs.time_ms(
+                fn, 3 if name.startswith("1") else 2)
+        del F, lm, ti, targs
+        torch.cuda.empty_cache()
     out = {k: round(v, 3) for k, v in out.items()}
     print(json.dumps({"tree": tree, "ms": out,
                       "wide_spills": spilled, "smi": cs.smi_line()}),
