@@ -151,9 +151,11 @@ def synth_dataset(n, p, seed=SEED, profile="dense", lengths_fn=synth_lengths):
     chunks = []
     s = 0
     while s < n:
-        # genes sorted by length, at most 512 a step and about 2M columns
+        # genes sorted by length, at most 512 a step and about 17M values
+        # (2M columns of 8 samples)
         k = 512
-        while k > 1 and k * lengths[order[min(s + k, n) - 1]] > 2_100_000:
+        while (k > 1 and k * lengths[order[min(s + k, n) - 1]] * p
+               > 8 * 2_100_000):
             k //= 2
         chunks.append(order[s:s + k])
         s += k
@@ -424,7 +426,8 @@ SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "ratio_wide_kernel", "nmf_panel_kernel", "ratio_panel_kernel",
                "nmf_stream_panel_kernel", "trim_panel_kernel",
                "nmf_panel_block_kernel", "nmf_stream_panel_block_kernel",
-               "trim_panel_block_kernel", "nmf_res_kernel", "trim_res_kernel")
+               "trim_panel_block_kernel", "ratio_panel_block_kernel",
+               "nmf_res_kernel", "trim_res_kernel")
 
 
 def phase_build(ptxas):
@@ -1166,7 +1169,8 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
                 "nmf_panel_kernel", "ratio_panel_kernel", "trim_panel_kernel",
                 "nmf_stream_panel_kernel", "nmf_panel_block_kernel",
                 "trim_panel_block_kernel", "nmf_stream_panel_block_kernel",
-                "nmf_res_kernel", "trim_res_kernel"):
+                "ratio_panel_block_kernel", "nmf_res_kernel",
+                "trim_res_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -1719,7 +1723,12 @@ def wide_launches(tag="wide"):
             f"trim_loop[{tag},nmf_tol]": getattr(
                 cuda_trim, f"trim_{tag}_tol_launches"),
             f"nmf_streamed[{tag}]": getattr(cuda_stream,
-                                            f"stream_{tag}_launches")}
+                                            f"stream_{tag}_launches"),
+            **({"ratio_rowsums[panel,cluster]":
+                cuda_nmf.ratio_panel_cluster_launches,
+                "nmf_streamed[panel,cluster]":
+                cuda_stream.stream_panel_cluster_launches}
+               if tag == "panel" else {})}
 
 
 def zero_launches():
@@ -1736,6 +1745,8 @@ def zero_launches():
     cuda_trim.trim_wide_tol_launches = 0
     cuda_nmf.nmf_panel_launches = cuda_nmf.nmf_panel_tol_launches = 0
     cuda_nmf.ratio_panel_launches = cuda_stream.stream_panel_launches = 0
+    cuda_nmf.ratio_panel_cluster_launches = 0
+    cuda_stream.stream_panel_cluster_launches = 0
     cuda_trim.trim_panel_launches = cuda_trim.trim_panel_fast_launches = 0
     cuda_trim.trim_panel_tol_launches = 0
 
@@ -3893,12 +3904,18 @@ PANEL_GENES = 512
 PANEL_STREAM = ((64, 129), (64, 192), (64, 256), (16, 512))
 PANEL_STREAM_W = 16384
 # the edges of the cluster layout, on data of their own: kernels 1-3 and 2
-# resident on PANEL_GENES genes at (p, W) at its largest p (5 blocks of
-# three pairs) and past it (the block layout), kernels 4 and 2 on G x p x W
-# at three panels (a cluster of 3 blocks of two pairs), at its largest p
-# and past it
+# resident on PANEL_GENES genes at (p, W) at their largest p (5 blocks of
+# three pairs) and past it (their block layout; kernel 2 on a cluster of
+# 6), kernels 4 and 2 on G x p x W at three panels (a cluster of 3 blocks of
+# two pairs), at kernels 1 and 3's largest p, past it (clusters of 6, 7
+# and 8 blocks: 64 x 768 x 16384 a full bucket, 128 x 768 x 1024 the shape
+# of the p = 768 fit's W = 1024 bucket), at their own largest p (a cluster
+# of 9, not portable) and past it (their block layout)
 PANEL_EDGE = ((640, 64), (704, 64))
-PANEL_EDGE_STREAM = ((8, 384, 16384), (8, 640, 16384), (4, 700, 2048))
+PANEL_BIG_MAIN = (64, 768, 16384)   # kernels 4 and 2's shape in the result
+PANEL_EDGE_STREAM = ((8, 384, 16384), (8, 640, 16384), (4, 700, 2048),
+                     (8, 768, 16384), PANEL_BIG_MAIN, (128, 768, 1024),
+                     (4, 1024, 2048), (4, 1152, 2048), (4, 1153, 2048))
 # ... and kernels 1-3 at (p, W) where a block holds several pairs and genes
 # enter the trim loop (a gene of min_gene_len = 200 columns fits p * W <=
 # MAX_PW up to p = 327), with the opt-in branches on the kernels' wrappers:
@@ -3911,6 +3928,13 @@ PANEL_FIT_P = 256                # the narrow genes at the default widths
 PANEL_FIT_GENES = 2048
 PANEL_PARITY_GENES = 256
 PANEL_ITER = 1                   # DegNorm iterations of its fits (cut from 5)
+# the slice's main path past 640 samples: narrow genes at p = PANEL_BIG_P
+# with the default bucket widths (every bucket streams: kernels 2 and 4 on
+# clusters of 6 blocks, the unfused trim loop), a kernels-off parity pair on
+# its first PANEL_BIG_PARITY genes
+PANEL_BIG_P = 768
+PANEL_BIG_GENES = 512
+PANEL_BIG_PARITY = 64
 # name -> (source, the TPU kernel, the phase's fit that runs it)
 PANEL_INSTANCES = OrderedDict([
     ("nmf_masked[panel]", ("degnorm_tpu_torch/csrc/nmf_panel.cu",
@@ -3919,7 +3943,7 @@ PANEL_INSTANCES = OrderedDict([
                                    "degnorm_tpu/ops/pallas_nmf.py:440",
                                    "nmf_tol")),
     ("ratio_rowsums[panel]", ("degnorm_tpu_torch/csrc/ratio_panel.cu",
-                              "degnorm_tpu/ops/pallas_nmf.py:562", "fit")),
+                              "degnorm_tpu/ops/pallas_nmf.py:562", "big")),
     ("trim_loop[panel]", ("degnorm_tpu_torch/csrc/trim_panel.cu",
                           "degnorm_tpu/ops/pallas_trim.py:324", "fit")),
     ("trim_loop[panel,trim_fast]", ("degnorm_tpu_torch/csrc/trim_panel.cu",
@@ -3929,7 +3953,7 @@ PANEL_INSTANCES = OrderedDict([
                                   "degnorm_tpu/ops/pallas_trim.py:177",
                                   "nmf_tol")),
     ("nmf_streamed[panel]", ("degnorm_tpu_torch/csrc/stream_panel.cu",
-                             "degnorm_tpu/ops/pallas_stream.py:266", "fit")),
+                             "degnorm_tpu/ops/pallas_stream.py:266", "big")),
 ])
 
 
@@ -3952,14 +3976,20 @@ def phase_panels():
     PANEL_FIT_P with the default bucket widths (W = 256 resident, the rest
     streamed) held to ``compare_fits`` against use_kernels=False on its
     first PARITY genes, and their first genes and samples (p =
-    PANEL_MODE_P) under each opt-in mode (the branches on a fit's path).
-    No p > 128 may reach a plain version: every fit must launch the panel
-    instances.  Returns the kernels' records and the launches of each
-    instance on its fit."""
+    PANEL_MODE_P) under each opt-in mode (the branches on a fit's path);
+    then the slice's main path, PANEL_BIG_GENES narrow genes at p =
+    PANEL_BIG_P with the default widths (every bucket streams: kernels 2 and
+    4 on their cluster layout, every launch counted there), profiled, with a
+    kernels-off parity pair on its first PANEL_BIG_PARITY genes; and the
+    clusters the card holds at once by blocks a cluster.  No p > 128 may
+    reach a plain version: every fit must launch the panel instances.
+    Returns the kernels' records and the launches of each instance on its
+    fit."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.config import trim_fast_applies
     from degnorm_tpu_torch.ops import cuda_nmf
+    from degnorm_tpu_torch.ops.build import get_lib
     dev = torch.device(DEVICE)
     t_phase = time.perf_counter()
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER)
@@ -4005,7 +4035,8 @@ def phase_panels():
 
     # the cluster layout's edges
     t0 = time.perf_counter()
-    assert [cuda_nmf.panel_cluster(p) for p, _ in PANEL_EDGE] == [True, False]
+    assert [cuda_nmf.panel_cluster(p, "loop")
+            for p, _ in PANEL_EDGE] == [True, False]
     p_top = max(p for p, _ in PANEL_EDGE)
     edge = list(synth_dataset(PANEL_GENES, p_top, seed=SEED + p_top,
                               lengths_fn=short_lengths)[0].values())
@@ -4020,7 +4051,7 @@ def phase_panels():
         kres["resident"][f"p{p_e}_W{W_e}"] = rec
         del F, lm, raw, keep, rec
     p_b, W_b = PANEL_MULTI
-    assert (cuda_nmf.panel_cluster(p_b) and cuda_nmf.pcl_held(p_b) > 1
+    assert (cuda_nmf.panel_cluster(p_b, "loop") and cuda_nmf.pcl_held(p_b) > 1
             and p_b * W_b <= cuda_nmf.MAX_PW)
     F, lm, raw = resident_bucket(PANEL_GENES, p_b, W_b, dev, rng, mats=edge)
     keep = {}
@@ -4035,14 +4066,32 @@ def phase_panels():
                                  f"trim round: {rec[k]}")
     kres["resident"][f"p{p_b}_W{W_b}"] = rec
     del edge, F, lm, raw, keep, rec
-    assert [cuda_nmf.panel_cluster(p)
-            for _, p, _ in PANEL_EDGE_STREAM] == [True, True, False]
+    assert [cuda_nmf.panel_cluster(p, "stream")
+            for _, p, _ in PANEL_EDGE_STREAM] == [True] * 8 + [False]
+    # (each (p, W) one dataset made at its largest G; a smaller G its first
+    # genes)
+    top_g = {}
     for G_s, p_s, W_s in PANEL_EDGE_STREAM:
-        raw, lm = small_wide_bucket(G_s, p_s, W_s, SEED + p_s, dev)
-        kres["stream"][f"p{p_s}_W{W_s}"] = check_stream_at(
+        top_g[p_s, W_s] = max(G_s, top_g.get((p_s, W_s), 0))
+    made = {}
+    for G_s, p_s, W_s in PANEL_EDGE_STREAM:
+        if (p_s, W_s) not in made:
+            made = {(p_s, W_s): small_wide_bucket(top_g[p_s, W_s], p_s, W_s,
+                                                  SEED + p_s, dev)}
+        raw_t, lm_t = made[p_s, W_s]
+        raw, lm = raw_t[:G_s].contiguous(), lm_t[:G_s].contiguous()
+        kres["stream"][f"{G_s}x{p_s}x{W_s}"] = check_stream_at(
             raw, lm, nmf_cfg, EngineConfig(), reps=1, time_f32=False)
-        del raw, lm
-    torch.cuda.empty_cache()
+        del raw, lm, raw_t, lm_t
+        torch.cuda.empty_cache()
+    del made
+    # the clusters the card holds at once, by blocks a cluster
+    lib = get_lib()
+    kres["clusters"] = {
+        str(p): {"blocks": cuda_nmf.pcl_size(p),
+                 "nmf_streamed": lib.dn_stream_panel_clusters(p, 1),
+                 "ratio_rowsums": lib.dn_ratio_panel_clusters(p, 1)}
+        for p in (256, 384, 640, 768, 896, 1024, 1152)}
     secs["edge"] = time.perf_counter() - t0
 
     # the narrow genes at p = PANEL_FIT_P with the default bucket widths
@@ -4079,6 +4128,46 @@ def phase_panels():
                  samples=PANEL_FIT_P)
     del sub, on, off
     secs["fit"] = time.perf_counter() - t0
+
+    # the slice's main path: the narrow genes at p = PANEL_BIG_P, where
+    # every bucket streams (kernels 2 and 4 on clusters of six blocks),
+    # profiled, and a kernels-off parity pair on its first genes
+    t0 = time.perf_counter()
+    assert (cuda_nmf.panel_cluster(PANEL_BIG_P, "stream")
+            and not cuda_nmf.panel_cluster(PANEL_BIG_P, "loop"))
+    cov_b, X_b = synth_dataset(PANEL_BIG_GENES, PANEL_BIG_P)
+    secs["big_data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, runs["big"], eng_b = wide_fit("panel_big", cov_b, X_b, nmf_f,
+                                     EngineConfig(), steady=False,
+                                     profile=True)
+    counts = runs["big"]["launches"]
+    resident = [b.width for b in eng_b._buckets
+                if cuda_nmf.kernels_supported(b.F.shape, torch.float32)]
+    if (resident or counts.get("nmf_masked", 0) or counts.get("trim_loop", 0)
+            or not 0 < counts.get("ratio_rowsums[panel]", 0)
+            == counts.get("ratio_rowsums[panel,cluster]", 0)
+            or not 0 < counts.get("nmf_streamed[panel]", 0)
+            == counts.get("nmf_streamed[panel,cluster]", 0)):
+        raise AssertionError(f"panels big fit: resident widths {resident}, "
+                             f"launches {counts}")
+    del eng_b
+    torch.cuda.empty_cache()
+    secs["big"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys = list(cov_b)[:PANEL_BIG_PARITY]
+    sub = OrderedDict((k, cov_b[k]) for k in keys)
+    Xs = X_b[:PANEL_BIG_PARITY]
+    on, runs["big_parity_on"], _ = wide_fit(
+        "panel_big_parity_on", sub, Xs, nmf_f, EngineConfig(), steady=False)
+    t2 = time.perf_counter()
+    off, _, _ = wide_fit("panel_big_parity_off", sub, Xs, nmf_f,
+                         EngineConfig(use_kernels=False), steady=False)
+    compare_fits("panels_big_parity", on, off,
+                 (runs["big_parity_on"]["wall_s"], time.perf_counter() - t2),
+                 samples=PANEL_BIG_P)
+    del cov_b, X_b, sub, on, off
+    secs["big_parity"] = time.perf_counter() - t0
 
     # their first genes and samples under each opt-in mode: the branches on
     # a fit's path
@@ -4117,16 +4206,18 @@ def phase_panels():
 
 def panel_kernel_records(panels):
     """The result line's records of the panel instances: each at its main
-    shape (kernels 1-3 and 2 at PANEL_GENES x 256 x 256, the branches at 129
-    x 256, kernel 4 at 64 x 256 x 16384), with every shape it was held at
-    beside it and its launches on its fit."""
+    shape (kernels 1 and 3 at PANEL_GENES x 256 x 256, the branches at 129
+    x 256, kernels 4 and 2 at PANEL_BIG_MAIN, a full bucket at the main
+    path's p), with every shape it was held at beside it and its launches
+    on its fit (kernels 4 and 2: the p = PANEL_BIG_P fit)."""
     kres, launches = panels
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    big = "x".join(map(str, PANEL_BIG_MAIN))
     out = []
     for name, (src, repl, _) in PANEL_INSTANCES.items():
         if name == "nmf_streamed[panel]":
             recs = dict(kres["stream"])
-            main = f"p{PANEL_FIT_P}_W{PANEL_STREAM_W}"
+            main = big
         else:
             key = WIDE_CHECK_KEY[name.replace("panel", "wide")]
             recs = {k: r[key] for k, r in kres["resident"].items()
@@ -4134,7 +4225,9 @@ def panel_kernel_records(panels):
             if key == "ratio_rowsums":   # also at kernel 4's shapes
                 recs.update((k, r["ratio_rowsums"])
                             for k, r in kres["stream"].items())
-            main = ("p129_W256" if "," in name else f"p{PANEL_FIT_P}_W256")
+            main = ("p129_W256" if "," in name
+                    else big if key == "ratio_rowsums"
+                    else f"p{PANEL_FIT_P}_W256")
         m = recs[main]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,

@@ -120,11 +120,12 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
 int dn_nmf_panel(const NmfArgs& a) {
   if (a.threads != DN_WIDE_THREADS || a.p < DN_PANEL_MIN_P)
     return (int)cudaErrorInvalidValue;
-  if (a.p <= DN_PCL_MAX_P) {
+  if (dn_pcl_on(a.p, DN_PCL_LOOP)) {
     // blocks of several pairs keep them in the workspace
     if (dn_pcl_held(a.p) > 1 && a.ws == nullptr)
       return (int)cudaErrorInvalidValue;
 #define DN_NMF_PCL_ARGS                                                       \
+  DN_PCL_LOOP,                                                                \
   a.G, a.p, a.ws_slots, (size_t)dn_pcl_smem_floats(a.p), a.stream, a.F,       \
       a.mask, a.act, a.u0, a.X, a.K, a.E, a.u, a.iters, a.G, a.p, a.W,        \
       a.nmf_iter, a.power_cold, a.power_warm, a.warm_plain, a.tol,            \

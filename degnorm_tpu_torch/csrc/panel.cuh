@@ -1,8 +1,9 @@
 // Shared device code of the DegNorm CUDA kernels for p > 128 samples
 // (sm_90a, plain float32): the Lagrangian NMF-OA loop of one gene with its
 // p x p Gram cut into row panels of DN_PANEL_ROWS, spread over a cluster of
-// blocks (kernels 1, 3 and 4 up to DN_PCL_MAX_P) or held by one block in a
-// workspace in device memory.
+// blocks (kernels 1 and 3 up to DN_PCL_MAX_P, kernels 2 and 4 up to
+// DN_PCL_MAX_P_STREAM: dn_pcl_max_p) or held by one block in a workspace in
+// device memory.
 //
 // Replaces, for studies of more than 128 samples, wide.cuh's core (and so
 // the same TPU code: degnorm_tpu/ops/pallas_nmf.py's _gram, _power,
@@ -20,17 +21,19 @@
 // memory, both triangles of a diagonal pair with the same products in the
 // same order, so B is exactly symmetric).  Two layouts place the pairs:
 //
-// THE CLUSTER LAYOUT (pcl_*: kernels 1, 3 and 4 at p <= DN_PCL_MAX_P, T <=
-// 5):
-//   * a gene's T(T+1)/2 pairs over a thread-block cluster of at most
-//     DN_PCL_MAX_C blocks, the same number of pairs a block (3 blocks of one
-//     pair at T = 2, 3 of two at 3, 5 of two at 4, 5 of three at 5): the
-//     card holds 39 clusters of 3 or 22 of 5 at once, but 7 of 10 or 15,
-//     the sizes one pair a block would take at T = 4 and 5.  The diagonal
-//     pairs come first: block P's first pair is (P, P).  Persistent
-//     clusters, as many as the card holds at once
-//     (cudaOccupancyMaxActiveClusters), work through the genes; a launch
-//     the card cannot hold fails, never falls back;
+// THE CLUSTER LAYOUT (pcl_*: kernels 1 and 3 at p <= DN_PCL_MAX_P, T <= 5;
+// kernels 2 and 4 at p <= DN_PCL_MAX_P_STREAM, T <= 9):
+//   * a gene's T(T+1)/2 pairs over a thread-block cluster, the same number
+//     of pairs a block but in the last: up to T = DN_PCL_MAX_C over at most
+//     DN_PCL_MAX_C blocks (3 blocks of one pair at T = 2, 3 of two at 3, 5 of
+//     two at 4, 5 of three at 5): the card holds 39 clusters of 3 or 22 of 5
+//     at once, but 7 of 10 or 15, the sizes one pair a block would take at T
+//     = 4 and 5; past it T blocks of ceil((T + 1) / 2) pairs (6 of four at T
+//     = 6, 7 of four at 7, 8 of five at 8, 9 of five at 9: a cluster of 9 is
+//     not portable and is asked for as such).  The diagonal pairs come
+//     first: block P's first pair is (P, P).  Persistent clusters, as many as
+//     the card holds at once (cudaOccupancyMaxActiveClusters), work through
+//     the genes; a launch the card cannot hold fails, never falls back;
 //   * a sweep goes over the gene's tiles once for every block's first pair.
 //     X is stored column by column in the scratch (a column's rows
 //     contiguous, dn_pcl_ldx floats), so each block copies its panels' rows
@@ -53,26 +56,39 @@
 //     diagonal, swizzled so that a warp reads down its columns): in the
 //     block's own shared memory where the tiles were when a block holds one
 //     pair, else in the cluster's slot of a workspace in device memory.
-//     Every block runs the power step on the whole B (map_shared_rank, or
-//     the workspace): B's largest entry from each block's published one,
-//     each matvec a thread a row in column order j = 0 .. p - 1 as below,
-//     read down columns (a diagonal pair is symmetric, an off-diagonal one
-//     has B^T), B^2 of the squared scheme by the same blocks over B's rows
-//     read across the cluster (staged in the second tile), each norm a
-//     block sum in a fixed order, so u and s are the same in every block
-//     and across two runs;
+//     Up to T = DN_PCL_MAX_C every block runs the power step on the whole B
+//     (map_shared_rank, or the workspace): B's largest entry from each
+//     block's published one, each matvec a thread a row in column order j =
+//     0 .. p - 1 as below, read down columns (a diagonal pair is symmetric,
+//     an off-diagonal one has B^T), B^2 of the squared scheme by the same
+//     blocks over B's rows read across the cluster (staged in the second
+//     tile), each norm a block sum in a fixed order, so u and s are the same
+//     in every block and across two runs.  Past it (B in the workspace,
+//     4.2-9.0 MB at p = 768-1,152; kernel 4) and at every p (kernel 2) the
+//     blocks share each matvec's reads of B: block P computes panel P's rows
+//     of it, two threads a row each over half the columns in order, every
+//     read down a column (B^2's transpose is stored too), publishes them in
+//     its shared memory (two buffers by parity) and, after one cluster
+//     barrier, every block copies the T panels' rows in panel order, so all
+//     hold the same whole vector (pcl_matvec_rows);
+//   * kernel 2 (A0_ONLY): the cold sweep's Gram of A0 with no X scratch (a
+//     block's later pairs copy A0 again); after the cold power step one more
+//     pass, v's partials published by the diagonal blocks, each of which
+//     sums its panel's rows of A0 and of max(K E, A0) in column order
+//     (ratio_panel.cu);
 //   * what bounds it: float32 operations, T(T+1)/2 x 128^2 fmas a column a
 //     sweep over the cluster's SMs, against one copy of X and A0 a block
 //     that needs its rows and one write of X a sweep (a block's later pairs
 //     copy X again); a cluster barrier a tile.  Shared memory: two tiles
 //     (128 x 132 floats each), the A0 copies (64 KB), the v partials and 4
-//     + DN_PCL_NX p-vectors (dn_pcl_smem_floats: 218,000 bytes at p = 640);
+//     + DN_PCL_NX p-vectors, the published rows of a shared matvec
+//     (dn_pcl_smem_floats: 218,768 bytes at p = 640, 231,056 at 1,152);
 //     kernel 3 adds its W residual scores.
 //
-// THE BLOCK LAYOUT (panel_core: kernel 2 at every p > 128, kernels 1, 3 and
-// 4 above the cluster layout's p.  The cluster layout stops at T =
-// DN_PCL_MAX_C: past it a panel's diagonal pair would not be the first pair
-// of a block, the pass that publishes v's partials):
+// THE BLOCK LAYOUT (panel_core: each kernel above its cluster layout's p.
+// Kernels 1 and 3 stop at T = DN_PCL_MAX_C, where no default-width fit
+// launches them past it; kernels 2 and 4 at the largest cluster the card
+// holds whose blocks' shared memory holds the p-vectors, T = 9):
 //   * one block a gene at a time, one pair a pass, stored with its mirror
 //     into B, p x p floats in the block's workspace (device memory), 3
 //     passes a sweep at p = 256, 10 at 512;
@@ -486,23 +502,39 @@ int launch_panel(Kern kern, int G, int slots, size_t smem_extra,
 }
 
 // ---- the cluster layout: a gene's panel pairs over a cluster of blocks -----
-// (kernels 1, 3 and 4 where the header comment above says; it says how it
-// works)
+// (kernels 1-4 where the header comment above says; it says how it works)
 
-#define DN_PCL_MAX_P 640  // most p of the cluster layout: T <= 5 panels
+// Most p of the cluster layout, a rule by kernel (dn_pcl_max_p): kernels 1
+// and 3 (DN_PCL_LOOP) up to T = 5 panels, kernels 2 and 4 (DN_PCL_STREAM) up
+// to T = 9, on clusters of T blocks past T = 5
+#define DN_PCL_MAX_P 640
+#define DN_PCL_MAX_P_STREAM 1152
+#define DN_PCL_LOOP 0
+#define DN_PCL_STREAM 1
 #define DN_PCL_PAIR (DN_PANEL_ROWS * DN_PANEL_LD)  // floats of a stored pair
 #define DN_PCL_STAGE_A (2 * DN_PANEL_ROWS * DN_WIDE_TC)  // floats of A0 copies
 #define DN_PCL_BT 32      // rows of B a tile of B^2's staging
 #define DN_PCL_NX 2       // p-vectors of the kernel's own
-// Most blocks of a gene's cluster: the card holds 39 clusters of 3 at once
-// but 7 of 10 or 15 (whole clusters on one of its GPCs, an SM a block), so
-// above DN_PCL_MAX_C pairs a block holds several
+// Most blocks of a gene's cluster up to T = DN_PCL_MAX_C panels: the card
+// holds 39 clusters of 3 at once but 7 of 10 or 15 (whole clusters on one of
+// its GPCs, an SM a block), so above DN_PCL_MAX_C pairs a block holds
+// several; past T = DN_PCL_MAX_C a cluster has T blocks (each diagonal pair
+// a block's first), of which the card's portable limit is DN_PCL_PORTABLE
 #define DN_PCL_MAX_C 5
+#define DN_PCL_PORTABLE 8
+
+__host__ __device__ inline int dn_pcl_max_p(int kind) {
+  return kind == DN_PCL_STREAM ? DN_PCL_MAX_P_STREAM : DN_PCL_MAX_P;
+}
+__host__ __device__ inline bool dn_pcl_on(int p, int kind) {
+  return p >= DN_PANEL_MIN_P && p <= dn_pcl_max_p(kind);
+}
 
 // Panels of p, their pairs, the pairs a block holds and the blocks of a
-// gene's cluster: T(T+1)/2 pairs over at most DN_PCL_MAX_C blocks, the same
-// number a block but in the last (3 blocks of one pair at T = 2, 3 of two
-// at 3, 5 of two at 4, 5 of three at 5).
+// gene's cluster: T(T+1)/2 pairs over at most max(T, DN_PCL_MAX_C) blocks,
+// the same number a block but in the last (3 blocks of one pair at T = 2, 3
+// of two at 3, 5 of two at 4, 5 of three at 5; T blocks of ceil((T + 1) /
+// 2) past 5).
 __host__ __device__ inline int dn_pcl_T(int p) {
   return dn_panel_np(p) / DN_PANEL_ROWS;
 }
@@ -511,19 +543,26 @@ __host__ __device__ inline int dn_pcl_pairs(int p) {
   return T * (T + 1) / 2;
 }
 __host__ __device__ inline int dn_pcl_held(int p) {
-  return (dn_pcl_pairs(p) + DN_PCL_MAX_C - 1) / DN_PCL_MAX_C;
+  const int c = dn_pcl_T(p) > DN_PCL_MAX_C ? dn_pcl_T(p) : DN_PCL_MAX_C;
+  return (dn_pcl_pairs(p) + c - 1) / c;
 }
 __host__ __device__ inline int dn_pcl_size(int p) {
   const int h = dn_pcl_held(p);
   return (dn_pcl_pairs(p) + h - 1) / h;
 }
+// Past T = DN_PCL_MAX_C the blocks share the power step's matvecs, a panel
+// of rows each (pcl_matvec)
+__host__ __device__ inline bool dn_pcl_shared_power(int p) {
+  return dn_pcl_T(p) > DN_PCL_MAX_C;
+}
 // Floats of a cluster's workspace where its blocks hold several pairs: B,
-// B^2 and B^T of every pair (0 where a block holds one: then they are in
-// the cluster's shared memory).
+// B^2, B^T and (where the blocks share the power step) B^2's transpose of
+// every pair (0 where a block holds one: then they are in the cluster's
+// shared memory).
 __host__ __device__ inline size_t dn_pcl_ws_floats(int p) {
   if (dn_pcl_held(p) == 1) return 0;
   return (size_t)dn_pcl_pairs(p) *
-         (2 * DN_PCL_PAIR + DN_PANEL_ROWS * DN_PANEL_ROWS);
+         (2 * DN_PCL_PAIR + 2 * DN_PANEL_ROWS * DN_PANEL_ROWS);
 }
 
 // Floats a gene's column of X takes in the scratch of the cluster layout
@@ -555,10 +594,12 @@ __host__ __device__ inline int dn_pcl_index(int T, int I, int J) {
 // scheme, B^2's staging and B^2), the copies of A0 (two slots of int16, or
 // one of float32: DN_PCL_STAGE_A floats either way; after a sweep B^T), the
 // v partials, the published panel partials (two tiles' worth), 32 floats of
-// scratch, the published largest entry (4), and 4 + DN_PCL_NX p-vectors.
+// scratch, the published largest entry (4), 4 + DN_PCL_NX p-vectors, and
+// the published rows of a matvec where the blocks share the power step (two
+// panels' worth).
 __host__ __device__ inline int dn_pcl_smem_floats(int p) {
   return 2 * DN_PCL_PAIR + DN_PCL_STAGE_A + 6 * DN_WIDE_TC + 32 + 4 +
-         (4 + DN_PCL_NX) * dn_panel_np(p);
+         (4 + DN_PCL_NX) * dn_panel_np(p) + 2 * DN_PANEL_ROWS;
 }
 
 // A block's share of its gene's cluster, in its dynamic shared memory: S
@@ -576,8 +617,13 @@ struct PclWork {
                  // pairs (dn_pcl_ws_floats: B, B^2, B^T by pair), else null
   int p, np, T, C, rank, I, J, ldx, npairs, held;
   int nact;      // tiles whose v went through wbuf (its parity picks half)
+  int npow;      // shared matvecs published (its parity picks ypub's half)
+  bool shared;   // the blocks share the power step (pcl_matvec)
+  // share_power: the blocks share the power step at every p (kernel 2),
+  // else past T = DN_PCL_MAX_C (dn_pcl_shared_power)
   __device__ __forceinline__ void init(float* smem, int p_, int rank_,
-                                       float* ws_ = nullptr) {
+                                       float* ws_ = nullptr,
+                                       bool share_power = false) {
     p = p_;
     np = dn_panel_np(p_);
     T = np / DN_PANEL_ROWS;
@@ -589,6 +635,8 @@ struct PclWork {
     ws = ws_;
     hold(0);
     nact = 0;
+    npow = 0;
+    shared = share_power || dn_pcl_shared_power(p_);
     S = smem;
   }
   // NA x (128 x TC a panel): copies of A0, as stored ...
@@ -619,6 +667,10 @@ struct PclWork {
   __device__ __forceinline__ float* uo() const { return u() + 3 * np; }
   __device__ __forceinline__ float* x(int k) const {
     return u() + (4 + k) * np;
+  }
+  // 2 x 128: this block's panel rows of a matvec, published (where shared)
+  __device__ __forceinline__ float* ypub() const {
+    return u() + (4 + DN_PCL_NX) * np;
   }
   // this block's h-th pair, pair rank + h C, as (I, J); false past the last
   // (a block's first pair: its panel partials of v and its write-back)
@@ -763,8 +815,9 @@ __device__ __forceinline__ float pcl_v(PclWork<A>& w, bool on,
 // first pass) v and the multiplier update, else A0 (want_a) or the X
 // copied, zero off the mask and past p; the diagonal block of a first pass
 // writes its panel back to X.  UPD passes are the cluster's (a cluster
-// barrier a tile, in pcl_v), the others the block's.
-template <bool ADAPT, bool UPD, class Src, class A>
+// barrier a tile, in pcl_v), the others the block's.  A0_ONLY (kernel 2):
+// no X to write back.
+template <bool ADAPT, bool UPD, bool A0_ONLY = false, class Src, class A>
 __device__ __forceinline__ void pcl_pass(const Src& src, PclWork<A>& w,
                                          WideGram<128>& g, float step,
                                          float s, bool want_x, bool want_a) {
@@ -773,7 +826,7 @@ __device__ __forceinline__ void pcl_pass(const Src& src, PclWork<A>& w,
   const int t = threadIdx.x, q = t >> 6, c = t & (TC - 1), p = w.p;
   const int ntile = (src.n_local() + TC - 1) / TC;
   const int nb = w.diag() ? 1 : 2;
-  const bool write_x = w.diag() && want_a;
+  const bool write_x = !A0_ONLY && w.diag() && want_a;
   const auto stage = [&](int kk, int b, bool x, bool a) {
     if (x) pcl_stage_x(src, w, kk * TC, b);
     if (a) pcl_stage_a(src, w, kk * TC, b);
@@ -888,18 +941,18 @@ __device__ __forceinline__ float pcl_store(const PclWork<A>& w,
 
 // A block's later pairs (where it holds several): for each, after a
 // cluster barrier (the first pass's new X is back in the scratch), a pass
-// over the tiles copying X in, and the pair into B.  Compiled out of line
-// with its own register tile (inline, beside the first pass, the kernel's
-// registers spilled), its arguments values.  Returns the pairs' largest
-// |entry| (0 where the block has none).
-template <class Src, class A>
+// over the tiles copying X in (A0_ONLY: A0 again, with no barrier), and the
+// pair into B.  Compiled out of line with its own register tile (inline,
+// beside the first pass, the kernel's registers spilled), its arguments
+// values.  Returns the pairs' largest |entry| (0 where the block has none).
+template <bool A0_ONLY, class Src, class A>
 static __device__ __noinline__ float pcl_later_pairs(Src src, PclWork<A> w) {
   WideGram<128> g;
   float m = 0.f;
   for (int h = 1; h < w.held; ++h) {
-    cg::this_cluster().sync();
+    if constexpr (!A0_ONLY) cg::this_cluster().sync();
     if (!w.hold(h)) continue;
-    pcl_pass<false, false>(src, w, g, 0.f, 0.f, true, false);
+    pcl_pass<false, false, A0_ONLY>(src, w, g, 0.f, 0.f, !A0_ONLY, A0_ONLY);
     m = fmaxf(m, pcl_store(w, g, w.rank + h * w.C));
   }
   return m;
@@ -913,8 +966,10 @@ static __device__ __noinline__ float pcl_later_pairs(Src src, PclWork<A> w) {
 // the new X back in (MULTI: the kernel's blocks may hold several pairs;
 // without it the call is not compiled, whose saved registers spilled).
 // Each pair goes into B (with B^T off the diagonal); returns the largest
-// |B| entry of the cluster.
-template <bool ADAPT, bool MERGED, bool MULTI, class Src, class A>
+// |B| entry of the cluster.  A0_ONLY (kernel 2's cold sweep): the Gram of
+// A0 with no X scratch.
+template <bool ADAPT, bool MERGED, bool MULTI, bool A0_ONLY = false,
+          class Src, class A>
 __device__ __forceinline__ float pcl_sweep(const Src& src, PclWork<A>& w,
                                            WideGram<128>& g, float step,
                                            float s, bool from_x) {
@@ -922,11 +977,11 @@ __device__ __forceinline__ float pcl_sweep(const Src& src, PclWork<A>& w,
   // every block is done with the last power step's reads of this block's B
   // and B^2, whose places the tiles take
   cl.sync();
-  pcl_pass<ADAPT, MERGED>(src, w, g, step, s, MERGED || from_x,
-                          MERGED || !from_x);
+  pcl_pass<ADAPT, MERGED, A0_ONLY>(src, w, g, step, s, MERGED || from_x,
+                                   MERGED || !from_x);
   float m = pcl_store(w, g, w.rank);
   if constexpr (MULTI)
-    if (w.held > 1) m = fmaxf(m, pcl_later_pairs(src, w));
+    if (w.held > 1) m = fmaxf(m, pcl_later_pairs<A0_ONLY>(src, w));
   m = panel_max(w.red(), m);
   if (threadIdx.x == 0) *w.pmax() = m;
   cl.sync();  // B and its largest entries are published
@@ -991,12 +1046,94 @@ static __device__ __noinline__ void pcl_matvec(int p, int T, const float* m0,
   __syncthreads();
 }
 
-template <class A>
-__device__ __forceinline__ void pcl_matvec(const PclWork<A>& w, bool two,
+// The shared matvec: rows P * 128 .. of y = (scale M) x into yo[i - P *
+// 128], by block P, two threads a row: thread t < 128 sums over the first
+// ceil(T / 2) panels of columns, t >= 128 over the rest, each in column
+// order j, and row i is the first sum plus the second.  Every read goes down
+// a column of the pair that holds the entries, a warp's threads on
+// consecutive addresses: pair (J, P) for J <= P (a diagonal pair is
+// symmetric), and for J > P the transpose of pair (P, J), B^T or (two) B^2's;
+// where it holds no transpose (`bt_ok` false: a block of one pair that keeps
+// B^2's in its place), along a row of pair (P, J) of B.  `half`: 128 floats
+// of the block's scratch.  Compiled once, out of line, so its arguments are
+// values.  Ends with a barrier: yo is visible.
+static __device__ __noinline__ void pcl_matvec_rows(
+    int p, int T, int P, const float* m0, const float* m1, const float* mt,
+    const float* ws, int npairs, bool two, bool bt_ok, float scale,
+    const float* x, float* yo, float* half) {
+  constexpr int R = DN_PANEL_ROWS, LD = DN_PANEL_LD;
+  cg::cluster_group cl = cg::this_cluster();
+  const int t = threadIdx.x, ii = t & (R - 1), h = t >> 7;
+  const int i = P * R + ii, Jm = (T + 1) / 2;
+  // (PclWork::pair and pair_t, from values; B^2's transpose after B^T's)
+  const auto pair = [&](int e, bool b2) -> const float* {
+    if (ws != nullptr)
+      return ws + (size_t)((b2 ? npairs : 0) + e) * DN_PCL_PAIR;
+    return cl.map_shared_rank(b2 ? m1 : m0, e);
+  };
+  const auto pair_t = [&](int e, bool b2) -> const float* {
+    if (ws != nullptr)
+      return ws + (size_t)2 * npairs * DN_PCL_PAIR +
+             (size_t)((b2 ? npairs : 0) + e) * R * R;
+    return cl.map_shared_rank(mt, e);
+  };
+  float v = 0.f;
+  if (i < p) {
+    for (int J = h ? Jm : 0; J < (h ? T : Jm); ++J) {
+      const int n = p - J * R < R ? p - J * R : R;
+      const float* xj = x + J * R;
+      if (J <= P) {
+        const float* m = pair(dn_pcl_index(T, J, P), two) + ii;
+#pragma unroll 32
+        for (int jj = 0; jj < n; ++jj) v = fmaf(m[jj * LD] * scale, xj[jj], v);
+      } else if (two || bt_ok) {
+        const float* m = pair_t(dn_pcl_index(T, P, J), two);
+#pragma unroll 32
+        for (int jj = 0; jj < n; ++jj)
+          v = fmaf(m[jj * R + (ii ^ (jj >> 3))] * scale, xj[jj], v);
+      } else {
+        const float* m = pair(dn_pcl_index(T, P, J), false) + ii * LD;
+#pragma unroll 16
+        for (int jj = 0; jj < n; ++jj) v = fmaf(m[jj] * scale, xj[jj], v);
+      }
+    }
+  }
+  if (h) half[ii] = v;
+  __syncthreads();
+  if (!h && i < p) yo[ii] = v + half[ii];
+  __syncthreads();
+}
+
+// y = (scale M) x: every row in every block (pcl_matvec above), or where
+// the blocks share the power step (w.shared: each panel has a block, block P
+// its panel P) this block's panel's rows (pcl_matvec_rows) into its
+// published half of ypub, one cluster barrier, and every block's whole y
+// copied from the T blocks in panel order.  A half is written again two
+// matvecs later, after the next one's barrier, by which every block has
+// copied it.  `bt_ok`: see pcl_matvec_rows.  SHARE: the kernel's blocks
+// may share the power step (kernels 2 and 4; kernels 1 and 3 never do, and
+// compile no shared path).  Ends with a barrier: y is visible.
+template <bool SHARE, class A>
+__device__ __forceinline__ void pcl_matvec(PclWork<A>& w, bool two,
                                            float scale, const float* x,
-                                           float* y) {
-  pcl_matvec(w.p, w.T, w.tile(0), w.tile(1), w.bst(), w.ws, w.npairs, two,
-             scale, x, y);
+                                           float* y, bool bt_ok = true) {
+  constexpr int R = DN_PANEL_ROWS;
+  if (!SHARE || !w.shared) {
+    pcl_matvec(w.p, w.T, w.tile(0), w.tile(1), w.bst(), w.ws, w.npairs, two,
+               scale, x, y);
+    return;
+  }
+  const int par = (w.npow & 1) * R;
+  ++w.npow;
+  if (w.rank < w.T)
+    pcl_matvec_rows(w.p, w.T, w.rank, w.tile(0), w.tile(1), w.bst(), w.ws,
+                    w.npairs, two, bt_ok, scale, x, w.ypub() + par,
+                    w.vpart());
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every panel's rows are published
+  for (int i = threadIdx.x; i < w.p; i += DN_WIDE_THREADS)
+    y[i] = cl.map_shared_rank(w.ypub(), i / R)[par + i % R];
+  __syncthreads();
 }
 
 // This block's pairs of B^2 of the normalised Gram: Bn Bn = sum over B's
@@ -1004,14 +1141,23 @@ __device__ __forceinline__ void pcl_matvec(const PclWork<A>& w, bool two,
 // column of the pair that holds them, or of its B^T) and staged DN_PCL_BT
 // at a time in tile 1, then each pair into B^2 (tile 1 where a block holds
 // one pair, else the workspace); ends with a cluster barrier (B^2
-// published).  Compiled once, out of line, with its own register tile (its
-// reads across the cluster beside a kernel's own registers spilled), so
-// its arguments are values: the block's shared memory S (PclWork) and the
-// cluster's workspace.
+// published).  `tr` (the blocks share the power step): each off-diagonal
+// pair's transpose too, swizzled as B^T's, for reads down its columns: in
+// the workspace after B^T's, from the register tile, or where a block holds
+// one pair in B^T's place once every block is done reading B (one more
+// cluster barrier), from the register tile or (T_SMEM) from B^2's pair in
+// the second tile.  (Kernel 2 takes T_SMEM, kernel 4 not: the other way
+// each spilled registers; kernel 4 shares the power step only where a block
+// holds several pairs.)  TR: `tr` may be true (kernels 1 and 3 compile no
+// transposes).  Compiled once a (TR, T_SMEM), out of line, with its own
+// register tile (its reads across the cluster beside a kernel's own
+// registers spilled), so its arguments are values: the block's shared
+// memory S (PclWork) and the cluster's workspace.
+template <bool TR, bool T_SMEM>
 static __device__ __noinline__ void pcl_square(int p, int T, int C, int rank,
                                                int held, int npairs,
                                                float* S, float* ws,
-                                               float inv) {
+                                               float inv, bool tr) {
   constexpr int BT = DN_PCL_BT, LD = DN_PANEL_LD, R = DN_PANEL_ROWS;
   cg::cluster_group cl = cg::this_cluster();
   const int t = threadIdx.x, kk = t & (BT - 1), r0 = (t / BT) * (R / 8);
@@ -1027,13 +1173,25 @@ static __device__ __noinline__ void pcl_square(int p, int T, int C, int rank,
       return ws + (size_t)2 * npairs * DN_PCL_PAIR + (size_t)e * R * R;
     return cl.map_shared_rank(S + 2 * DN_PCL_PAIR, e);
   };
+  // B^2's transpose of pair e from the register tile, as pcl_store's B^T
+  const auto store_t = [&](const WideGram<128>& gg, float* Bt) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int s2 = 0; s2 < 8; ++s2) {
+        const int jj = gg.tx * 8 + s2, ii = gg.ty * 8 + r;
+        Bt[jj * R + (ii ^ (jj >> 3))] = gg.acc[r][s2];
+      }
+  };
   WideGram<128> g;
+  bool off = false;  // this block's last pair is off the diagonal
   for (int h = 0; h < held; ++h) {
     const int e = rank + h * C;
     if (e >= npairs) break;
     int I, J;
     dn_pcl_pair(T, e, I, J);
     const int nb = I == J ? 1 : 2;
+    off = I != J;
     g.zero();
     for (int k0 = 0; k0 < p; k0 += BT) {
       const int k = k0 + kk, K = k / R, kr = k % R;
@@ -1062,14 +1220,30 @@ static __device__ __noinline__ void pcl_square(int p, int T, int C, int rank,
       __syncthreads();
     }
     g.store(ws != nullptr ? ws + (size_t)(npairs + e) * DN_PCL_PAIR : SI);
+    if (TR && tr && off && ws != nullptr)
+      store_t(g, ws + (size_t)2 * npairs * DN_PCL_PAIR +
+                     (size_t)(npairs + e) * R * R);
   }
   cl.sync();
+  if (TR && tr && ws == nullptr) {
+    // every block has read B^T: its place takes B^2's
+    if (off && !T_SMEM) store_t(g, S + 2 * DN_PCL_PAIR);
+    if (off && T_SMEM) {
+      float* Bt = S + 2 * DN_PCL_PAIR;
+      for (int k = t; k < R * R; k += DN_WIDE_THREADS) {
+        const int jj = k / R, ii = k % R;
+        Bt[jj * R + (ii ^ (jj >> 3))] = SI[ii * LD + jj];
+      }
+    }
+    cl.sync();
+  }
 }
 
 // The power step on the cluster's B (published, largest entry bmax), from
 // u to the refit u, as panel_refit: every block runs it on the same
-// numbers, so u and s are the same in every block.
-template <class A>
+// numbers, so u and s are the same in every block.  SHARE: pcl_matvec's;
+// T_SMEM: pcl_square's.
+template <bool SHARE = false, bool T_SMEM = false, class A>
 __device__ __forceinline__ void pcl_refit(PclWork<A>& w, float bmax,
                                           int n_squared, int n_plain,
                                           bool finish, float& s) {
@@ -1078,22 +1252,26 @@ __device__ __forceinline__ void pcl_refit(PclWork<A>& w, float bmax,
     const float* x = w.u();
     for (int it = 0; it < n_plain; ++it) {
       float* y = (it & 1) ? w.vb() : w.va();
-      pcl_matvec(w, false, inv, x, y);
+      pcl_matvec<SHARE>(w, false, inv, x, y);
       x = y;
     }
     panel_renormalize(w.red(), w.p, x, w.u());
   } else {
-    pcl_square(w.p, w.T, w.C, w.rank, w.held, w.npairs, w.S, w.ws, inv);
+    pcl_square<SHARE, T_SMEM>(w.p, w.T, w.C, w.rank, w.held, w.npairs, w.S,
+                              w.ws, inv, SHARE && w.shared);
     int n_bodies = n_squared / 4;
     if (n_bodies < 1) n_bodies = 1;
     for (int it = 0; it < n_bodies; ++it) {
-      pcl_matvec(w, true, 1.f, w.u(), w.va());
-      pcl_matvec(w, true, 1.f, w.va(), w.vb());
+      pcl_matvec<SHARE>(w, true, 1.f, w.u(), w.va());
+      pcl_matvec<SHARE>(w, true, 1.f, w.va(), w.vb());
       panel_renormalize(w.red(), w.p, w.vb(), w.u());
     }
   }
   if (finish) {
-    pcl_matvec(w, false, 1.f, w.u(), w.va());
+    // (B^T's place holds B^2's where the blocks share the power step and a
+    // block holds one pair)
+    pcl_matvec<SHARE>(w, false, 1.f, w.u(), w.va(),
+                      n_plain > 0 || !w.shared || w.ws != nullptr);
     float ubu = 0.f;
     for (int j = threadIdx.x; j < w.p; j += DN_WIDE_THREADS)
       ubu = fmaf(w.u()[j], w.va()[j], ubu);
@@ -1105,10 +1283,12 @@ __device__ __forceinline__ void pcl_refit(PclWork<A>& w, float bmax,
 // panel_core (its ADAPT and from_x branches and results), X in w.X: every
 // block calls it with the same gene, u starts in each block's u() and comes
 // back refit there, the same in every block (MULTI: see pcl_sweep; a
-// kernel whose blocks may hold several pairs); E is stored by block 0
+// kernel whose blocks may hold several pairs; SHARE: see pcl_matvec, kernel
+// 4, whose blocks share the power step past T = 5); E is stored by block 0
 // (visible to the cluster on return).  `src` as wide_core's, but for X.
 // Returns this thread's share of sum_w E[w], the same in every block.
-template <bool ADAPT, bool MULTI = false, class Src, class A>
+template <bool ADAPT, bool MULTI = false, bool SHARE = false, class Src,
+          class A>
 __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
                                           float& s, int nmf_iter,
                                           int power_cold, int power_warm,
@@ -1122,7 +1302,7 @@ __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
   WideGram<128> g;
   s = 0.f;
   float bmax = pcl_sweep<ADAPT, false, MULTI>(src, w, g, step, s, from_x);
-  pcl_refit(w, bmax, power_cold, 0, ADAPT || nmf_iter == 0, s);
+  pcl_refit<SHARE>(w, bmax, power_cold, 0, ADAPT || nmf_iter == 0, s);
 
   int ran = nmf_iter;
   for (int it = 0; it < nmf_iter; ++it) {
@@ -1131,7 +1311,7 @@ __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
       const float s_old = s;
       for (int i = t; i < w.np; i += DN_WIDE_THREADS) w.uo()[i] = w.u()[i];
       __syncthreads();
-      pcl_refit(w, bmax, power_warm, warm_plain, true, s);
+      pcl_refit<SHARE>(w, bmax, power_warm, warm_plain, true, s);
       float delta = 0.f, ref = 0.f;
       for (int j = t; j < w.p; j += DN_WIDE_THREADS) {
         const float k_new = __fmul_rn(w.u()[j], s);
@@ -1145,7 +1325,8 @@ __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
         break;
       }
     } else {
-      pcl_refit(w, bmax, power_warm, warm_plain, it == nmf_iter - 1, s);
+      pcl_refit<SHARE>(w, bmax, power_warm, warm_plain, it == nmf_iter - 1,
+                       s);
     }
   }
   if (n_run != nullptr) *n_run = ran;
@@ -1172,25 +1353,26 @@ __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
   return se;
 }
 
-// Launch of a cluster kernel at p: dn_pcl_size(p) blocks a cluster,
-// `smem_floats` floats of dynamic shared memory a block, as many clusters
-// as the card holds at once (cudaOccupancyMaxActiveClusters; at most G, and
-// at most `slots` where its blocks hold several pairs: the workspace's),
-// each working through the genes blockIdx.x / C, + gridDim.x / C, ...  A
-// cluster the card cannot hold is an error, never a fallback.  Returns the
-// CUDA error, 0 on success.
-template <class Kern, class... Args>
-int launch_pcl(Kern kern, int G, int p, int slots, size_t smem_floats,
-               cudaStream_t st, Args... args) {
-  if (p < DN_PANEL_MIN_P || p > DN_PCL_MAX_P) return (int)cudaErrorInvalidValue;
-  if (G == 0) return 0;
+// The launch of a cluster kernel at p, as launch_pcl makes it (dn_pcl_size(p)
+// blocks a cluster, a non-portable size asked for as such past
+// DN_PCL_PORTABLE, `smem_floats` floats of dynamic shared memory a block),
+// and the clusters the card holds at once (cudaOccupancyMaxActiveClusters)
+// into `fit`.  Returns the CUDA error, 0 on success.
+template <class Kern>
+int pcl_occupancy(Kern kern, int p, size_t smem_floats,
+                  cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                  int& fit) {
   const int C = dn_pcl_size(p);
   const size_t dyn = sizeof(float) * smem_floats;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
+  if (C > DN_PCL_PORTABLE) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cfg = {};
   cfg.gridDim = dim3((unsigned)C, 1, 1);
   cfg.blockDim = dim3(DN_WIDE_THREADS, 1, 1);
   cfg.dynamicSmemBytes = dyn;
@@ -1200,8 +1382,28 @@ int launch_pcl(Kern kern, int G, int p, int slots, size_t smem_floats,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  fit = 0;
+  return (int)cudaOccupancyMaxActiveClusters(&fit, (const void*)kern, &cfg);
+}
+
+// Launch of a cluster kernel of `kind` (DN_PCL_LOOP or DN_PCL_STREAM) at p:
+// pcl_occupancy's launch, as many clusters as the card holds at once (at
+// most G, and at most `slots` where its blocks hold several pairs: the
+// workspace's), each working through the genes blockIdx.x / C, + gridDim.x
+// / C, ...  A p outside the kind's cluster layout, or a cluster the card
+// cannot hold, is an error, never a fallback.  Returns the CUDA error, 0 on
+// success.
+template <class Kern, class... Args>
+int launch_pcl(Kern kern, int kind, int G, int p, int slots,
+               size_t smem_floats, cudaStream_t st, Args... args) {
+  if (!dn_pcl_on(p, kind)) return (int)cudaErrorInvalidValue;
+  if (G == 0) return 0;
+  const int C = dn_pcl_size(p);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
   int fit = 0;
-  e = cudaOccupancyMaxActiveClusters(&fit, (const void*)kern, &cfg);
+  cudaError_t e = (cudaError_t)pcl_occupancy(kern, p, smem_floats, cfg, attr,
+                                             fit);
   if (e != cudaSuccess) return (int)e;
   if (fit < 1) return (int)cudaErrorInvalidConfiguration;
   if (dn_pcl_held(p) > 1) {

@@ -367,8 +367,8 @@ struct RatioArgs {
   float* est;
   int G, p, W, power_cold, cl, threads, stage_kb;
   cudaStream_t st;
-  float* ws = nullptr;  // p > 128: the panel instance's workspace,
-  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
+  float* ws = nullptr;  // p > 128: the panel instance's workspace (ratio.cu)
+  int ws_slots = 0;
 };
 
 template <bool I16>

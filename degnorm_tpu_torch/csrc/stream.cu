@@ -5,8 +5,11 @@
 // X: (G, p, W) float32 scratch.  cl: blocks a gene, 1, 2, 4 or 8.  threads:
 // a multiple of 32, at most 512 (256 for p > 8; exactly 256 for p > 32, the
 // wide instances of stream_wide.cuh).  p > 128 takes the panel instance
-// (stream_panel.cu: cl 1), which also takes ws: ws_slots workspaces of
-// dn_panel_ws_floats(p) floats (null and 0 below).
+// (stream_panel.cu: cl 1), which also takes ws: on its cluster layout (p <=
+// DN_PCL_MAX_P_STREAM) ws_slots workspaces of dn_pcl_ws_floats(p) floats,
+// one a cluster in flight, where a block holds several pairs (else null),
+// above it ws_slots of dn_panel_ws_floats(p), one a block (null and 0 below
+// 129).
 extern "C" int dn_nmf_streamed(const void* F, int f_is_i16,
                                const uint8_t* mask, const uint8_t* act,
                                const float* scale, const float* u0, float* X,

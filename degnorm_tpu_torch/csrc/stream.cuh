@@ -395,8 +395,8 @@ struct StreamArgs {
   float* u;
   int G, p, W, nmf_iter, power_cold, power_warm, warm_plain, cl, threads;
   cudaStream_t st;
-  float* ws = nullptr;  // p > 128: the panel instance's workspace,
-  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
+  float* ws = nullptr;  // p > 128: the panel instance's workspace (stream.cu)
+  int ws_slots = 0;
 };
 
 // One translation unit an (PMAX, input form): stream_p<PMAX>_<f32|i16>.cu.
@@ -424,6 +424,6 @@ int dn_stream_p32_i16(const StreamArgs& a);
 // stream_wide_i16.cu), whose block is DN_WIDE_THREADS threads
 int dn_stream_wide_f32(const StreamArgs& a);
 int dn_stream_wide_i16(const StreamArgs& a);
-// the instances for p > 128 (stream_panel.cu: panel.cuh's core, a block a
-// gene), both forms
+// the instances for p > 128 (stream_panel.cu: panel.cuh's cores, a cluster
+// or a block a gene), both forms
 int dn_stream_panel(const StreamArgs& a);

@@ -10,10 +10,13 @@
 // forms and results: int16 + scale takes stream.cuh's scaled_i16, the IEEE
 // quotient, so that it gives the float32 form's bits.  Bound on this card:
 // float32 operations (panel.cuh).  Two layouts:
-//   * p <= DN_PCL_MAX_P (nmf_stream_panel_kernel): a CLUSTER of blocks a
-//     gene, one panel pair a block (panel.cuh's pcl_core), clusters working
-//     through the genes; each tile of X and A0 is copied once a sweep into
-//     the blocks that need its rows, B lives in the cluster's shared memory;
+//   * p <= DN_PCL_MAX_P_STREAM (nmf_stream_panel_kernel): a CLUSTER of
+//     blocks a gene, its panel pairs over the blocks (panel.cuh's pcl_core;
+//     past 640 samples T blocks, which share the power step), clusters
+//     working through the genes; each tile of X and A0 is copied once a
+//     sweep into the blocks that need its rows, B lives in the cluster's
+//     shared memory where a block holds one pair, else in its slot of the
+//     workspace;
 //   * above (nmf_stream_panel_block_kernel): one block a gene at a time,
 //     panel_core, B and B^2 in the block's slot of the workspace.
 // X in the global scratch; the gene's columns are swept up to its last
@@ -173,8 +176,9 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
     w.X = Xscratch + g * W * w.ldx;
 
     float s;
-    pcl_core<false, true>(src, w, s, nmf_iter, power_cold, power_warm,
-                          warm_plain);
+    // (its blocks share the power step past T = 5)
+    pcl_core<false, true, true>(src, w, s, nmf_iter, power_cold, power_warm,
+                                warm_plain);
     if (rank == 0) {
       for (int l = nch * CH + tid; l < W; l += nt) Eg[l] = 0.f;
       for (int i = tid; i < p; i += nt) {
@@ -189,11 +193,12 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
 int dn_stream_panel(const StreamArgs& a) {
   if (a.threads != DN_WIDE_THREADS || a.cl != 1 || a.p < DN_PANEL_MIN_P)
     return (int)cudaErrorInvalidValue;
-  if (a.p <= DN_PCL_MAX_P) {
+  if (dn_pcl_on(a.p, DN_PCL_STREAM)) {
     // blocks of several pairs keep them in the workspace
     if (dn_pcl_held(a.p) > 1 && a.ws == nullptr)
       return (int)cudaErrorInvalidValue;
 #define DN_STREAM_PCL_ARGS                                                    \
+  DN_PCL_STREAM,                                                              \
   a.G, a.p, a.ws_slots, (size_t)dn_pcl_smem_floats(a.p), a.st, a.F, a.mask,   \
       a.act, a.scale, a.u0, a.X, a.K, a.E, a.u, a.G, a.p, a.W, a.nmf_iter,    \
       a.power_cold, a.power_warm, a.warm_plain,                               \
@@ -214,4 +219,20 @@ int dn_stream_panel(const StreamArgs& a) {
   return launch_panel(nmf_stream_panel_block_kernel<false>,
                       DN_STREAM_PANEL_ARGS);
 #undef DN_STREAM_PANEL_ARGS
+}
+
+// The clusters the card holds at once of kernel 4 at p on the cluster layout
+// (its int16 + scale instance where f_is_i16, else its float32 one), or a
+// negative CUDA error: what launch_pcl launches at most.
+extern "C" int dn_stream_panel_clusters(int p, int f_is_i16) {
+  if (!dn_pcl_on(p, DN_PCL_STREAM)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int fit = 0;
+  const size_t smem = (size_t)dn_pcl_smem_floats(p);
+  const int e = f_is_i16 ? pcl_occupancy(nmf_stream_panel_kernel<true>, p,
+                                         smem, cfg, attr, fit)
+                         : pcl_occupancy(nmf_stream_panel_kernel<false>, p,
+                                         smem, cfg, attr, fit);
+  return e != 0 ? -e : fit;
 }

@@ -484,11 +484,12 @@ int dn_trim_panel(const TrimArgs& a, int mode) {
   if (a.threads != DN_WIDE_THREADS || a.B > DN_MAX_BINS ||
       a.p < DN_PANEL_MIN_P)
     return (int)cudaErrorInvalidValue;
-  if (a.p <= DN_PCL_MAX_P) {
+  if (dn_pcl_on(a.p, DN_PCL_LOOP)) {
     // blocks of several pairs keep them in the workspace
     if (dn_pcl_held(a.p) > 1 && a.ws == nullptr)
       return (int)cudaErrorInvalidValue;
 #define DN_TRIM_PCL_ARGS                                                      \
+  DN_PCL_LOOP,                                                                \
   a.G, a.p, a.ws_slots, (size_t)dn_pcl_smem_floats(a.p) + a.W, a.stream,      \
       a.Fm, a.bin_id, a.bin_count, a.K0, a.E, a.rho0, a.u0, a.n_hi, a.n_bins, \
       a.active0, a.X, a.colmask, a.K, a.rho, a.ran_bs, a.rounds_active,       \

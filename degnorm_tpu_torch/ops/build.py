@@ -66,6 +66,10 @@ _SIGNATURES = {
     "dn_nmf_streamed": [_P, _I] + [_P] * 8 + [_I] * 9 + [_P, _I, _P],
     # p, W, out (4 int32): the resident core's geometry (wide_res.cuh)
     "dn_res_geometry": [_I, _I, _P],
+    # p, f_is_i16: the clusters the card holds at once of kernels 4 and 2 on
+    # the cluster layout (stream_panel.cu, ratio_panel.cu)
+    "dn_stream_panel_clusters": [_I, _I],
+    "dn_ratio_panel_clusters": [_I, _I],
     # raw, scale, out, n, p, stream
     "dn_scaled_quotients": [_P, _P, _P, _I, _I, _P],
     # kernel 4c (and 2c's first launch): F, f_is_i16, mask, act, scale, X,

@@ -32,6 +32,9 @@ ratio_wide_launches = 0
 nmf_panel_launches = 0
 nmf_panel_tol_launches = 0
 ratio_panel_launches = 0
+# ... of them, kernel 2's on its cluster layout (``panel_cluster(p,
+# "stream")``)
+ratio_panel_cluster_launches = 0
 # kernel 2c (the column-sharded ratio-SVD row sums): both of its launches
 ratio_cols_launches = 0
 
@@ -52,9 +55,9 @@ ratio_cols_launches = 0
 # (csrc/wide.cuh: the Gram in shared memory and the power step the block's,
 # a block of WIDE_THREADS threads), p above WIDE_MAX_P their panel instance
 # (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS, on a cluster of
-# blocks a gene for kernels 1, 3 and 4 up to PCL_MAX_P, ``panel_cluster``,
-# else in a workspace in device memory, ``panel_workspace``); kernels 4c
-# and 2c have neither and
+# blocks a gene for kernels 1 and 3 up to PCL_MAX_P and kernels 2 and 4 up
+# to PCL_MAX_P_STREAM, ``panel_cluster``, else in a workspace in device
+# memory, ``panel_workspace``); kernels 4c and 2c have neither and
 # stop at COLS_MAX_P (the engine gene-shards such a bucket:
 # ``engine.DegNormEngine.column_sharded``).
 NARROW_MAX_P = 32
@@ -265,48 +268,69 @@ def panel_workspace(G: int, p: int, device):
 def panel_workspace_bytes(p: int, device: torch.device) -> int:
     """Bytes of the largest panel workspace a launch at p takes on
     ``device``: what the engine's memory guard sets aside on a card (0 at
-    p <= WIDE_MAX_P and off a card, where the plain versions run): kernel
-    2's at every p > WIDE_MAX_P (kernels 1, 3 and 4 take one of its size
-    above the cluster layout, ``kernel_workspace``), or theirs on the
-    cluster layout where a block holds several pairs."""
+    p <= WIDE_MAX_P and off a card, where the plain versions run): the
+    largest of ``kernel_workspace``'s over both kinds of kernel, the block
+    layout's above a kind's cluster layout, the cluster layout's where a
+    block holds several pairs (none where it holds one)."""
     if p <= WIDE_MAX_P or device.type != "cuda":
         return 0
     sms = panel_slots(1 << 30, device)
-    cluster = (sms // pcl_size(p) * pcl_ws_floats(p)
-               if panel_cluster(p) else 0)
-    return 4 * max(sms * panel_ws_floats(p), cluster)
+    return 4 * max(sms // pcl_size(p) * pcl_ws_floats(p)
+                   if panel_cluster(p, kind) else sms * panel_ws_floats(p)
+                   for kind in PCL_KINDS)
 
 
-# The cluster layout of the panel instances of kernels 1, 3 and 4 (mirror
-# of csrc/panel.cuh's pcl_* code): for WIDE_MAX_P < p <= PCL_MAX_P a gene's
-# T = pmax_of(p) / PANEL_ROWS row panels give T(T+1)/2 panel pairs over a
-# cluster of at most PCL_MAX_C blocks (``pcl_size``), ``pcl_held`` pairs a
-# block, the diagonal pairs first.  Where a block holds one pair (T = 2) B
-# and B^2 live in the cluster's shared memory and the launch takes no
-# workspace; where it holds several, in a workspace a cluster in flight
-# (``pcl_ws_floats``).  Above PCL_MAX_P they keep the block-a-gene layout
-# and its workspace (``panel_workspace``).
+# The cluster layout of the panel instances (mirror of csrc/panel.cuh's
+# pcl_* code): for WIDE_MAX_P < p <= ``pcl_max_p(kind)`` a gene's T =
+# pmax_of(p) / PANEL_ROWS row panels give T(T+1)/2 panel pairs over a
+# cluster (``pcl_size``: at most PCL_MAX_C blocks up to T = PCL_MAX_C, T
+# blocks past it), ``pcl_held`` pairs a block, the diagonal pairs first.
+# Where a block holds one pair (T = 2) B and B^2 live in the cluster's
+# shared memory and the launch takes no workspace; where it holds several,
+# in a workspace a cluster in flight (``pcl_ws_floats``).  Past T =
+# PCL_MAX_C the blocks share the power step's matvecs
+# (``pcl_shared_power``).  The cut is a rule by kind (``pcl_max_p``):
+# kernels 1 and 3 ("loop") at PCL_MAX_P, kernels 2 and 4 ("stream") at
+# PCL_MAX_P_STREAM (a cluster of 9, not portable, past 1,024); above it a
+# kind keeps the block-a-gene layout and its workspace (``panel_workspace``).
 PCL_MAX_P = 640
+PCL_MAX_P_STREAM = 1152
+PCL_KINDS = ("loop", "stream")
 PCL_NX = 2      # p-vectors of the kernel's own
-# most blocks of a cluster: an H100 holds 39 clusters of 3 at once but 7 of
-# 10 or 15 (a cluster's blocks on one of its GPCs, an SM a block)
+# most blocks of a cluster up to T = PCL_MAX_C: an H100 holds 39 clusters of
+# 3 at once but 7 of 10 or 15 (a cluster's blocks on one of its GPCs, an SM
+# a block); the largest portable cluster
 PCL_MAX_C = 5
+PCL_PORTABLE = 8
 
 
-def panel_cluster(p: int) -> bool:
-    """True where kernels 1, 3 and 4 run p on the cluster layout."""
-    return WIDE_MAX_P < p <= PCL_MAX_P
+def pcl_max_p(kind: str) -> int:
+    """Most p of a kind's cluster layout (``dn_pcl_max_p``): "loop" for
+    kernels 1 and 3, "stream" for kernels 2 and 4."""
+    return {"loop": PCL_MAX_P, "stream": PCL_MAX_P_STREAM}[kind]
+
+
+def panel_cluster(p: int, kind: str) -> bool:
+    """True where the kernels of ``kind`` run p on the cluster layout
+    (``dn_pcl_on``)."""
+    return WIDE_MAX_P < p <= pcl_max_p(kind)
+
+
+def pcl_T(p: int) -> int:
+    """Row panels of a gene at p (``dn_pcl_T``)."""
+    return pmax_of(p) // PANEL_ROWS
 
 
 def pcl_pairs(p: int) -> int:
     """Panel pairs of a gene at p (``dn_pcl_pairs``)."""
-    T = pmax_of(p) // PANEL_ROWS
+    T = pcl_T(p)
     return T * (T + 1) // 2
 
 
 def pcl_held(p: int) -> int:
-    """Pairs a block of the cluster holds (``dn_pcl_held``)."""
-    return -(-pcl_pairs(p) // PCL_MAX_C)
+    """Pairs a block of the cluster holds (``dn_pcl_held``): the pairs over
+    PCL_MAX_C blocks, or past T = PCL_MAX_C over T."""
+    return -(-pcl_pairs(p) // max(pcl_T(p), PCL_MAX_C))
 
 
 def pcl_size(p: int) -> int:
@@ -315,13 +339,21 @@ def pcl_size(p: int) -> int:
     return -(-pcl_pairs(p) // pcl_held(p))
 
 
+def pcl_shared_power(p: int) -> bool:
+    """True where the blocks of kernel 4's cluster share the power step's
+    matvecs, a panel of rows each (``dn_pcl_shared_power``: past T =
+    PCL_MAX_C); kernel 2's share them at every p."""
+    return pcl_T(p) > PCL_MAX_C
+
+
 def pcl_ws_floats(p: int) -> int:
-    """Floats of a cluster's workspace (``dn_pcl_ws_floats``): B, B^2 and
-    B^T of every pair where a block holds several, else 0."""
+    """Floats of a cluster's workspace (``dn_pcl_ws_floats``): B, B^2, B^T
+    and B^2's transpose of every pair where a block holds several, else
+    0."""
     if pcl_held(p) == 1:
         return 0
     return pcl_pairs(p) * (2 * PANEL_ROWS * (PANEL_ROWS + 4)
-                           + PANEL_ROWS * PANEL_ROWS)
+                           + 2 * PANEL_ROWS * PANEL_ROWS)
 
 
 def pcl_pair(T: int, e: int) -> Tuple[int, int]:
@@ -342,12 +374,13 @@ def pcl_smem_bytes(p: int) -> int:
     """Dynamic shared memory of a block of the cluster layout
     (``dn_pcl_smem_floats``): two tiles (after a sweep B and B^2), the
     copies of A0 (two slots of int16 or one of float32; B^2's staging in
-    the power step), the v partials, the published partials, scratch and
-    4 + PCL_NX p-vectors."""
+    the power step), the v partials, the published partials, scratch,
+    4 + PCL_NX p-vectors and the published rows of a shared matvec (two
+    panels)."""
     pair = PANEL_ROWS * (PANEL_ROWS + 4)
     stage_a = 2 * PANEL_ROWS * 64
     return 4 * (2 * pair + stage_a + 6 * 64 + 32 + 4
-                + (4 + PCL_NX) * pmax_of(p))
+                + (4 + PCL_NX) * pmax_of(p) + 2 * PANEL_ROWS)
 
 
 def pcl_ldx(p: int) -> int:
@@ -357,24 +390,26 @@ def pcl_ldx(p: int) -> int:
     return -(-p // 4) * 4
 
 
-def scratch_shape(G: int, p: int, W: int) -> Tuple[int, int, int]:
-    """Shape of kernels 1, 3 and 4's X scratch at (G, p, W): (G, W,
-    pcl_ldx(p)) on the cluster layout, else (G, p, W)."""
-    return (G, W, pcl_ldx(p)) if panel_cluster(p) else (G, p, W)
+def scratch_shape(G: int, p: int, W: int,
+                  kind: str) -> Tuple[int, int, int]:
+    """Shape of the X scratch of kernel 4 (``kind`` "stream") or of kernels
+    1 and 3 ("loop") at (G, p, W): (G, W, pcl_ldx(p)) on the kind's cluster
+    layout, else (G, p, W)."""
+    return (G, W, pcl_ldx(p)) if panel_cluster(p, kind) else (G, p, W)
 
 
 def loop_scratch_shape(G: int, p: int, W: int) -> Tuple[int, ...]:
     """Shape of kernels 1 and 3's X scratch: none where the resident core
     holds X in shared memory (``res_core``), else ``scratch_shape``."""
-    return (0,) if res_core(p) else scratch_shape(G, p, W)
+    return (0,) if res_core(p) else scratch_shape(G, p, W, "loop")
 
 
-def kernel_workspace(G: int, p: int, device):
-    """(workspace, slots) of a launch of kernel 1, 3 or 4 at p: on the
-    cluster layout ``pcl_ws_floats`` a cluster the card can hold at once
-    (one an SM a block; none where a block holds one pair), else
-    ``panel_workspace``."""
-    if not panel_cluster(p):
+def kernel_workspace(G: int, p: int, device, kind: str):
+    """(workspace, slots) of a launch at p of kernels 1 and 3 (``kind``
+    "loop") or 2 and 4 ("stream"): on the kind's cluster layout
+    ``pcl_ws_floats`` a cluster the card can hold at once (one an SM a
+    block; none where a block holds one pair), else ``panel_workspace``."""
+    if not panel_cluster(p, kind):
         return panel_workspace(G, p, device)
     if pcl_held(p) == 1 or G == 0:
         return None, 0
@@ -640,7 +675,7 @@ def nmf_masked_cuda(
     u = torch.empty((G, p), dtype=torch.float32, device=dev)
     if G == 0:
         return K, E, u
-    ws, slots = kernel_workspace(G, p, dev)
+    ws, slots = kernel_workspace(G, p, dev, "loop")
     loop = (int(nmf_iter), int(power_iters_cold), int(power_iters_warm),
             int(power_warm_plain), float(nmf_tol), _ptr(iters_out), threads)
     with torch.cuda.device(dev):
@@ -707,8 +742,9 @@ def ratio_rowsums_cuda(
     _geometry: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``ratio_rowsums_plain``'s signature
-    (csrc/ratio.cuh), at any width, on float32 coverage or the raw int16
-    upload as it is (the same bits as its float32 cast).  The kernel reads a
+    (csrc/ratio.cuh; p > 128 csrc/ratio_panel.cu, on kernel 4's layout), at
+    any width, on float32 coverage or the raw int16 upload as it is (the
+    same bits as its float32 cast).  The kernel reads a
     gene once and writes 2p floats, so a wide bucket costs it time and no
     memory.  A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel or raises.  ``bucket_genes``: as in ``nmf_masked_cuda``.
@@ -717,6 +753,7 @@ def ratio_rowsums_cuda(
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
     global ratio_launches, ratio_wide_launches, ratio_panel_launches
+    global ratio_panel_cluster_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_coverage_input(F, "ratio_rowsums_cuda", int16_ok=True)
     G, p, W = F.shape
@@ -727,7 +764,7 @@ def ratio_rowsums_cuda(
     est = torch.empty((G, p), dtype=torch.float32, device=F.device)
     if G == 0:
         return cov, est
-    ws, slots = panel_workspace(G, p, F.device)
+    ws, slots = kernel_workspace(G, p, F.device, "stream")
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_ratio_rowsums(
@@ -738,6 +775,7 @@ def ratio_rowsums_cuda(
     ratio_launches += 1
     if p > WIDE_MAX_P:
         ratio_panel_launches += 1
+        ratio_panel_cluster_launches += panel_cluster(p, "stream")
     elif p > NARROW_MAX_P:
         ratio_wide_launches += 1
     return cov, est

@@ -33,6 +33,8 @@ stream_launches = 0
 # cuda_nmf.WIDE_MAX_P: csrc/stream_panel.cu), in stream_launches too
 stream_wide_launches = 0
 stream_panel_launches = 0
+# ... of them, on the cluster layout (``cuda_nmf.panel_cluster(p, "stream")``)
+stream_panel_cluster_launches = 0
 colsharded_launches = 0
 colsharded_tol_launches = 0
 
@@ -187,9 +189,9 @@ def nmf_masked_streamed_cuda(
     Takes float32 coverage, or int16 coverage with or without ``scale``, of
     any width and any p >= 2 (p > 32 the wide instances of
     csrc/stream_wide.cuh, p > 128 the panel instance of
-    csrc/stream_panel.cu: up to ``cuda_nmf.PCL_MAX_P`` a cluster of blocks a
-    gene, above one block a gene with a workspace).  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel or raises.
+    csrc/stream_panel.cu: up to ``cuda_nmf.PCL_MAX_P_STREAM`` a cluster of
+    blocks a gene, above one block a gene with a workspace).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises.
 
     The launch geometry comes from ``pick_geometry``; results differ between
     geometries by float32 summation order alone and are the same bits for
@@ -203,6 +205,7 @@ def nmf_masked_streamed_cuda(
             power_warm_plain=power_warm_plain, gene_active=gene_active,
             u0=u0, scale=scale)
     global stream_launches, stream_wide_launches, stream_panel_launches
+    global stream_panel_cluster_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "nmf_masked_streamed_cuda"
     cuda_nmf.check_coverage_input(F, name, int16_ok=True)
@@ -231,7 +234,7 @@ def nmf_masked_streamed_cuda(
     # Scratch and converted inputs may be dropped as soon as this returns:
     # the caching allocator reuses a block only for work queued later on
     # this same stream, after the kernel.
-    X = torch.empty(cuda_nmf.scratch_shape(G, p, W), dtype=f32,
+    X = torch.empty(cuda_nmf.scratch_shape(G, p, W, "stream"), dtype=f32,
                     device=dev)  # scratch
     K = torch.empty((G, p), dtype=f32, device=dev)
     E = torch.empty((G, W), dtype=f32, device=dev)
@@ -239,7 +242,7 @@ def nmf_masked_streamed_cuda(
     if G == 0:
         return K, E, u
     ptr = cuda_nmf._ptr
-    ws, slots = cuda_nmf.kernel_workspace(G, p, dev)
+    ws, slots = cuda_nmf.kernel_workspace(G, p, dev, "stream")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_nmf_streamed(
@@ -252,6 +255,7 @@ def nmf_masked_streamed_cuda(
     stream_launches += 1
     if p > cuda_nmf.WIDE_MAX_P:
         stream_panel_launches += 1
+        stream_panel_cluster_launches += cuda_nmf.panel_cluster(p, "stream")
     elif p > cuda_nmf.NARROW_MAX_P:
         stream_wide_launches += 1
     return K, E, u

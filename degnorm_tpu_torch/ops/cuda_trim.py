@@ -372,7 +372,7 @@ def trim_loop_cuda(
     rounds_active = torch.empty((G,), dtype=i32, device=dev)
     if G == 0:
         return K, rho, ran_bs.bool(), rounds_active
-    ws, slots = cuda_nmf.kernel_workspace(G, p, dev)
+    ws, slots = cuda_nmf.kernel_workspace(G, p, dev, "loop")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_trim_loop(

@@ -1,9 +1,10 @@
-"""The cluster layout of the panel instances of kernels 1, 3 and 4 (p >
-128: csrc/panel.cuh's ``pcl_*`` code, csrc/nmf_panel.cu,
-csrc/stream_panel.cu, csrc/trim_panel.cu) against its Python mirror in
-ops/cuda_nmf.py: the cluster by p, the panel pairs and their order, each
-block's shared memory at every p from 129 to 1,000, the X scratch's
-layout, the workspaces and the engine's memory guard.
+"""The cluster layout of the panel instances of kernels 1-4 (p > 128:
+csrc/panel.cuh's ``pcl_*`` code, csrc/nmf_panel.cu, csrc/stream_panel.cu,
+csrc/trim_panel.cu, csrc/ratio_panel.cu) against its Python mirror in
+ops/cuda_nmf.py: the cut by kind of kernel, the cluster by p, the panel
+pairs and their order, each block's shared memory at every p from 129 to
+1,000, the X scratch's layout, the workspaces and the engine's memory
+guard (tests/test_torch_panelbig.py: past 640 samples).
 The kernels themselves run only on the card (``chip_smoke.py`` phase
 ``panels``); their arithmetic is the plain versions', which
 tests/test_torch_widep.py holds against the JAX package."""
@@ -23,7 +24,12 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "degnorm_tpu_torch", "csrc")
 SMEM_PER_BLOCK = 232448        # the H100's opt-in shared memory a block
 MAX_CLUSTER = 8                # the largest portable cluster
-STATIC = {"nmf": 0, "stream": 4, "trim": 12 * cuda_trim.MAX_BINS + 12}
+STATIC = {"nmf": 0, "stream": 4, "ratio": 0,
+          "trim": 12 * cuda_trim.MAX_BINS + 12}
+# the kind of each kernel: its cluster layout's cut (``pcl_max_p``)
+KIND = {"nmf": "loop", "trim": "loop", "stream": "stream", "ratio": "stream"}
+LAUNCH = {"nmf": "nmf_panel.cu", "trim": "trim_panel.cu",
+          "stream": "stream_panel.cu", "ratio": "ratio_panel.cu"}
 
 
 def _panel_src():
@@ -36,11 +42,10 @@ def _define(src, name):
 
 
 def _body(src, fn):
-    """The returned expression of a one-line C function of panel.cuh, as
-    Python."""
-    body = re.search(fn + r"\([^)]*\) \{\s*(?:const int (?:T = dn_pcl_T|h = "
-                     r"dn_pcl_held)\(p\);\s*)?return (.*?);\s*\}", src,
-                     re.S).group(1)
+    """The returned expression of a short C function of panel.cuh (at most
+    one ``const int`` before it), as Python."""
+    body = re.search(fn + r"\([^)]*\) \{\s*(?:const int \w+ = [^;]*;\s*)?"
+                     r"return (.*?);\s*\}", src, re.S).group(1)
     return " ".join(body.split())
 
 
@@ -55,25 +60,46 @@ def _c_eval(expr, **names):
 
 def test_cluster_mirror_matches_the_sources():
     """The constants and formulas of csrc/panel.cuh's cluster layout equal
-    the mirror's: its largest p (the launches of kernels 1, 3 and 4 take
-    it up to there), the kernel's vectors, the pairs, pairs a block and
-    blocks of a cluster, the workspace, the scratch's column length and the
-    shared memory."""
+    the mirror's: its largest p for each kind of kernel (kernels 1 and 3
+    take it up to PCL_MAX_P, kernels 2 and 4 up to PCL_MAX_P_STREAM: each
+    launch asks its own kind, once), the kernel's vectors, the pairs,
+    pairs a block and blocks of a cluster, where the blocks share the
+    power step, the workspace, the scratch's column length and the shared
+    memory, at every p of the cluster layout."""
     src = _panel_src()
     assert _define(src, "DN_PCL_MAX_P") == cuda_nmf.PCL_MAX_P
-    for name in ("nmf_panel.cu", "trim_panel.cu", "stream_panel.cu"):
+    assert _define(src, "DN_PCL_MAX_P_STREAM") == cuda_nmf.PCL_MAX_P_STREAM
+    assert _define(src, "DN_PCL_PORTABLE") == cuda_nmf.PCL_PORTABLE
+    assert _body(src, "dn_pcl_max_p") == \
+        "kind == DN_PCL_STREAM ? DN_PCL_MAX_P_STREAM : DN_PCL_MAX_P"
+    assert _body(src, "dn_pcl_on") == \
+        "p >= DN_PANEL_MIN_P && p <= dn_pcl_max_p(kind)"
+    assert "if (!dn_pcl_on(p, kind)) return (int)cudaErrorInvalidValue;" in src
+    for kernel, name in LAUNCH.items():
         with open(os.path.join(CSRC, name)) as f:
             launch = f.read()
-        assert launch.count("if (a.p <= DN_PCL_MAX_P) {") == 1, name
+        kind = "DN_PCL_" + KIND[kernel].upper()
+        assert launch.count(f"if (dn_pcl_on(a.p, {kind})) {{") == 1, name
+        assert "a.p <= DN_PCL_MAX_P" not in launch, name
+        macro = launch[launch.index("#define DN_"):launch.index("#undef")]
+        assert re.match(rf"#define DN_\w+_PCL_ARGS\s*\\\s*{kind},", macro), \
+            name
     assert _define(src, "DN_PCL_NX") == cuda_nmf.PCL_NX
     assert _define(src, "DN_PANEL_MIN_P") == cuda_nmf.WIDE_MAX_P + 1
     assert _define(src, "DN_PCL_MAX_C") == cuda_nmf.PCL_MAX_C
     assert _body(src, "dn_pcl_pairs") == "T * (T + 1) / 2"
-    assert _body(src, "dn_pcl_held") == \
-        "(dn_pcl_pairs(p) + DN_PCL_MAX_C - 1) / DN_PCL_MAX_C"
+    assert ("const int c = dn_pcl_T(p) > DN_PCL_MAX_C ? dn_pcl_T(p) : "
+            "DN_PCL_MAX_C;") in src
+    assert _body(src, "dn_pcl_held") == "(dn_pcl_pairs(p) + c - 1) / c"
     assert _body(src, "dn_pcl_size") == "(dn_pcl_pairs(p) + h - 1) / h"
+    assert _body(src, "dn_pcl_shared_power") == "dn_pcl_T(p) > DN_PCL_MAX_C"
+    # a cluster past the portable size is asked for as such
+    assert ("if (C > DN_PCL_PORTABLE) {\n    e = cudaFuncSetAttribute(kern,\n"
+            "                             "
+            "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);") in src
     assert ("return (size_t)dn_pcl_pairs(p) *\n"
-            "         (2 * DN_PCL_PAIR + DN_PANEL_ROWS * DN_PANEL_ROWS);") in src
+            "         (2 * DN_PCL_PAIR + 2 * DN_PANEL_ROWS * DN_PANEL_ROWS);") \
+        in src
     # a cluster of dn_pcl_size(p) blocks, block `rank` holding the pairs
     # rank, rank + C, ...
     assert "const int C = dn_pcl_size(p);" in src
@@ -87,18 +113,24 @@ def test_cluster_mirror_matches_the_sources():
             .replace("DN_PANEL_ROWS", str(cuda_nmf.PANEL_ROWS))
             .replace("DN_WIDE_TC", "64")
             .replace("DN_PCL_NX", str(cuda_nmf.PCL_NX)))
-    for p in range(cuda_nmf.WIDE_MAX_P + 1, cuda_nmf.PCL_MAX_P + 1):
+    assert cuda_nmf.PCL_MAX_P_STREAM > cuda_nmf.PCL_MAX_P
+    for p in range(cuda_nmf.WIDE_MAX_P + 1, cuda_nmf.PCL_MAX_P_STREAM + 1):
         assert _c_eval(ldx, p=p) == cuda_nmf.pcl_ldx(p)
+        T = cuda_nmf.pmax_of(p) // cuda_nmf.PANEL_ROWS
+        assert cuda_nmf.pcl_T(p) == T
+        shared = T > cuda_nmf.PCL_MAX_C
+        assert cuda_nmf.pcl_shared_power(p) == shared
         assert 4 * _c_eval(smem.replace("dn_panel_np(p)",
                                         str(cuda_nmf.pmax_of(p)))) == \
             cuda_nmf.pcl_smem_bytes(p)
-        T = cuda_nmf.pmax_of(p) // cuda_nmf.PANEL_ROWS
         n, h, C = (cuda_nmf.pcl_pairs(p), cuda_nmf.pcl_held(p),
                    cuda_nmf.pcl_size(p))
         assert n == T * (T + 1) // 2
-        assert h == -(-n // cuda_nmf.PCL_MAX_C) and C == -(-n // h)
+        assert h == -(-n // max(T, cuda_nmf.PCL_MAX_C)) and C == -(-n // h)
+        assert [cuda_nmf.panel_cluster(p, k) for k in ("loop", "stream")] \
+            == [p <= cuda_nmf.PCL_MAX_P, True]
         assert cuda_nmf.pcl_ws_floats(p) == (
-            0 if h == 1 else n * (2 * 128 * 132 + 128 * 128))
+            0 if h == 1 else n * (2 * 128 * 132 + 2 * 128 * 128))
 
 
 @pytest.mark.parametrize("T", range(1, 9))
@@ -117,27 +149,28 @@ def test_pairs_are_the_upper_triangle_diagonal_first(T):
 
 
 def test_every_p_to_1000_fits_a_block_and_a_cluster():
-    """At every p from 129 to 1,000, for kernel 4 (streamed genes) and for
-    kernels 1 and 3 (resident ones): on the cluster layout (p <=
-    PCL_MAX_P) the T(T+1)/2 pairs
-    over a portable cluster of at least T blocks (the diagonal pairs are
-    its first T blocks' first pairs), each block's shared memory (the
-    core's, the kernel's static state and, for kernel 3, the W residual
-    scores of its widest bucket) within the card's limit, a workspace only
-    where a block holds several pairs (one slot a cluster the card holds),
-    and an X scratch column by column; above it the block-a-gene layout,
-    within the limit too, with its workspace."""
+    """At every p from 129 to 1,000, for kernels 4 and 2 (streamed genes,
+    kind "stream") and for kernels 1 and 3 (resident ones, "loop"): on the
+    kind's cluster layout (p <= ``pcl_max_p``) the T(T+1)/2 pairs over a
+    portable cluster of at least T blocks (the diagonal pairs are its
+    first T blocks' first pairs), each block's shared memory (the core's,
+    the kernel's static state and, for kernel 3, the W residual scores of
+    its widest bucket) within the card's limit, a workspace only where a
+    block holds several pairs (one slot a cluster the card holds), and an
+    X scratch column by column; above it the block-a-gene layout, within
+    the limit too, with its workspace."""
     from tests.test_torch_widep import wide_smem_bytes
     dev = torch.device("cpu")
     for p in range(cuda_nmf.WIDE_MAX_P + 1, 1001):
         W_trim = min(cuda_nmf.MAX_W, cuda_nmf.MAX_PW // p)
         for kernel, W in (("nmf", W_trim), ("stream", 16384),
-                          ("trim", W_trim)):
-            cluster = cuda_nmf.panel_cluster(p)
-            assert cluster == (p <= cuda_nmf.PCL_MAX_P)
+                          ("trim", W_trim), ("ratio", 16384)):
+            kind = KIND[kernel]
+            cluster = cuda_nmf.panel_cluster(p, kind)
+            assert cluster == (p <= cuda_nmf.pcl_max_p(kind))
             smem = wide_smem_bytes(kernel, p, W)
             assert smem <= SMEM_PER_BLOCK, (p, kernel, smem)
-            ws, slots = cuda_nmf.kernel_workspace(24576, p, dev)
+            ws, slots = cuda_nmf.kernel_workspace(24576, p, dev, kind)
             if cluster:
                 T = cuda_nmf.pmax_of(p) // cuda_nmf.PANEL_ROWS
                 C, h = cuda_nmf.pcl_size(p), cuda_nmf.pcl_held(p)
@@ -150,14 +183,15 @@ def test_every_p_to_1000_fits_a_block_and_a_cluster():
                 else:
                     assert slots == cuda_nmf.SMS // C
                     assert ws.numel() == slots * cuda_nmf.pcl_ws_floats(p)
-                assert cuda_nmf.scratch_shape(3, p, 40) == \
+                assert cuda_nmf.scratch_shape(3, p, 40, kind) == \
                     (3, 40, -(-p // 4) * 4)
             else:
                 assert slots == cuda_nmf.SMS and ws.numel() == \
                     slots * cuda_nmf.panel_ws_floats(p)
-                assert cuda_nmf.scratch_shape(3, p, 40) == (3, p, 40)
-    assert not cuda_nmf.panel_cluster(cuda_nmf.WIDE_MAX_P)
-    assert cuda_nmf.kernel_workspace(8, 128, dev) == (None, 0)
+                assert cuda_nmf.scratch_shape(3, p, 40, kind) == (3, p, 40)
+    for kind in cuda_nmf.PCL_KINDS:
+        assert not cuda_nmf.panel_cluster(cuda_nmf.WIDE_MAX_P, kind)
+        assert cuda_nmf.kernel_workspace(8, 128, dev, kind) == (None, 0)
 
 
 @pytest.fixture
@@ -171,22 +205,26 @@ def a_card(monkeypatch):
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("p", [129, 256, 512, 640, 641, 1000])
+@pytest.mark.parametrize("p", [129, 256, 512, 640, 641, 768, 1000, 1024])
 def test_memory_guard_sets_aside_the_largest_workspace(p, a_card,
                                                        monkeypatch):
     """``panel_workspace_bytes`` is the largest workspace any launch at p
-    takes on a card (kernel 2's always, 1, 3 and 4 the same above the
-    cluster layout, a smaller one on it where a block holds several pairs),
-    and ``DegNormEngine._pack_host``'s memory guard caps
-    a bucket at a twelfth of the card's memory less exactly that."""
+    takes on a card (a kind's block layout above its cluster layout, a
+    smaller one on it where a block holds several pairs, none where a
+    block holds one: kernels 1 and 3 past 640 samples, kernels 2 and 4
+    below 1,152, past 256 samples), and ``DegNormEngine._pack_host``'s
+    memory guard caps a
+    bucket at a twelfth of the card's memory less exactly that."""
     slots = cuda_nmf.panel_slots(1 << 30, a_card)
     one = 4 * slots * cuda_nmf.panel_ws_floats(p)
     cluster = 4 * (slots // cuda_nmf.pcl_size(p)) * cuda_nmf.pcl_ws_floats(p)
-    per_launch = {"kernel 2": one,
-                  "kernels 1, 3, 4": cluster if cuda_nmf.panel_cluster(p)
-                  else one}
+    per_launch = {kind: cluster if cuda_nmf.panel_cluster(p, kind) else one
+                  for kind in ("loop", "stream")}
     ws = cuda_nmf.panel_workspace_bytes(p, a_card)
-    assert ws == max(per_launch.values()) > 0
+    assert ws == max(per_launch.values())
+    assert (ws > 0) == (p > 256)
+    if p > cuda_nmf.PCL_MAX_P:
+        assert ws == one > cluster
     assert cuda_nmf.panel_workspace_bytes(p, torch.device("cpu")) == 0
     assert cuda_nmf.panel_workspace_bytes(128, a_card) == 0
 

@@ -97,10 +97,12 @@ def wide_smem_bytes(kernel, p, W):
     P = 1 if panel else cuda_nmf.pmax_of(p)
     static = {"nmf": 0, "ratio": 0, "stream": (0 if panel else 4 * 2 * P) + 4,
               "trim": 4 * 4 * P + 12 * cuda_trim.MAX_BINS + 12}[kernel]
-    if kernel in ("nmf", "stream", "trim") and cuda_nmf.panel_cluster(p):
-        # kernels 1, 3 and 4 on the cluster layout (``dn_pcl_smem_floats``):
-        # their p-vectors are in the core's shared memory
-        static = {"nmf": 0, "stream": 4,
+    kind = "stream" if kernel in ("stream", "ratio") else "loop"
+    if cuda_nmf.panel_cluster(p, kind):
+        # the cluster layout (``dn_pcl_smem_floats``; kernels 1 and 3 up to
+        # their cut, 2 and 4 up to theirs): the p-vectors are in the core's
+        # shared memory
+        static = {"nmf": 0, "stream": 4, "ratio": 0,
                   "trim": 12 * cuda_trim.MAX_BINS + 12}[kernel]
         return (cuda_nmf.pcl_smem_bytes(p) + (4 * W if kernel == "trim"
                                                else 0) + static)

@@ -1,25 +1,36 @@
-"""Times the panel instances of kernels 4, 3 and 1 (p > 128: ``csrc/panel.cuh``,
-``csrc/stream_panel.cu``, ``csrc/trim_panel.cu``, ``csrc/nmf_panel.cu``) of
-this tree and of other trees of the repo, each built and timed in a process
-of its own, on one card:
+"""Times the panel instances of kernels 4, 3, 2 and 1 (p > 128:
+``csrc/panel.cuh``, ``csrc/stream_panel.cu``, ``csrc/trim_panel.cu``,
+``csrc/ratio_panel.cu``, ``csrc/nmf_panel.cu``) of this tree and of other
+trees of the repo, each built and timed in a process of its own, on one
+card:
 
-    python3 tools/panel_ab.py [TREE ...]
+    python3 tools/panel_ab.py [--parts PART,...] [--turns] [TREE ...]
 
 Each TREE is a checkout of the repo (e.g. a parent commit's ``git
 archive``, or a copy with another version of the core), timed with its own
-sources as they are.  Prints one JSON line a tree: CUDA-event ms of kernel
-4 on 64 genes x p x 16,384 columns of raw int16 + scale (p = 129, 192,
-256) and on 16 genes at p = 512, of kernel 3 (default and nmf_tol=1e-4) on
-512 narrow genes of 200-299 bases at 256 x 256 (``chip_smoke.py`` phase
-``panels``' shapes and data: its seeds, every p the first p samples of one
-dataset made at 512), and of kernels 1 and 3 on such genes resident past
-256 samples, each held against its plain version (RESIDENT: 288 x 224,
-where genes enter the trim loop, and 384 x 160, 512 x 128, 640 x 96, where
-none has the 200 columns to), with the card's name and power limit and the
-panel instances that spill registers in the build; for this tree also
-kernel 4's plain version at p = 256 and 512.  Compare trees only within
-one run, and run them in turns (``A B B A``) to see the drift of the
-card.
+sources as they are.  Prints one JSON line a run: CUDA-event ms of
+
+* ``stream``: kernel 4 on 64 genes x p x 16,384 columns of raw int16 +
+  scale (p = 129, 192, 256) and on 16 genes at p = 512 (``chip_smoke.py``
+  phase ``panels``' shapes and data: its seeds, every p the first p
+  samples of one dataset made at 512);
+* ``trim``: kernel 3 (default and nmf_tol=1e-4) on 512 narrow genes of
+  200-299 bases at 256 x 256;
+* ``resident``: kernels 1 and 3 on such genes resident past 256 samples,
+  each held against its plain version (RESIDENT: 288 x 224, where genes
+  enter the trim loop, and 384 x 160, 512 x 128, 640 x 96, where none has
+  the 200 columns to);
+* ``ratio``: kernel 2 on the raw int16 form of such genes at 512 x 256 x
+  256 and 512 x 512 x 128 (RATIO);
+* ``big``: kernel 4 past 640 samples (BIG: 64 x 768 x 16,384, a full
+  bucket, and 4 x 700 x 2,048), raw int16 + scale;
+
+every part by default, with the card's name and power limit and the panel
+instances that spill registers in the build; for this tree also the plain
+versions of kernel 4 at p = 256 and 512 and at BIG, and of kernel 2 at
+RATIO.  Compare trees only within one run.  ``--turns`` runs the trees in
+turns, this tree, the others, the others again, this tree (``A B B A``), to
+see the drift of the card; each tree is built once.
 """
 import dataclasses
 import json
@@ -35,6 +46,9 @@ W_STREAM = 16384
 TRIM = (512, 256, 256)
 RESIDENT = ((288, 224), (384, 160), (512, 128), (640, 96))
 RESIDENT_GENES = 512
+RATIO = ((512, 256, 256), (512, 512, 128))
+BIG = ((64, 768, 16384), (4, 700, 2048))
+PARTS = ("resident", "stream", "trim", "ratio", "big")
 
 
 def time_resident(cs, dev, nmf_cfg, eng, out):
@@ -57,14 +71,77 @@ def time_resident(cs, dev, nmf_cfg, eng, out):
             out[f"{k}_plain_{tag}"] = rec[name]["plain_ms"]
         out[f"entered_{tag}"] = rec["trim_loop"]["entered"]
         out[f"mean_rounds_{tag}"] = rec["trim_loop"]["mean_rounds"]
-        # (a tree before the cluster layout has the block layout alone)
-        out[f"layout_{tag}"] = ("cluster" if hasattr(cuda_nmf, "panel_cluster")
-                                and cuda_nmf.panel_cluster(p) else "block")
+        out[f"layout_{tag}"] = layout(cuda_nmf, p, "loop")
         del F, lm, raw, rec
         torch.cuda.empty_cache()
 
 
-def one(tree, plain):
+def layout(cuda_nmf, p, kind):
+    """The layout a tree's kernels of ``kind`` take at p: a tree before the
+    cluster layout has the block layout alone, one before the cut by kind
+    a cut at PCL_MAX_P for kernels 1, 3 and 4 (kernel 2: blocks)."""
+    if not hasattr(cuda_nmf, "panel_cluster"):
+        return "block"
+    if not hasattr(cuda_nmf, "pcl_max_p"):
+        return ("cluster" if cuda_nmf.panel_cluster(p) and kind != "ratio"
+                else "block")
+    return ("cluster" if cuda_nmf.panel_cluster(
+        p, "stream" if kind == "ratio" else kind) else "block")
+
+
+def time_ratio(cs, dev, plain, out):
+    """Kernel 2 (its plain version too where ``plain``) on the raw int16
+    form of RATIO's shapes: 512 narrow genes of 200-299 bases, the first p
+    samples of chip_smoke's resident dataset made at 512."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.ops import cuda_nmf
+    base = list(cs.synth_dataset(512, 512, seed=cs.SEED + 512,
+                                 lengths_fn=cs.short_lengths)[0].values())
+    rng = np.random.default_rng(cs.SEED + 13)
+    kw = dict(power_iters=EngineConfig().power_iters_cold)
+    for G, p, W in RATIO:
+        F, lm, raw = cs.resident_bucket(G, p, W, dev, rng, mats=base)
+        tag = f"{G}x{p}x{W}"
+        out[f"2p_{tag}"] = cs.time_ms(
+            lambda: cuda_nmf.ratio_rowsums_cuda(raw, lm, **kw), 3)
+        out[f"layout_2p_{tag}"] = layout(cuda_nmf, p, "ratio")
+        if plain:
+            out[f"2p_plain_{tag}"] = cs.time_ms(
+                lambda: cuda_nmf.ratio_rowsums_plain(F, lm, **kw), 1)
+        del F, lm, raw
+        torch.cuda.empty_cache()
+
+
+def time_big(cs, dev, nmf_cfg, plain, out):
+    """Kernel 4 at BIG on raw int16 + scale (its plain version too where
+    ``plain``), on chip_smoke's ``small_wide_bucket`` data at each shape's
+    seed."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    nkw = baseline._nmf_kwargs(nmf_cfg, EngineConfig())
+    for G, p, W in BIG:
+        raw, lm = cs.small_wide_bucket(G, p, W, cs.SEED + p, dev)
+        scale = torch.linspace(0.8, 1.25, p, device=dev)
+        F = raw.to(torch.float32) / scale[None, :, None]
+        colmax = (F * lm[:, None, :]).amax(dim=1)
+        hi = (colmax > 0.1 * colmax.amax(dim=1, keepdim=True)) & lm
+        del colmax
+        tag = f"{G}x{p}x{W}"
+        out[f"4p_{tag}"] = cs.time_ms(
+            lambda: cuda_stream.nmf_masked_streamed_cuda(
+                raw, hi, scale=scale, **nkw), 1)
+        out[f"layout_4p_{tag}"] = layout(cuda_nmf, p, "stream")
+        if plain:
+            out[f"4p_plain_{tag}"] = cs.time_ms(
+                lambda: cuda_stream.nmf_masked_streamed_plain(F, hi, **nkw), 1)
+        del raw, F, hi
+        torch.cuda.empty_cache()
+
+
+def one(tree, plain, parts):
     """The timings of one tree's build (run in its own process)."""
     sys.path.insert(0, tree)
     import torch
@@ -81,8 +158,14 @@ def one(tree, plain):
     nmf_cfg = NMFConfig(nmf_iter=cs.NMF_ITER)
     out = {}
     eng = EngineConfig(bucket_widths=cs.BUCKET_WIDTHS)
-    time_resident(cs, dev, nmf_cfg, eng, out)
-    time_stream_trim(cs, dev, nmf_cfg, eng, plain, out)
+    if "resident" in parts:
+        time_resident(cs, dev, nmf_cfg, eng, out)
+    if "stream" in parts or "trim" in parts:
+        time_stream_trim(cs, dev, nmf_cfg, eng, plain, out, parts)
+    if "ratio" in parts:
+        time_ratio(cs, dev, plain, out)
+    if "big" in parts:
+        time_big(cs, dev, nmf_cfg, plain, out)
     out = {k: round(v, 3) if isinstance(v, float) else v
            for k, v in out.items()}
     print(json.dumps({"tree": tree, "ms": out,
@@ -90,9 +173,9 @@ def one(tree, plain):
           flush=True)
 
 
-def time_stream_trim(cs, dev, nmf_cfg, eng, plain, out):
+def time_stream_trim(cs, dev, nmf_cfg, eng, plain, out, parts=PARTS):
     """Kernel 4 at STREAM (its plain version too where ``plain``), kernel 3
-    and its nmf_tol branch at TRIM."""
+    and its nmf_tol branch at TRIM (each where ``parts`` names it)."""
     import torch
     from degnorm_tpu_torch import EngineConfig
     from degnorm_tpu_torch.core import baseline
@@ -102,7 +185,7 @@ def time_stream_trim(cs, dev, nmf_cfg, eng, plain, out):
     p_top = max(p for _, p in STREAM)
     raw_top, lm = cs.small_wide_bucket(G_top, p_top, W_STREAM, cs.SEED + p_top,
                                        dev)
-    for G, p in STREAM:
+    for G, p in STREAM if "stream" in parts else ():
         raw = raw_top[:G, :p].contiguous()
         scale = torch.linspace(0.8, 1.25, p, device=dev)
         F = raw.to(torch.float32) / scale[None, :, None]
@@ -118,6 +201,8 @@ def time_stream_trim(cs, dev, nmf_cfg, eng, plain, out):
         del raw, F, hi
         torch.cuda.empty_cache()
     del raw_top, lm
+    if "trim" not in parts:
+        return
     G, p, W = TRIM
     base = list(cs.synth_dataset(G, p_top, seed=cs.SEED + p_top,
                                  lengths_fn=cs.short_lengths)[0].values())
@@ -135,11 +220,19 @@ def time_stream_trim(cs, dev, nmf_cfg, eng, plain, out):
         2)
 
 
-def main(trees):
-    trees = [REPO] + [os.path.abspath(t) for t in trees]
-    for i, tree in enumerate(trees):
+def main(args):
+    parts = PARTS
+    if args[:1] == ["--parts"]:
+        parts, args = tuple(args[1].split(",")), args[2:]
+        if not set(parts) <= set(PARTS):
+            sys.exit(__doc__)
+    turns = args[:1] == ["--turns"]
+    others = [os.path.abspath(t) for t in args[turns:]]
+    trees = [REPO] + others + (others + [REPO] if turns else [])
+    for tree in trees:
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", tree, str(int(i == 0))],
+                            "--one", tree, str(int(tree == REPO)),
+                            ",".join(parts)],
                            capture_output=True, text=True)
         line = (r.stdout.strip().splitlines() or [""])[-1]
         print(json.dumps({"tree": tree, "rc": r.returncode,
@@ -149,6 +242,6 @@ def main(trees):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2], sys.argv[3] == "1")
+        one(sys.argv[2], sys.argv[3] == "1", tuple(sys.argv[4].split(",")))
     else:
         main(sys.argv[1:])

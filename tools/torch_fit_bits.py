@@ -22,7 +22,12 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
   kernels 2 and 4);
 * ``panel_x256``: phase ``panels``' fit, its narrow genes at 256 samples
   with the default bucket widths (PANEL_FIT_GENES, PANEL_ITER iterations:
-  the panel instances of kernels 1-4).
+  the panel instances of kernels 1-4);
+* ``panel_x768``: phase ``panels``' fit past 640 samples, narrow genes at
+  768 samples with the default bucket widths (PANEL_BIG_GENES, PANEL_ITER
+  iterations: every bucket streams, kernels 2 and 4 on clusters of six
+  blocks; a tree whose ``chip_smoke.py`` has no such fit takes this one's
+  sizes).
 
 Every case by default; naming CASEs saves only those.
 
@@ -39,7 +44,9 @@ import sys
 import numpy as np
 
 CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols", "narrow_x64",
-         "long_tail_x48", "panel_x256")
+         "long_tail_x48", "panel_x256", "panel_x768")
+# panel_x768's sizes where a tree's chip_smoke.py predates its fit
+BIG_P, BIG_GENES = 768, 512
 
 
 def save(tree, out, cases=CASES):
@@ -88,6 +95,12 @@ def save(tree, out, cases=CASES):
     runs["panel_x256"] = (
         cs.synth_dataset(cs.PANEL_FIT_GENES, cs.PANEL_FIT_P), EngineConfig(),
         None, NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
+    if "panel_x768" in cases:
+        runs["panel_x768"] = (
+            cs.synth_dataset(getattr(cs, "PANEL_BIG_GENES", BIG_GENES),
+                             getattr(cs, "PANEL_BIG_P", BIG_P)),
+            EngineConfig(), None,
+            NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
     del cov, X
     arrays = {}
     for case in cases:
