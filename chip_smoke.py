@@ -385,9 +385,12 @@ def ptxas_report(log):
         if m:
             name = m.group(1)
             t = re.match(r"_Z\d+([a-z_0-9]+?)I((?:L[ib]\d+E)+)", name)
+            plain = re.match(r"_Z(\d+)", name)
             if t:
                 name = "%s<%s>" % (t.group(1), ",".join(
                     re.findall(r"L[ib](\d+)E", t.group(2))))
+            elif plain:   # a kernel that is no template: its name alone
+                name = name[plain.end():plain.end() + int(plain.group(1))]
             cur = dict(kernel=name, registers=None, smem_bytes=0,
                        stack_bytes=0, spill_bytes=0)
             rows.append(cur)
@@ -425,9 +428,10 @@ SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "nmf_wide_kernel", "trim_wide_kernel", "nmf_stream_wide_kernel",
                "ratio_wide_kernel", "nmf_panel_kernel", "ratio_panel_kernel",
                "nmf_stream_panel_kernel", "trim_panel_kernel",
-               "nmf_panel_block_kernel", "nmf_stream_panel_block_kernel",
-               "trim_panel_block_kernel", "ratio_panel_block_kernel",
-               "nmf_res_kernel", "trim_res_kernel")
+               "nmf_panel_block_kernel", "trim_panel_block_kernel",
+               "nmf_res_kernel", "trim_res_kernel", "phase_gram_kernel",
+               "phase_power_kernel", "phase_cols_kernel", "phase_est_kernel",
+               "phase_prep_kernel")
 
 
 def phase_build(ptxas):
@@ -1727,7 +1731,11 @@ def wide_launches(tag="wide"):
             **({"ratio_rowsums[panel,cluster]":
                 cuda_nmf.ratio_panel_cluster_launches,
                 "nmf_streamed[panel,cluster]":
-                cuda_stream.stream_panel_cluster_launches}
+                cuda_stream.stream_panel_cluster_launches,
+                "ratio_rowsums[panel,phase]":
+                cuda_nmf.ratio_panel_phase_launches,
+                "nmf_streamed[panel,phase]":
+                cuda_stream.stream_panel_phase_launches}
                if tag == "panel" else {})}
 
 
@@ -1747,6 +1755,8 @@ def zero_launches():
     cuda_nmf.ratio_panel_launches = cuda_stream.stream_panel_launches = 0
     cuda_nmf.ratio_panel_cluster_launches = 0
     cuda_stream.stream_panel_cluster_launches = 0
+    cuda_nmf.ratio_panel_phase_launches = 0
+    cuda_stream.stream_panel_phase_launches = 0
     cuda_trim.trim_panel_launches = cuda_trim.trim_panel_fast_launches = 0
     cuda_trim.trim_panel_tol_launches = 0
 
@@ -1864,7 +1874,7 @@ def phase_modes(cov, X, base_fit, base_steady_s):
 
 
 # phase oracle: the port's engine on the card against its float64 oracle
-ORACLE_SYNTH_GENES = 32     # (ARPACK on the host: about a second a gene)
+ORACLE_SYNTH_GENES = 16     # (ARPACK on the host: about a second a gene)
 ORACLE_SYNTH_ITER = 2       # DegNorm iterations: keeps ARPACK under a minute
 GOLDEN = os.path.join(REPO, "tests", "data", "golden_nmfoa.npz")
 
@@ -3401,17 +3411,17 @@ WIDE_P_GENES = 1024              # (a) kernels 1-3 and 2 at G x p x W
 WIDE_P_STREAM = (256, 16384)     # (a) kernel 4 (and 2) at 256 x p x 16384
 WIDE_P_BRANCH_P = 48             # the opt-in branches' main shape: 48 x 1024
 WIDE_P_MODE_P = (48, 64, 96, 128)   # the fits under each mode
-WIDE_P_MODE_GENES = 1024
+WIDE_P_MODE_GENES = 512
 WIDE_P_FIT_P = 64                # (b) the narrow fit
 WIDE_P_TAIL_P = 48               # (c) the long tail
 WIDE_P_STREAM_P = 128            # (d) the default bucket widths at p = 128
 WIDE_P_STREAM_GENES = 4096
 WIDE_P_MESH_P = 40               # (e) the long tail on a two-shard mesh
 WIDE_PMAX = (48, 64, 96, 128)    # the instances of csrc/wide.cuh
-# DegNorm iterations of the fits (b)-(e) and the modes' fits: (b) at full
-# depth, the others cut to keep the phase short (PERF.md §4)
-WIDE_P_ITER = dict(b=DEGNORM_ITER, c=1, d=1, e=1, modes=1)
-WIDE_P_TAIL_GENES = WIDE_GENES   # (c); (e) takes those of its W=65536 bucket
+# DegNorm iterations of the fits (b)-(e) and the modes' fits, and (c)'s
+# genes, cut to keep the script within its time limit (PERF.md §4)
+WIDE_P_ITER = dict(b=3, c=1, d=1, e=1, modes=1)
+WIDE_P_TAIL_GENES = 1024   # (c); (e) takes those of its W=65536 bucket
 # the new instances: name -> (source, the TPU kernel, where its launches
 # are read: the phase's fit that runs it)
 WIDE_INSTANCES = OrderedDict([
@@ -3735,7 +3745,7 @@ def phase_wide_p():
     nmf_c = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=WIDE_P_ITER["c"])
     wide_cfg = EngineConfig()
     fit_c, rec_c, eng_c = wide_fit("c", cov_c, X_c, nmf_c, wide_cfg,
-                                   steady=False, profile=True)
+                                   steady=False)
     if sorted(b.width for b in eng_c._buckets) != sorted(WIDE_WIDTHS):
         raise AssertionError("wide_p (c): long genes did not pack into the "
                              "wide buckets")
@@ -3899,23 +3909,30 @@ def wide_kernel_records(wide):
 # kernels 1-3 (and 2) resident on PANEL_GENES genes: (p, W, the opt-in
 # branches where the engine's mode gate lets them run: 129 x 256 only)
 PANEL_RESIDENT = ((129, 256, True), (256, 256, False), (512, 128, False))
-PANEL_GENES = 512
+PANEL_GENES = 256
 # kernels 4 and 2 at G x p x 16384, one dataset made at the largest p
-PANEL_STREAM = ((64, 129), (64, 192), (64, 256), (16, 512))
+PANEL_STREAM = ((32, 129), (32, 192), (32, 256), (16, 512))
 PANEL_STREAM_W = 16384
 # the edges of the cluster layout, on data of their own: kernels 1-3 and 2
 # resident on PANEL_GENES genes at (p, W) at their largest p (5 blocks of
 # three pairs) and past it (their block layout; kernel 2 on a cluster of
 # 6), kernels 4 and 2 on G x p x W at three panels (a cluster of 3 blocks of
-# two pairs), at kernels 1 and 3's largest p, past it (clusters of 6, 7
-# and 8 blocks: 64 x 768 x 16384 a full bucket, 128 x 768 x 1024 the shape
-# of the p = 768 fit's W = 1024 bucket), at their own largest p (a cluster
-# of 9, not portable) and past it (their block layout)
+# two pairs), at kernels 1 and 3's largest p, past it (clusters of 6 and
+# 8 blocks: 32 x 768 x 16384 half a bucket; 8 the largest portable
+# cluster), at their own largest p (a cluster of 9, not portable); their
+# sizes cut to keep the script within its time limit (PERF.md §4)
 PANEL_EDGE = ((640, 64), (704, 64))
-PANEL_BIG_MAIN = (64, 768, 16384)   # kernels 4 and 2's shape in the result
-PANEL_EDGE_STREAM = ((8, 384, 16384), (8, 640, 16384), (4, 700, 2048),
-                     (8, 768, 16384), PANEL_BIG_MAIN, (128, 768, 1024),
-                     (4, 1024, 2048), (4, 1152, 2048), (4, 1153, 2048))
+PANEL_BIG_MAIN = (32, 768, 16384)   # kernels 4 and 2's shape in the result
+PANEL_EDGE_STREAM = ((8, 384, 4096), (8, 640, 4096), (4, 700, 2048),
+                     (8, 768, 16384), PANEL_BIG_MAIN, (4, 1024, 2048),
+                     (4, 1152, 2048))
+# kernels 4 and 2 past their cluster layout, on its phased layout
+# (csrc/phase.cuh): just past the cut, a full bucket at the main path's p
+# (the result line's shape) and 8 of its genes, and 32 panels (past any
+# cluster the card can hold)
+PANEL_PHASE_MAIN = (64, 1222, 16384)
+PANEL_PHASE_STREAM = ((4, 1153, 2048), (8, 1222, 16384), PANEL_PHASE_MAIN,
+                      (2, 4096, 1024))
 # ... and kernels 1-3 at (p, W) where a block holds several pairs and genes
 # enter the trim loop (a gene of min_gene_len = 200 columns fits p * W <=
 # MAX_PW up to p = 327), with the opt-in branches on the kernels' wrappers:
@@ -3925,16 +3942,23 @@ PANEL_MULTI = (288, 224)
 PANEL_MODE_P = 160               # the narrow genes under each opt-in mode
 PANEL_MODE_GENES = 512           # (the first genes and samples of the fit's)
 PANEL_FIT_P = 256                # the narrow genes at the default widths
-PANEL_FIT_GENES = 2048
-PANEL_PARITY_GENES = 256
+PANEL_FIT_GENES = 1024
+PANEL_PARITY_GENES = 128
 PANEL_ITER = 1                   # DegNorm iterations of its fits (cut from 5)
-# the slice's main path past 640 samples: narrow genes at p = PANEL_BIG_P
-# with the default bucket widths (every bucket streams: kernels 2 and 4 on
-# clusters of 6 blocks, the unfused trim loop), a kernels-off parity pair on
-# its first PANEL_BIG_PARITY genes
+# the fit past 640 samples: narrow genes at p = PANEL_BIG_P with the
+# default bucket widths (every bucket streams: kernels 2 and 4 on clusters
+# of 6 blocks, the unfused trim loop), a kernels-off parity pair on its
+# first PANEL_BIG_PARITY genes
 PANEL_BIG_P = 768
-PANEL_BIG_GENES = 512
-PANEL_BIG_PARITY = 64
+PANEL_BIG_GENES = 256
+PANEL_BIG_PARITY = 32
+# the slice's main path past 1,152 samples: the same genes at p =
+# PANEL_PHASE_P (every bucket streams: kernels 2 and 4 on the phased
+# layout), profiled, a kernels-off parity pair on its first
+# PANEL_PHASE_PARITY genes
+PANEL_PHASE_P = 1222
+PANEL_PHASE_GENES = 256
+PANEL_PHASE_PARITY = 32
 # name -> (source, the TPU kernel, the phase's fit that runs it)
 PANEL_INSTANCES = OrderedDict([
     ("nmf_masked[panel]", ("degnorm_tpu_torch/csrc/nmf_panel.cu",
@@ -3954,12 +3978,42 @@ PANEL_INSTANCES = OrderedDict([
                                   "nmf_tol")),
     ("nmf_streamed[panel]", ("degnorm_tpu_torch/csrc/stream_panel.cu",
                              "degnorm_tpu/ops/pallas_stream.py:266", "big")),
+    ("ratio_rowsums[panel,phase]", ("degnorm_tpu_torch/csrc/ratio_phase.cu",
+                                    "degnorm_tpu/ops/pallas_nmf.py:562",
+                                    "phase")),
+    ("nmf_streamed[panel,phase]", ("degnorm_tpu_torch/csrc/stream_phase.cu",
+                                   "degnorm_tpu/ops/pallas_stream.py:266",
+                                   "phase")),
 ])
 
 
 def short_lengths(n, rng):
     """Genes of 200-299 bases: cut to a resident width of 256 or 128."""
     return rng.integers(200, 300, n)
+
+
+def stream_shapes(shapes, nmf_cfg):
+    """Kernels 4 and 2 (``check_stream_at``) at each (G, p, W) of
+    ``shapes``, on ``small_wide_bucket``'s data: each (p, W) one dataset made
+    at its largest G, a smaller G its first genes.  Returns the records by
+    shape, keyed GxpxW."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    top_g, out, made = {}, OrderedDict(), {}
+    for G_s, p_s, W_s in shapes:
+        top_g[p_s, W_s] = max(G_s, top_g.get((p_s, W_s), 0))
+    for G_s, p_s, W_s in shapes:
+        if (p_s, W_s) not in made:
+            made = {(p_s, W_s): small_wide_bucket(top_g[p_s, W_s], p_s, W_s,
+                                                  SEED + p_s,
+                                                  torch.device(DEVICE))}
+        raw_t, lm_t = made[p_s, W_s]
+        raw, lm = raw_t[:G_s].contiguous(), lm_t[:G_s].contiguous()
+        out[f"{G_s}x{p_s}x{W_s}"] = check_stream_at(
+            raw, lm, nmf_cfg, EngineConfig(), reps=1, time_f32=False)
+        del raw, lm, raw_t, lm_t
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_panels():
@@ -3977,12 +4031,17 @@ def phase_panels():
     streamed) held to ``compare_fits`` against use_kernels=False on its
     first PARITY genes, and their first genes and samples (p =
     PANEL_MODE_P) under each opt-in mode (the branches on a fit's path);
-    then the slice's main path, PANEL_BIG_GENES narrow genes at p =
-    PANEL_BIG_P with the default widths (every bucket streams: kernels 2 and
-    4 on their cluster layout, every launch counted there), profiled, with a
-    kernels-off parity pair on its first PANEL_BIG_PARITY genes; and the
-    clusters the card holds at once by blocks a cluster.  No p > 128 may
-    reach a plain version: every fit must launch the panel instances.
+    then PANEL_BIG_GENES narrow genes at p = PANEL_BIG_P with the default
+    widths (every bucket streams: kernels 2 and 4 on their cluster layout,
+    every launch counted there), with a kernels-off parity pair on its
+    first PANEL_BIG_PARITY genes; and the clusters the card holds at
+    once by blocks a cluster.  Past the cluster layout, kernels 4 and 2 on
+    their phased layout at PANEL_PHASE_STREAM, and the slice's main path:
+    PANEL_PHASE_GENES narrow genes at p = PANEL_PHASE_P (every launch of
+    kernels 2 and 4 on the phased layout, counted apart), profiled, with a
+    kernels-off parity pair on its first PANEL_PHASE_PARITY genes.  No p >
+    128 may reach a plain version: every fit must launch the panel
+    instances.
     Returns the kernels' records and the launches of each instance on its
     fit."""
     import torch
@@ -4066,25 +4125,9 @@ def phase_panels():
                                  f"trim round: {rec[k]}")
     kres["resident"][f"p{p_b}_W{W_b}"] = rec
     del edge, F, lm, raw, keep, rec
-    assert [cuda_nmf.panel_cluster(p, "stream")
-            for _, p, _ in PANEL_EDGE_STREAM] == [True] * 8 + [False]
-    # (each (p, W) one dataset made at its largest G; a smaller G its first
-    # genes)
-    top_g = {}
-    for G_s, p_s, W_s in PANEL_EDGE_STREAM:
-        top_g[p_s, W_s] = max(G_s, top_g.get((p_s, W_s), 0))
-    made = {}
-    for G_s, p_s, W_s in PANEL_EDGE_STREAM:
-        if (p_s, W_s) not in made:
-            made = {(p_s, W_s): small_wide_bucket(top_g[p_s, W_s], p_s, W_s,
-                                                  SEED + p_s, dev)}
-        raw_t, lm_t = made[p_s, W_s]
-        raw, lm = raw_t[:G_s].contiguous(), lm_t[:G_s].contiguous()
-        kres["stream"][f"{G_s}x{p_s}x{W_s}"] = check_stream_at(
-            raw, lm, nmf_cfg, EngineConfig(), reps=1, time_f32=False)
-        del raw, lm, raw_t, lm_t
-        torch.cuda.empty_cache()
-    del made
+    assert all(cuda_nmf.panel_cluster(p, "stream")
+               for _, p, _ in PANEL_EDGE_STREAM)
+    kres["stream"].update(stream_shapes(PANEL_EDGE_STREAM, nmf_cfg))
     # the clusters the card holds at once, by blocks a cluster
     lib = get_lib()
     kres["clusters"] = {
@@ -4093,6 +4136,12 @@ def phase_panels():
                  "ratio_rowsums": lib.dn_ratio_panel_clusters(p, 1)}
         for p in (256, 384, 640, 768, 896, 1024, 1152)}
     secs["edge"] = time.perf_counter() - t0
+
+    # past the cluster layout: the phased layout
+    t0 = time.perf_counter()
+    assert all(cuda_nmf.panel_phase(p) for _, p, _ in PANEL_PHASE_STREAM)
+    kres["phase"] = stream_shapes(PANEL_PHASE_STREAM, nmf_cfg)
+    secs["phase_shapes"] = time.perf_counter() - t0
 
     # the narrow genes at p = PANEL_FIT_P with the default bucket widths
     t0 = time.perf_counter()
@@ -4129,9 +4178,9 @@ def phase_panels():
     del sub, on, off
     secs["fit"] = time.perf_counter() - t0
 
-    # the slice's main path: the narrow genes at p = PANEL_BIG_P, where
-    # every bucket streams (kernels 2 and 4 on clusters of six blocks),
-    # profiled, and a kernels-off parity pair on its first genes
+    # the narrow genes at p = PANEL_BIG_P, where every bucket streams
+    # (kernels 2 and 4 on clusters of six blocks), and a kernels-off parity
+    # pair on its first genes
     t0 = time.perf_counter()
     assert (cuda_nmf.panel_cluster(PANEL_BIG_P, "stream")
             and not cuda_nmf.panel_cluster(PANEL_BIG_P, "loop"))
@@ -4139,8 +4188,7 @@ def phase_panels():
     secs["big_data"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, runs["big"], eng_b = wide_fit("panel_big", cov_b, X_b, nmf_f,
-                                     EngineConfig(), steady=False,
-                                     profile=True)
+                                     EngineConfig(), steady=False)
     counts = runs["big"]["launches"]
     resident = [b.width for b in eng_b._buckets
                 if cuda_nmf.kernels_supported(b.F.shape, torch.float32)]
@@ -4182,6 +4230,9 @@ def phase_panels():
     del cov_f, X_f, cov_m, X_m
     secs["modes"] = time.perf_counter() - t0
 
+    # the slice's main path past 1,152 samples
+    panel_phase_fit(nmf_f, runs, secs)
+
     # every launch at p > 128 went to a panel instance, and each instance
     # ran on its fit
     for tag, r in runs.items():
@@ -4204,18 +4255,72 @@ def phase_panels():
     return kres, launches
 
 
+def panel_phase_fit(nmf_f, runs, secs):
+    """The slice's main path past 1,152 samples: PANEL_PHASE_GENES narrow
+    genes at p = PANEL_PHASE_P with the default widths (every bucket
+    streams: every launch of kernels 2 and 4 on the phased layout, counted
+    apart), profiled, and a kernels-off parity pair on its first
+    PANEL_PHASE_PARITY genes.  Adds its records to ``runs`` and its
+    seconds to ``secs``."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.ops import cuda_nmf
+    t0 = time.perf_counter()
+    assert cuda_nmf.panel_phase(PANEL_PHASE_P)
+    cov_p, X_p = synth_dataset(PANEL_PHASE_GENES, PANEL_PHASE_P)
+    secs["phase_data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, runs["phase"], eng_p = wide_fit("panel_phase", cov_p, X_p, nmf_f,
+                                       EngineConfig(), steady=False,
+                                       profile=True)
+    counts = runs["phase"]["launches"]
+    resident = [b.width for b in eng_p._buckets
+                if cuda_nmf.kernels_supported(b.F.shape, torch.float32)]
+    if (resident or counts.get("nmf_masked", 0) or counts.get("trim_loop", 0)
+            or not 0 < counts.get("ratio_rowsums[panel]", 0)
+            == counts.get("ratio_rowsums[panel,phase]", 0)
+            or not 0 < counts.get("nmf_streamed[panel]", 0)
+            == counts.get("nmf_streamed[panel,phase]", 0)):
+        raise AssertionError(f"panels phase fit: resident widths {resident}, "
+                             f"launches {counts}")
+    del eng_p
+    torch.cuda.empty_cache()
+    secs["phase"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys = list(cov_p)[:PANEL_PHASE_PARITY]
+    sub = OrderedDict((k, cov_p[k]) for k in keys)
+    Xs = X_p[:PANEL_PHASE_PARITY]
+    on, runs["phase_parity_on"], _ = wide_fit(
+        "panel_phase_parity_on", sub, Xs, nmf_f, EngineConfig(), steady=False)
+    t2 = time.perf_counter()
+    off, _, _ = wide_fit("panel_phase_parity_off", sub, Xs, nmf_f,
+                         EngineConfig(use_kernels=False), steady=False)
+    compare_fits("panels_phase_parity", on, off,
+                 (runs["phase_parity_on"]["wall_s"],
+                  time.perf_counter() - t2), samples=PANEL_PHASE_P)
+    del cov_p, X_p, sub, on, off
+    secs["phase_parity"] = time.perf_counter() - t0
+
+
 def panel_kernel_records(panels):
     """The result line's records of the panel instances: each at its main
     shape (kernels 1 and 3 at PANEL_GENES x 256 x 256, the branches at 129
     x 256, kernels 4 and 2 at PANEL_BIG_MAIN, a full bucket at the main
-    path's p), with every shape it was held at beside it and its launches
-    on its fit (kernels 4 and 2: the p = PANEL_BIG_P fit)."""
+    path's p, and on their phased layout at PANEL_PHASE_MAIN), with every
+    shape it was held at beside it and its launches on its fit (kernels 4
+    and 2: the p = PANEL_BIG_P fit, and the p = PANEL_PHASE_P one for their
+    phased layout)."""
     kres, launches = panels
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     big = "x".join(map(str, PANEL_BIG_MAIN))
     out = []
     for name, (src, repl, _) in PANEL_INSTANCES.items():
-        if name == "nmf_streamed[panel]":
+        if name.endswith(",phase]"):
+            recs = (dict(kres["phase"]) if name.startswith("nmf_streamed")
+                    else {k: r["ratio_rowsums"]
+                          for k, r in kres["phase"].items()})
+            main = "x".join(map(str, PANEL_PHASE_MAIN))
+        elif name == "nmf_streamed[panel]":
             recs = dict(kres["stream"])
             main = big
         else:

@@ -87,6 +87,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// (float)raw / s for an int16 numerator, from r = 1 / s (IEEE, hoisted):
+// kernel 4's int16 + scale input (stream.cuh).
+__device__ __forceinline__ float scaled_i16(int16_t raw, float s, float r) {
+  const float a = (float)raw;
+  float q = __fmul_rn(a, r);
+  float e = __fmaf_rn(-q, s, a);
+  q = __fmaf_rn(e, r, q);
+  e = __fmaf_rn(-q, s, a);
+  return __fmaf_rn(e, r, q);
+}
+
+// A coverage value of kernel 2 as stored: int16 (exact) or float32.
+__device__ __forceinline__ float ratio_val(int16_t v) { return (float)v; }
+__device__ __forceinline__ float ratio_val(float v) { return v; }
+
 __host__ __device__ constexpr int dn_pow2_ceil(int n) {
   int m = 1;
   while (m < n) m <<= 1;

@@ -104,8 +104,8 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
     const WideResidentSrc src{F + g * p * W, mask + g * W, nullptr, Eg, W};
     float s;
     int ran;
-    pcl_core<ADAPT, true>(src, w, s, nmf_iter, power_cold, power_warm,
-                          warm_plain, tol, &ran);
+    pcl_core<ADAPT>(src, w, s, nmf_iter, power_cold, power_warm, warm_plain,
+                    tol, &ran);
     if (rank == 0) {
       for (int i = tid; i < p; i += nt) {
         K[g * p + i] = w.u()[i] * s;

@@ -3,7 +3,8 @@
 // p x p Gram cut into row panels of DN_PANEL_ROWS, spread over a cluster of
 // blocks (kernels 1 and 3 up to DN_PCL_MAX_P, kernels 2 and 4 up to
 // DN_PCL_MAX_P_STREAM: dn_pcl_max_p) or held by one block in a workspace in
-// device memory.
+// device memory (kernels 1 and 3 past their cut; kernels 2 and 4 past
+// theirs run phase.cuh's phased layout, on this file's arithmetic).
 //
 // Replaces, for studies of more than 128 samples, wide.cuh's core (and so
 // the same TPU code: degnorm_tpu/ops/pallas_nmf.py's _gram, _power,
@@ -85,10 +86,12 @@
 //     (dn_pcl_smem_floats: 218,768 bytes at p = 640, 231,056 at 1,152);
 //     kernel 3 adds its W residual scores.
 //
-// THE BLOCK LAYOUT (panel_core: each kernel above its cluster layout's p.
-// Kernels 1 and 3 stop at T = DN_PCL_MAX_C, where no default-width fit
-// launches them past it; kernels 2 and 4 at the largest cluster the card
-// holds whose blocks' shared memory holds the p-vectors, T = 9):
+// THE BLOCK LAYOUT (panel_core: kernels 1 and 3 above their cluster
+// layout's p, T = DN_PCL_MAX_C, where no default-width fit launches them;
+// kernels 2 and 4 past T = 9, the largest cluster whose blocks' shared
+// memory holds the p-vectors, take phase.cuh's phased layout, which keeps
+// this layout's sums and their order: its panel_gram, panel_v,
+// panel_matvec, panel_renormalize and panel_sum):
 //   * one block a gene at a time, one pair a pass, stored with its mirror
 //     into B, p x p floats in the block's workspace (device memory), 3
 //     passes a sweep at p = 256, 10 at 512;
@@ -112,8 +115,7 @@
 //     bytes whatever p; kernel 3 adds its W residual scores.  The workspace
 //     holds B, B2 and nine vectors of ceil(p / 128) * 128 floats (u, three
 //     matvec results, the previous u, and four for the kernel: kernel 3's
-//     K, rho and DI row sums, kernel 2's row sums, kernel 4's scales and
-//     their reciprocals), zero beyond p.
+//     K, rho and DI row sums), zero beyond p.
 //
 // Kept from common.cuh and wide.cuh: sums in a fixed order and no float
 // atomics; plain FP32; no -use_fast_math.
@@ -963,13 +965,10 @@ static __device__ __noinline__ float pcl_later_pairs(Src src, PclWork<A> w) {
 // multiplier update, the Gram of the new X), a pass for each pair a block
 // holds: its first pair's pass reads each tile's rows once into each block
 // that needs them and writes the new X back; a later pair's pass copies
-// the new X back in (MULTI: the kernel's blocks may hold several pairs;
-// without it the call is not compiled, whose saved registers spilled).
-// Each pair goes into B (with B^T off the diagonal); returns the largest
+// the new X back in.  Each pair goes into B (with B^T off the diagonal); returns the largest
 // |B| entry of the cluster.  A0_ONLY (kernel 2's cold sweep): the Gram of
 // A0 with no X scratch.
-template <bool ADAPT, bool MERGED, bool MULTI, bool A0_ONLY = false,
-          class Src, class A>
+template <bool ADAPT, bool MERGED, bool A0_ONLY = false, class Src, class A>
 __device__ __forceinline__ float pcl_sweep(const Src& src, PclWork<A>& w,
                                            WideGram<128>& g, float step,
                                            float s, bool from_x) {
@@ -980,8 +979,7 @@ __device__ __forceinline__ float pcl_sweep(const Src& src, PclWork<A>& w,
   pcl_pass<ADAPT, MERGED, A0_ONLY>(src, w, g, step, s, MERGED || from_x,
                                    MERGED || !from_x);
   float m = pcl_store(w, g, w.rank);
-  if constexpr (MULTI)
-    if (w.held > 1) m = fmaxf(m, pcl_later_pairs<A0_ONLY>(src, w));
+  if (w.held > 1) m = fmaxf(m, pcl_later_pairs<A0_ONLY>(src, w));
   m = panel_max(w.red(), m);
   if (threadIdx.x == 0) *w.pmax() = m;
   cl.sync();  // B and its largest entries are published
@@ -1282,13 +1280,11 @@ __device__ __forceinline__ void pcl_refit(PclWork<A>& w, float bmax,
 // The whole Lagrangian NMF-OA loop of one gene by its cluster, as
 // panel_core (its ADAPT and from_x branches and results), X in w.X: every
 // block calls it with the same gene, u starts in each block's u() and comes
-// back refit there, the same in every block (MULTI: see pcl_sweep; a
-// kernel whose blocks may hold several pairs; SHARE: see pcl_matvec, kernel
+// back refit there, the same in every block (SHARE: see pcl_matvec, kernel
 // 4, whose blocks share the power step past T = 5); E is stored by block 0
 // (visible to the cluster on return).  `src` as wide_core's, but for X.
 // Returns this thread's share of sum_w E[w], the same in every block.
-template <bool ADAPT, bool MULTI = false, bool SHARE = false, class Src,
-          class A>
+template <bool ADAPT, bool SHARE = false, class Src, class A>
 __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
                                           float& s, int nmf_iter,
                                           int power_cold, int power_warm,
@@ -1301,12 +1297,12 @@ __device__ __forceinline__ float pcl_core(const Src& src, PclWork<A>& w,
       nmf_iter > 0 ? (float)(1.0 / sqrt((double)nmf_iter)) : 0.f;
   WideGram<128> g;
   s = 0.f;
-  float bmax = pcl_sweep<ADAPT, false, MULTI>(src, w, g, step, s, from_x);
+  float bmax = pcl_sweep<ADAPT, false>(src, w, g, step, s, from_x);
   pcl_refit<SHARE>(w, bmax, power_cold, 0, ADAPT || nmf_iter == 0, s);
 
   int ran = nmf_iter;
   for (int it = 0; it < nmf_iter; ++it) {
-    bmax = pcl_sweep<ADAPT, true, MULTI>(src, w, g, step, s, false);
+    bmax = pcl_sweep<ADAPT, true>(src, w, g, step, s, false);
     if constexpr (ADAPT) {
       const float s_old = s;
       for (int i = t; i < w.np; i += DN_WIDE_THREADS) w.uo()[i] = w.u()[i];

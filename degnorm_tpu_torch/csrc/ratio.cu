@@ -9,8 +9,9 @@
 // DN_WIDE_THREADS threads; p > 128 the panel instance (ratio_panel.cu), which
 // also takes ws: on its cluster layout (p <= DN_PCL_MAX_P_STREAM) ws_slots
 // workspaces of dn_pcl_ws_floats(p) floats, one a cluster in flight, where a
-// block holds several pairs (else null), above it ws_slots of
-// dn_panel_ws_floats(p), one a block (null and 0 below 129).
+// block holds several pairs (else null), above it (ratio_phase.cu) a
+// workspace of dn_phase_ws_floats(p, ws_slots, G) floats, ws_slots genes in
+// flight (null and 0 below 129).
 extern "C" int dn_ratio_rowsums(const void* F, int f_is_i16,
                                 const uint8_t* mask, float* cov_sums,
                                 float* est_sums, int G, int p, int W,

@@ -48,9 +48,6 @@ namespace cg = cooperative_groups;
 #define DN_RATIO_MAX_WARPS 8    // 256 threads a block
 #define DN_RATIO_MAX_CLUSTER 8  // the largest portable cluster
 
-__device__ __forceinline__ float ratio_val(int16_t v) { return (float)v; }
-__device__ __forceinline__ float ratio_val(float v) { return v; }
-
 // Two int16 elements of a 32-bit word, each kept where its mask byte (of mw,
 // from bit sh on) is not zero.
 __device__ __forceinline__ uint32_t keep2(uint32_t v, uint32_t mw, int sh) {
@@ -391,3 +388,5 @@ int dn_ratio_wide_f32(const RatioArgs& a);
 int dn_ratio_wide_i16(const RatioArgs& a);
 // the instances for p > 128 (ratio_panel.cu: panel.cuh's core), both forms
 int dn_ratio_panel(const RatioArgs& a, int f_is_i16);
+// p > DN_PCL_MAX_P_STREAM: the phased layout (ratio_phase.cu)
+int dn_ratio_phase(const RatioArgs& a, int f_is_i16);

@@ -24,90 +24,15 @@
 //     diagonal blocks, which sum their panel's rows of it in column order,
 //     publish v's partials
 //     (pcl_v) and sum their panel's rows of max(K E, A0) in column order
-//     (pcl_ratio_est).  B is the block layout's bits, and so are the row
-//     sums of A0; the matvecs' and v's orders of summation differ;
-//   * above it (ratio_panel_block_kernel): one block a gene at a time, B in
-//     its slot of the workspace.  Pass 1 is the panel pairs' Gram of A0,
-//     whose diagonal passes also sum A0's rows; pass 2 takes each tile's v
-//     over all rows and stages max(K E, A0) a panel at a time, thread t <
-//     128 adding its row of the panel in column order.
+//     (pcl_ratio_est).  B has the bits of the phased layout's Gram (the
+//     block layout's panel_gram), and so do the row sums of A0; the
+//     matvecs' and v's orders of summation differ;
+//   * above it the PHASED layout (ratio_phase.cu, phase.cuh): the Gram of
+//     A0 over (gene, panel pair) blocks of the whole card, whose diagonal
+//     pairs also sum A0's rows, the cold power step on a cluster of blocks
+//     a gene, then e a column and the row sums of max(K e, A0) a panel.
 #include "panel.cuh"
 #include "ratio.cuh"
-
-template <bool I16>
-__global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
-    ratio_panel_block_kernel(const void* __restrict__ Fv,
-                       const uint8_t* __restrict__ mask,
-                       float* __restrict__ cov_sums,
-                       float* __restrict__ est_sums, int G, int p, int W,
-                       int power_cold, float* ws) {
-  using T = typename std::conditional<I16, int16_t, float>::type;
-  constexpr int TC = DN_WIDE_TC, LD = DN_PANEL_LD;
-  extern __shared__ float4 dyn4[];
-  const int t = threadIdx.x, q = t >> 6, c = t & (TC - 1);
-  PanelWork w;
-  w.init((float*)dyn4, ws + blockIdx.x * dn_panel_ws_floats(p), p);
-  float* cov = w.x[0];  // row sums of A0
-  float* est = w.x[1];  // row sums of max(K E, A0)
-  WideGram<128> gr;
-  for (size_t g = blockIdx.x; g < (size_t)G; g += gridDim.x) {
-    const T* Fg = (const T*)Fv + g * p * W;
-    const uint8_t* mg = mask + g * W;
-    const auto on_fn = [&](int l) { return mg[l] != 0; };
-    const auto a0 = [&](int l, int i) {
-      return ratio_val(Fg[(size_t)i * W + l]);
-    };
-
-    // pass 1: Gram of A0 and its row sums
-    panel_gram<true>(w, gr, W, w.B, on_fn, a0, cov);
-    for (int i = t; i < w.np; i += DN_WIDE_THREADS) {
-      w.u[i] = i < p ? 1.0f / sqrtf((float)p) : 0.f;
-      est[i] = 0.f;
-    }
-    __syncthreads();
-    for (int i = t; i < p; i += DN_WIDE_THREADS) cov_sums[g * p + i] = cov[i];
-    float s;
-    panel_refit(w, gr, power_cold, 0, true, s);
-    for (int i = t; i < w.np; i += DN_WIDE_THREADS) w.uo[i] = w.u[i] * s;  // K
-    __syncthreads();
-
-    // pass 2: row sums of max(K E, A0) over the active columns
-    const float den = s + DN_EPS;
-    for (int l0 = 0; l0 < W; l0 += TC) {
-      const int l = l0 + c;
-      const bool on = l < W && mg[l] != 0;
-      float vp = 0.f;
-      if (on) {
-        for (int P = 0; P < w.T; ++P)
-#pragma unroll 4
-          for (int j = 0; j < 32; ++j) {
-            const int i = P * DN_PANEL_ROWS + q * 32 + j;
-            if (i < p) vp = fmaf(a0(l, i), w.u[i], vp);
-          }
-      }
-      w.vpart[q * TC + c] = vp;
-      if (!__syncthreads_or(on)) continue;
-      const float v = ((w.vpart[c] + w.vpart[TC + c]) + w.vpart[2 * TC + c]) +
-                      w.vpart[3 * TC + c];
-      const float e = v / den;
-      for (int P = 0; P < w.T; ++P) {
-        panel_stage(w.SI, P, p, on,
-                    [&](int i) { return fmaxf(w.uo[i] * e, a0(l, i)); });
-        __syncthreads();
-        const int i = P * DN_PANEL_ROWS + t;
-        if (t < DN_PANEL_ROWS && i < p) {
-          float es = est[i];
-          for (int k = 0; k < TC; ++k) es += w.SI[k * LD + t];
-          est[i] = es;
-        }
-        __syncthreads();  // S and vpart are read before they are written
-      }
-    }
-    __syncthreads();
-    for (int i = t; i < p; i += DN_WIDE_THREADS) est_sums[g * p + i] = est[i];
-    __syncthreads();  // the vectors are read before the next gene writes them
-  }
-}
 
 // A gene's A0 as the cluster layout reads it (pcl_pass, pcl_stage_a): all
 // W columns, read as stored, 16-byte copies where W is a multiple of 8.
@@ -219,7 +144,7 @@ static __device__ __noinline__ int pcl_ratio_est(Src src, PclWork<A> w,
 template <class Src, class A>
 static __device__ __noinline__ float pcl_ratio_gram(Src src, PclWork<A> w) {
   WideGram<128> g;
-  return pcl_sweep<false, false, true, true>(src, w, g, 0.f, 0.f, false);
+  return pcl_sweep<false, false, true>(src, w, g, 0.f, 0.f, false);
 }
 
 // The cold refit on the cluster's B (pcl_refit: the squared scheme's
@@ -250,7 +175,6 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   PclWork<A> w;
-  // (the cluster's slot of the workspace where a block holds several pairs)
   // (the cluster's slot of the workspace where a block holds several pairs;
   // the blocks share the power step at every p)
   w.init((float*)dyn4, p, rank,
@@ -295,14 +219,7 @@ int dn_ratio_panel(const RatioArgs& a, int f_is_i16) {
     return launch_pcl(ratio_panel_kernel<false>, DN_RATIO_PCL_ARGS);
 #undef DN_RATIO_PCL_ARGS
   }
-  if (a.ws == nullptr) return (int)cudaErrorInvalidValue;
-#define DN_RATIO_PANEL_ARGS                                                   \
-  a.G, a.ws_slots, 0, a.st, a.F, a.mask, a.cov, a.est, a.G, a.p, a.W,         \
-      a.power_cold, a.ws
-  if (f_is_i16)
-    return launch_panel(ratio_panel_block_kernel<true>, DN_RATIO_PANEL_ARGS);
-  return launch_panel(ratio_panel_block_kernel<false>, DN_RATIO_PANEL_ARGS);
-#undef DN_RATIO_PANEL_ARGS
+  return dn_ratio_phase(a, f_is_i16);
 }
 
 // The clusters the card holds at once of kernel 2 at p on the cluster layout

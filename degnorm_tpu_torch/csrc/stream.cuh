@@ -60,16 +60,6 @@ namespace cg = cooperative_groups;
 #define DN_STREAM_CHUNK 128
 #define DN_STREAM_MAX_CLUSTER 8  // the largest portable cluster
 
-// (float)raw / s for an int16 numerator, from r = 1 / s (IEEE, hoisted).
-__device__ __forceinline__ float scaled_i16(int16_t raw, float s, float r) {
-  const float a = (float)raw;
-  float q = __fmul_rn(a, r);
-  float e = __fmaf_rn(-q, s, a);
-  q = __fmaf_rn(e, r, q);
-  e = __fmaf_rn(-q, s, a);
-  return __fmaf_rn(e, r, q);
-}
-
 // One block's columns of a gene.  Local slot l is column
 // ((l / CH) * cl + rank) * CH + l % CH of the gene.  I16: the input is raw
 // int16 coverage divided by `scale`; else finished float32 coverage.
@@ -427,3 +417,5 @@ int dn_stream_wide_i16(const StreamArgs& a);
 // the instances for p > 128 (stream_panel.cu: panel.cuh's cores, a cluster
 // or a block a gene), both forms
 int dn_stream_panel(const StreamArgs& a);
+// p > DN_PCL_MAX_P_STREAM: the phased layout (stream_phase.cu)
+int dn_stream_phase(const StreamArgs& a);

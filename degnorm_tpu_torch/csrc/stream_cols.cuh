@@ -76,7 +76,7 @@
 #pragma once
 
 #include "common.cuh"
-#include "stream.cuh"  // scaled_i16, DN_STREAM_CHUNK
+#include "stream.cuh"  // DN_STREAM_CHUNK
 
 // Floats of a gene's packed partial Gram (the upper triangle at PMAX).
 template <int PMAX>

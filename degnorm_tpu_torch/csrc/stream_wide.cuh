@@ -9,7 +9,7 @@
 // ::nmf_masked_streamed (_stream_kernel), as stream.cuh does for p <= 32,
 // with the same arguments, input forms and results: a gene's columns are
 // dealt to its `cl` blocks in chunks of DN_STREAM_CHUNK, round robin, up to
-// its last active column; int16 + scale takes stream.cuh's scaled_i16, the
+// its last active column; int16 + scale takes common.cuh's scaled_i16, the
 // IEEE quotient, so that it gives the float32 form's bits.  Bound on this
 // card: float32 operations (wide.cuh).  X stays in the global scratch (a
 // block's share of X at p = 128 outgrows its shared memory, which the Gram,

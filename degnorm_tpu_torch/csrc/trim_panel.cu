@@ -248,8 +248,8 @@ static __device__ __noinline__ PclRound trim_round_nmf(
     WideResidentSrc src, PclWork<float> w, int n_it, int n_cold,
     int power_warm, int warm_plain, float tol, bool from_x) {
   PclRound r;
-  r.se = pcl_core<ADAPT, true>(src, w, r.s, n_it, n_cold, power_warm,
-                               warm_plain, tol, &r.ran, from_x);
+  r.se = pcl_core<ADAPT>(src, w, r.s, n_it, n_cold, power_warm, warm_plain,
+                         tol, &r.ran, from_x);
   r.nact = w.nact;
   return r;
 }

@@ -33,8 +33,9 @@ nmf_panel_launches = 0
 nmf_panel_tol_launches = 0
 ratio_panel_launches = 0
 # ... of them, kernel 2's on its cluster layout (``panel_cluster(p,
-# "stream")``)
+# "stream")``) and on its phased layout past it (``panel_phase(p)``)
 ratio_panel_cluster_launches = 0
+ratio_panel_phase_launches = 0
 # kernel 2c (the column-sharded ratio-SVD row sums): both of its launches
 ratio_cols_launches = 0
 
@@ -56,8 +57,9 @@ ratio_cols_launches = 0
 # a block of WIDE_THREADS threads), p above WIDE_MAX_P their panel instance
 # (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS, on a cluster of
 # blocks a gene for kernels 1 and 3 up to PCL_MAX_P and kernels 2 and 4 up
-# to PCL_MAX_P_STREAM, ``panel_cluster``, else in a workspace in device
-# memory, ``panel_workspace``); kernels 4c and 2c have neither and
+# to PCL_MAX_P_STREAM, ``panel_cluster``, past that kernels 1 and 3 in a
+# workspace in device memory, ``panel_workspace``, kernels 2 and 4 on the
+# phased layout, ``panel_phase``); kernels 4c and 2c have neither and
 # stop at COLS_MAX_P (the engine gene-shards such a bucket:
 # ``engine.DegNormEngine.column_sharded``).
 NARROW_MAX_P = 32
@@ -271,7 +273,9 @@ def panel_workspace_bytes(p: int, device: torch.device) -> int:
     p <= WIDE_MAX_P and off a card, where the plain versions run): the
     largest of ``kernel_workspace``'s over both kinds of kernel, the block
     layout's above a kind's cluster layout, the cluster layout's where a
-    block holds several pairs (none where it holds one)."""
+    block holds several pairs (none where it holds one).  Past
+    PCL_MAX_P_STREAM kernels 1 and 3's block layout sets it: the phased
+    layout of kernels 2 and 4 takes less (``phase_ws_floats``)."""
     if p <= WIDE_MAX_P or device.type != "cuda":
         return 0
     sms = panel_slots(1 << 30, device)
@@ -291,8 +295,10 @@ def panel_workspace_bytes(p: int, device: torch.device) -> int:
 # PCL_MAX_C the blocks share the power step's matvecs
 # (``pcl_shared_power``).  The cut is a rule by kind (``pcl_max_p``):
 # kernels 1 and 3 ("loop") at PCL_MAX_P, kernels 2 and 4 ("stream") at
-# PCL_MAX_P_STREAM (a cluster of 9, not portable, past 1,024); above it a
-# kind keeps the block-a-gene layout and its workspace (``panel_workspace``).
+# PCL_MAX_P_STREAM (a cluster of 9, not portable, past 1,024); above it
+# kernels 1 and 3 keep the block-a-gene layout and its workspace
+# (``panel_workspace``), kernels 2 and 4 take the phased layout
+# (``panel_phase``).
 PCL_MAX_P = 640
 PCL_MAX_P_STREAM = 1152
 PCL_KINDS = ("loop", "stream")
@@ -390,6 +396,40 @@ def pcl_ldx(p: int) -> int:
     return -(-p // 4) * 4
 
 
+# The phased layout of kernels 2 and 4 past PCL_MAX_P_STREAM (mirror of
+# csrc/phase.cuh's dn_phase_* code): a call lists its active genes on the
+# card and runs them in groups of at most ``panel_slots`` genes, each gene
+# of a group with its slot of the workspace (B and B^2, p x
+# ``phase_ldb(p)`` floats each, u and PHASE_SCAL scalars), through a fixed
+# sequence of launches (csrc/stream_phase.cu, csrc/ratio_phase.cu).  The
+# launches' geometry is modelled in tests/test_torch_panelphase.py.
+PHASE_SCAL = 4
+
+
+def panel_phase(p: int) -> bool:
+    """True where kernels 2 and 4 run p on the phased layout
+    (``dn_phase_on``)."""
+    return p > PCL_MAX_P_STREAM
+
+
+def phase_ldb(p: int) -> int:
+    """Floats a row of a gene's B and B^2 takes (``dn_phase_ldb``)."""
+    return -(-p // 4) * 4
+
+
+def phase_slot_floats(p: int) -> int:
+    """Floats of a gene's slot (``dn_phase_slot_floats``): B, B^2, u and
+    the scalars (s, B's largest entry)."""
+    return 2 * p * phase_ldb(p) + pmax_of(p) + PHASE_SCAL
+
+
+def phase_ws_floats(p: int, slots: int, G: int) -> int:
+    """Floats of a call's workspace (``dn_phase_ws_floats``): ``slots``
+    slots, kernel 4's scales and their reciprocals, and the list of active
+    genes (its count, then up to G)."""
+    return slots * phase_slot_floats(p) + 2 * pmax_of(p) + G + 1
+
+
 def scratch_shape(G: int, p: int, W: int,
                   kind: str) -> Tuple[int, int, int]:
     """Shape of the X scratch of kernel 4 (``kind`` "stream") or of kernels
@@ -408,7 +448,13 @@ def kernel_workspace(G: int, p: int, device, kind: str):
     """(workspace, slots) of a launch at p of kernels 1 and 3 (``kind``
     "loop") or 2 and 4 ("stream"): on the kind's cluster layout
     ``pcl_ws_floats`` a cluster the card can hold at once (one an SM a
-    block; none where a block holds one pair), else ``panel_workspace``."""
+    block; none where a block holds one pair); past it kernels 2 and 4's
+    phased layout, ``phase_ws_floats`` at ``panel_slots`` genes a group;
+    else ``panel_workspace``."""
+    if kind == "stream" and panel_phase(p) and G > 0:
+        slots = panel_slots(G, device)
+        return (torch.empty(phase_ws_floats(p, slots, G), dtype=torch.float32,
+                            device=device), slots)
     if not panel_cluster(p, kind):
         return panel_workspace(G, p, device)
     if pcl_held(p) == 1 or G == 0:
@@ -742,7 +788,8 @@ def ratio_rowsums_cuda(
     _geometry: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``ratio_rowsums_plain``'s signature
-    (csrc/ratio.cuh; p > 128 csrc/ratio_panel.cu, on kernel 4's layout), at
+    (csrc/ratio.cuh; p > 128 csrc/ratio_panel.cu, on kernel 4's layout,
+    past PCL_MAX_P_STREAM csrc/ratio_phase.cu's phased layout), at
     any width, on float32 coverage or the raw int16 upload as it is (the
     same bits as its float32 cast).  The kernel reads a
     gene once and writes 2p floats, so a wide bucket costs it time and no
@@ -753,7 +800,7 @@ def ratio_rowsums_cuda(
     if F.device.type == "cpu":
         return ratio_rowsums_plain(F, mask, power_iters=power_iters)
     global ratio_launches, ratio_wide_launches, ratio_panel_launches
-    global ratio_panel_cluster_launches
+    global ratio_panel_cluster_launches, ratio_panel_phase_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_coverage_input(F, "ratio_rowsums_cuda", int16_ok=True)
     G, p, W = F.shape
@@ -776,6 +823,7 @@ def ratio_rowsums_cuda(
     if p > WIDE_MAX_P:
         ratio_panel_launches += 1
         ratio_panel_cluster_launches += panel_cluster(p, "stream")
+        ratio_panel_phase_launches += panel_phase(p)
     elif p > NARROW_MAX_P:
         ratio_wide_launches += 1
     return cov, est

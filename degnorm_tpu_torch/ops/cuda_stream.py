@@ -34,7 +34,9 @@ stream_launches = 0
 stream_wide_launches = 0
 stream_panel_launches = 0
 # ... of them, on the cluster layout (``cuda_nmf.panel_cluster(p, "stream")``)
+# and on the phased layout past it (``cuda_nmf.panel_phase(p)``)
 stream_panel_cluster_launches = 0
+stream_panel_phase_launches = 0
 colsharded_launches = 0
 colsharded_tol_launches = 0
 
@@ -190,7 +192,8 @@ def nmf_masked_streamed_cuda(
     any width and any p >= 2 (p > 32 the wide instances of
     csrc/stream_wide.cuh, p > 128 the panel instance of
     csrc/stream_panel.cu: up to ``cuda_nmf.PCL_MAX_P_STREAM`` a cluster of
-    blocks a gene, above one block a gene with a workspace).  A CPU tensor
+    blocks a gene, above the phased layout of csrc/stream_phase.cu, a gene's
+    panel pairs over the whole card).  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises.
 
     The launch geometry comes from ``pick_geometry``; results differ between
@@ -205,7 +208,7 @@ def nmf_masked_streamed_cuda(
             power_warm_plain=power_warm_plain, gene_active=gene_active,
             u0=u0, scale=scale)
     global stream_launches, stream_wide_launches, stream_panel_launches
-    global stream_panel_cluster_launches
+    global stream_panel_cluster_launches, stream_panel_phase_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "nmf_masked_streamed_cuda"
     cuda_nmf.check_coverage_input(F, name, int16_ok=True)
@@ -256,6 +259,7 @@ def nmf_masked_streamed_cuda(
     if p > cuda_nmf.WIDE_MAX_P:
         stream_panel_launches += 1
         stream_panel_cluster_launches += cuda_nmf.panel_cluster(p, "stream")
+        stream_panel_phase_launches += cuda_nmf.panel_phase(p)
     elif p > cuda_nmf.NARROW_MAX_P:
         stream_wide_launches += 1
     return K, E, u

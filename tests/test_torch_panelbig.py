@@ -3,7 +3,7 @@ past 640 samples (csrc/panel.cuh's ``pcl_*`` code with clusters of T
 blocks, csrc/stream_panel.cu, csrc/ratio_panel.cu) against its Python
 mirror in ops/cuda_nmf.py at every p from 129 to the cut of kernels 2 and
 4, and the port's plain versions against the JAX engine at p = 704, where
-every bucket streams.
+every bucket streams (past the cut: tests/test_torch_panelphase.py).
 
 The kernels run only on the card (``chip_smoke.py`` phase ``panels``);
 here the geometry the launches take and the arithmetic of the plain
@@ -116,22 +116,6 @@ def test_shared_power_step_rows_cover_p_once(p):
     Jm = (T + 1) // 2
     halves = [list(range(0, min(p, Jm * R))), list(range(Jm * R, p))]
     assert all(halves) and halves[0] + halves[1] == list(range(p))
-
-
-@pytest.mark.parametrize("p", [1153, 1280, 2000])
-def test_past_the_cut_kernels_2_and_4_keep_the_block_layout(p):
-    """Past PCL_MAX_P_STREAM (a cluster of 10 or more blocks, whose
-    p-vectors no longer fit a block's shared memory) kernels 2 and 4 keep
-    one block a gene with its workspace, as kernels 1 and 3 do past 640."""
-    assert not cuda_nmf.panel_cluster(p, "stream")
-    assert cuda_nmf.pcl_smem_bytes(p) > SMEM_PER_BLOCK - 4
-    ws, slots = cuda_nmf.kernel_workspace(24576, p, torch.device("cpu"),
-                                          "stream")
-    assert slots == cuda_nmf.SMS
-    assert ws.numel() == slots * cuda_nmf.panel_ws_floats(p)
-    assert cuda_nmf.scratch_shape(5, p, 64, "stream") == (5, p, 64)
-    for kernel in ("stream", "ratio"):
-        assert wide_smem_bytes(kernel, p, 16384) <= SMEM_PER_BLOCK
 
 
 BIG_P = 704

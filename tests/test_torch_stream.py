@@ -316,7 +316,7 @@ def test_raw_route_takes_int16_only():
         assert torch.equal(x, y)
 
 
-# ---- the quotient of the int16 + scale form (csrc/stream.cuh::scaled_i16) ---
+# ---- the quotient of the int16 + scale form (csrc/common.cuh::scaled_i16) ---
 
 def _fma32(a, b, c):
     """Correctly rounded float32 a * b + c of float32 arrays: the product is

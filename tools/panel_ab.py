@@ -24,19 +24,26 @@ sources as they are.  Prints one JSON line a run: CUDA-event ms of
   256 and 512 x 512 x 128 (RATIO);
 * ``big``: kernel 4 past 640 samples (BIG: 64 x 768 x 16,384, a full
   bucket, and 4 x 700 x 2,048), raw int16 + scale;
+* ``past``: kernels 4 and 2 past 1,152 samples (PAST: 4 x 1,153 x 2,048, 8
+  and 64 x 1,222 x 16,384, 2 x 4,096 x 1,024; ``chip_smoke.py`` phase
+  ``panels``' shapes and data), raw int16 (+ scale for kernel 4), each
+  tree's outputs (K, E, u of kernel 4, the row sums of kernel 2) saved to
+  a temporary directory and compared bit for bit with this tree's first
+  run (``past_bits``);
 
 every part by default, with the card's name and power limit and the panel
-instances that spill registers in the build; for this tree also the plain
-versions of kernel 4 at p = 256 and 512 and at BIG, and of kernel 2 at
-RATIO.  Compare trees only within one run.  ``--turns`` runs the trees in
-turns, this tree, the others, the others again, this tree (``A B B A``), to
-see the drift of the card; each tree is built once.
+and phased instances that spill registers in the build; for this tree also the plain
+versions of kernel 4 at p = 256 and 512, at BIG and at PAST, and of kernel
+2 at RATIO and PAST.  Compare trees only within one run.  ``--turns`` runs
+the trees in turns, this tree, the others, the others again, this tree
+(``A B B A``), to see the drift of the card; each tree is built once.
 """
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -48,7 +55,9 @@ RESIDENT = ((288, 224), (384, 160), (512, 128), (640, 96))
 RESIDENT_GENES = 512
 RATIO = ((512, 256, 256), (512, 512, 128))
 BIG = ((64, 768, 16384), (4, 700, 2048))
-PARTS = ("resident", "stream", "trim", "ratio", "big")
+PAST = ((4, 1153, 2048), (8, 1222, 16384), (64, 1222, 16384),
+        (2, 4096, 1024))
+PARTS = ("resident", "stream", "trim", "ratio", "big", "past")
 
 
 def time_resident(cs, dev, nmf_cfg, eng, out):
@@ -82,6 +91,9 @@ def layout(cuda_nmf, p, kind):
     a cut at PCL_MAX_P for kernels 1, 3 and 4 (kernel 2: blocks)."""
     if not hasattr(cuda_nmf, "panel_cluster"):
         return "block"
+    if (kind in ("stream", "ratio") and hasattr(cuda_nmf, "panel_phase")
+            and cuda_nmf.panel_phase(p)):
+        return "phase"
     if not hasattr(cuda_nmf, "pcl_max_p"):
         return ("cluster" if cuda_nmf.panel_cluster(p) and kind != "ratio"
                 else "block")
@@ -141,7 +153,76 @@ def time_big(cs, dev, nmf_cfg, plain, out):
         torch.cuda.empty_cache()
 
 
-def one(tree, plain, parts):
+def time_past(cs, dev, nmf_cfg, plain, out, save):
+    """Kernels 4 (raw int16 + scale) and 2 (raw int16) at PAST, on
+    chip_smoke's ``small_wide_bucket`` data (each (p, W) made at its
+    largest G, a smaller G its first genes), their plain versions too where
+    ``plain``; the outputs into the npz file ``save``."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
+    nkw = baseline._nmf_kwargs(nmf_cfg, EngineConfig())
+    rkw = dict(power_iters=EngineConfig().power_iters_cold)
+    top, arrays, made = {}, {}, {}
+    for G, p, W in PAST:
+        top[p, W] = max(G, top.get((p, W), 0))
+    for G, p, W in PAST:
+        if (p, W) not in made:
+            made = {(p, W): cs.small_wide_bucket(top[p, W], p, W,
+                                                 cs.SEED + p, dev)}
+        raw, lm = (x[:G].contiguous() for x in made[p, W])
+        scale = torch.linspace(0.8, 1.25, p, device=dev)
+        F = raw.to(torch.float32) / scale[None, :, None]
+        colmax = (F * lm[:, None, :]).amax(dim=1)
+        hi = (colmax > 0.1 * colmax.amax(dim=1, keepdim=True)) & lm
+        del colmax
+        tag = f"{G}x{p}x{W}"
+
+        def k4():
+            return cuda_stream.nmf_masked_streamed_cuda(raw, hi, scale=scale,
+                                                        **nkw)
+
+        def k2():
+            return cuda_nmf.ratio_rowsums_cuda(raw, lm, **rkw)
+
+        for name, res in zip(("K", "E", "u"), k4()):
+            arrays[f"4p_{tag}.{name}"] = res.cpu().numpy()
+        for name, res in zip(("cov", "est"), k2()):
+            arrays[f"2p_{tag}.{name}"] = res.cpu().numpy()
+        out[f"4p_{tag}"] = cs.time_ms(k4, 1, warm=False)
+        out[f"2p_{tag}"] = cs.time_ms(k2, 2, warm=False)
+        out[f"layout_4p_{tag}"] = layout(cuda_nmf, p, "stream")
+        out[f"layout_2p_{tag}"] = layout(cuda_nmf, p, "ratio")
+        if plain:
+            out[f"4p_plain_{tag}"] = cs.time_ms(
+                lambda: cuda_stream.nmf_masked_streamed_plain(F, hi, **nkw), 1,
+                warm=False)
+            out[f"2p_plain_{tag}"] = cs.time_ms(
+                lambda: cuda_nmf.ratio_rowsums_plain(raw, lm, **rkw), 1,
+                warm=False)
+        del raw, lm, scale, F, hi
+        torch.cuda.empty_cache()
+    np.savez(save, **arrays)
+
+
+def past_bits(a_path, b_path):
+    """Per array of two ``time_past`` files: the same bits, or the largest
+    difference relative to max(|value|, 1) and how many values differ."""
+    a, b = np.load(a_path), np.load(b_path)
+    out = {}
+    for k in a.files:
+        x, y = a[k], b[k]
+        if x.shape == y.shape and np.array_equal(x, y):
+            out[k] = True
+            continue
+        d = (np.abs(x.astype(np.float64) - y.astype(np.float64))
+             / np.maximum(np.abs(y.astype(np.float64)), 1.0))
+        out[k] = {"max_rel": float(d.max()), "differing": int((x != y).sum())}
+    return out
+
+
+def one(tree, plain, parts, save):
     """The timings of one tree's build (run in its own process)."""
     sys.path.insert(0, tree)
     import torch
@@ -151,9 +232,10 @@ def one(tree, plain, parts):
     if os.path.dirname(os.path.abspath(cs.__file__)) != os.path.abspath(tree):
         raise RuntimeError(f"chip_smoke.py not taken from {tree}")
     build.get_lib(verbose=True)
-    spilled = {r["kernel"]: r["spill_bytes"]
-               for r in cs.ptxas_report(str(build.build_info.get("log", "")))
-               if r["spill_bytes"] and "panel" in r["kernel"]}
+    report = cs.ptxas_report(str(build.build_info.get("log", "")))
+    spilled = {r["kernel"]: r["spill_bytes"] for r in report
+               if r["spill_bytes"] and ("panel" in r["kernel"]
+                                        or "phase" in r["kernel"])}
     dev = torch.device("cuda")
     nmf_cfg = NMFConfig(nmf_iter=cs.NMF_ITER)
     out = {}
@@ -166,11 +248,12 @@ def one(tree, plain, parts):
         time_ratio(cs, dev, plain, out)
     if "big" in parts:
         time_big(cs, dev, nmf_cfg, plain, out)
+    if "past" in parts:
+        time_past(cs, dev, nmf_cfg, plain, out, save)
     out = {k: round(v, 3) if isinstance(v, float) else v
            for k, v in out.items()}
-    print(json.dumps({"tree": tree, "ms": out,
-                      "panel_spills": spilled, "smi": cs.smi_line()}),
-          flush=True)
+    print(json.dumps({"tree": tree, "ms": out, "panel_spills": spilled,
+                      "smi": cs.smi_line()}), flush=True)
 
 
 def time_stream_trim(cs, dev, nmf_cfg, eng, plain, out, parts=PARTS):
@@ -229,19 +312,25 @@ def main(args):
     turns = args[:1] == ["--turns"]
     others = [os.path.abspath(t) for t in args[turns:]]
     trees = [REPO] + others + (others + [REPO] if turns else [])
-    for tree in trees:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", tree, str(int(tree == REPO)),
-                            ",".join(parts)],
-                           capture_output=True, text=True)
-        line = (r.stdout.strip().splitlines() or [""])[-1]
-        print(json.dumps({"tree": tree, "rc": r.returncode,
-                          "result": json.loads(line) if r.returncode == 0
-                          else r.stderr[-2000:]}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        saves = [os.path.join(tmp, f"past_{i}.npz") for i in range(len(trees))]
+        for i, tree in enumerate(trees):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--one", tree, str(int(tree == REPO)),
+                                ",".join(parts), saves[i]],
+                               capture_output=True, text=True)
+            line = (r.stdout.strip().splitlines() or [""])[-1]
+            rec = {"tree": tree, "rc": r.returncode,
+                   "result": json.loads(line) if r.returncode == 0
+                   else r.stderr[-2000:]}
+            if "past" in parts and r.returncode == 0 and i > 0:
+                rec["past_bits"] = past_bits(saves[i], saves[0])
+            print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2], sys.argv[3] == "1", tuple(sys.argv[4].split(",")))
+        one(sys.argv[2], sys.argv[3] == "1", tuple(sys.argv[4].split(",")),
+            sys.argv[5])
     else:
         main(sys.argv[1:])

@@ -15,19 +15,18 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
 * ``ttn_cols``: the TTN-like genes on two shards, column-sharded (phase
   ``seqpar``);
 * ``narrow_x64``: the narrow genes at 64 samples on one device, phase
-  ``wide_p`` (b)'s parity subset (its first PARITY_GENES genes, 5
-  iterations: the wide kernels 1-4);
-* ``long_tail_x48``: the long tail at 48 samples, phase ``wide_p`` (c)'s
-  parity subset (PARITY_WIDE_GENES of either width, 1 iteration: the wide
-  kernels 2 and 4);
+  ``wide_p`` (b)'s parity subset (its first PARITY_GENES genes,
+  NARROW_X64_ITER iterations: the wide kernels 1-4);
+* ``long_tail_x48``: the long tail at 48 samples (TAIL_X48_GENES here),
+  phase ``wide_p`` (c)'s parity subset (PARITY_WIDE_GENES of either width,
+  1 iteration: the wide kernels 2 and 4);
 * ``panel_x256``: phase ``panels``' fit, its narrow genes at 256 samples
-  with the default bucket widths (PANEL_FIT_GENES, PANEL_ITER iterations:
-  the panel instances of kernels 1-4);
+  with the default bucket widths (PANEL_FIT_GENES here, PANEL_ITER
+  iterations: the panel instances of kernels 1-4);
 * ``panel_x768``: phase ``panels``' fit past 640 samples, narrow genes at
-  768 samples with the default bucket widths (PANEL_BIG_GENES, PANEL_ITER
+  768 samples with the default bucket widths (BIG_GENES here, PANEL_ITER
   iterations: every bucket streams, kernels 2 and 4 on clusters of six
-  blocks; a tree whose ``chip_smoke.py`` has no such fit takes this one's
-  sizes).
+  blocks).
 
 Every case by default; naming CASEs saves only those.
 
@@ -45,7 +44,11 @@ import numpy as np
 
 CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols", "narrow_x64",
          "long_tail_x48", "panel_x256", "panel_x768")
-# panel_x768's sizes where a tree's chip_smoke.py predates its fit
+# the sizes of the cases on phases wide_p's and panels' fits, fixed here so
+# that trees whose chip_smoke.py cut them (or predates the p = 768 fit)
+# still compare
+NARROW_X64_ITER, TAIL_X48_GENES = 5, 2048
+PANEL_FIT_GENES = 2048
 BIG_P, BIG_GENES = 768, 512
 
 
@@ -79,8 +82,8 @@ def save(tree, out, cases=CASES):
     runs["narrow_x64"] = (
         ({k: cov[k] for k in keys}, X[:cs.PARITY_GENES]),
         EngineConfig(bucket_widths=cs.BUCKET_WIDTHS), None,
-        NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.WIDE_P_ITER["b"]))
-    cov, X = cs.synth_dataset(cs.WIDE_P_TAIL_GENES, cs.WIDE_P_TAIL_P,
+        NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=NARROW_X64_ITER))
+    cov, X = cs.synth_dataset(TAIL_X48_GENES, cs.WIDE_P_TAIL_P,
                               seed=cs.SEED + 1,
                               lengths_fn=cs.synth_long_lengths)
     lens = np.array([m.shape[1] for m in cov.values()])
@@ -93,12 +96,11 @@ def save(tree, out, cases=CASES):
         None, NMFConfig(nmf_iter=cs.NMF_ITER,
                         degnorm_iter=cs.WIDE_P_ITER["c"]))
     runs["panel_x256"] = (
-        cs.synth_dataset(cs.PANEL_FIT_GENES, cs.PANEL_FIT_P), EngineConfig(),
+        cs.synth_dataset(PANEL_FIT_GENES, cs.PANEL_FIT_P), EngineConfig(),
         None, NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
     if "panel_x768" in cases:
         runs["panel_x768"] = (
-            cs.synth_dataset(getattr(cs, "PANEL_BIG_GENES", BIG_GENES),
-                             getattr(cs, "PANEL_BIG_P", BIG_P)),
+            cs.synth_dataset(BIG_GENES, BIG_P),
             EngineConfig(), None,
             NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
     del cov, X
