@@ -426,9 +426,9 @@ SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "ratio_rowsums_kernel", "cols_gram_kernel", "cols_sweep_kernel",
                "cols_finish_kernel", "ratio_cols_sums_kernel",
                "nmf_wide_kernel", "trim_wide_kernel", "nmf_stream_wide_kernel",
-               "ratio_wide_kernel", "nmf_panel_kernel", "ratio_panel_kernel",
+               "ratio_wide_", "nmf_panel_kernel", "ratio_panel_kernel",
                "nmf_stream_panel_kernel", "trim_panel_kernel",
-               "nmf_panel_block_kernel", "trim_panel_block_kernel",
+               "trim_panel_block_kernel",
                "nmf_res_kernel", "trim_res_kernel", "phase_gram_kernel",
                "phase_power_kernel", "phase_cols_kernel", "phase_est_kernel",
                "phase_prep_kernel")
@@ -724,7 +724,8 @@ BRANCHES = {
 }
 
 
-def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
+def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False,
+                     cap_active=True):
     """Kernel 1's nmf_tol branch at ``tol`` against its plain version (cold
     start, inactive genes, on the launch the rule picks and on the other
     one).  Each gene reports the iterations it ran: the kernel's count must
@@ -733,7 +734,10 @@ def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
     summation order can tip a freeze test one iteration), so a kernel that
     never freezes, or freezes on another test, fails; K, E, u rtol 1e-3 /
     atol 1e-3 on the genes whose counts agree.  ``need_freeze``: at least half the active genes must
-    freeze early, or the check would not see the freeze."""
+    freeze early, or the check would not see the freeze.  ``cap_active``
+    False drops the cap of 1% of the active genes (the counts may differ on
+    max(2, 1%) of the early-frozen genes): buckets of 64 columns past 640
+    samples hold too few active genes for that cap to allow any."""
     import torch
     from degnorm_tpu_torch.ops import cuda_nmf
     G, p, W = ti.Fm.shape
@@ -758,7 +762,10 @@ def check_nmf_tol_at(ti, act, nkw, nmf_cfg, tol, timed, need_freeze=False):
         n_off = int((~same).sum())
         agree.append(G - n_off)
         max_diff = max(max_diff, int((it_g - it_w).abs().max()))
-        if n_off > min(max(2, 0.01 * frozen), 0.01 * n_act):
+        allowed = max(2, 0.01 * frozen)
+        if cap_active:
+            allowed = min(allowed, 0.01 * n_act)
+        if n_off > allowed:
             raise AssertionError(
                 f"{what} {g}: iterations differ on {n_off} genes, of {frozen} "
                 f"that froze early in the plain version ({n_act} active)")
@@ -1168,13 +1175,11 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
     ours = {}
     for tag in ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                 "ratio_rowsums_kernel", "trim_loop_kernel",
-                "nmf_streamed_kernel", "nmf_wide_kernel", "ratio_wide_kernel",
+                "nmf_streamed_kernel", "nmf_wide_kernel", "ratio_wide_",
                 "trim_wide_kernel", "nmf_stream_wide_kernel",
                 "nmf_panel_kernel", "ratio_panel_kernel", "trim_panel_kernel",
-                "nmf_stream_panel_kernel", "nmf_panel_block_kernel",
-                "trim_panel_block_kernel", "nmf_stream_panel_block_kernel",
-                "ratio_panel_block_kernel", "nmf_res_kernel",
-                "trim_res_kernel"):
+                "nmf_stream_panel_kernel", "trim_panel_block_kernel",
+                "phase_", "nmf_res_kernel", "trim_res_kernel"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -1728,7 +1733,8 @@ def wide_launches(tag="wide"):
                 cuda_trim, f"trim_{tag}_tol_launches"),
             f"nmf_streamed[{tag}]": getattr(cuda_stream,
                                             f"stream_{tag}_launches"),
-            **({"ratio_rowsums[panel,cluster]":
+            **({"nmf_masked[panel,phase]": cuda_nmf.nmf_panel_phase_launches,
+                "ratio_rowsums[panel,cluster]":
                 cuda_nmf.ratio_panel_cluster_launches,
                 "nmf_streamed[panel,cluster]":
                 cuda_stream.stream_panel_cluster_launches,
@@ -1752,6 +1758,7 @@ def zero_launches():
     cuda_trim.trim_wide_launches = cuda_trim.trim_wide_fast_launches = 0
     cuda_trim.trim_wide_tol_launches = 0
     cuda_nmf.nmf_panel_launches = cuda_nmf.nmf_panel_tol_launches = 0
+    cuda_nmf.nmf_panel_phase_launches = 0
     cuda_nmf.ratio_panel_launches = cuda_stream.stream_panel_launches = 0
     cuda_nmf.ratio_panel_cluster_launches = 0
     cuda_stream.stream_panel_cluster_launches = 0
@@ -3540,12 +3547,13 @@ def wide_same_bits(keep, raw, lm, eng_cfg, branches, tag="wide"):
 
 
 def wide_fit(tag, cov, X, nmf_cfg, eng_cfg, mesh=None, steady=True,
-             profile=False):
+             profile=False, need_bs=True):
     """A fit of phase wide_p through DegNormEngine.run: counts set to 0 just
     before it and read just after, peak device memory; a steady refit and a
     profiled one where asked (without the steady refit, the profiled fit is
-    reported beside the cold fit's wall).  Returns (result, record,
-    engine)."""
+    reported beside the cold fit's wall).  ``need_bs``: some gene must run
+    baseline selection (genes shorter than min_gene_len never do).  Returns
+    (result, record, engine)."""
     import torch
     from degnorm_tpu_torch.engine import DegNormEngine
     engine = DegNormEngine(nmf_cfg, eng_cfg, mesh=mesh)
@@ -3560,7 +3568,7 @@ def wide_fit(tag, cov, X, nmf_cfg, eng_cfg, mesh=None, steady=True,
     if not (np.isfinite(res.rho).all() and res.rho.min() >= 0
             and res.rho.max() <= 0.9 and np.isfinite(res.x_adj).all()):
         raise AssertionError(f"wide_p {tag}: non-finite or out-of-range DI")
-    if not res.ran_baseline_selection.any():
+    if need_bs and not res.ran_baseline_selection.any():
         raise AssertionError(f"wide_p {tag}: no gene ran baseline selection")
     iters = nmf_cfg.degnorm_iter
     compute = engine.timings["init"] + engine.timings["iterations"]
@@ -3959,6 +3967,21 @@ PANEL_BIG_PARITY = 32
 PANEL_PHASE_P = 1222
 PANEL_PHASE_GENES = 256
 PANEL_PHASE_PARITY = 32
+# kernel 1 past its cluster layout, on the phased layout (csrc/phase.cuh):
+# resident on PANEL_GENES genes at (p, W) just past the cut (PANEL_EDGE's),
+# at the main path's p, at four panels and just past kernels 2 and 4's cut
+# (at the widest W the resident gate admits), in both branches
+PANEL_NMF_PHASE = ((704, 64), (768, 64), (1024, 64), (1153, 56))
+# the slice's main path for kernel 1 past 640 samples: narrow genes of
+# 50-64 bases at p = PANEL_RES_P with widths that keep a W = 64 bucket
+# resident (the default widths start at 256, where no bucket past 256
+# samples is resident), kernels 2 on its cluster layout, 1 on the phased
+# layout and 3 on its block layout; a kernels-off parity pair on its first
+# PANEL_RES_PARITY genes
+PANEL_RES_P = 768
+PANEL_RES_GENES = 1024
+PANEL_RES_PARITY = 64
+PANEL_RES_WIDTHS = (64, 256, 512, 1024, 2048, 4096, 8192, 16384, 65536)
 # name -> (source, the TPU kernel, the phase's fit that runs it)
 PANEL_INSTANCES = OrderedDict([
     ("nmf_masked[panel]", ("degnorm_tpu_torch/csrc/nmf_panel.cu",
@@ -3984,12 +4007,107 @@ PANEL_INSTANCES = OrderedDict([
     ("nmf_streamed[panel,phase]", ("degnorm_tpu_torch/csrc/stream_phase.cu",
                                    "degnorm_tpu/ops/pallas_stream.py:266",
                                    "phase")),
+    ("nmf_masked[panel,phase]", ("degnorm_tpu_torch/csrc/phase.cuh",
+                                 "degnorm_tpu/ops/pallas_nmf.py:687",
+                                 "resident768")),
 ])
+
+
+def check_nmf_phase_at(F, lm, nmf_cfg, eng_cfg, timed=True,
+                       all_active=False):
+    """Kernel 1 past PCL_MAX_P on its phased layout (csrc/phase.cuh through
+    csrc/nmf_panel.cu) against its plain version on one resident bucket, in
+    both branches: the default one cold (every 7th gene and the bailed ones
+    inactive: zeros; ``all_active``: only the bailed ones, and the active
+    genes must fill at least two groups of the layout, so that slots are
+    reused by later groups) and resumed from u0 at rtol/atol 1e-3, its
+    nmf_tol branch by ``check_nmf_tol_at`` at MODE_TOL and at FREEZE_TOL
+    (the iterations each gene ran against the plain version's, without the
+    cap by active genes); each run twice for the same bits (the nmf_tol
+    branch with its iterations), every launch counted as a phased one.
+    Returns the measurements."""
+    import torch
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf
+    G, p, W = F.shape
+    assert cuda_nmf.panel_phase(p, "nmf") and cuda_nmf.kernels_supported(
+        F.shape, torch.float32)
+    plain_cfg = dataclasses.replace(eng_cfg, use_kernels=False)
+    ti = baseline.trim_inputs(F, lm, nmf_cfg, plain_cfg)
+    nkw = baseline._nmf_kwargs(nmf_cfg, eng_cfg)
+    act = ~ti.bailed
+    if not all_active:
+        act[::7] = False
+    slots = cuda_nmf.panel_slots(G, F.device)
+    groups = -(-int(act.sum()) // slots)
+    if all_active and groups < 2:
+        raise AssertionError(f"nmf_masked[panel,phase] p={p} W={W}: "
+                             f"{int(act.sum())} active genes fill {groups} "
+                             f"group of {slots}")
+    n0 = cuda_nmf.nmf_panel_phase_launches
+    want, want_ms = timed_once(lambda: cuda_nmf.nmf_masked_plain(
+        ti.Fm, ti.hi, gene_active=act, **nkw))
+    rkw = dict(nkw, power_iters_cold=eng_cfg.power_iters_resume)
+    runs = {"cold": (lambda: cuda_nmf.nmf_masked_cuda(
+                ti.Fm, ti.hi, gene_active=act, **nkw), want),
+            "u0_resume": (lambda: cuda_nmf.nmf_masked_cuda(
+                ti.Fm, ti.hi, gene_active=act, u0=want[2], **rkw),
+                cuda_nmf.nmf_masked_plain(ti.Fm, ti.hi, gene_active=act,
+                                          u0=want[2], **rkw))}
+    errs = []
+    for tag, (fn, ref) in runs.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        for g_, h_, w_, nm in zip(a, b, ref, ("K", "E", "u")):
+            if not torch.equal(g_, h_):
+                raise AssertionError(f"nmf_masked[panel,phase] {nm} p={p} "
+                                     f"W={W} ({tag}): two runs differ on "
+                                     f"{int((g_ != h_).sum())} values")
+            assert_close(g_, w_, 1e-3, 1e-3,
+                         f"nmf_masked[panel,phase] {nm} p={p} W={W} ({tag})")
+            errs.append(err_stats(g_, w_))
+            if bool((g_[~act] != 0).any()):
+                raise AssertionError(f"nmf_masked[panel,phase] {nm} p={p}: "
+                                     "inactive gene not zero")
+    b_ms, b_by = bound_nmf(ti.Fm, ti.hi, act, nmf_cfg.nmf_iter)
+    rec = dict(shape=[G, p, W], max_abs_err=max(e[0] for e in errs),
+               max_rel_err=max(e[1] for e in errs),
+               inactive_genes=int((~act).sum()), bound_ms=b_ms, bound_by=b_by,
+               slots=slots, groups=groups)
+    tol = {}
+    for t in (MODE_TOL, FREEZE_TOL):
+        tol[f"{t:g}"] = check_nmf_tol_at(ti, act, nkw, nmf_cfg, t, timed,
+                                         cap_active=False)
+        kw = dict(nkw, nmf_tol=t)
+        its = [torch.zeros(G, dtype=torch.int32, device=F.device)
+               for _ in range(2)]
+        a, b = (cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
+                                         iters_out=i, **kw) for i in its)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(x, y) for x, y in zip(a, b))
+                and torch.equal(*its)):
+            raise AssertionError(f"nmf_masked[panel,phase,nmf_tol={t:g}] "
+                                 f"p={p} W={W}: two runs differ")
+    rec["nmf_tol"] = tol
+    if timed:
+        rec["ms"] = time_ms(runs["cold"][0], 2)
+        rec["plain_ms"] = want_ms
+    launched = cuda_nmf.nmf_panel_phase_launches - n0
+    if launched < 1:
+        raise AssertionError(f"nmf_masked p={p}: no launch on the phased "
+                             "layout")
+    rec["launches"] = launched
+    return rec
 
 
 def short_lengths(n, rng):
     """Genes of 200-299 bases: cut to a resident width of 256 or 128."""
     return rng.integers(200, 300, n)
+
+
+def resident_lengths(n, rng):
+    """Genes of 50-64 bases: a bucket of W = 64 under PANEL_RES_WIDTHS."""
+    return rng.integers(50, 65, n)
 
 
 def stream_shapes(shapes, nmf_cfg):
@@ -4036,12 +4154,17 @@ def phase_panels():
     every launch counted there), with a kernels-off parity pair on its
     first PANEL_BIG_PARITY genes; and the clusters the card holds at
     once by blocks a cluster.  Past the cluster layout, kernels 4 and 2 on
-    their phased layout at PANEL_PHASE_STREAM, and the slice's main path:
-    PANEL_PHASE_GENES narrow genes at p = PANEL_PHASE_P (every launch of
-    kernels 2 and 4 on the phased layout, counted apart), profiled, with a
-    kernels-off parity pair on its first PANEL_PHASE_PARITY genes.  No p >
-    128 may reach a plain version: every fit must launch the panel
-    instances.
+    their phased layout at PANEL_PHASE_STREAM, and PANEL_PHASE_GENES narrow
+    genes at p = PANEL_PHASE_P (every launch of kernels 2 and 4 on the
+    phased layout, counted apart), profiled, with a kernels-off parity pair
+    on its first PANEL_PHASE_PARITY genes.  Past its own cut, kernel 1 on
+    the phased layout at PANEL_NMF_PHASE in both branches
+    (``check_nmf_phase_at``), on the main path's own bucket, and the
+    slice's main path: PANEL_RES_GENES
+    genes of 50-64 bases at p = PANEL_RES_P, resident at W = 64 (kernel 1
+    phased, counted apart), profiled, with a kernels-off parity pair on its
+    first PANEL_RES_PARITY genes (``panel_resident_fit``).  No p > 128 may
+    reach a plain version: every fit must launch the panel instances.
     Returns the kernels' records and the launches of each instance on its
     fit."""
     import torch
@@ -4142,6 +4265,20 @@ def phase_panels():
     assert all(cuda_nmf.panel_phase(p) for _, p, _ in PANEL_PHASE_STREAM)
     kres["phase"] = stream_shapes(PANEL_PHASE_STREAM, nmf_cfg)
     secs["phase_shapes"] = time.perf_counter() - t0
+    # ... and kernel 1 past its own, both branches
+    t0 = time.perf_counter()
+    p_top = max(p for p, _ in PANEL_NMF_PHASE)
+    mats = list(synth_dataset(PANEL_GENES, p_top, seed=SEED + p_top,
+                              lengths_fn=short_lengths)[0].values())
+    kres["nmf_phase"] = OrderedDict()
+    for p_e, W_e in PANEL_NMF_PHASE:
+        F, lm, _ = resident_bucket(PANEL_GENES, p_e, W_e, dev, rng, mats=mats)
+        kres["nmf_phase"][f"{PANEL_GENES}x{p_e}x{W_e}"] = check_nmf_phase_at(
+            F, lm, nmf_cfg, eng_cfg)
+        del F, lm
+        torch.cuda.empty_cache()
+    del mats
+    secs["nmf_phase_shapes"] = time.perf_counter() - t0
 
     # the narrow genes at p = PANEL_FIT_P with the default bucket widths
     t0 = time.perf_counter()
@@ -4230,8 +4367,10 @@ def phase_panels():
     del cov_f, X_f, cov_m, X_m
     secs["modes"] = time.perf_counter() - t0
 
-    # the slice's main path past 1,152 samples
+    # the main path past 1,152 samples, and kernel 1's past 640
     panel_phase_fit(nmf_f, runs, secs)
+    kres["nmf_phase"][f"{PANEL_RES_GENES}x{PANEL_RES_P}x64"] = \
+        panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg)
 
     # every launch at p > 128 went to a panel instance, and each instance
     # ran on its fit
@@ -4302,6 +4441,78 @@ def panel_phase_fit(nmf_f, runs, secs):
     secs["phase_parity"] = time.perf_counter() - t0
 
 
+def panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg):
+    """The slice's main path for kernel 1 past 640 samples:
+    PANEL_RES_GENES genes of 50-64 bases at p = PANEL_RES_P with
+    PANEL_RES_WIDTHS (one bucket, W = 64, resident: kernel 2 on its cluster
+    layout, kernel 1 on the phased layout, counted apart, kernel 3 on its
+    block layout; with the default min_gene_len no gene enters the trim
+    rounds), profiled, and a kernels-off parity pair on its first
+    PANEL_RES_PARITY genes.  First, kernel 1 on the fit's bucket (these
+    genes at W = 64, every gene that does not bail active: groups of the
+    phased layout one after another) by ``check_nmf_phase_at`` under
+    ``nmf_cfg`` and ``eng_cfg``.  Adds its records to ``runs`` and its
+    seconds to ``secs``; returns the bucket's record."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.ops import cuda_nmf
+    t0 = time.perf_counter()
+    assert (cuda_nmf.panel_phase(PANEL_RES_P, "nmf")
+            and cuda_nmf.panel_cluster(PANEL_RES_P, "stream"))
+    cov_r, X_r = synth_dataset(PANEL_RES_GENES, PANEL_RES_P,
+                               lengths_fn=resident_lengths)
+    secs["resident768_data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    F = np.zeros((PANEL_RES_GENES, PANEL_RES_P, 64), np.float32)
+    lens = np.zeros(PANEL_RES_GENES, np.int64)
+    for i, m in enumerate(cov_r.values()):
+        F[i, :, :m.shape[1]] = m
+        lens[i] = m.shape[1]
+    dev = torch.device(DEVICE)
+    lm = torch.from_numpy(np.arange(64)[None, :] < lens[:, None]).to(dev)
+    F = torch.from_numpy(F).to(dev)
+    bucket = check_nmf_phase_at(F, lm, nmf_cfg, eng_cfg, all_active=True)
+    del F, lm
+    torch.cuda.empty_cache()
+    secs["resident768_bucket"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng_r = EngineConfig(bucket_widths=PANEL_RES_WIDTHS)
+    _, runs["resident768"], eng = wide_fit(
+        "panel_resident768", cov_r, X_r, nmf_f, eng_r, steady=False,
+        profile=True, need_bs=False)
+    counts = runs["resident768"]["launches"]
+    resident = sorted(b.width for b in eng._buckets
+                      if cuda_nmf.kernels_supported(b.F.shape, torch.float32))
+    if (resident != [64] or counts.get("nmf_streamed", 0)
+            or not 0 < counts.get("nmf_masked[panel,phase]", 0)
+            == counts.get("nmf_masked", 0)
+            or not 0 < counts.get("ratio_rowsums[panel,cluster]", 0)
+            == counts.get("ratio_rowsums", 0)
+            or not counts.get("trim_loop[panel]", 0)):
+        raise AssertionError(f"panels resident768 fit: resident widths "
+                             f"{resident}, launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+    secs["resident768"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys = list(cov_r)[:PANEL_RES_PARITY]
+    sub = OrderedDict((k, cov_r[k]) for k in keys)
+    Xs = X_r[:PANEL_RES_PARITY]
+    on, runs["resident768_parity_on"], _ = wide_fit(
+        "panel_resident768_parity_on", sub, Xs, nmf_f, eng_r, steady=False,
+        need_bs=False)
+    t2 = time.perf_counter()
+    off, _, _ = wide_fit("panel_resident768_parity_off", sub, Xs, nmf_f,
+                         dataclasses.replace(eng_r, use_kernels=False),
+                         steady=False, need_bs=False)
+    compare_fits("panels_resident768_parity", on, off,
+                 (runs["resident768_parity_on"]["wall_s"],
+                  time.perf_counter() - t2), samples=PANEL_RES_P)
+    del cov_r, X_r, sub, on, off
+    secs["resident768_parity"] = time.perf_counter() - t0
+    return bucket
+
+
 def panel_kernel_records(panels):
     """The result line's records of the panel instances: each at its main
     shape (kernels 1 and 3 at PANEL_GENES x 256 x 256, the branches at 129
@@ -4315,7 +4526,10 @@ def panel_kernel_records(panels):
     big = "x".join(map(str, PANEL_BIG_MAIN))
     out = []
     for name, (src, repl, _) in PANEL_INSTANCES.items():
-        if name.endswith(",phase]"):
+        if name == "nmf_masked[panel,phase]":
+            recs = dict(kres["nmf_phase"])
+            main = f"{PANEL_GENES}x{PANEL_RES_P}x64"
+        elif name.endswith(",phase]"):
             recs = (dict(kres["phase"]) if name.startswith("nmf_streamed")
                     else {k: r["ratio_rowsums"]
                           for k, r in kres["phase"].items()})

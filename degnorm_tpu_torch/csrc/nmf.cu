@@ -5,8 +5,10 @@
 // X: (G, p, W) float32 scratch; tol > 0 runs the nmf_tol branch; iters:
 // (G) int32 or null.  p > 32 takes the wide instances (nmf_wide.cuh), whose
 // block is DN_WIDE_THREADS threads, and p > 128 the panel instance
-// (nmf_panel.cu), which also takes ws: ws_slots workspaces of
-// dn_panel_ws_floats(p) floats (null and 0 below).
+// (nmf_panel.cu), which also takes ws: on its cluster layout ws_slots
+// workspaces of dn_pcl_ws_floats(p) floats where a block holds several
+// pairs, past it (the phased layout) dn_phase_ws_floats(p, ws_slots, G)
+// floats, ws_slots genes in flight (null and 0 below).
 extern "C" int dn_nmf_masked(const float* F, const uint8_t* mask,
                              const uint8_t* act, const float* u0, float* X,
                              float* K, float* E, float* u, int G, int p, int W,

@@ -61,8 +61,8 @@ struct NmfArgs {
   float tol;
   int threads;
   cudaStream_t stream;
-  float* ws = nullptr;  // p > 128: the panel instance's workspace,
-  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
+  float* ws = nullptr;  // p > 128: the panel instance's workspace
+  int ws_slots = 0;     // (nmf.cu)
 };
 
 

@@ -6,59 +6,16 @@
 // degnorm_tpu/ops/pallas_nmf.py::nmf_masked_pallas (_nmf_kernel /
 // _nmf_loop), as nmf_wide.cuh does for 33 <= p <= 128, with the same
 // arguments and results.  Bound on this card: float32 operations (the
-// Gram's p(p+1) a column a sweep), see panel.cuh.  Two layouts, as kernel
-// 3: p <= DN_PCL_MAX_P a cluster of blocks a gene, its panel pairs over
-// the blocks (nmf_panel_kernel, pcl_core, X column by column in the
-// scratch);
-// above, one block a gene at a time with its slot of the workspace
-// (nmf_panel_block_kernel, panel_core).  An inactive gene gets zeros.
+// Gram's p(p+1) a column a sweep), see panel.cuh.  Two layouts: p <=
+// DN_PCL_MAX_P a cluster of blocks a gene, its panel pairs over the blocks
+// (nmf_panel_kernel, pcl_core, X column by column in the scratch); above,
+// phase.cuh's phased layout, kernel 4's loop (stream_phase.cu's
+// phase_loop) on float32 input with the nmf_tol branch, X row by row in the
+// scratch and ws a workspace of dn_phase_ws_floats(p, ws_slots, G) floats.
+// (Kernel 3 alone keeps the block layout past its cluster layout.)  An
+// inactive gene gets zeros.
+#include "phase.cuh"
 #include "nmf.cuh"
-#include "panel.cuh"
-
-template <bool ADAPT>
-__global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
-    nmf_panel_block_kernel(const float* __restrict__ F,
-                     const uint8_t* __restrict__ mask,
-                     const uint8_t* __restrict__ act,
-                     const float* __restrict__ u0, float* Xscratch,
-                     float* __restrict__ K, float* __restrict__ E,
-                     float* __restrict__ u, int* __restrict__ iters, int G,
-                     int p, int W, int nmf_iter, int power_cold,
-                     int power_warm, int warm_plain, float tol, float* ws) {
-  extern __shared__ float4 dyn4[];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  PanelWork w;
-  w.init((float*)dyn4, ws + blockIdx.x * dn_panel_ws_floats(p), p);
-  for (size_t g = blockIdx.x; g < (size_t)G; g += gridDim.x) {
-    float* Eg = E + g * W;
-    if (act != nullptr && act[g] == 0) {
-      for (int i = tid; i < p; i += nt) {
-        K[g * p + i] = 0.f;
-        u[g * p + i] = 0.f;
-      }
-      for (int l = tid; l < W; l += nt) Eg[l] = 0.f;
-      if (tid == 0 && iters != nullptr) iters[g] = 0;
-      continue;
-    }
-    for (int i = tid; i < w.np; i += nt)
-      w.u[i] = i < p ? (u0 != nullptr ? u0[g * p + i]
-                                      : 1.0f / sqrtf((float)p))
-                     : 0.f;
-    __syncthreads();
-    const WideResidentSrc src{F + g * p * W, mask + g * W,
-                              Xscratch + g * p * W, Eg, W};
-    float s;
-    int ran;
-    panel_core<ADAPT>(src, w, s, nmf_iter, power_cold, power_warm,
-                      warm_plain, tol, &ran);
-    for (int i = tid; i < p; i += nt) {
-      K[g * p + i] = w.u[i] * s;
-      u[g * p + i] = w.u[i];
-    }
-    if (tid == 0 && iters != nullptr) iters[g] = ran;
-    __syncthreads();  // u is read before the next gene writes it
-  }
-}
 
 template <bool ADAPT>
 __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
@@ -134,13 +91,25 @@ int dn_nmf_panel(const NmfArgs& a) {
     return launch_pcl(nmf_panel_kernel<false>, DN_NMF_PCL_ARGS);
 #undef DN_NMF_PCL_ARGS
   }
-  if (a.ws == nullptr) return (int)cudaErrorInvalidValue;
-#define DN_NMF_PANEL_ARGS                                                     \
-  a.G, a.ws_slots, 0, a.stream, a.F, a.mask, a.act, a.u0, a.X, a.K, a.E, a.u, \
-      a.iters, a.G, a.p, a.W, a.nmf_iter, a.power_cold, a.power_warm,         \
-      a.warm_plain, a.tol, a.ws
-  if (a.tol > 0.f)
-    return launch_panel(nmf_panel_block_kernel<true>, DN_NMF_PANEL_ARGS);
-  return launch_panel(nmf_panel_block_kernel<false>, DN_NMF_PANEL_ARGS);
-#undef DN_NMF_PANEL_ARGS
+  if (!dn_phase_on(a.p, DN_PCL_LOOP) || !phase_fits(a.p) || a.ws == nullptr ||
+      a.ws_slots < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.G == 0) return 0;
+  PhaseArgs pa = {};
+  pa.F = a.F;
+  pa.mask = a.mask;
+  pa.X = a.X;
+  pa.u0 = a.u0;
+  pa.K = a.K;
+  pa.E = a.E;
+  pa.u = a.u;
+  pa.iters = a.iters;
+  pa.G = a.G;
+  pa.p = a.p;
+  pa.W = a.W;
+  pa.nmf_iter = a.nmf_iter;
+  pa.tol = a.tol > 0.f ? a.tol : 0.f;
+  phase_parts(pa, a.ws, a.ws_slots, false);
+  return phase_loop(pa, false, a.act, nullptr, a.ws_slots, a.power_cold,
+                    a.power_warm, a.warm_plain, a.stream);
 }

@@ -3,7 +3,7 @@
 // p x p Gram cut into row panels of DN_PANEL_ROWS, spread over a cluster of
 // blocks (kernels 1 and 3 up to DN_PCL_MAX_P, kernels 2 and 4 up to
 // DN_PCL_MAX_P_STREAM: dn_pcl_max_p) or held by one block in a workspace in
-// device memory (kernels 1 and 3 past their cut; kernels 2 and 4 past
+// device memory (kernel 3 alone, past its cut; kernels 1, 2 and 4 past
 // theirs run phase.cuh's phased layout, on this file's arithmetic).
 //
 // Replaces, for studies of more than 128 samples, wide.cuh's core (and so
@@ -86,12 +86,13 @@
 //     (dn_pcl_smem_floats: 218,768 bytes at p = 640, 231,056 at 1,152);
 //     kernel 3 adds its W residual scores.
 //
-// THE BLOCK LAYOUT (panel_core: kernels 1 and 3 above their cluster
-// layout's p, T = DN_PCL_MAX_C, where no default-width fit launches them;
-// kernels 2 and 4 past T = 9, the largest cluster whose blocks' shared
-// memory holds the p-vectors, take phase.cuh's phased layout, which keeps
-// this layout's sums and their order: its panel_gram, panel_v,
-// panel_matvec, panel_renormalize and panel_sum):
+// THE BLOCK LAYOUT (panel_core, PanelWork, launch_panel: kernel 3 alone,
+// trim_panel_block_kernel, above its cluster layout's p, T = DN_PCL_MAX_C,
+// where no default-width fit launches it.  Kernel 1 there, and kernels 2
+// and 4 past T = 9, the largest cluster whose blocks' shared memory holds
+// the p-vectors, take phase.cuh's phased layout, which keeps this layout's
+// sums and their order: its panel_gram, panel_v, panel_matvec,
+// panel_renormalize, panel_sum and panel_max):
 //   * one block a gene at a time, one pair a pass, stored with its mirror
 //     into B, p x p floats in the block's workspace (device memory), 3
 //     passes a sweep at p = 256, 10 at 512;
@@ -147,6 +148,9 @@ __host__ __device__ constexpr int panel_smem_floats() {
   return 2 * DN_WIDE_TC * DN_PANEL_LD + 4 * DN_WIDE_TC + 32;
 }
 
+// A block's work of the block layout (kernel 3's trim_panel_block_kernel
+// alone): two tiles and scratch in shared memory, B, B2 and the vectors in
+// its slot of the workspace.
 struct PanelWork {
   float* SI;     // TC x LD: rows of panel I of a tile (shared)
   float* SJ;     // TC x LD: rows of panel J
@@ -387,9 +391,10 @@ __device__ __forceinline__ bool panel_v(const Src& src, PanelWork& w, int l,
 
 // The whole Lagrangian NMF-OA loop of one gene by a block of
 // DN_WIDE_THREADS threads, as wide.cuh's wide_core (its ADAPT and from_x
-// branches and results); u starts in w.u (visible, zero beyond p) and comes
-// back refit there.  `src` as wide_core's.  Returns this thread's share of
-// sum_w E[w].
+// branches and results): the block layout's, kernel 3's rounds alone since
+// kernel 1 moved to phase.cuh (whose phases keep these sums); u starts in
+// w.u (visible, zero beyond p) and comes back refit there.  `src` as
+// wide_core's.  Returns this thread's share of sum_w E[w].
 template <bool ADAPT, class Src>
 __device__ __forceinline__ float panel_core(const Src& src, PanelWork& w,
                                             float& s, int nmf_iter,
@@ -485,10 +490,11 @@ __device__ __forceinline__ float panel_core(const Src& src, PanelWork& w,
   return se;
 }
 
-// Launch of a panel kernel: at most `slots` blocks (each has its slot of
-// the workspace), one an SM at most, each working through genes
-// blockIdx.x, + gridDim.x, ...; `smem_extra` floats of dynamic shared
-// memory beyond the core's.  Returns the CUDA error, 0 on success.
+// Launch of a kernel of the block layout (kernel 3's trim_panel_block_kernel
+// alone): at most `slots` blocks (each has its slot of the workspace), one
+// an SM at most, each working through genes blockIdx.x, + gridDim.x, ...;
+// `smem_extra` floats of dynamic shared memory beyond the core's.  Returns
+// the CUDA error, 0 on success.
 template <class Kern, class... Args>
 int launch_panel(Kern kern, int G, int slots, size_t smem_extra,
                  cudaStream_t st, Args... args) {

@@ -1,29 +1,33 @@
-// Shared device code of kernels 4 and 2 past DN_PCL_MAX_P_STREAM samples
-// (sm_90a, plain float32): THE PHASED LAYOUT.  A gene's panel pairs spread
-// over the whole card in a short, fixed sequence of launches on the caller's
-// stream, in place of one block a gene (panel.cuh's panel_core).
+// Shared device code of kernels 4 and 2 past DN_PCL_MAX_P_STREAM samples and
+// of kernel 1 past DN_PCL_MAX_P (sm_90a, plain float32): THE PHASED LAYOUT.
+// A gene's panel pairs spread over the whole card in a short, fixed
+// sequence of launches on the caller's stream, in place of one block a gene
+// (panel.cuh's panel_core, which kernel 3 alone keeps past its cluster
+// layout).
 //
-// Replaces, past 1,152 samples, the block layout of kernels 4 and 2 (and so
-// the same TPU code: degnorm_tpu/ops/pallas_stream.py::nmf_masked_streamed
-// and degnorm_tpu/ops/pallas_nmf.py::ratio_rowsums_pallas, whose _gram,
-// _power and _nmf_loop run here in phases).  The cluster layout (panel.cuh,
-// pcl_*) stops at T = 9 panels: a block's shared memory holds the p-vectors
-// beside the tiles only up to p = 1,152, a cluster of T blocks past it fits
-// only a few times on the card, and no cluster holds more than 16.  The
-// block layout ran one gene on one SM and read X T(T+1)/2 + 2 times a sweep.
-// Here there is no cap on p but the power step's shared memory
-// (dn_phase_power_floats: p near 19,000, where a gene's B and B^2 alone
-// take 2.9 GB).
+// Replaces, past each kernel's cluster layout, its block layout (and so the
+// same TPU code: degnorm_tpu/ops/pallas_stream.py::nmf_masked_streamed,
+// degnorm_tpu/ops/pallas_nmf.py::nmf_masked_pallas with its nmf_tol loop
+// _nmf_loop, and ratio_rowsums_pallas, whose _gram, _power and _nmf_loop
+// run here in phases).  The cluster layout (panel.cuh, pcl_*) stops at T = 9
+// panels: a block's shared memory holds the p-vectors beside the tiles only
+// up to p = 1,152, a cluster of T blocks past it fits only a few times on
+// the card, and no cluster holds more than 16 (kernels 1 and 3 stop at T =
+// 5, where their blocks' own power step still fits).  The block layout ran
+// one gene on one SM and read X T(T+1)/2 + 2 times a sweep.  Here there is
+// no cap on p but the power step's shared memory (dn_phase_power_floats: p
+// near 19,000, where a gene's B and B^2 alone take 2.9 GB).
 //
-// The genes of a call (kernel 4: its active ones, a list built on the card
-// by phase_prep_kernel) go in groups of at most `slots` (one an SM: the
-// block layout's budget), each gene of a group with its slot of the
+// The genes of a call (kernels 4 and 1: their active ones, a list built on
+// the card by phase_prep_kernel) go in groups of at most `slots` (one an
+// SM: the block layout's budget), each gene of a group with its slot of the
 // workspace: B and B^2 (p x dn_phase_ldb(p) floats each), u and its
-// scalars (s, B's largest entry).  Each group runs these phases, each one
-// launch over the group's genes (blocks past the group's active genes
+// scalars (s, B's largest entry, the nmf_tol branch's frozen flag and
+// iterations).  Each group runs these phases, each one launch over the
+// group's genes (blocks past the group's active genes, or of a frozen gene,
 // return at once):
 //   1. columns (phase_cols_kernel, a block a tile of 64 columns of a gene):
-//      kernel 4's cold X = A0, each iteration's v = X^T u and multiplier
+//      the loop's cold X = A0, each iteration's v = X^T u and multiplier
 //      update, the finish's E = X^T u / (s + eps), K and u; kernel 2's e =
 //      A0^T u / (s + eps) of its second pass, into the slot;
 //   2. the Gram (phase_gram_kernel, a block a (gene, panel pair)): the 8 x
@@ -39,12 +43,16 @@
 //      gene): each matvec a thread a row of the block's share of the rows,
 //      in column order j = 0 .. p - 1, the rows published in the block's
 //      shared memory, one cluster barrier, every block copying the whole
-//      vector; each norm by every block in the order of panel_sum.
+//      vector; each norm by every block in the order of panel_sum.  Under
+//      nmf_tol (kernel 1's branch: tol > 0) every refit also computes s, and
+//      a gene whose max|dK| <= tol max|K| is frozen after it, that sweep's
+//      update kept: the later launches of its group skip it, and the finish
+//      writes the iterations it ran;
 //   4. kernel 2 only: its row sums of max(K e, A0) (phase_est_kernel, a
 //      block a (gene, panel)), thread t < 128 its row in column order.
 // Every sum is the block layout's, in its order (panel_gram, panel_v,
-// panel_matvec, panel_renormalize, panel_sum, the row sums), so the outputs
-// are bit-equal to it.
+// panel_matvec, panel_renormalize, panel_sum, panel_max, the row sums), so
+// the outputs are bit-equal to it.
 //
 // What bounds it on this card: the Gram's float32 operations (T(T+1)/2 x
 // 128^2 fmas a column a sweep, over every SM); the update's bytes (X read
@@ -57,7 +65,8 @@
 
 #define DN_PHASE_C 8          // blocks of a gene's power step (portable)
 #define DN_PHASE_LIST 2048    // active tiles a Gram block lists at a time
-#define DN_PHASE_SCAL 4       // a slot's scalars: s, B's largest entry, 2 free
+#define DN_PHASE_SCAL 4       // a slot's scalars: s, B's largest entry,
+                              // frozen (nmf_tol), iterations run
 // what a Gram launch reads: kernel 4's X, kernel 2's A0 (with its row
 // sums), or B (into B^2, scaled)
 #define DN_PH_X 0
@@ -70,8 +79,11 @@
 #define DN_PHC_FINISH 2
 #define DN_PHC_RATIO 3
 
-__host__ __device__ inline bool dn_phase_on(int p) {
-  return p > DN_PCL_MAX_P_STREAM;
+// The phased layout takes a kernel past its cluster layout, a rule by kind
+// (panel.cuh's DN_PCL_*): kernel 1 (DN_PCL_LOOP) past DN_PCL_MAX_P, kernels
+// 2 and 4 (DN_PCL_STREAM) past DN_PCL_MAX_P_STREAM; kernel 3 never asks.
+__host__ __device__ inline bool dn_phase_on(int p, int kind) {
+  return p > dn_pcl_max_p(kind);
 }
 // Floats a row of B and B^2 takes (16-byte aligned rows).
 __host__ __device__ inline int dn_phase_ldb(int p) { return (p + 3) / 4 * 4; }
@@ -109,14 +121,17 @@ struct PhaseArgs {
   float* ss;              // kernel 4's scales (np; null for kernel 2) ...
   float* rs;              // ... and their reciprocals
   int* list;              // the count of active genes, then their indices
-  const float* u0;        // kernel 4's warm start (G, p), or null
-  float* K;               // kernel 4's outputs (G, p), (G, W), (G, p)
+  const float* u0;        // kernels 4 and 1: the warm start (G, p), or null
+  float* K;               // kernels 4 and 1: outputs (G, p), (G, W), (G, p)
   float* E;
   float* u;
   float* cov;             // kernel 2's outputs (G, p)
   float* est;
+  int* iters;             // kernel 1: the iterations each gene ran, or null
   int G, p, W, base;      // base: the group's first entry of the list
   int nmf_iter;
+  float tol;              // kernel 1's nmf_tol branch where > 0
+  int iter;               // the sweep of a warm power step (its freeze)
 };
 
 // A gene's slot of the workspace.
@@ -124,7 +139,7 @@ struct PhaseSlot {
   float* B;      // p x ldb; kernel 2's e (W floats) after its power step
   float* B2;     // p x ldb
   float* u;      // np
-  float* scal;   // s, then B's largest |entry| (int bits, >= 0)
+  float* scal;   // s, B's largest |entry|, frozen, iterations (int bits)
   __device__ __forceinline__ PhaseSlot(float* ws, int slot, int p) {
     B = ws + (size_t)slot * dn_phase_slot_floats(p);
     B2 = B + (size_t)p * dn_phase_ldb(p);
@@ -132,13 +147,20 @@ struct PhaseSlot {
     scal = u + dn_panel_np(p);
   }
   __device__ __forceinline__ int* bmax() const { return (int*)scal + 1; }
+  __device__ __forceinline__ int* frozen() const { return (int*)scal + 2; }
+  __device__ __forceinline__ int* ran() const { return (int*)scal + 3; }
 };
 
-// The group's gene of this block's slot, or -1 past its active genes
-// (block-uniform).
-__device__ __forceinline__ int phase_gene(const PhaseArgs& a, int slot) {
+// The group's gene of this block's slot, or -1 past its active genes and,
+// under nmf_tol, for a frozen gene unless `frozen_too` (block-uniform).
+__device__ __forceinline__ int phase_gene(const PhaseArgs& a, int slot,
+                                          bool frozen_too = false) {
   const int gi = a.base + slot;
-  return gi < a.list[0] ? a.list[1 + gi] : -1;
+  const int g = gi < a.list[0] ? a.list[1 + gi] : -1;
+  if (g >= 0 && a.tol > 0.f && !frozen_too &&
+      *PhaseSlot(a.ws, slot, a.p).frozen() != 0)
+    return -1;
+  return g;
 }
 
 // Tile k (columns 64 k ..) of a gene has an active column below n.
@@ -341,11 +363,14 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
 
 // A column launch: block (k, slot), thread (q, c) column l = 64 k + c of
 // the slot's gene, its rows q * 32 + j of every panel (panel_v's order).
-// KIND (DN_PHC_*): kernel 4's cold X = A0 (on the mask), an iteration's v
-// and multiplier update, the finish's E (every column: zero off the mask)
-// with K and u by the gene's first block; kernel 2's e = v / (s + eps)
-// into the slot (B's place) on the mask.  I16: the coverage is raw int16
-// (kernel 4: over its scale, common.cuh's scaled_i16; kernel 2: its value).
+// KIND (DN_PHC_*): the loop's cold X = A0 (on the mask; the gene's first
+// block also clears its frozen flag and sets its iterations to nmf_iter),
+// an iteration's v and multiplier update (under nmf_tol on the (K, E)
+// carry: s (v / (s + eps)) in place of v), the finish's E (every column:
+// zero off the mask) with K, u and the iterations by the gene's first
+// block; kernel 2's e = v / (s + eps) into the slot (B's place) on the
+// mask.  I16: the coverage is raw int16 (kernel 4: over its scale,
+// common.cuh's scaled_i16; kernel 2: its value).
 template <int KIND, bool I16>
 __global__ void __launch_bounds__(DN_WIDE_THREADS)
     phase_cols_kernel(PhaseArgs a) {
@@ -353,7 +378,8 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
   constexpr int TC = DN_WIDE_TC, R = DN_PANEL_ROWS;
   __shared__ float vpart[4 * TC];
   const int t = threadIdx.x, q = t >> 6, c = t & (TC - 1);
-  const int g = phase_gene(a, blockIdx.y);
+  const int g = phase_gene(a, blockIdx.y,
+                           KIND == DN_PHC_FINISH || KIND == DN_PHC_XINIT);
   if (g < 0) return;
   const int p = a.p, W = a.W, T = dn_pcl_T(p);
   const int l = blockIdx.x * TC + c;
@@ -366,12 +392,16 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
       return scaled_i16(Fg[(size_t)i * W], a.ss[i], a.rs[i]);
     else return Fg[(size_t)i * W];
   };
+  const PhaseSlot sl(a.ws, blockIdx.y, p);
   if constexpr (KIND == DN_PHC_XINIT) {
     if (on)
       for (int i = q; i < p; i += 4) Xg[(size_t)i * W] = a0(i);
+    if (blockIdx.x == 0 && t == 0) {
+      *sl.frozen() = 0;
+      *sl.ran() = a.nmf_iter;
+    }
     return;
   }
-  const PhaseSlot sl(a.ws, blockIdx.y, p);
   const float* u = sl.u;
   // v = sum_i x_i u_i: this thread's rows, then the four quarters in order
   float vp = 0.f;
@@ -395,7 +425,8 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
     if (!on) return;  // a column outside the mask stays exactly zero
     const float step =
         a.nmf_iter > 0 ? (float)(1.0 / sqrt((double)a.nmf_iter)) : 0.f;
-    const float se = v;
+    const float s = sl.scal[0];
+    const float se = a.tol > 0.f ? __fmul_rn(s, v / (s + DN_EPS)) : v;
     for (int P = 0; P < T; ++P) {
 #pragma unroll 4
       for (int j = 0; j < 32; ++j) {
@@ -411,11 +442,13 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
     const float s = sl.scal[0];
     if (q == 0 && l < W)
       a.E[(size_t)g * W + l] = on ? v / (s + DN_EPS) : 0.f;
-    if (blockIdx.x == 0)
+    if (blockIdx.x == 0) {
       for (int i = t; i < p; i += DN_WIDE_THREADS) {
         a.K[(size_t)g * p + i] = u[i] * s;
         a.u[(size_t)g * p + i] = u[i];
       }
+      if (t == 0 && a.iters != nullptr) a.iters[g] = *sl.ran();
+    }
   } else {
     const float den = sl.scal[0] + DN_EPS;
     if (q == 0 && on) sl.B[l] = v / den;
@@ -469,11 +502,16 @@ inline bool phase_fits(int p) {
   return sizeof(float) * (size_t)dn_phase_power_floats(p) <= 232448;
 }
 
-// Defined in stream_phase.cu, which holds the kernels that both kernels 4
-// and 2 launch: the list of active genes (phase_prep_kernel), and the power
-// step of a group (where `square`, B^2 first: phase_gram_kernel<DN_PH_B>,
-// then phase_power_kernel).
+// Defined in stream_phase.cu, which holds the kernels that kernels 4, 1 and
+// 2 launch: the list of active genes (phase_prep_kernel), the power step of
+// a group (where `square`, B^2 first: phase_gram_kernel<DN_PH_B>, then
+// phase_power_kernel), and the whole Lagrangian loop of kernels 4 and 1
+// (phase_loop: `a` with its workspace parts set, raw int16 + scale input
+// where `i16`, float32 otherwise; a.tol > 0 the nmf_tol branch).
 int phase_prep(const PhaseArgs& pa, const uint8_t* act, const float* scale,
                int slots, cudaStream_t st);
 int phase_power(const PhaseArgs& pa, int slots, int n_squared, int n_plain,
                 int finish, int cold, bool square, cudaStream_t st);
+int phase_loop(const PhaseArgs& a, bool i16, const uint8_t* act,
+               const float* scale, int slots, int power_cold, int power_warm,
+               int warm_plain, cudaStream_t st);

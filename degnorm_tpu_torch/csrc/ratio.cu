@@ -6,12 +6,13 @@
 // 8.  threads: a multiple of 32, at most 256.  stage_kb: the most shared
 // memory a block copies its share of a gene into (0: read it from device
 // memory twice).  p > 32 takes the wide instances (ratio_wide.cuh): cl 1 and
-// DN_WIDE_THREADS threads; p > 128 the panel instance (ratio_panel.cu), which
-// also takes ws: on its cluster layout (p <= DN_PCL_MAX_P_STREAM) ws_slots
-// workspaces of dn_pcl_ws_floats(p) floats, one a cluster in flight, where a
-// block holds several pairs (else null), above it (ratio_phase.cu) a
-// workspace of dn_phase_ws_floats(p, ws_slots, G) floats, ws_slots genes in
-// flight (null and 0 below 129).
+// DN_WIDE_THREADS threads, and ws: ws_slots slots of dn_rw_slot_floats(PMAX,
+// W) floats, the genes of a group; p > 128 the panel instance
+// (ratio_panel.cu), whose ws is on its cluster layout (p <=
+// DN_PCL_MAX_P_STREAM) ws_slots workspaces of dn_pcl_ws_floats(p) floats, one
+// a cluster in flight, where a block holds several pairs (else null), above
+// it (ratio_phase.cu) a workspace of dn_phase_ws_floats(p, ws_slots, G)
+// floats, ws_slots genes in flight.
 extern "C" int dn_ratio_rowsums(const void* F, int f_is_i16,
                                 const uint8_t* mask, float* cov_sums,
                                 float* est_sums, int G, int p, int W,

@@ -364,7 +364,8 @@ struct RatioArgs {
   float* est;
   int G, p, W, power_cold, cl, threads, stage_kb;
   cudaStream_t st;
-  float* ws = nullptr;  // p > 128: the panel instance's workspace (ratio.cu)
+  float* ws = nullptr;  // p > 32: the wide and panel instances' workspace
+                        // (ratio.cu)
   int ws_slots = 0;
 };
 
@@ -383,7 +384,7 @@ static int launch_ratio_form(const RatioArgs& a) {
 int dn_ratio_f32(const RatioArgs& a);
 int dn_ratio_i16(const RatioArgs& a);
 // the instances for 33 <= p <= 128 (ratio_wide.cuh: ratio_wide_f32.cu,
-// ratio_wide_i16.cu): one block of DN_WIDE_THREADS a gene
+// ratio_wide_i16.cu): phases over the card, a gene's columns in chunks
 int dn_ratio_wide_f32(const RatioArgs& a);
 int dn_ratio_wide_i16(const RatioArgs& a);
 // the instances for p > 128 (ratio_panel.cu: panel.cuh's core), both forms

@@ -86,7 +86,7 @@ static int ratio_phase(const RatioArgs& a) {
 
 int dn_ratio_phase(const RatioArgs& a, int f_is_i16) {
   // e of a gene's columns goes where its B was (2 p ldb floats)
-  if (!dn_phase_on(a.p) || !phase_fits(a.p) || a.ws == nullptr ||
+  if (!dn_phase_on(a.p, DN_PCL_STREAM) || !phase_fits(a.p) || a.ws == nullptr ||
       a.ws_slots < 1 || (size_t)a.W > 2 * (size_t)a.p * dn_phase_ldb(a.p))
     return (int)cudaErrorInvalidValue;
   if (a.G == 0) return 0;

@@ -1,7 +1,9 @@
 // Kernel 4 past DN_PCL_MAX_P_STREAM samples: the Lagrangian NMF-OA loop of
 // a streamed bucket on phase.cuh's phased layout, both input forms (raw
 // int16 + scale, float32) in this one translation unit.  stream_panel.cu's
-// dn_stream_panel hands p past its cluster layout here.
+// dn_stream_panel hands p past its cluster layout here; nmf_panel.cu's
+// dn_nmf_panel hands kernel 1 past its own (DN_PCL_MAX_P) to the same loop
+// (phase_loop), on float32 input, with its nmf_tol branch.
 //
 // Replaces, for studies of more than 1,152 samples, the TPU kernel
 // degnorm_tpu/ops/pallas_stream.py::nmf_masked_streamed (_stream_kernel),
@@ -63,6 +65,7 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
       a.u[g * a.p + i] = 0.f;
     }
     for (int l = t; l < a.W; l += DN_WIDE_THREADS) a.E[g * a.W + l] = 0.f;
+    if (t == 0 && a.iters != nullptr) a.iters[g] = 0;
   }
 }
 
@@ -105,6 +108,10 @@ struct PhaseMv {
 // max(1, n_squared / 4) bodies of two B^2 matvecs (B^2 from the Gram
 // launch); with `finish`, s = sqrt(max(u^T B u, 0)) into the slot.  u comes
 // back into the slot, and its largest entry is zeroed for the next Gram.
+// Under nmf_tol (a.tol > 0, a warm step: finish set) the first block also
+// compares K = u s with the slot's last (panel_core's freeze test, its
+// panel_max): a gene that moved by at most tol max|K| is frozen after
+// sweep a.iter, and its iterations set to a.iter + 1.
 __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
     phase_power_kernel(PhaseArgs a, int n_squared, int n_plain, int finish,
                        int cold) {
@@ -153,6 +160,21 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
     s = sqrtf(fmaxf(panel_sum(red, ubu), 0.f));
   }
   if (mv.rank == 0) {
+    if (a.tol > 0.f && !cold) {
+      const float s_old = sl.scal[0];
+      float delta = 0.f, ref = 0.f;
+      for (int j = t; j < p; j += DN_WIDE_THREADS) {
+        const float k_new = __fmul_rn(u[j], s);
+        delta = fmaxf(delta, fabsf(k_new - __fmul_rn(sl.u[j], s_old)));
+        ref = fmaxf(ref, fabsf(k_new));
+      }
+      delta = panel_max(red, delta);
+      ref = fmaxf(panel_max(red, ref), DN_EPS);
+      if (delta <= __fmul_rn(a.tol, ref) && t == 0) {  // that update kept
+        *sl.frozen() = 1;
+        *sl.ran() = a.iter + 1;
+      }
+    }
     for (int i = t; i < p; i += DN_WIDE_THREADS) sl.u[i] = u[i];
     if (finish && t == 0) sl.scal[0] = s;
   }
@@ -181,7 +203,57 @@ int phase_power(const PhaseArgs& pa, int slots, int n_squared, int n_plain,
 }
 
 template <bool I16>
-static int stream_phase(const StreamArgs& a) {
+static int phase_loop_form(PhaseArgs a, const uint8_t* act,
+                           const float* scale, int S, int power_cold,
+                           int power_warm, int warm_plain, cudaStream_t st) {
+  int e = phase_prep(a, act, scale, S, st);
+  const unsigned tiles = (unsigned)((a.W + DN_WIDE_TC - 1) / DN_WIDE_TC);
+  const unsigned cols = tiles > 0 ? tiles : 1;
+  const unsigned pairs = (unsigned)dn_pcl_pairs(a.p);
+  const size_t gram = sizeof(float) * dn_phase_gram_floats();
+  const bool adapt = a.tol > 0.f;  // every refit computes s
+  const auto gram_x = [&]() {
+    return phase_launch(phase_gram_kernel<DN_PH_X, false>, pairs, S, gram,
+                        false, st, a);
+  };
+  for (int base = 0; e == 0 && base < a.G; base += S) {
+    a.base = base;
+    e = phase_launch(phase_cols_kernel<DN_PHC_XINIT, I16>, cols, S, 0, false,
+                     st, a);
+    if (e == 0) e = gram_x();
+    if (e == 0)
+      e = phase_power(a, S, power_cold, 0, adapt || a.nmf_iter == 0, 1, true,
+                      st);
+    for (int it = 0; e == 0 && it < a.nmf_iter; ++it) {
+      a.iter = it;
+      e = phase_launch(phase_cols_kernel<DN_PHC_UPDATE, I16>, cols, S, 0,
+                       false, st, a);
+      if (e == 0) e = gram_x();
+      if (e == 0)
+        e = phase_power(a, S, power_warm, warm_plain,
+                        adapt || it == a.nmf_iter - 1, 0, warm_plain <= 0, st);
+    }
+    if (e == 0)
+      e = phase_launch(phase_cols_kernel<DN_PHC_FINISH, I16>, cols, S, 0,
+                       false, st, a);
+  }
+  return e;
+}
+
+int phase_loop(const PhaseArgs& a, bool i16, const uint8_t* act,
+               const float* scale, int slots, int power_cold, int power_warm,
+               int warm_plain, cudaStream_t st) {
+  return i16 ? phase_loop_form<true>(a, act, scale, slots, power_cold,
+                                     power_warm, warm_plain, st)
+             : phase_loop_form<false>(a, act, scale, slots, power_cold,
+                                      power_warm, warm_plain, st);
+}
+
+int dn_stream_phase(const StreamArgs& a) {
+  if (!dn_phase_on(a.p, DN_PCL_STREAM) || !phase_fits(a.p) ||
+      a.ws == nullptr || a.ws_slots < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.G == 0) return 0;
   PhaseArgs pa = {};
   pa.F = a.F;
   pa.mask = a.mask;
@@ -194,43 +266,7 @@ static int stream_phase(const StreamArgs& a) {
   pa.p = a.p;
   pa.W = a.W;
   pa.nmf_iter = a.nmf_iter;
-  phase_parts(pa, a.ws, a.ws_slots, I16);
-  const int S = a.ws_slots;
-  int e = phase_prep(pa, a.act, a.scale, S, a.st);
-  const unsigned tiles = (unsigned)((a.W + DN_WIDE_TC - 1) / DN_WIDE_TC);
-  const unsigned cols = tiles > 0 ? tiles : 1;
-  const unsigned pairs = (unsigned)dn_pcl_pairs(a.p);
-  const size_t gram = sizeof(float) * dn_phase_gram_floats();
-  const auto gram_x = [&]() {
-    return phase_launch(phase_gram_kernel<DN_PH_X, false>, pairs, S, gram,
-                        false, a.st, pa);
-  };
-  for (int base = 0; e == 0 && base < a.G; base += S) {
-    pa.base = base;
-    e = phase_launch(phase_cols_kernel<DN_PHC_XINIT, I16>, cols, S, 0, false,
-                     a.st, pa);
-    if (e == 0) e = gram_x();
-    if (e == 0)
-      e = phase_power(pa, S, a.power_cold, 0, a.nmf_iter == 0, 1, true, a.st);
-    for (int it = 0; e == 0 && it < a.nmf_iter; ++it) {
-      e = phase_launch(phase_cols_kernel<DN_PHC_UPDATE, I16>, cols, S, 0,
-                       false, a.st, pa);
-      if (e == 0) e = gram_x();
-      if (e == 0)
-        e = phase_power(pa, S, a.power_warm, a.warm_plain,
-                        it == a.nmf_iter - 1, 0, a.warm_plain <= 0, a.st);
-    }
-    if (e == 0)
-      e = phase_launch(phase_cols_kernel<DN_PHC_FINISH, I16>, cols, S, 0,
-                       false, a.st, pa);
-  }
-  return e;
-}
-
-int dn_stream_phase(const StreamArgs& a) {
-  if (!dn_phase_on(a.p) || !phase_fits(a.p) || a.ws == nullptr ||
-      a.ws_slots < 1)
-    return (int)cudaErrorInvalidValue;
-  if (a.G == 0) return 0;
-  return a.scale != nullptr ? stream_phase<true>(a) : stream_phase<false>(a);
+  phase_parts(pa, a.ws, a.ws_slots, a.scale != nullptr);
+  return phase_loop(pa, a.scale != nullptr, a.act, a.scale, a.ws_slots,
+                    a.power_cold, a.power_warm, a.warm_plain, a.st);
 }

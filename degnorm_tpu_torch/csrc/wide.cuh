@@ -70,7 +70,7 @@
 // Shared memory (floats, rows of LD = PMAX + 4, 16-byte aligned, so that a
 // quarter-warp's float4 stores into S are conflict-free): S (TC rows), B
 // (PMAX rows), the v partials (4 x TC), five p-vectors and 32 floats of
-// scratch (wide_core_floats: kernel 2), the second buffer S1 (TC rows;
+// scratch (wide_core_floats), the second buffer S1 (TC rows;
 // wide_sync_floats: the synchronous sweep, 54,656 bytes at PMAX = 64),
 // then eight flags and the copy stage (NST slots of PMAX x TC floats of X
 // and as many of A0; wide_work_floats: the pipelined sweep, 87,456 bytes at
@@ -122,8 +122,7 @@ __host__ __device__ constexpr int dn_wide_core_blocks() {
 }
 
 // Floats of the core's shared memory (WideWork) without the second tile
-// buffer and the copy stage, which only the sweeps of wide_core use (kernel
-// 2 launches with this much) ...
+// buffer and the copy stage, which only the sweeps of wide_core use ...
 template <int PMAX>
 __host__ __device__ constexpr int wide_core_floats() {
   return DN_WIDE_TC * WideShape<PMAX>::LD + PMAX * WideShape<PMAX>::LD +

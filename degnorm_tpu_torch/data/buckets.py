@@ -129,6 +129,12 @@ class GeneBucket:
         return np.arange(self.width)[None, :] < self.lengths[:, None]
 
 
+def bucket_width(L: int, widths: Sequence[int]) -> int:
+    """The width of the bucket a gene of L columns goes to: the smallest of
+    the sorted ``widths`` that holds it, else L rounded up to 128."""
+    return next((w for w in widths if L <= w), _round_up(L, 128))
+
+
 def pack_buckets(
     cov_mats: Sequence[np.ndarray],
     bucket_widths: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192, 16384, 65536),
@@ -154,11 +160,7 @@ def pack_buckets(
     widths = sorted(int(w) for w in bucket_widths)
     groups: Dict[int, List[int]] = {}
     for i, F in enumerate(cov_mats):
-        L = F.shape[1]
-        w = next((wd for wd in widths if L <= wd), None)
-        if w is None:
-            w = _round_up(L, 128)
-        groups.setdefault(w, []).append(i)
+        groups.setdefault(bucket_width(F.shape[1], widths), []).append(i)
 
     buckets: List[GeneBucket] = []
     # max_bucket_bytes guards the DEVICE footprint, where the bucket lives

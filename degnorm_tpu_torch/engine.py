@@ -45,8 +45,8 @@ from degnorm_tpu_torch.core.baseline import (BucketResult,
                                              baseline_select_steps,
                                              materialize_estimate)
 from degnorm_tpu_torch.core.nmf import ratio_svd_rowsums_steps
-from degnorm_tpu_torch.data.buckets import (GeneBucket, integral_int16able,
-                                            pack_buckets)
+from degnorm_tpu_torch.data.buckets import (GeneBucket, bucket_width,
+                                            integral_int16able, pack_buckets)
 from degnorm_tpu_torch.data.encode import int16able
 from degnorm_tpu_torch.ops import cuda_nmf
 from degnorm_tpu_torch.ops.cuda_trim import run_steps
@@ -277,11 +277,17 @@ class DegNormEngine:
         # device's, over every process (all must pack the same buckets), and
         # is not scaled by the shards: shards may share a card, and the
         # one-device layout keeps a sharded fit bit-equal to that fit.  At
-        # p > 128 a launch also holds the panel instance's workspace (its
-        # Gram a block in flight, whatever the bucket), set aside first.
+        # p > 32 a launch also holds a workspace (kernel 2's wide instance
+        # at 33-128 samples, the panel instances past: sized by the genes in
+        # flight), set aside first for each kind of kernel that a bucket of
+        # the fit launches, at the widths the packer gives its genes.
         p = cov_mats[0].shape[0] if len(cov_mats) else 0
-        total = min(_device_memory(d) - cuda_nmf.panel_workspace_bytes(p, d)
-                    for d in set(self.mesh.devices))
+        conf = sorted(int(w) for w in self.eng_cfg.bucket_widths)
+        widths = sorted({bucket_width(m.shape[1], conf) for m in cov_mats})
+        kinds = cuda_nmf.workspace_kinds(p, widths, self.eng_cfg.use_kernels)
+        total = min(_device_memory(d) - cuda_nmf.panel_workspace_bytes(
+            p, d, kinds, genes=len(cov_mats), widths=widths)
+            for d in set(self.mesh.devices))
         if self.mesh.process_count > 1:
             total = int(distributed.gather_rows(
                 torch.tensor([total], device=self.device)).min())

@@ -32,6 +32,9 @@ ratio_wide_launches = 0
 nmf_panel_launches = 0
 nmf_panel_tol_launches = 0
 ratio_panel_launches = 0
+# ... of them, kernel 1's on its phased layout past PCL_MAX_P
+# (``panel_phase(p, "nmf")``: both branches)
+nmf_panel_phase_launches = 0
 # ... of them, kernel 2's on its cluster layout (``panel_cluster(p,
 # "stream")``) and on its phased layout past it (``panel_phase(p)``)
 ratio_panel_cluster_launches = 0
@@ -57,9 +60,9 @@ ratio_cols_launches = 0
 # a block of WIDE_THREADS threads), p above WIDE_MAX_P their panel instance
 # (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS, on a cluster of
 # blocks a gene for kernels 1 and 3 up to PCL_MAX_P and kernels 2 and 4 up
-# to PCL_MAX_P_STREAM, ``panel_cluster``, past that kernels 1 and 3 in a
-# workspace in device memory, ``panel_workspace``, kernels 2 and 4 on the
-# phased layout, ``panel_phase``); kernels 4c and 2c have neither and
+# to PCL_MAX_P_STREAM, ``panel_cluster``, past that kernel 3 in a
+# workspace in device memory, ``panel_workspace``, kernels 1, 2 and 4 on
+# the phased layout, ``panel_phase``); kernels 4c and 2c have neither and
 # stop at COLS_MAX_P (the engine gene-shards such a bucket:
 # ``engine.DegNormEngine.column_sharded``).
 NARROW_MAX_P = 32
@@ -267,21 +270,65 @@ def panel_workspace(G: int, p: int, device):
                         device=device), slots)
 
 
-def panel_workspace_bytes(p: int, device: torch.device) -> int:
-    """Bytes of the largest panel workspace a launch at p takes on
-    ``device``: what the engine's memory guard sets aside on a card (0 at
-    p <= WIDE_MAX_P and off a card, where the plain versions run): the
-    largest of ``kernel_workspace``'s over both kinds of kernel, the block
-    layout's above a kind's cluster layout, the cluster layout's where a
-    block holds several pairs (none where it holds one).  Past
-    PCL_MAX_P_STREAM kernels 1 and 3's block layout sets it: the phased
-    layout of kernels 2 and 4 takes less (``phase_ws_floats``)."""
-    if p <= WIDE_MAX_P or device.type != "cuda":
+# The kinds of kernel a workspace belongs to: kernel 1 ("nmf"), kernel 3
+# ("loop": kernels 1 and 3 share its cluster layout's cut), kernels 2 and 4
+# ("stream").
+WORKSPACE_KINDS = ("nmf", "loop", "stream")
+
+
+def workspace_kinds(p: int, widths, use_kernels: bool = True):
+    """The kinds of kernel (WORKSPACE_KINDS) that a fit at p launches with
+    buckets of ``widths``: kernels 2 ("stream") on every bucket, kernel 4
+    on a bucket outside the resident gate, kernels 1 ("nmf") and 3
+    ("loop") on one inside it; none with the kernels off."""
+    if not use_kernels or not widths:
+        return ()
+    resident = any(W <= MAX_W and p * W <= MAX_PW for W in widths)
+    return ("nmf", "loop", "stream") if resident else ("stream",)
+
+
+def kind_workspace_floats(p: int, kind: str, sms: int, G: int,
+                          widths=None) -> int:
+    """Floats of the largest workspace a launch of ``kind`` takes at p on a
+    card of ``sms`` SMs with a bucket of at most G genes
+    (``kernel_workspace``): the phased layout's past the kind's cluster
+    layout (kernels 1, 2 and 4), the cluster layout's where a block holds
+    several pairs (none where it holds one), kernel 3's block layout past
+    its cluster layout; at NARROW_MAX_P < p <= WIDE_MAX_P kernel 2's wide
+    instance (``ratio_wide_workspace``) at the largest of the buckets'
+    ``widths`` (None: RW_WS_FLOATS, its cap where a slot fits); none at
+    p <= NARROW_MAX_P."""
+    if p <= NARROW_MAX_P:
+        return 0
+    if p <= WIDE_MAX_P:
+        if kind != "stream":
+            return 0
+        if widths is None:
+            return RW_WS_FLOATS
+        return max((ratio_wide_slots(G, p, W) * ratio_wide_slot_floats(p, W)
+                    for W in widths), default=0)
+    if panel_phase(p, kind):
+        return phase_ws_floats(p, min(G, sms), G)
+    if panel_cluster(p, kind):
+        return sms // pcl_size(p) * pcl_ws_floats(p)
+    return sms * panel_ws_floats(p)
+
+
+def panel_workspace_bytes(p: int, device: torch.device,
+                          kinds=WORKSPACE_KINDS, genes: int = 1 << 16,
+                          widths=None) -> int:
+    """Bytes of the largest workspace a launch at p of one of ``kinds``
+    (``workspace_kinds``: those the fit launches) takes on ``device`` with
+    buckets of at most ``genes`` genes of ``widths``: what the engine's
+    memory guard sets aside on a card (0 at p <= NARROW_MAX_P and off a
+    card, where the plain versions run), ``kind_workspace_floats``'
+    largest.  Past PCL_MAX_P kernel 3's block layout sets it where a bucket
+    is resident; the phased layout of kernels 1, 2 and 4 takes less."""
+    if p <= NARROW_MAX_P or device.type != "cuda":
         return 0
     sms = panel_slots(1 << 30, device)
-    return 4 * max(sms // pcl_size(p) * pcl_ws_floats(p)
-                   if panel_cluster(p, kind) else sms * panel_ws_floats(p)
-                   for kind in PCL_KINDS)
+    return 4 * max((kind_workspace_floats(p, k, sms, genes, widths)
+                    for k in kinds), default=0)
 
 
 # The cluster layout of the panel instances (mirror of csrc/panel.cuh's
@@ -294,10 +341,10 @@ def panel_workspace_bytes(p: int, device: torch.device) -> int:
 # in a workspace a cluster in flight (``pcl_ws_floats``).  Past T =
 # PCL_MAX_C the blocks share the power step's matvecs
 # (``pcl_shared_power``).  The cut is a rule by kind (``pcl_max_p``):
-# kernels 1 and 3 ("loop") at PCL_MAX_P, kernels 2 and 4 ("stream") at
-# PCL_MAX_P_STREAM (a cluster of 9, not portable, past 1,024); above it
-# kernels 1 and 3 keep the block-a-gene layout and its workspace
-# (``panel_workspace``), kernels 2 and 4 take the phased layout
+# kernels 1 ("nmf") and 3 ("loop") at PCL_MAX_P, kernels 2 and 4
+# ("stream") at PCL_MAX_P_STREAM (a cluster of 9, not portable, past
+# 1,024); above it kernel 3 keeps the block-a-gene layout and its workspace
+# (``panel_workspace``), kernels 1, 2 and 4 take the phased layout
 # (``panel_phase``).
 PCL_MAX_P = 640
 PCL_MAX_P_STREAM = 1152
@@ -311,9 +358,11 @@ PCL_PORTABLE = 8
 
 
 def pcl_max_p(kind: str) -> int:
-    """Most p of a kind's cluster layout (``dn_pcl_max_p``): "loop" for
-    kernels 1 and 3, "stream" for kernels 2 and 4."""
-    return {"loop": PCL_MAX_P, "stream": PCL_MAX_P_STREAM}[kind]
+    """Most p of a kind's cluster layout (``dn_pcl_max_p``): "nmf" (kernel
+    1) and "loop" (kernel 3) share DN_PCL_LOOP's, "stream" for kernels 2 and
+    4."""
+    return {"nmf": PCL_MAX_P, "loop": PCL_MAX_P,
+            "stream": PCL_MAX_P_STREAM}[kind]
 
 
 def panel_cluster(p: int, kind: str) -> bool:
@@ -396,20 +445,24 @@ def pcl_ldx(p: int) -> int:
     return -(-p // 4) * 4
 
 
-# The phased layout of kernels 2 and 4 past PCL_MAX_P_STREAM (mirror of
-# csrc/phase.cuh's dn_phase_* code): a call lists its active genes on the
-# card and runs them in groups of at most ``panel_slots`` genes, each gene
-# of a group with its slot of the workspace (B and B^2, p x
-# ``phase_ldb(p)`` floats each, u and PHASE_SCAL scalars), through a fixed
-# sequence of launches (csrc/stream_phase.cu, csrc/ratio_phase.cu).  The
+# The phased layout of kernels 2 and 4 past PCL_MAX_P_STREAM and of kernel
+# 1 past PCL_MAX_P (mirror of csrc/phase.cuh's dn_phase_* code): a call
+# lists its active genes on the card and runs them in groups of at most
+# ``panel_slots`` genes, each gene of a group with its slot of the
+# workspace (B and B^2, p x ``phase_ldb(p)`` floats each, u and PHASE_SCAL
+# scalars: s, B's largest entry, the nmf_tol branch's frozen flag and
+# iterations), through a fixed sequence of launches (csrc/stream_phase.cu,
+# which kernel 1's csrc/nmf_panel.cu calls, and csrc/ratio_phase.cu).  The
 # launches' geometry is modelled in tests/test_torch_panelphase.py.
 PHASE_SCAL = 4
 
 
-def panel_phase(p: int) -> bool:
-    """True where kernels 2 and 4 run p on the phased layout
-    (``dn_phase_on``)."""
-    return p > PCL_MAX_P_STREAM
+def panel_phase(p: int, kind: str = "stream") -> bool:
+    """True where the kernels of ``kind`` run p on the phased layout
+    (``dn_phase_on``, a rule by kernel): kernels 2 and 4 ("stream") past
+    PCL_MAX_P_STREAM, kernel 1 ("nmf") past PCL_MAX_P; kernel 3 ("loop")
+    never (its block layout stays)."""
+    return kind != "loop" and p > pcl_max_p(kind)
 
 
 def phase_ldb(p: int) -> int:
@@ -445,13 +498,13 @@ def loop_scratch_shape(G: int, p: int, W: int) -> Tuple[int, ...]:
 
 
 def kernel_workspace(G: int, p: int, device, kind: str):
-    """(workspace, slots) of a launch at p of kernels 1 and 3 (``kind``
-    "loop") or 2 and 4 ("stream"): on the kind's cluster layout
-    ``pcl_ws_floats`` a cluster the card can hold at once (one an SM a
-    block; none where a block holds one pair); past it kernels 2 and 4's
-    phased layout, ``phase_ws_floats`` at ``panel_slots`` genes a group;
-    else ``panel_workspace``."""
-    if kind == "stream" and panel_phase(p) and G > 0:
+    """(workspace, slots) of a launch at p of kernel 1 (``kind`` "nmf"),
+    kernel 3 ("loop") or kernels 2 and 4 ("stream"): on the kind's cluster
+    layout ``pcl_ws_floats`` a cluster the card can hold at once (one an SM
+    a block; none where a block holds one pair); past it the phased layout
+    of kernels 1, 2 and 4, ``phase_ws_floats`` at ``panel_slots`` genes a
+    group; else (kernel 3) ``panel_workspace``."""
+    if panel_phase(p, kind) and G > 0:
         slots = panel_slots(G, device)
         return (torch.empty(phase_ws_floats(p, slots, G), dtype=torch.float32,
                             device=device), slots)
@@ -516,14 +569,53 @@ def pick_ratio_geometry(p: int, W: int, G: int) -> Tuple[int, int, int]:
     waits on a cold power step of serial matvecs, so there the number of
     blocks in flight decides), else 256 (few genes: more loads in flight
     each).  No dtype enters, so int16 and float32 input share a launch and
-    give the same bits.  p > NARROW_MAX_P: the wide instance, one block of
-    WIDE_THREADS a gene and no copy."""
+    give the same bits.  p > NARROW_MAX_P: the wide and panel instances,
+    blocks of WIDE_THREADS and no copy (the wide instance's chunks:
+    ``ratio_wide_chunks``)."""
     if p > NARROW_MAX_P:
         return 1, WIDE_THREADS, 0
     for cl in (1, 2, 4, 8):
         if p * -(-W // cl) * 2 <= 65536:
             break
     return cl, (128 if G * cl >= 8192 else 256), RATIO_COPY_KB
+
+
+# Kernel 2's wide instance (csrc/ratio_wide.cuh, mirror of its dn_rw_*
+# code the wrapper needs): a gene's columns in chunks of RW_CHUNK_TILES
+# tiles of WIDE_TC columns, each chunk's partial Gram and row sums in the
+# gene's slot of the workspace (with u and RW_SCAL scalars), the genes in
+# groups of ``ratio_wide_slots``, the workspace at most RW_WS_FLOATS floats
+# where a slot fits.  The launches' geometry is modelled in
+# tests/test_torch_ratiowide.py.
+WIDE_TC = 64
+RW_CHUNK_TILES = 16
+RW_SCAL = 4
+RW_WS_FLOATS = 1 << 25
+
+
+def ratio_wide_chunks(W: int) -> int:
+    """Chunks of a gene of W columns (``dn_rw_chunks``)."""
+    tiles = -(-W // WIDE_TC)
+    return -(-tiles // RW_CHUNK_TILES) if tiles > RW_CHUNK_TILES else 1
+
+
+def ratio_wide_slot_floats(p: int, W: int) -> int:
+    """Floats of a gene's slot (``dn_rw_slot_floats`` at p's PMAX)."""
+    pm = pmax_of(p)
+    return ratio_wide_chunks(W) * (pm * pm + pm) + pm + RW_SCAL
+
+
+def ratio_wide_slots(G: int, p: int, W: int) -> int:
+    """Genes of a group of kernel 2's wide instance: as many slots as
+    RW_WS_FLOATS holds (at least one), at most G."""
+    return min(G, max(1, RW_WS_FLOATS // ratio_wide_slot_floats(p, W)))
+
+
+def ratio_wide_workspace(G: int, p: int, W: int, device):
+    """(workspace, slots) of a launch of kernel 2's wide instance."""
+    slots = ratio_wide_slots(G, p, W)
+    return (torch.empty(slots * ratio_wide_slot_floats(p, W),
+                        dtype=torch.float32, device=device), slots)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -698,6 +790,7 @@ def nmf_masked_cuda(
         return nmf_masked_plain(F, mask, **kwargs)
     global nmf_launches, nmf_tol_launches, nmf_wide_launches
     global nmf_wide_tol_launches, nmf_panel_launches, nmf_panel_tol_launches
+    global nmf_panel_phase_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     check_kernel_input(F, "nmf_masked_cuda")
     G, p, W = F.shape
@@ -721,7 +814,7 @@ def nmf_masked_cuda(
     u = torch.empty((G, p), dtype=torch.float32, device=dev)
     if G == 0:
         return K, E, u
-    ws, slots = kernel_workspace(G, p, dev, "loop")
+    ws, slots = kernel_workspace(G, p, dev, "nmf")
     loop = (int(nmf_iter), int(power_iters_cold), int(power_iters_warm),
             int(power_warm_plain), float(nmf_tol), _ptr(iters_out), threads)
     with torch.cuda.device(dev):
@@ -746,6 +839,7 @@ def nmf_masked_cuda(
     if p > WIDE_MAX_P:
         nmf_panel_launches += 1
         nmf_panel_tol_launches += nmf_tol > 0
+        nmf_panel_phase_launches += panel_phase(p, "nmf")
     elif p > NARROW_MAX_P:
         nmf_wide_launches += 1
         nmf_wide_tol_launches += nmf_tol > 0
@@ -788,8 +882,10 @@ def ratio_rowsums_cuda(
     _geometry: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper with ``ratio_rowsums_plain``'s signature
-    (csrc/ratio.cuh; p > 128 csrc/ratio_panel.cu, on kernel 4's layout,
-    past PCL_MAX_P_STREAM csrc/ratio_phase.cu's phased layout), at
+    (csrc/ratio.cuh; 33 <= p <= 128 csrc/ratio_wide.cuh's phases over the
+    card, with ``ratio_wide_workspace``; p > 128 csrc/ratio_panel.cu, on
+    kernel 4's layout, past PCL_MAX_P_STREAM csrc/ratio_phase.cu's phased
+    layout), at
     any width, on float32 coverage or the raw int16 upload as it is (the
     same bits as its float32 cast).  The kernel reads a
     gene once and writes 2p floats, so a wide bucket costs it time and no
@@ -811,7 +907,9 @@ def ratio_rowsums_cuda(
     est = torch.empty((G, p), dtype=torch.float32, device=F.device)
     if G == 0:
         return cov, est
-    ws, slots = kernel_workspace(G, p, F.device, "stream")
+    ws, slots = (ratio_wide_workspace(G, p, W, F.device)
+                 if NARROW_MAX_P < p <= WIDE_MAX_P
+                 else kernel_workspace(G, p, F.device, "stream"))
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_ratio_rowsums(

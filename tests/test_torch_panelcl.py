@@ -209,24 +209,36 @@ def a_card(monkeypatch):
 def test_memory_guard_sets_aside_the_largest_workspace(p, a_card,
                                                        monkeypatch):
     """``panel_workspace_bytes`` is the largest workspace any launch at p
-    takes on a card (a kind's block layout above its cluster layout, a
-    smaller one on it where a block holds several pairs, none where a
-    block holds one: kernels 1 and 3 past 640 samples, kernels 2 and 4
-    below 1,152, past 256 samples), and ``DegNormEngine._pack_host``'s
-    memory guard caps a
-    bucket at a twelfth of the card's memory less exactly that."""
+    takes on a card (kernel 3's block layout above its cluster layout, the
+    phased layout of kernels 1, 2 and 4 above theirs, a smaller one on a
+    cluster layout where a block holds several pairs, none where a block
+    holds one: kernel 3 past 640 samples, kernels 2 and 4 below 1,152,
+    past 256 samples), and ``DegNormEngine._pack_host``'s memory guard
+    caps a bucket at a twelfth of the card's memory less exactly that of
+    the kinds its fit launches (``workspace_kinds``)."""
     slots = cuda_nmf.panel_slots(1 << 30, a_card)
     one = 4 * slots * cuda_nmf.panel_ws_floats(p)
     cluster = 4 * (slots // cuda_nmf.pcl_size(p)) * cuda_nmf.pcl_ws_floats(p)
-    per_launch = {kind: cluster if cuda_nmf.panel_cluster(p, kind) else one
-                  for kind in ("loop", "stream")}
+    phased = 4 * cuda_nmf.phase_ws_floats(p, slots, 1 << 16)
+    per_launch = {kind: cluster if cuda_nmf.panel_cluster(p, kind)
+                  else phased if cuda_nmf.panel_phase(p, kind) else one
+                  for kind in ("nmf", "loop", "stream")}
     ws = cuda_nmf.panel_workspace_bytes(p, a_card)
     assert ws == max(per_launch.values())
     assert (ws > 0) == (p > 256)
     if p > cuda_nmf.PCL_MAX_P:
-        assert ws == one > cluster
+        assert ws == one > max(cluster, phased)
+    # the fit below packs genes of 300 bases: one bucket of width 512,
+    # resident (kernels 1-3) only where p * 512 <= MAX_PW
+    kinds = cuda_nmf.workspace_kinds(p, [512])
+    assert kinds == (("stream",) if p * 512 > cuda_nmf.MAX_PW
+                     else cuda_nmf.WORKSPACE_KINDS)
+    ws = cuda_nmf.panel_workspace_bytes(p, a_card, kinds, genes=3)
     assert cuda_nmf.panel_workspace_bytes(p, torch.device("cpu")) == 0
-    assert cuda_nmf.panel_workspace_bytes(128, a_card) == 0
+    assert cuda_nmf.panel_workspace_bytes(32, a_card) == 0
+    # at 33-128 samples kernel 2's wide instance: its cap, no widths given
+    assert cuda_nmf.panel_workspace_bytes(128, a_card) == \
+        4 * cuda_nmf.RW_WS_FLOATS
 
     seen = {}
     pack = tengine.pack_buckets

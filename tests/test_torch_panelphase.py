@@ -117,11 +117,12 @@ def test_phase_mirror_matches_the_sources():
     assert _define(src, "DN_PHASE_C") == PHASE_C <= MAX_PORTABLE
     assert _define(src, "DN_PHASE_LIST") == PHASE_LIST
     assert _define(src, "DN_PHASE_SCAL") == cuda_nmf.PHASE_SCAL
-    assert _returned(src, "dn_phase_on") == "p > DN_PCL_MAX_P_STREAM"
+    assert _returned(src, "dn_phase_on") == "p > dn_pcl_max_p(kind)"
     assert f"<= {SMEM_PER_BLOCK};" in src   # phase_fits
     for p in [*PHASE_P, cuda_nmf.PCL_MAX_P_STREAM]:
         n = _names(p)
-        assert _c_eval(_returned(src, "dn_phase_on"), **n) == \
+        assert _c_eval(_returned(src, "dn_phase_on"), kind="stream",
+                       dn_pcl_max_p=cuda_nmf.pcl_max_p, **n) == \
             cuda_nmf.panel_phase(p) == (p > 1152)
         assert _c_eval(_returned(src, "dn_phase_ldb"), **n) == \
             cuda_nmf.phase_ldb(p)
@@ -138,10 +139,12 @@ def test_phase_mirror_matches_the_sources():
         == phase_gram_smem_bytes()
     assert "return dn_stream_phase(a);" in _src("stream_panel.cu")
     assert "return dn_ratio_phase(a, f_is_i16);" in _src("ratio_panel.cu")
+    assert "return phase_loop(pa, false, a.act" in _src("nmf_panel.cu")
     for name in os.listdir(CSRC):
         text = _src(name)
         assert "nmf_stream_panel_block_kernel" not in text, name
         assert "ratio_panel_block_kernel" not in text, name
+        assert "nmf_panel_block_kernel" not in text, name
 
 
 @pytest.mark.parametrize("p", PHASE_P)
@@ -232,7 +235,7 @@ def test_phase_workspace_fits_the_guard(p, a_card):
     """The phased layout's workspace (a slot a gene in flight, one an SM at
     most, and the list of active genes) is no larger than what the
     engine's memory guard sets aside at p (``panel_workspace_bytes``, the
-    block layout's budget, which kernels 1 and 3 still take there) at any
+    block layout's budget, which kernel 3 still takes there) at any
     bucket up to 100,000 genes; every slot starts 16-byte aligned; the
     launches' shared memory fits a block; the X scratch keeps the (G, p, W)
     form; the wrapper's workspace is the mirror's size."""
@@ -248,9 +251,11 @@ def test_phase_workspace_fits_the_guard(p, a_card):
     assert cuda_nmf.scratch_shape(5, p, 64, "stream") == (5, p, 64)
     ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "stream")
     assert slots == 2 and ws.numel() == cuda_nmf.phase_ws_floats(p, 2, 2)
-    # kernels 1 and 3 keep the block layout past their cut
+    # kernel 3 keeps the block layout past its cut, kernel 1 is phased
     ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "loop")
     assert slots == 2 and ws.numel() == 2 * cuda_nmf.panel_ws_floats(p)
+    ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "nmf")
+    assert slots == 2 and ws.numel() == cuda_nmf.phase_ws_floats(p, 2, 2)
 
 
 PHASE_RUN_P = 1222

@@ -79,8 +79,8 @@ def wide_sync_bytes(p):
 
 
 def wide_core_bytes(p):
-    """Kernel 2's share of it (``wide_core_floats``): without the second
-    buffer either."""
+    """The core's share of it without the second buffer either
+    (``wide_core_floats``)."""
     P = cuda_nmf.pmax_of(p)
     return wide_sync_bytes(p) - 4 * WIDE_TC * (P + 4)
 
@@ -88,11 +88,19 @@ def wide_core_bytes(p):
 def wide_smem_bytes(kernel, p, W):
     """Shared memory one block of a wide or panel instance takes, dynamic
     and static (mirror of the launches in csrc/*_wide.cuh and
-    csrc/*_panel.cu): the core (a wide kernel 2's without the tile A),
-    kernel 3's W residual scores and per-bin state, and K, rho, two row
-    sums of p (the panel instance: one float each, its vectors are in its
-    workspace), kernel 4's scales (the panel instance: its last column
-    alone)."""
+    csrc/*_panel.cu): the core, kernel 3's W residual scores and per-bin
+    state, and K, rho, two row sums of p (the panel instance: one float
+    each, its vectors are in its workspace), kernel 4's scales (the panel
+    instance: its last column alone); kernel 2's wide instance its largest
+    launch (tests/test_torch_ratiowide.py::smem_bytes, float32 input),
+    kernel 1's phased layout past its cluster layout its Gram launch's
+    (``dn_phase_gram_floats``: two tiles of two panels, the tile list, 16
+    counters)."""
+    if kernel == "ratio" and cuda_nmf.NARROW_MAX_P < p <= cuda_nmf.WIDE_MAX_P:
+        from tests.test_torch_ratiowide import smem_bytes
+        return max(smem_bytes(p, 4).values())
+    if kernel == "nmf" and cuda_nmf.panel_phase(p, "nmf"):
+        return 4 * (4 * WIDE_TC * (cuda_nmf.PANEL_ROWS + 4) + 2048 + 16)
     panel = p > cuda_nmf.WIDE_MAX_P
     P = 1 if panel else cuda_nmf.pmax_of(p)
     static = {"nmf": 0, "ratio": 0, "stream": (0 if panel else 4 * 2 * P) + 4,
@@ -107,7 +115,6 @@ def wide_smem_bytes(kernel, p, W):
         return (cuda_nmf.pcl_smem_bytes(p) + (4 * W if kernel == "trim"
                                                else 0) + static)
     core = (wide_work_bytes(p) if panel
-            else wide_core_bytes(p) if kernel == "ratio"
             else wide_work_bytes(p) if kernel == "stream" and P <= PIPE_MAX
             else wide_sync_bytes(p))
     return core + (4 * W if kernel == "trim" else 0) + static

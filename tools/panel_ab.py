@@ -1,6 +1,7 @@
 """Times the panel instances of kernels 4, 3, 2 and 1 (p > 128:
-``csrc/panel.cuh``, ``csrc/stream_panel.cu``, ``csrc/trim_panel.cu``,
-``csrc/ratio_panel.cu``, ``csrc/nmf_panel.cu``) of this tree and of other
+``csrc/panel.cuh``, ``csrc/phase.cuh``, ``csrc/stream_panel.cu``,
+``csrc/trim_panel.cu``, ``csrc/ratio_panel.cu``, ``csrc/nmf_panel.cu``) of
+this tree and of other
 trees of the repo, each built and timed in a process of its own, on one
 card:
 
@@ -26,15 +27,21 @@ sources as they are.  Prints one JSON line a run: CUDA-event ms of
   bucket, and 4 x 700 x 2,048), raw int16 + scale;
 * ``past``: kernels 4 and 2 past 1,152 samples (PAST: 4 x 1,153 x 2,048, 8
   and 64 x 1,222 x 16,384, 2 x 4,096 x 1,024; ``chip_smoke.py`` phase
-  ``panels``' shapes and data), raw int16 (+ scale for kernel 4), each
-  tree's outputs (K, E, u of kernel 4, the row sums of kernel 2) saved to
-  a temporary directory and compared bit for bit with this tree's first
-  run (``past_bits``);
+  ``panels``' shapes and data), raw int16 (+ scale for kernel 4);
+* ``loop``: kernel 1 past 640 samples in both branches (1p-b, and 1ap-b
+  at nmf_tol=1e-4 with the iterations each gene ran) on resident genes of
+  200-299 bases (LOOP: 512 x 704 x 64, and 256 genes at 768 x 64, 1,024 x
+  64 and 1,153 x 56, ``chip_smoke.py`` phase ``panels``' shapes);
+
+each tree's outputs of ``past`` and ``loop`` (K, E, u of kernels 4 and 1,
+the row sums of kernel 2, kernel 1's iterations) saved to a temporary
+directory and compared bit for bit with this tree's first run
+(``past_bits``);
 
 every part by default, with the card's name and power limit and the panel
 and phased instances that spill registers in the build; for this tree also the plain
-versions of kernel 4 at p = 256 and 512, at BIG and at PAST, and of kernel
-2 at RATIO and PAST.  Compare trees only within one run.  ``--turns`` runs
+versions of kernel 4 at p = 256 and 512, at BIG and at PAST, of kernel 2 at
+RATIO and PAST, and of kernel 1 at LOOP.  Compare trees only within one run.  ``--turns`` runs
 the trees in turns, this tree, the others, the others again, this tree
 (``A B B A``), to see the drift of the card; each tree is built once.
 """
@@ -57,7 +64,8 @@ RATIO = ((512, 256, 256), (512, 512, 128))
 BIG = ((64, 768, 16384), (4, 700, 2048))
 PAST = ((4, 1153, 2048), (8, 1222, 16384), (64, 1222, 16384),
         (2, 4096, 1024))
-PARTS = ("resident", "stream", "trim", "ratio", "big", "past")
+LOOP = ((512, 704, 64), (256, 768, 64), (256, 1024, 64), (256, 1153, 56))
+PARTS = ("resident", "stream", "trim", "ratio", "big", "past", "loop")
 
 
 def time_resident(cs, dev, nmf_cfg, eng, out):
@@ -94,6 +102,10 @@ def layout(cuda_nmf, p, kind):
     if (kind in ("stream", "ratio") and hasattr(cuda_nmf, "panel_phase")
             and cuda_nmf.panel_phase(p)):
         return "phase"
+    if kind == "nmf":   # kernel 1: phased past its cut since the cut by kernel
+        if "nmf" in getattr(cuda_nmf, "WORKSPACE_KINDS", ()):
+            return "phase" if cuda_nmf.panel_phase(p, "nmf") else "cluster"
+        kind = "loop"
     if not hasattr(cuda_nmf, "pcl_max_p"):
         return ("cluster" if cuda_nmf.panel_cluster(p) and kind != "ratio"
                 else "block")
@@ -153,18 +165,18 @@ def time_big(cs, dev, nmf_cfg, plain, out):
         torch.cuda.empty_cache()
 
 
-def time_past(cs, dev, nmf_cfg, plain, out, save):
+def time_past(cs, dev, nmf_cfg, plain, out, arrays):
     """Kernels 4 (raw int16 + scale) and 2 (raw int16) at PAST, on
     chip_smoke's ``small_wide_bucket`` data (each (p, W) made at its
     largest G, a smaller G its first genes), their plain versions too where
-    ``plain``; the outputs into the npz file ``save``."""
+    ``plain``; the outputs into ``arrays``."""
     import torch
     from degnorm_tpu_torch import EngineConfig
     from degnorm_tpu_torch.core import baseline
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream
     nkw = baseline._nmf_kwargs(nmf_cfg, EngineConfig())
     rkw = dict(power_iters=EngineConfig().power_iters_cold)
-    top, arrays, made = {}, {}, {}
+    top, made = {}, {}
     for G, p, W in PAST:
         top[p, W] = max(G, top.get((p, W), 0))
     for G, p, W in PAST:
@@ -203,7 +215,47 @@ def time_past(cs, dev, nmf_cfg, plain, out, save):
                 warm=False)
         del raw, lm, scale, F, hi
         torch.cuda.empty_cache()
-    np.savez(save, **arrays)
+
+
+def time_loop(cs, dev, nmf_cfg, eng, plain, out, arrays):
+    """Kernel 1 at LOOP in its default branch and at nmf_tol=MODE_TOL (the
+    iterations each gene ran too), on chip_smoke's ``resident_bucket`` of
+    narrow genes of 200-299 bases made at 1,153 samples (every p its first
+    p samples), every bailed gene inactive, its plain versions too where
+    ``plain``; the outputs into ``arrays``."""
+    import torch
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf
+    G_top = max(g for g, _, _ in LOOP)
+    p_top = max(p for _, p, _ in LOOP)
+    base = list(cs.synth_dataset(G_top, p_top, seed=cs.SEED + p_top,
+                                 lengths_fn=cs.short_lengths)[0].values())
+    rng = np.random.default_rng(cs.SEED + 13)
+    plain_cfg = dataclasses.replace(eng, use_kernels=False)
+    nkw = baseline._nmf_kwargs(nmf_cfg, eng)
+    for G, p, W in LOOP:
+        F, lm, _ = cs.resident_bucket(G, p, W, dev, rng, mats=base)
+        ti = baseline.trim_inputs(F, lm, nmf_cfg, plain_cfg)
+        act = ~ti.bailed
+        tag = f"{G}x{p}x{W}"
+        for k, kw in (("1p", {}), ("1ap", dict(nmf_tol=cs.MODE_TOL))):
+            it = torch.zeros(G, dtype=torch.int32, device=dev)
+            res = cuda_nmf.nmf_masked_cuda(ti.Fm, ti.hi, gene_active=act,
+                                           iters_out=it, **nkw, **kw)
+            for name, r in zip(("K", "E", "u", "iters"), (*res, it)):
+                arrays[f"{k}_{tag}.{name}"] = r.cpu().numpy()
+            out[f"{k}_{tag}"] = cs.time_ms(
+                lambda: cuda_nmf.nmf_masked_cuda(
+                    ti.Fm, ti.hi, gene_active=act, **nkw, **kw), 1,
+                warm=False)
+            if plain:
+                out[f"{k}_plain_{tag}"] = cs.time_ms(
+                    lambda: cuda_nmf.nmf_masked_plain(
+                        ti.Fm, ti.hi, gene_active=act, **nkw, **kw), 1,
+                    warm=False)
+        out[f"layout_1p_{tag}"] = layout(cuda_nmf, p, "nmf")
+        del F, lm, ti, act
+        torch.cuda.empty_cache()
 
 
 def past_bits(a_path, b_path):
@@ -248,8 +300,12 @@ def one(tree, plain, parts, save):
         time_ratio(cs, dev, plain, out)
     if "big" in parts:
         time_big(cs, dev, nmf_cfg, plain, out)
+    arrays = {}
     if "past" in parts:
-        time_past(cs, dev, nmf_cfg, plain, out, save)
+        time_past(cs, dev, nmf_cfg, plain, out, arrays)
+    if "loop" in parts:
+        time_loop(cs, dev, nmf_cfg, eng, plain, out, arrays)
+    np.savez(save, **arrays)
     out = {k: round(v, 3) if isinstance(v, float) else v
            for k, v in out.items()}
     print(json.dumps({"tree": tree, "ms": out, "panel_spills": spilled,
@@ -323,7 +379,8 @@ def main(args):
             rec = {"tree": tree, "rc": r.returncode,
                    "result": json.loads(line) if r.returncode == 0
                    else r.stderr[-2000:]}
-            if "past" in parts and r.returncode == 0 and i > 0:
+            if ({"past", "loop"} & set(parts) and r.returncode == 0
+                    and i > 0):
                 rec["past_bits"] = past_bits(saves[i], saves[0])
             print(json.dumps(rec), flush=True)
 

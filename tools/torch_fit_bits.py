@@ -26,7 +26,12 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
 * ``panel_x768``: phase ``panels``' fit past 640 samples, narrow genes at
   768 samples with the default bucket widths (BIG_GENES here, PANEL_ITER
   iterations: every bucket streams, kernels 2 and 4 on clusters of six
-  blocks).
+  blocks);
+* ``panel_x768_resident``: phase ``panels``' resident fit past 640
+  samples, RES_GENES genes of 50-64 bases at 768 samples with RES_WIDTHS
+  (one bucket of W = 64, resident: kernel 2 on clusters of six blocks,
+  kernel 1 past its cluster layout, kernel 3 on its block layout; 1
+  iteration).
 
 Every case by default; naming CASEs saves only those.
 
@@ -43,13 +48,20 @@ import sys
 import numpy as np
 
 CASES = ("fit", "fit_wide", "long_tail_cols", "ttn_cols", "narrow_x64",
-         "long_tail_x48", "panel_x256", "panel_x768")
+         "long_tail_x48", "panel_x256", "panel_x768", "panel_x768_resident")
 # the sizes of the cases on phases wide_p's and panels' fits, fixed here so
 # that trees whose chip_smoke.py cut them (or predates the p = 768 fit)
 # still compare
 NARROW_X64_ITER, TAIL_X48_GENES = 5, 2048
 PANEL_FIT_GENES = 2048
 BIG_P, BIG_GENES = 768, 512
+RES_GENES = 1024
+RES_WIDTHS = (64, 256, 512, 1024, 2048, 4096, 8192, 16384, 65536)
+
+
+def resident_lengths(n, rng):
+    """Genes of 50-64 bases (a bucket of W = 64 under RES_WIDTHS)."""
+    return rng.integers(50, 65, n)
 
 
 def save(tree, out, cases=CASES):
@@ -64,49 +76,73 @@ def save(tree, out, cases=CASES):
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh([dev] * 2)
     nmf = NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.DEGNORM_ITER)
-    narrow = cs.synth_dataset(cs.N_GENES, cs.P_SAMPLES)
-    wide = cs.synth_dataset(cs.WIDE_GENES, cs.P_SAMPLES, seed=cs.SEED + 1,
-                            lengths_fn=cs.synth_long_lengths)
-    ttn = cs.synth_dataset(
-        cs.TTN_GENES, cs.P_SAMPLES, seed=cs.SEED + 3,
-        lengths_fn=lambda n, rng: rng.integers(*cs.TTN_LENGTHS, n,
-                                               endpoint=True))
-    runs = {"fit": (narrow, EngineConfig(bucket_widths=cs.BUCKET_WIDTHS),
-                    None, nmf),
-            "fit_wide": (wide, EngineConfig(), None, nmf),
-            "long_tail_cols": (wide, EngineConfig(), mesh, nmf),
-            "ttn_cols": (ttn, EngineConfig(), mesh, nmf)}
-    # phase wide_p's parity subsets of its fits (b) and (c)
-    cov, X = cs.synth_dataset(cs.N_GENES, cs.WIDE_P_FIT_P)
-    keys = list(cov)[:cs.PARITY_GENES]
-    runs["narrow_x64"] = (
-        ({k: cov[k] for k in keys}, X[:cs.PARITY_GENES]),
-        EngineConfig(bucket_widths=cs.BUCKET_WIDTHS), None,
-        NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=NARROW_X64_ITER))
-    cov, X = cs.synth_dataset(TAIL_X48_GENES, cs.WIDE_P_TAIL_P,
-                              seed=cs.SEED + 1,
-                              lengths_fn=cs.synth_long_lengths)
-    lens = np.array([m.shape[1] for m in cov.values()])
-    pick = np.concatenate([
-        np.flatnonzero(lens <= cs.WIDE_WIDTHS[0])[:cs.PARITY_WIDE_GENES[0]],
-        np.flatnonzero(lens > cs.WIDE_WIDTHS[0])[:cs.PARITY_WIDE_GENES[1]]])
-    keys = list(cov)
-    runs["long_tail_x48"] = (
-        ({keys[i]: cov[keys[i]] for i in pick}, X[pick]), EngineConfig(),
-        None, NMFConfig(nmf_iter=cs.NMF_ITER,
-                        degnorm_iter=cs.WIDE_P_ITER["c"]))
-    runs["panel_x256"] = (
-        cs.synth_dataset(PANEL_FIT_GENES, cs.PANEL_FIT_P), EngineConfig(),
-        None, NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
-    if "panel_x768" in cases:
-        runs["panel_x768"] = (
-            cs.synth_dataset(BIG_GENES, BIG_P),
-            EngineConfig(), None,
-            NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=cs.PANEL_ITER))
-    del cov, X
+
+    def narrow():
+        return cs.synth_dataset(cs.N_GENES, cs.P_SAMPLES)
+
+    def wide():
+        return cs.synth_dataset(cs.WIDE_GENES, cs.P_SAMPLES, seed=cs.SEED + 1,
+                                lengths_fn=cs.synth_long_lengths)
+
+    def ttn():
+        return cs.synth_dataset(
+            cs.TTN_GENES, cs.P_SAMPLES, seed=cs.SEED + 3,
+            lengths_fn=lambda n, rng: rng.integers(*cs.TTN_LENGTHS, n,
+                                                   endpoint=True))
+
+    def narrow_x64():
+        # phase wide_p's parity subset of its fit (b)
+        cov, X = cs.synth_dataset(cs.N_GENES, cs.WIDE_P_FIT_P)
+        keys = list(cov)[:cs.PARITY_GENES]
+        return {k: cov[k] for k in keys}, X[:cs.PARITY_GENES]
+
+    def long_tail_x48():
+        # ... and of its fit (c)
+        cov, X = cs.synth_dataset(TAIL_X48_GENES, cs.WIDE_P_TAIL_P,
+                                  seed=cs.SEED + 1,
+                                  lengths_fn=cs.synth_long_lengths)
+        lens = np.array([m.shape[1] for m in cov.values()])
+        pick = np.concatenate([
+            np.flatnonzero(lens <= cs.WIDE_WIDTHS[0])[
+                :cs.PARITY_WIDE_GENES[0]],
+            np.flatnonzero(lens > cs.WIDE_WIDTHS[0])[
+                :cs.PARITY_WIDE_GENES[1]]])
+        keys = list(cov)
+        return {keys[i]: cov[keys[i]] for i in pick}, X[pick]
+
+    # case -> (its data, made when the case runs; config; mesh; NMF config)
+    runs = {
+        "fit": (narrow, EngineConfig(bucket_widths=cs.BUCKET_WIDTHS), None,
+                nmf),
+        "fit_wide": (wide, EngineConfig(), None, nmf),
+        "long_tail_cols": (wide, EngineConfig(), mesh, nmf),
+        "ttn_cols": (ttn, EngineConfig(), mesh, nmf),
+        "narrow_x64": (narrow_x64,
+                       EngineConfig(bucket_widths=cs.BUCKET_WIDTHS), None,
+                       NMFConfig(nmf_iter=cs.NMF_ITER,
+                                 degnorm_iter=NARROW_X64_ITER)),
+        "long_tail_x48": (long_tail_x48, EngineConfig(), None,
+                          NMFConfig(nmf_iter=cs.NMF_ITER,
+                                    degnorm_iter=cs.WIDE_P_ITER["c"])),
+        "panel_x256": (lambda: cs.synth_dataset(PANEL_FIT_GENES,
+                                                cs.PANEL_FIT_P),
+                       EngineConfig(), None,
+                       NMFConfig(nmf_iter=cs.NMF_ITER,
+                                 degnorm_iter=cs.PANEL_ITER)),
+        "panel_x768": (lambda: cs.synth_dataset(BIG_GENES, BIG_P),
+                       EngineConfig(), None,
+                       NMFConfig(nmf_iter=cs.NMF_ITER,
+                                 degnorm_iter=cs.PANEL_ITER)),
+        "panel_x768_resident": (
+            lambda: cs.synth_dataset(RES_GENES, BIG_P,
+                                     lengths_fn=resident_lengths),
+            EngineConfig(bucket_widths=RES_WIDTHS), None,
+            NMFConfig(nmf_iter=cs.NMF_ITER, degnorm_iter=1)),
+    }
     arrays = {}
     for case in cases:
-        (cov, X), cfg, m, nmf_case = runs[case]
+        data, cfg, m, nmf_case = runs[case]
+        cov, X = data()
         res = DegNormEngine(nmf_case, cfg, mesh=m).run(cov, X)
         torch.cuda.synchronize()
         arrays[f"{case}.rho"] = res.rho

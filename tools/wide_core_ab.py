@@ -1,48 +1,97 @@
-"""Times the wide kernels 1, 3 and 4 (``csrc/wide.cuh``'s core) of this
-tree and of other trees of the repo, each built and timed in a process of
-its own, on one card:
+"""Times the wide kernels 1, 3, 4 (``csrc/wide.cuh``'s core) and 2
+(``csrc/ratio_wide.cuh``) of this tree and of other trees of the repo,
+each built and timed in a process of its own, on one card:
 
-    python3 tools/wide_core_ab.py [TREE ...]
+    python3 tools/wide_core_ab.py [--parts PART,...] [--turns] [TREE ...]
 
 Each TREE is a checkout of the repo (e.g. a parent commit's ``git
 archive``, or a copy with another version of the core), timed with its own
-sources as they are.  Prints one JSON line a tree: CUDA-event ms of kernel
-4 on 256 genes x p x 16,384 columns of raw int16 + scale (p = 48, 64, 96,
-128), and of kernels 1 and 3 with their branches (1w, 1aw: nmf_tol; 3w,
-3aw: trim_fast, 3bw: nmf_tol) on 1,024 narrow genes at 48 x 1024, 64 x
-1024, 96 x 512 and 128 x 512, on ``chip_smoke.py``'s data (its seeds; every p the
+sources as they are.  Prints one JSON line a run: CUDA-event ms of
+
+* ``core``: kernel 4 on 256 genes x p x 16,384 columns of raw int16 + scale
+  (p = 48, 64, 96, 128), and kernels 1 and 3 with their branches (1w, 1aw:
+  nmf_tol; 3w, 3aw: trim_fast, 3bw: nmf_tol) on 1,024 narrow genes at 48 x
+  1024, 64 x 1024, 96 x 512 and 128 x 512;
+* ``ratio``: kernel 2 (2w) on the raw int16 form of 1,024 narrow genes at
+  RATIO_RESIDENT (every PMAX) and of long genes at RATIO_LONG (256 x 48 x
+  16,384 and 16 x 64 x 65,536), its outputs compared bit for bit with this
+  tree's first run (``ratio_bits``: the largest difference where they
+  differ), and for this tree its plain version;
+
+every part by default, on ``chip_smoke.py``'s data (its seeds; every p the
 first p samples of one dataset made at 128), with the card's name and power
 limit and the wide and resident instances that spill registers in the
-build.  Compare trees only within one run.
+build.  ``--turns`` runs the trees in turns (this tree, the others, the
+others again, this tree: A B B A).  Compare trees only within one run.
 """
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PARTS = ("core", "ratio")
+RATIO_RESIDENT = ((48, 1024), (64, 1024), (96, 512), (128, 512))
+RATIO_LONG = ((256, 48, 16384), (16, 64, 65536))
 
 
-def one(tree):
-    """The timings of one tree's build (run in its own process)."""
-    sys.path.insert(0, tree)
+def time_ratio(cs, dev, plain, out, arrays):
+    """Kernel 2 at RATIO_RESIDENT (chip_smoke's ``resident_bucket`` of 1,024
+    narrow genes) and RATIO_LONG (``small_wide_bucket``), raw int16, its
+    plain version too where ``plain``; the outputs into ``arrays``."""
     import torch
-    import chip_smoke as cs
-    from degnorm_tpu_torch import EngineConfig, NMFConfig
-    from degnorm_tpu_torch.core import baseline
-    from degnorm_tpu_torch.ops import build, cuda_nmf, cuda_stream, cuda_trim
-    build.get_lib(verbose=True)
-    spilled = {r["kernel"]: r["spill_bytes"]
-               for r in cs.ptxas_report(str(build.build_info.get("log", "")))
-               if r["spill_bytes"] and ("wide" in r["kernel"]
-                                         or "_res_" in r["kernel"])}
-    dev = torch.device("cuda")
-    nmf_cfg = NMFConfig(nmf_iter=cs.NMF_ITER)
-    eng = EngineConfig(bucket_widths=cs.BUCKET_WIDTHS)
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.ops import cuda_nmf
+    kw = dict(power_iters=EngineConfig().power_iters_cold)
+    base = list(cs.synth_dataset(1024, 128, seed=cs.SEED + 128)[0].values())
+    rng = np.random.default_rng(cs.SEED + 11)
+    shapes = [(1024, p, W) for p, W in RATIO_RESIDENT] + list(RATIO_LONG)
+    for G, p, W in shapes:
+        if (p, W) in RATIO_RESIDENT:
+            _, lm, raw = cs.resident_bucket(G, p, W, dev, rng, mats=base)
+        else:
+            raw, lm = cs.small_wide_bucket(G, p, W, cs.SEED + p, dev)
+        tag = f"{G}x{p}x{W}"
+        for name, r in zip(("cov", "est"),
+                           cuda_nmf.ratio_rowsums_cuda(raw, lm, **kw)):
+            arrays[f"2w_{tag}.{name}"] = r.cpu().numpy()
+        out[f"2w_{tag}"] = cs.time_ms(
+            lambda: cuda_nmf.ratio_rowsums_cuda(raw, lm, **kw), 5)
+        if plain:
+            Ff = raw.to(torch.float32)
+            out[f"2w_plain_{tag}"] = cs.time_ms(
+                lambda: cuda_nmf.ratio_rowsums_plain(Ff, lm, **kw), 2)
+            del Ff
+        del raw, lm
+        torch.cuda.empty_cache()
+
+
+def ratio_bits(a_path, b_path):
+    """Per array of two ``time_ratio`` files: the same bits, or the largest
+    difference relative to max(|value|, 1) and how many values differ."""
+    a, b = np.load(a_path), np.load(b_path)
     out = {}
+    for k in a.files:
+        x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+        if x.shape == y.shape and np.array_equal(x, y):
+            out[k] = True
+            continue
+        d = np.abs(x - y) / np.maximum(np.abs(y), 1.0)
+        out[k] = {"max_rel": float(d.max()), "differing": int((x != y).sum())}
+    return out
+
+
+def time_core(cs, dev, nmf_cfg, eng, out):
+    """Kernel 4 at 256 x p x 16,384 and kernels 1 and 3 with their branches
+    on 1,024 narrow genes (the ``core`` part)."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_stream, cuda_trim
     nkw = baseline._nmf_kwargs(nmf_cfg, EngineConfig())
     raw_top, lm = cs.small_wide_bucket(256, 128, 16384, cs.SEED + 128, dev)
     for p in (48, 64, 96, 128):
@@ -85,24 +134,67 @@ def one(tree):
                 fn, 3 if name.startswith("1") else 2)
         del F, lm, ti, targs
         torch.cuda.empty_cache()
+
+
+def one(tree, plain=False, parts=PARTS, save=None):
+    """The timings of one tree's build (run in its own process)."""
+    sys.path.insert(0, tree)
+    import torch
+    import chip_smoke as cs
+    from degnorm_tpu_torch import EngineConfig, NMFConfig
+    from degnorm_tpu_torch.ops import build
+    if os.path.dirname(os.path.abspath(cs.__file__)) != os.path.abspath(tree):
+        raise RuntimeError(f"chip_smoke.py not taken from {tree}")
+    build.get_lib(verbose=True)
+    spilled = {r["kernel"]: r["spill_bytes"]
+               for r in cs.ptxas_report(str(build.build_info.get("log", "")))
+               if r["spill_bytes"] and ("wide" in r["kernel"]
+                                         or "_res_" in r["kernel"])}
+    dev = torch.device("cuda")
+    nmf_cfg = NMFConfig(nmf_iter=cs.NMF_ITER)
+    eng = EngineConfig(bucket_widths=cs.BUCKET_WIDTHS)
+    out, arrays = {}, {}
+    if "ratio" in parts:
+        time_ratio(cs, dev, plain, out, arrays)
+    if save is not None:
+        np.savez(save, **arrays)
+    if "core" in parts:
+        time_core(cs, dev, nmf_cfg, eng, out)
     out = {k: round(v, 3) for k, v in out.items()}
     print(json.dumps({"tree": tree, "ms": out,
                       "wide_spills": spilled, "smi": cs.smi_line()}),
           flush=True)
 
 
-def main(trees):
-    for tree in [REPO] + [os.path.abspath(t) for t in trees]:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--one", tree], capture_output=True, text=True)
-        line = (r.stdout.strip().splitlines() or [""])[-1]
-        print(json.dumps({"tree": tree, "rc": r.returncode,
-                          "result": json.loads(line) if r.returncode == 0
-                          else r.stderr[-2000:]}), flush=True)
+def main(args):
+    parts = PARTS
+    if args[:1] == ["--parts"]:
+        parts, args = tuple(args[1].split(",")), args[2:]
+        if not set(parts) <= set(PARTS):
+            sys.exit(__doc__)
+    turns = args[:1] == ["--turns"]
+    others = [os.path.abspath(t) for t in args[turns:]]
+    trees = [REPO] + others + (others + [REPO] if turns else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        saves = [os.path.join(tmp, f"ratio_{i}.npz")
+                 for i in range(len(trees))]
+        for i, tree in enumerate(trees):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--one", tree, str(int(tree == REPO)),
+                                ",".join(parts), saves[i]],
+                               capture_output=True, text=True)
+            line = (r.stdout.strip().splitlines() or [""])[-1]
+            rec = {"tree": tree, "rc": r.returncode,
+                   "result": json.loads(line) if r.returncode == 0
+                   else r.stderr[-2000:]}
+            if "ratio" in parts and r.returncode == 0 and i > 0:
+                rec["ratio_bits"] = ratio_bits(saves[i], saves[0])
+            print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2])
+        one(sys.argv[2], sys.argv[3] == "1", tuple(sys.argv[4].split(",")),
+            sys.argv[5])
     else:
         main(sys.argv[1:])
