@@ -119,6 +119,10 @@ PIPE_GENES_PER_CHROM = 512
 PIPE_DEGRADATION = (0.0, 0.0, 0.5, 0.5)      # one sample each
 PIPE_READS_PER_GENE = 150
 PIPE_READ_LEN = 50
+# the warm genes a kernels-on / kernels-off parity pair of phase pipeline
+# fits (their first ones; cut from every warm gene for the script's time
+# limit)
+PIPE_PARITY_GENES = 2048
 REPO = os.path.dirname(os.path.abspath(__file__))
 PIPE_DIR = os.path.join(REPO, "degnorm_tpu_torch", "_build", "smoke_pipeline")
 
@@ -424,11 +428,11 @@ SPILL_ALLOWED = tuple(f"trim_loop_kernel<32,{f},{m}>" for m in range(3)
 SPILL_GATED = ("nmf_masked_kernel", "nmf_masked_warp_kernel",
                "trim_loop_kernel", "nmf_streamed_kernel",
                "ratio_rowsums_kernel", "cols_gram_kernel", "cols_sweep_kernel",
-               "cols_finish_kernel", "ratio_cols_sums_kernel",
+               "cols_finish_kernel", "ratio_cols_sums_kernel", "wcols_",
+               "wratio_cols_sums_kernel",
                "nmf_wide_kernel", "trim_wide_kernel", "nmf_stream_wide_kernel",
                "ratio_wide_", "nmf_panel_kernel", "ratio_panel_kernel",
-               "nmf_stream_panel_kernel", "trim_panel_kernel",
-               "trim_panel_block_kernel",
+               "nmf_stream_panel_kernel", "trim_panel_kernel", "trim_ph_",
                "nmf_res_kernel", "trim_res_kernel", "phase_gram_kernel",
                "phase_power_kernel", "phase_cols_kernel", "phase_est_kernel",
                "phase_prep_kernel")
@@ -622,7 +626,7 @@ def check_kernels_at(F_adj, lm, nmf_cfg, eng_cfg, raw, timed=True,
 
 
 def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
-                  **mode):
+                  time_reps=2, **mode):
     """Kernel 3 (in the branch ``mode`` selects: trim_fast or nmf_tol)
     against its plain version on one bucket's trim inputs: ran_bs and
     rounds_active equal on >= 99% of the genes that enter, rho within 5e-4
@@ -633,7 +637,8 @@ def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
     order tips one iteration early or late).  ``default_iters``: the default
     mode's Lagrangian iterations on the same inputs; given, the rounds must
     freeze, at most 90% of them.  The kernel's iterations go into the
-    bound."""
+    bound.  ``time_reps``: the launches timed (1: one, with no warm-up,
+    the check's own having run)."""
     import torch
     from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
     G, p, W = ti.Fm.shape
@@ -699,7 +704,8 @@ def check_trim_at(ti, targs, tkw, nmf_cfg, timed, default_iters=None,
                                         tc=True)[0]
     if timed:
         rec["ms"] = time_ms(
-            lambda: cuda_trim.trim_loop_cuda(*targs, **tkw, **mode), 2)
+            lambda: cuda_trim.trim_loop_cuda(*targs, **tkw, **mode),
+            time_reps, warm=time_reps > 1)
         rec["plain_ms"] = plain_ms
     return rec
 
@@ -1178,8 +1184,9 @@ def profile_fit(engine, cov, X, steady_wall_s, per_launch=None):
                 "nmf_streamed_kernel", "nmf_wide_kernel", "ratio_wide_",
                 "trim_wide_kernel", "nmf_stream_wide_kernel",
                 "nmf_panel_kernel", "ratio_panel_kernel", "trim_panel_kernel",
-                "nmf_stream_panel_kernel", "trim_panel_block_kernel",
-                "phase_", "nmf_res_kernel", "trim_res_kernel"):
+                "nmf_stream_panel_kernel", "trim_ph_", "phase_",
+                "nmf_res_kernel", "trim_res_kernel", "void cols_",
+                "void ratio_cols_", "wcols_", "wratio_cols_"):
         sel = [r for r in rows if tag in r[0]]
         ours[tag] = {"device_ms": round(sum(r[1] for r in sel) / 1e3, 3),
                      "launches": sum(r[2] for r in sel)}
@@ -1695,7 +1702,7 @@ def phase_parity(cov, X, cov_wide, X_wide):
 
 # phase modes: the opt-in modes on the narrow workload
 MODES = (("trim_fast", dict(trim_fast=True)), ("nmf_tol", dict(nmf_tol=MODE_TOL)))
-MODES_PARITY_GENES = 2048
+MODES_PARITY_GENES = 1024      # cut from 2,048 for the time limit
 EIGH_GENES = 1024
 KEYED_GENES = 1024
 KEYED_RATE = 3
@@ -1741,8 +1748,12 @@ def wide_launches(tag="wide"):
                 "ratio_rowsums[panel,phase]":
                 cuda_nmf.ratio_panel_phase_launches,
                 "nmf_streamed[panel,phase]":
-                cuda_stream.stream_panel_phase_launches}
-               if tag == "panel" else {})}
+                cuda_stream.stream_panel_phase_launches,
+                "trim_loop[panel,phase]": cuda_trim.trim_panel_phase_launches}
+               if tag == "panel" else {
+                   "nmf_colsharded[wide]": cuda_stream.colsharded_wide_launches,
+                   "ratio_colsharded[wide]":
+                   cuda_nmf.ratio_cols_wide_launches})}
 
 
 def zero_launches():
@@ -1765,7 +1776,8 @@ def zero_launches():
     cuda_nmf.ratio_panel_phase_launches = 0
     cuda_stream.stream_panel_phase_launches = 0
     cuda_trim.trim_panel_launches = cuda_trim.trim_panel_fast_launches = 0
-    cuda_trim.trim_panel_tol_launches = 0
+    cuda_trim.trim_panel_tol_launches = cuda_trim.trim_panel_phase_launches = 0
+    cuda_stream.colsharded_wide_launches = cuda_nmf.ratio_cols_wide_launches = 0
 
 
 def drift(a, b):
@@ -1881,7 +1893,7 @@ def phase_modes(cov, X, base_fit, base_steady_s):
 
 
 # phase oracle: the port's engine on the card against its float64 oracle
-ORACLE_SYNTH_GENES = 16     # (ARPACK on the host: about a second a gene)
+ORACLE_SYNTH_GENES = 8      # (ARPACK on the host: about a second a gene)
 ORACLE_SYNTH_ITER = 2       # DegNorm iterations: keeps ARPACK under a minute
 GOLDEN = os.path.join(REPO, "tests", "data", "golden_nmfoa.npz")
 
@@ -2134,8 +2146,9 @@ def phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=False):
     the numpy paths, and whose fit must launch all four kernels.  The
     default bucket widths give the warm fit narrow buckets that phase
     kernels does not see (W=256, 512, 2048): kernels 1-3 are held against
-    their plain versions on each of them (``check_kernels_at``), and the
-    command's result against a use_kernels=False fit (``compare_fits``).
+    their plain versions on each of them (``check_kernels_at``), and a fit
+    of the first PIPE_PARITY_GENES warm genes against a use_kernels=False
+    fit of them (``compare_fits``).
     The host library is built before the cold command, so that its etl
     timing holds the ETL alone.  Returns the warm command's launches and the
     cold .bam run (``keep_cold``: its inputs and run directory are left for
@@ -2344,18 +2357,24 @@ def phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=False):
                 trim_entered=r["trim_loop"]["entered"],
                 trim_rounds_agree=r["trim_loop"]["rounds_agree"])
             del F_adj, lm, raw
-        # ... and the command's fit against the plain versions' fit
-        t0 = time.perf_counter()
-        plain = DegNormEngine(
-            NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER),
-            EngineConfig(device=DEVICE, use_kernels=False)).run(
-                loaded["gene_cov_dict"], counts)
-        plain_s = time.perf_counter() - t0
-        compare_fits("pipeline_plain", res, plain,
-                     (captured["timings"]["fit"], plain_s),
-                     pair="warm command (kernels on) vs direct "
-                          "use_kernels=False fit")
-        del plain
+        # ... and a kernels-on fit against the plain versions' fit, on the
+        # warm genes' first PIPE_PARITY_GENES
+        keys = list(loaded["gene_cov_dict"])[:PIPE_PARITY_GENES]
+        sub = OrderedDict((k, loaded["gene_cov_dict"][k]) for k in keys)
+        fits = {}
+        for tag, on in (("on", True), ("off", False)):
+            t0 = time.perf_counter()
+            fits[tag] = DegNormEngine(
+                NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER),
+                EngineConfig(device=DEVICE, use_kernels=on)).run(
+                    sub, counts[:len(keys)])
+            fits[tag + "_s"] = time.perf_counter() - t0
+        plain_s = fits["off_s"]
+        compare_fits("pipeline_plain", fits["on"], fits["off"],
+                     (fits["on_s"], plain_s),
+                     pair=f"the warm genes' first {len(keys)}: kernels on "
+                          "vs use_kernels=False")
+        del fits, sub
         # the files hold the same bits
         saved = pd.read_csv(
             os.path.join(warm_run, "degradation_index_scores.csv"),
@@ -2376,7 +2395,7 @@ def phase_pipeline(cov, X, cov_wide, X_wide, keep_cold=False):
             bit_equal_to_direct_fit=True, direct_fit_s=round(direct_s, 3),
             buckets_equal_numpy_pack=True,
             numpy_pack_scan_s=numpy_scan_s, numpy_pack_host_s=numpy_pack_s,
-            plain_fit_s=round(plain_s, 3),
+            plain_fit_s=round(plain_s, 3), parity_genes=PIPE_PARITY_GENES,
             kernels_vs_plain_at={str(k): v for k, v in bucket_checks.items()},
             report=not warm_report_why,
             **({"report_reason": warm_report_why} if warm_report_why
@@ -2780,6 +2799,15 @@ SEQPAR_P = (3, 8, 16, 32)
 OUTLIER_LEN = 110_000
 TTN_GENES = 3
 TTN_LENGTHS = (100_000, 120_000)
+# kernels 4c and 2c's wide instances (csrc/stream_cols_wide.cuh): every
+# PMAX on COLS_WIDE_GENES genes x p x COLS_WIDE_W (one dataset made at the
+# largest p), and the TTN-like genes at TTN_WIDE_P samples (their fits at
+# TTN_WIDE_ITER DegNorm iterations, cut from 5)
+COLS_WIDE_P = (33, 48, 64, 96, 128)
+COLS_WIDE_GENES = 64
+COLS_WIDE_W = 65536
+TTN_WIDE_P = 128
+TTN_WIDE_ITER = 1
 
 
 def cut_columns(raw, lm, n):
@@ -2841,7 +2869,8 @@ def host_us_a_sweep(run, sweeps):
     return round(secs / sweeps * 1e6, 2)
 
 
-def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
+def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
+                        i16_vs_f32=False, tol_tip=0, ref64=False):
     """Kernels 4c and 2c on a bucket of ``genes`` real genes (the rest of
     its slots padding, as the engine packs it) cut along its columns into
     one shard a ``mesh`` device (both on the card), each against its plain
@@ -2861,7 +2890,16 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
     ``tol_check``: 4c's nmf_tol instances too, at FREEZE_TOL, against the
     plain adaptive loop on the same shards: K, E, u within 1e-4 of
     max(|value|, 1) on >= 99% of the genes (a gene whose freeze falls on
-    another iteration in float32 differs more)."""
+    another iteration in float32 differs more; ``tol_tip``: at least that
+    many genes may, as check_nmf_phase_at allows max(2, 1%) of a bucket of
+    a few dozen active genes).  ``i16_vs_f32``: 4c on
+    the float32 coverage the engine's order gives (raw / scale) and 2c on
+    the float32 cast of the raw coverage must give the raw int16 form's
+    bits on every shard.  ``ref64``: 2c is held against its plain version
+    in float64 (at 33-128 samples the float32 plain version's own est_sums
+    drift up to 1.4e-5 from float64, over the 1e-5 the check holds, while
+    the kernel's stay under 5e-7), the float32 plain version's gap to it
+    recorded beside."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.core import baseline
@@ -2904,6 +2942,12 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
                                      group.gathers - q0)
     same_bits(got, nmf(cuda_stream.nmf_masked_colsharded_cuda),
               "nmf_colsharded")
+    if i16_vs_f32:
+        fkw = {k: v for k, v in nkw.items() if k != "scale"}
+        same_bits(got, run_steps(
+            cuda_stream.nmf_masked_colsharded_cuda(
+                Fs.to(torch.float32) / scale[None, :, None], ms, c, **fkw)
+            for (Fs, ms), c in zip(shards, cols)), "nmf_colsharded[float32]")
     want = nmf(cuda_stream.nmf_masked_colsharded_plain)
     whole = cuda_stream.nmf_masked_streamed_cuda(raw, lm, **nkw)
     torch.cuda.synchronize()
@@ -2942,11 +2986,12 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
                      / b.double().abs().clamp_min(1.0)).amax(dim=1)
                 bad |= r > 1e-4
         n_act = int(act.sum())
-        if int(bad.sum()) > 0.01 * n_act:
+        if int(bad.sum()) > max(tol_tip, 0.01 * n_act):
             raise AssertionError(f"nmf_colsharded[nmf_tol] p={p} W={W}: "
                                  f"{int(bad.sum())} of {n_act} genes differ")
         tol_rec = dict(tol=FREEZE_TOL, launches_per_nmf=tol_launches,
-                       genes_off=int(bad.sum()), active_genes=n_act)
+                       genes_off=int(bad.sum()), active_genes=n_act,
+                       genes_off_allowed=max(tol_tip, int(0.01 * n_act)))
         del got, want
     b_ms, b_by = bound_stream(raw, lm, act, NMF_ITER)
     s0, q0 = group.gather_seconds, group.gathers
@@ -2956,7 +3001,8 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
                     2)
     rec4 = dict(
         shape=[G, p, W], shards=len(cols), shard_width=group.width,
-        geometry=geometry, launches_per_nmf=launches,
+        geometry=geometry, i16_bits_of_f32=i16_vs_f32 or None,
+        launches_per_nmf=launches,
         gathers_per_nmf=gathers, reductions_per_nmf=reductions,
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
         kernel4_whole_rel_err=vs4, bound_ms=b_ms, bound_by=b_by,
@@ -2974,7 +3020,21 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
                                      group.gathers - q0)
     same_bits(got, ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
               "ratio_colsharded")
+    if i16_vs_f32:
+        same_bits(got, run_steps(
+            cuda_nmf.ratio_rowsums_colsharded_cuda(
+                Fs.to(torch.float32), ms, c, power_iters=power)
+            for (Fs, ms), c in zip(shards, cols)), "ratio_colsharded[float32]")
     want = ratio(cuda_nmf.ratio_rowsums_colsharded_plain)
+    plain32_err = None
+    if ref64:
+        want64 = run_steps(
+            cuda_nmf.ratio_rowsums_colsharded_plain(
+                Fs.to(torch.float64), ms, c, power_iters=power)
+            for (Fs, ms), c in zip(shards, cols))
+        plain32_err = max(err_stats(a, b)[1]
+                          for a, b in zip(want[0], want64[0]))
+        want = want64
     whole = cuda_nmf.ratio_rowsums_cuda(raw, lm, bucket_genes=G)
     torch.cuda.synchronize()
     errs = []
@@ -2990,6 +3050,8 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False):
         shape=[G, p, W], geometry=geometry, launches_per_init=launches,
         gathers_per_init=gathers, reductions_per_init=reductions,
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+        reference="plain float64" if ref64 else "plain float32",
+        plain32_vs_64_rel_err=plain32_err,
         kernel2_whole_rel_err=vs2, bound_ms=b2_ms, bound_by=b2_by,
         ms=time_ms(lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
                    RATIO_REPS),
@@ -3016,7 +3078,8 @@ def timed_fit(nmf_cfg, eng_cfg, cov, X, mesh=None):
     res = engine.run(cov, X)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = {k: v for k, v in branch_launches().items() if "[" not in k}
+    launches = {k: v for k, v in branch_launches().items()
+                if "[" not in k or k in COLS_WIDE_INSTANCES}
     t0 = time.perf_counter()
     engine.run(cov, X, reuse_device_data=True)
     torch.cuda.synchronize()
@@ -3031,14 +3094,18 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
     its gene lengths), at one outlier of OUTLIER_LEN bases and at a
     TTN-like bucket as the engine packs it (one gene of TTN_LENGTHS[1]
     bases in 64 slots): the last two spread a gene over many blocks, and
-    run 4c's nmf_tol instances too.  (2) The
+    run 4c's nmf_tol instances too; their wide instances at every PMAX on
+    COLS_WIDE_GENES x p x COLS_WIDE_W for p in COLS_WIDE_P and on the
+    TTN-like genes at TTN_WIDE_P samples, the nmf_tol instances too, raw
+    int16 + scale bit-equal to float32.  (2) The
     long tail on the mesh (``long_tail_mesh_fit``, phase ``mesh``'s record
     where it ran), against the one-device fit of phase ``fit_wide`` (``wide``;
     fitted here where that phase did not run).  (3) TTN_GENES genes of
-    TTN_LENGTHS bases x P_SAMPLES, on one device, column-sharded on the mesh
-    and gene-sharded on it (``seqpar_width`` above W), each held to the
-    parity gate of the one-device fit, each with its launches and steady
-    seconds.  Returns the kernel records and the long tail's."""
+    TTN_LENGTHS bases x P_SAMPLES, and x TTN_WIDE_P (``ttn_fits``), on one
+    device, column-sharded on the mesh and gene-sharded on it
+    (``seqpar_width`` above W), each held to the parity gate of the
+    one-device fit, each with its launches and steady seconds.  Returns the
+    kernel records and the long tail's."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.data.buckets import pack_buckets
@@ -3072,6 +3139,34 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
     kres["ttn_bucket"] = check_colsharded_at(raw, lm, mesh, "ttn_bucket", 1,
                                              tol_check=True)
     del raw, lm
+    # the wide instances at every PMAX, the nmf_tol ones too, raw int16 +
+    # scale against float32
+    lengths = np.random.default_rng(SEED + 11).integers(
+        COLS_WIDE_W // 2, COLS_WIDE_W + 1, COLS_WIDE_GENES)
+    raw_w, lm_w = synth_wide_bucket(lengths, max(COLS_WIDE_P), COLS_WIDE_W,
+                                    SEED + 11, dev)
+    for p in COLS_WIDE_P:
+        kres[f"wide{p}"] = check_colsharded_at(
+            raw_w[:, :p].contiguous(), lm_w, mesh, f"wide{p}",
+            COLS_WIDE_GENES, reps=1, tol_check=True, i16_vs_f32=True,
+            tol_tip=2, ref64=True)
+        torch.cuda.empty_cache()
+    del raw_w, lm_w
+    # ... and the TTN-like genes at TTN_WIDE_P samples, a bucket of three
+    cov_t, _ = ttn_dataset(TTN_WIDE_P)
+    W = -(-max(m.shape[1] for m in cov_t.values()) // 128) * 128
+    F = np.zeros((TTN_GENES, TTN_WIDE_P, W), np.int16)
+    lens = np.zeros(TTN_GENES, np.int64)
+    for i, m in enumerate(cov_t.values()):
+        F[i, :, :m.shape[1]] = np.round(m)
+        lens[i] = m.shape[1]
+    raw = torch.from_numpy(F).to(dev)
+    lm = torch.from_numpy(np.arange(W)[None, :] < lens[:, None]).to(dev)
+    kres[f"ttn{TTN_WIDE_P}"] = check_colsharded_at(
+        raw, lm, mesh, f"ttn{TTN_WIDE_P}", TTN_GENES, reps=1, tol_check=True,
+        i16_vs_f32=True, ref64=True)
+    del cov_t, F, raw, lm
+    torch.cuda.empty_cache()
     nmf_cfg = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=DEGNORM_ITER)
     if wide is None:
         one, one_launches, _, one_steady, _ = timed_fit(
@@ -3079,16 +3174,46 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
         wide = (one, one_steady, one_launches)
     if long_tail is None:
         long_tail = long_tail_mesh_fit(cov_wide, X_wide, *wide)
-    # TTN-like genes: the longest human exonic lengths, a bucket each
-    cov_t, X_t = synth_dataset(
-        TTN_GENES, P_SAMPLES, seed=SEED + 3,
+    # TTN-like genes: the longest human exonic lengths, a bucket each, at
+    # P_SAMPLES and at TTN_WIDE_P samples (4c and 2c's wide instances)
+    ttn = ttn_fits(mesh, P_SAMPLES, nmf_cfg)
+    ttn[f"p{TTN_WIDE_P}"] = ttn_fits(mesh, TTN_WIDE_P, dataclasses.replace(
+        nmf_cfg, degnorm_iter=TTN_WIDE_ITER))
+    emit("seqpar", kernels={str(k): v for k, v in kres.items()},
+         tolerance="4c: K,E,u within 1e-5 of max(|value|, 1) of the plain "
+                   "version on the same shards, K and u bit-equal on every "
+                   "shard; 2c: row sums within 1e-5, bit-equal on every "
+                   "shard; fits: the parity gate (DI atol 5e-3, adjusted "
+                   "rtol 5e-3, flags equal on >= 99% of genes)",
+         long_tail=long_tail, ttn=ttn, smi=smi_line())
+    return kres, long_tail
+
+
+def ttn_dataset(p):
+    """TTN_GENES genes of TTN_LENGTHS bases (seed SEED + 3) at p samples."""
+    return synth_dataset(
+        TTN_GENES, p, seed=SEED + 3,
         lengths_fn=lambda n, rng: rng.integers(*TTN_LENGTHS, n, endpoint=True))
+
+
+def ttn_fits(mesh, p, nmf_cfg):
+    """The TTN-like genes at p samples on one device, column-sharded on the
+    mesh and gene-sharded on it (``seqpar_width`` above W), each held to
+    the parity gate of the one-device fit, each with its launches, steady
+    seconds, reductions and gathers (above NARROW_MAX_P: the wide
+    instances of 4c and 2c must launch)."""
+    import torch
+    from degnorm_tpu_torch import EngineConfig
+    from degnorm_tpu_torch.ops import cuda_nmf
+    cov_t, X_t = ttn_dataset(p)
     one, l_one, c_one, s_one, _ = timed_fit(nmf_cfg, EngineConfig(), cov_t,
                                             X_t)
-    ttn = dict(genes=TTN_GENES, samples=P_SAMPLES,
+    ttn = dict(genes=TTN_GENES, samples=p,
+               degnorm_iter=nmf_cfg.degnorm_iter,
                lengths=[m.shape[1] for m in cov_t.values()],
                one_device=dict(launches=l_one, wall_s=round(c_one, 4),
                                steady_wall_s=round(s_one, 4)))
+    wide = p > cuda_nmf.NARROW_MAX_P
     for form, kw in (("column_sharded", {}),
                      ("gene_sharded", dict(seqpar_width=1 << 20))):
         res, launches, cold, steady, engine = timed_fit(
@@ -3096,12 +3221,16 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
         n_col = sum(g is not None for g in engine._col_groups)
         want_col = len(engine._buckets) if form == "column_sharded" else 0
         k4, k4c = launches["nmf_streamed"], launches["nmf_colsharded"]
-        if n_col != want_col or DEVICE == "cuda" and (
-                (k4c > 0) != (want_col > 0) or (k4 > 0) == (want_col > 0)):
-            raise AssertionError(f"TTN {form}: {n_col} column-sharded "
-                                 f"buckets, launches {launches}")
-        check = compare_or_gate(f"seqpar_ttn_{form}", res, one,
-                                (steady, s_one))
+        k4cw = launches.get("nmf_colsharded[wide]", 0)
+        if n_col != want_col or engine.colshard_declined or (
+                DEVICE == "cuda" and (
+                    (k4c > 0) != (want_col > 0) or (k4 > 0) == (want_col > 0)
+                    or wide and (k4cw > 0) != (want_col > 0))):
+            raise AssertionError(f"TTN p={p} {form}: {n_col} column-sharded "
+                                 f"buckets, {engine.colshard_declined} "
+                                 f"declined, launches {launches}")
+        check = compare_or_gate(f"seqpar_ttn_p{p}_{form}", res, one,
+                                (steady, s_one), samples=p)
         ttn[form] = dict(
             launches=launches, wall_s=round(cold, 4),
             steady_wall_s=round(steady, 4),
@@ -3115,14 +3244,8 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
             **{k: v for k, v in check.items()
                if k not in ("rho_max_abs_diff", "x_adj_max_rel_diff")})
         del engine, res
-    emit("seqpar", kernels={str(k): v for k, v in kres.items()},
-         tolerance="4c: K,E,u within 1e-5 of max(|value|, 1) of the plain "
-                   "version on the same shards, K and u bit-equal on every "
-                   "shard; 2c: row sums within 1e-5, bit-equal on every "
-                   "shard; fits: the parity gate (DI atol 5e-3, adjusted "
-                   "rtol 5e-3, flags equal on >= 99% of genes)",
-         long_tail=long_tail, ttn=ttn, smi=smi_line())
-    return kres, long_tail
+        torch.cuda.empty_cache()
+    return ttn
 
 
 _ENGINE_RANK = r"""
@@ -3615,10 +3738,12 @@ def phase_wide_p():
     fit_wide's genes, seed 8, all through kernel 4), held the same way on
     PARITY_WIDE_GENES of its genes.  (d) p = 128 on WIDE_P_STREAM_GENES
     narrow genes with the default bucket widths: W <= 512 resident
-    (kernels 1 and 3), W >= 1024 streamed (kernel 4).  (e) the long tail's
-    genes of its W = 65536 bucket at p = 40 (the first 40 samples of (c)'s
-    data) on two gene shards of the card: the bucket is gene-sharded by the
-    engine's rule (``colshard_declined``), against one device's fit.
+    (kernels 1 and 3), W >= 1024 streamed (kernel 4).  (e) the slice's main
+    path: the long tail's genes of its W = 65536 bucket at p = 40 (the
+    first 40 samples of (c)'s data) on two column shards of the card
+    (kernels 4c and 2c's wide instances; nothing declined), cold and
+    steady, against one device's fit at the seqpar gate, with its
+    reductions, gathers and peak memory.
     DegNorm iterations: WIDE_P_ITER.  Every instance must launch at every
     PMAX in the phase's fits.  Returns the kernels' records, the launches of
     each instance on its fit and its launches by PMAX."""
@@ -3806,8 +3931,9 @@ def phase_wide_p():
     torch.cuda.empty_cache()
     secs["d"] = time.perf_counter() - t0
 
-    # (e) the long tail at p = 40 on two gene shards of the card: its genes
-    # of the W=65536 bucket, the one the JAX engine would column-shard
+    # (e) the slice's main path: the long tail at p = 40 on two column
+    # shards of the card, its genes of the W=65536 bucket (kernels 4c and
+    # 2c's wide instances), against one device's fit
     t0 = time.perf_counter()
     rows = [i for i, m in enumerate(cov_c.values())
             if m.shape[1] > WIDE_WIDTHS[0]]
@@ -3818,21 +3944,46 @@ def phase_wide_p():
     X_e = np.ascontiguousarray(X_c[rows, :WIDE_P_MESH_P])
     del cov_c, X_c
     nmf_e = NMFConfig(nmf_iter=NMF_ITER, degnorm_iter=WIDE_P_ITER["e"])
-    one, rec_one, _ = wide_fit("e_one", cov_e, X_e, nmf_e, wide_cfg,
-                               steady=False)
+    one, rec_one, _ = wide_fit("e_one", cov_e, X_e, nmf_e, wide_cfg)
     torch.cuda.empty_cache()
     mesh = make_mesh([DEVICE] * MESH_SHARDS)
     two, rec_two, eng_two = wide_fit("e_mesh", cov_e, X_e, nmf_e, wide_cfg,
-                                     mesh=mesh, steady=False)
+                                     mesh=mesh)
     declined = eng_two.colshard_declined
-    if declined < 1 or rec_two["launches"].get("nmf_colsharded", 0) or \
-            rec_two["launches"].get("ratio_colsharded", 0):
+    n_col = sum(g is not None for g in eng_two._col_groups)
+    counts = rec_two["launches"]
+    if (declined or n_col != 1
+            or not 0 < counts.get("nmf_colsharded[wide]", 0)
+            == counts.get("nmf_colsharded", 0)
+            or not 0 < counts.get("ratio_colsharded[wide]", 0)
+            == counts.get("ratio_colsharded", 0)):
         raise AssertionError(
-            f"wide_p (e): {declined} buckets declined, launches "
-            f"{rec_two['launches']}")
+            f"wide_p (e): {declined} buckets declined, {n_col} "
+            f"column-sharded, launches {counts}")
     gap = compare_or_gate("wide_p_mesh", two, one,
-                          (rec_two["wall_s"], rec_one["wall_s"]),
+                          (rec_two["steady_wall_s"], rec_one["steady_wall_s"]),
                           samples=WIDE_P_MESH_P)
+    # the steady refits' own counts (the engine's are its last fit's)
+    mesh_rec = dict(gap)
+    mesh_rec.update(
+        shards=MESH_SHARDS, colshard_declined=declined,
+        column_sharded_buckets=n_col, bucket_genes=len(cov_e),
+        steady_s=rec_two["steady_wall_s"],
+        one_device_steady_s=rec_one["steady_wall_s"],
+        steady_vs_one_device=round(rec_two["steady_wall_s"]
+                                   / rec_one["steady_wall_s"] - 1, 4),
+        reductions=eng_two.reductions,
+        reduce_s=round(eng_two.timings.get("reduce", 0.0), 4),
+        gathers=eng_two.gathers,
+        gram_gather_s=round(eng_two.timings.get("gram_gather", 0.0), 4),
+        peak_mem_bytes=rec_two["peak_mem_bytes"],
+        one_device_peak_mem_bytes=rec_one["peak_mem_bytes"],
+        rho_max_abs_diff=float(np.abs(two.rho - one.rho).max()),
+        x_adj_max_rel_diff=float(np.abs(two.x_adj / one.x_adj - 1).max()),
+        rho_within_1e5=bool(np.abs(two.rho - one.rho).max() <= 1e-5))
+    print(f"wide_p (e) p={WIDE_P_MESH_P}: column-sharded against one device: "
+          f"DI max |diff| {mesh_rec['rho_max_abs_diff']:.3e}, adjusted "
+          f"{mesh_rec['x_adj_max_rel_diff']:.3e} (relative)", flush=True)
     del cov_e, X_e, one, two, eng_two
     torch.cuda.empty_cache()
     secs["e"] = time.perf_counter() - t0
@@ -3841,6 +3992,9 @@ def phase_wide_p():
             "e_mesh": rec_two, **modes}
     launches = {name: runs[where]["launches"].get(name, 0)
                 for name, (_, _, where) in WIDE_INSTANCES.items()}
+    # kernels 4c and 2c's wide instances: on the main path (e) alone
+    launches.update((name, rec_two["launches"].get(name, 0))
+                    for name in COLS_WIDE_INSTANCES)
     by_pmax = {name: {pm: sum(r["launches"].get(name, 0)
                               for r in runs.values()
                               if cuda_nmf.pmax_of(r["samples"]) == pm)
@@ -3855,11 +4009,50 @@ def phase_wide_p():
                            for k, v in WIDE_P_ITER.items()},
          tolerance="as phase kernels; each instance run twice: the same bits",
          kernels=kres, fits=runs,
-         mesh=dict(shards=MESH_SHARDS, colshard_declined=declined, **gap),
+         mesh=mesh_rec,
          instance_launches=launches, launches_by_pmax=by_pmax,
          seconds={k: round(v, 2) for k, v in secs.items()},
          phase_seconds=round(time.perf_counter() - t_phase, 1))
     return kres, launches, by_pmax
+
+
+# kernels 4c and 2c's wide instances (phase seqpar's checks, phase wide_p's
+# main path): name -> (their records' key, source)
+COLS_WIDE_INSTANCES = OrderedDict([
+    ("nmf_colsharded[wide]", ("nmf_colsharded",
+                              "degnorm_tpu_torch/csrc/stream_cols_wide.cuh")),
+    ("ratio_colsharded[wide]", ("ratio_colsharded",
+                                "degnorm_tpu_torch/csrc/ratio_cols_wide.cu")),
+])
+
+
+def cols_wide_records(seqpar, wide):
+    """The result line's records of kernels 4c and 2c's wide instances: at
+    the main path's PMAX (64 genes x 48 x 65,536 on two column shards), with
+    every PMAX and the TTN-like genes beside it (``by_shape``), their
+    launches on phase wide_p's main path (e)."""
+    from degnorm_tpu_torch.ops import cuda_nmf
+    col_kres, _ = seqpar
+    _, launches, _ = wide
+    keys = ("shape", "geometry", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "nmf_tol")
+    main = f"wide{cuda_nmf.pmax_of(WIDE_P_MESH_P)}"
+    out = []
+    for name, (key, src) in COLS_WIDE_INSTANCES.items():
+        recs = {k: v[key] for k, v in col_kres.items()
+                if k.startswith("wide") or k == f"ttn{TTN_WIDE_P}"}
+        m = recs[main]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "degnorm_tpu/engine.py:75-84 (none: XLA under GSPMD)",
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "shape": m["shape"], "shards": MESH_SHARDS,
+            "by_shape": {k: {f: r[f] for f in keys if f in r}
+                         for k, r in recs.items()}})
+    return out
 
 
 # where each wide instance's records sit in a resident bucket's checks
@@ -3923,7 +4116,7 @@ PANEL_STREAM = ((32, 129), (32, 192), (32, 256), (16, 512))
 PANEL_STREAM_W = 16384
 # the edges of the cluster layout, on data of their own: kernels 1-3 and 2
 # resident on PANEL_GENES genes at (p, W) at their largest p (5 blocks of
-# three pairs) and past it (their block layout; kernel 2 on a cluster of
+# three pairs) and past it (their phased layout; kernel 2 on a cluster of
 # 6), kernels 4 and 2 on G x p x W at three panels (a cluster of 3 blocks of
 # two pairs), at kernels 1 and 3's largest p, past it (clusters of 6 and
 # 8 blocks: 32 x 768 x 16384 half a bucket; 8 the largest portable
@@ -3975,9 +4168,9 @@ PANEL_NMF_PHASE = ((704, 64), (768, 64), (1024, 64), (1153, 56))
 # the slice's main path for kernel 1 past 640 samples: narrow genes of
 # 50-64 bases at p = PANEL_RES_P with widths that keep a W = 64 bucket
 # resident (the default widths start at 256, where no bucket past 256
-# samples is resident), kernels 2 on its cluster layout, 1 on the phased
-# layout and 3 on its block layout; a kernels-off parity pair on its first
-# PANEL_RES_PARITY genes
+# samples is resident), kernels 2 on its cluster layout, 1 and 3 on the
+# phased layout (kernel 3: its light path, no gene enters); a kernels-off
+# parity pair on its first PANEL_RES_PARITY genes
 PANEL_RES_P = 768
 PANEL_RES_GENES = 1024
 PANEL_RES_PARITY = 64
@@ -4010,6 +4203,9 @@ PANEL_INSTANCES = OrderedDict([
     ("nmf_masked[panel,phase]", ("degnorm_tpu_torch/csrc/phase.cuh",
                                  "degnorm_tpu/ops/pallas_nmf.py:687",
                                  "resident768")),
+    ("trim_loop[panel,phase]", ("degnorm_tpu_torch/csrc/trim_panel.cu",
+                                "degnorm_tpu/ops/pallas_trim.py:324",
+                                "resident768")),
 ])
 
 
@@ -4100,6 +4296,105 @@ def check_nmf_phase_at(F, lm, nmf_cfg, eng_cfg, timed=True,
     return rec
 
 
+# kernel 3 past PCL_MAX_P, on the phased layout (csrc/trim_panel.cu):
+# (G, p, W, floors lowered) on PANEL_GENES-style genes of 200-299 bases cut
+# to W; at the resident widths past 640 samples no gene has the 200 columns
+# the default min_gene_len asks, so the kernel's own floors are lowered to
+# TRIM_PHASE_FLOORS (min_gene_len, min_bins) and its rounds capped at
+# TRIM_PHASE_ROUNDS for the shapes where rounds are to run
+TRIM_PHASE = ((512, 704, 64, False), (256, 768, 64, True),
+              (256, 1024, 64, True))
+TRIM_PHASE_FLOORS = (8, 2)
+TRIM_PHASE_ROUNDS = 4
+# the block layout's bucket step with no round at 512 x 704 x 64 (PERF.md
+# §6, row 3p-b), beside which the phased layout's light path is timed over
+# TRIM_LIGHT_REPS calls (a call is host-bound: its wrapper and one read of
+# a count on the card)
+TRIM_LIGHT_MS = 0.149
+TRIM_LIGHT_REPS = 50
+TRIM_MODES = (("default", {}), ("trim_fast", dict(trim_fast=True)),
+              ("nmf_tol", dict(nmf_tol=MODE_TOL)))
+
+
+def check_trim_phase_at(F, lm, nmf_cfg, eng_cfg, lowered, modes=TRIM_MODES,
+                        all_active=False, timed=True):
+    """Kernel 3 past PCL_MAX_P on its phased layout against its plain
+    version (``check_trim_at``) in each of ``modes``, each run twice more
+    for the same bits (K, rho, ran_bs, rounds and iterations), every launch
+    counted as a phased one.  ``lowered``: the kernel's own min_gene_len
+    and min_bins at TRIM_PHASE_FLOORS and its rounds capped at
+    TRIM_PHASE_ROUNDS, active0 recomputed with that min_gene_len (the
+    loop's entry rule; ``all_active``: every gene that does not bail) and
+    rounds must run; else no gene may enter, and the default mode's bucket
+    step is timed over TRIM_LIGHT_REPS calls beside TRIM_LIGHT_MS (a
+    light path that launched a round would take milliseconds: over ten
+    times the limit fails).  Returns the records by mode."""
+    import torch
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_nmf, cuda_trim
+    G, p, W = F.shape
+    assert cuda_nmf.panel_phase(p, "loop") and cuda_nmf.kernels_supported(
+        F.shape, torch.float32)
+    plain_cfg = dataclasses.replace(eng_cfg, use_kernels=False)
+    ti = baseline.trim_inputs(F, lm, nmf_cfg, plain_cfg)
+    tkw = baseline.trim_kwargs(nmf_cfg, eng_cfg)
+    if lowered:
+        mgl, mb = TRIM_PHASE_FLOORS
+        act = ~ti.bailed
+        if not all_active:
+            act &= ((ti.n_hi >= mgl) & (ti.rho0.amin(dim=1) <= 0.2)
+                    & (ti.rho0.amax(dim=1) > 0.1))
+        ti = ti._replace(active0=act)
+        tkw = dict(tkw, min_gene_len=mgl, min_bins=mb,
+                   max_rounds=TRIM_PHASE_ROUNDS)
+    targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0, ti.u0,
+             ti.n_hi, ti.n_bins0, ti.active0)
+    n_ent = int(ti.active0.sum())
+    what = f"trim_loop[panel,phase] {G}x{p}x{W}"
+    if lowered and n_ent < max(1, G // 16):
+        raise AssertionError(f"{what}: {n_ent} genes enter the rounds")
+    if not lowered and n_ent:
+        raise AssertionError(f"{what}: {n_ent} genes enter at the default "
+                             "floors")
+    slots = cuda_nmf.panel_slots(G, F.device)
+    n0 = cuda_trim.trim_panel_phase_launches
+    out = OrderedDict(entered=n_ent, slots=slots,
+                      groups=-(-n_ent // slots), floors=(
+                          list(TRIM_PHASE_FLOORS) if lowered else None),
+                      max_rounds=tkw["max_rounds"])
+    for name, mode in modes:
+        rec = check_trim_at(ti, targs, tkw, nmf_cfg, timed and name ==
+                            "default", time_reps=1 if lowered else 2, **mode)
+        its = [torch.zeros(G, dtype=torch.int32, device=F.device)
+               for _ in range(2)]
+        a, b = (cuda_trim.trim_loop_cuda(*targs, iters_out=i, **tkw, **mode)
+                for i in its)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(x, y) for x, y in zip(a, b))
+                and torch.equal(*its)):
+            raise AssertionError(f"{what} ({name}): two runs differ")
+        if lowered and not rec["mean_rounds"] > 0:
+            raise AssertionError(f"{what} ({name}): no round ran: {rec}")
+        rec["rounds_max"] = int(a[3].max())
+        out[name] = rec
+    if not lowered and timed:
+        ms = time_ms(lambda: cuda_trim.trim_loop_cuda(*targs, **tkw),
+                     TRIM_LIGHT_REPS)
+        out["default"]["ms"] = ms
+        out.update(light_ms=ms, light_reps=TRIM_LIGHT_REPS,
+                   light_ms_limit=TRIM_LIGHT_MS,
+                   light_within_limit=ms <= TRIM_LIGHT_MS)
+        if ms > 10 * TRIM_LIGHT_MS:
+            raise AssertionError(f"{what}: the bucket step with no round "
+                                 f"took {ms:.4f} ms")
+    launched = cuda_trim.trim_panel_phase_launches - n0
+    if launched < 3 * len(modes):
+        raise AssertionError(f"{what}: {launched} launches on the phased "
+                             "layout")
+    out["launches"] = launched
+    return out
+
+
 def short_lengths(n, rng):
     """Genes of 200-299 bases: cut to a resident width of 256 or 128."""
     return rng.integers(200, 300, n)
@@ -4159,7 +4454,9 @@ def phase_panels():
     phased layout, counted apart), profiled, with a kernels-off parity pair
     on its first PANEL_PHASE_PARITY genes.  Past its own cut, kernel 1 on
     the phased layout at PANEL_NMF_PHASE in both branches
-    (``check_nmf_phase_at``), on the main path's own bucket, and the
+    (``check_nmf_phase_at``), kernel 3 on it at TRIM_PHASE in every mode
+    (``check_trim_phase_at``: its light path where no gene enters, rounds
+    with its floors lowered), both on the main path's own bucket, and the
     slice's main path: PANEL_RES_GENES
     genes of 50-64 bases at p = PANEL_RES_P, resident at W = 64 (kernel 1
     phased, counted apart), profiled, with a kernels-off parity pair on its
@@ -4277,8 +4574,24 @@ def phase_panels():
             F, lm, nmf_cfg, eng_cfg)
         del F, lm
         torch.cuda.empty_cache()
-    del mats
     secs["nmf_phase_shapes"] = time.perf_counter() - t0
+    del mats
+    # ... and kernel 3 past its own, every mode, with and without rounds
+    # (one dataset made at the largest p and G)
+    t0 = time.perf_counter()
+    kres["trim_phase"] = OrderedDict()
+    p_top = max(p for _, p, _, _ in TRIM_PHASE)
+    mats = list(synth_dataset(max(g for g, _, _, _ in TRIM_PHASE), p_top,
+                              seed=SEED + p_top,
+                              lengths_fn=short_lengths)[0].values())
+    for G_e, p_e, W_e, lowered in TRIM_PHASE:
+        F, lm, _ = resident_bucket(G_e, p_e, W_e, dev, rng, mats=mats)
+        kres["trim_phase"][f"{G_e}x{p_e}x{W_e}"] = check_trim_phase_at(
+            F, lm, nmf_cfg, eng_cfg, lowered)
+        del F, lm
+        torch.cuda.empty_cache()
+    del mats
+    secs["trim_phase_shapes"] = time.perf_counter() - t0
 
     # the narrow genes at p = PANEL_FIT_P with the default bucket widths
     t0 = time.perf_counter()
@@ -4369,8 +4682,10 @@ def phase_panels():
 
     # the main path past 1,152 samples, and kernel 1's past 640
     panel_phase_fit(nmf_f, runs, secs)
-    kres["nmf_phase"][f"{PANEL_RES_GENES}x{PANEL_RES_P}x64"] = \
-        panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg)
+    bucket = panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg)
+    kres["trim_phase"][f"{PANEL_RES_GENES}x{PANEL_RES_P}x64"] = bucket.pop(
+        "trim_phase")
+    kres["nmf_phase"][f"{PANEL_RES_GENES}x{PANEL_RES_P}x64"] = bucket
 
     # every launch at p > 128 went to a panel instance, and each instance
     # ran on its fit
@@ -4445,14 +4760,16 @@ def panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg):
     """The slice's main path for kernel 1 past 640 samples:
     PANEL_RES_GENES genes of 50-64 bases at p = PANEL_RES_P with
     PANEL_RES_WIDTHS (one bucket, W = 64, resident: kernel 2 on its cluster
-    layout, kernel 1 on the phased layout, counted apart, kernel 3 on its
-    block layout; with the default min_gene_len no gene enters the trim
-    rounds), profiled, and a kernels-off parity pair on its first
-    PANEL_RES_PARITY genes.  First, kernel 1 on the fit's bucket (these
-    genes at W = 64, every gene that does not bail active: groups of the
-    phased layout one after another) by ``check_nmf_phase_at`` under
-    ``nmf_cfg`` and ``eng_cfg``.  Adds its records to ``runs`` and its
-    seconds to ``secs``; returns the bucket's record."""
+    layout, kernels 1 and 3 on the phased layout, counted apart; with the
+    default min_gene_len no gene enters the trim rounds), profiled, and a
+    kernels-off parity pair on its first PANEL_RES_PARITY genes.  First,
+    kernels 1 and 3 on the fit's bucket (these genes at W = 64, every gene
+    that does not bail active: groups of the phased layout one after
+    another; kernel 3 with its floors lowered, so that rounds run) by
+    ``check_nmf_phase_at`` and ``check_trim_phase_at`` under ``nmf_cfg``
+    and ``eng_cfg``.  Adds its records to ``runs`` and its seconds to
+    ``secs``; returns the bucket's record (kernel 3's under
+    "trim_phase")."""
     import torch
     from degnorm_tpu_torch import EngineConfig
     from degnorm_tpu_torch.ops import cuda_nmf
@@ -4472,6 +4789,10 @@ def panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg):
     lm = torch.from_numpy(np.arange(64)[None, :] < lens[:, None]).to(dev)
     F = torch.from_numpy(F).to(dev)
     bucket = check_nmf_phase_at(F, lm, nmf_cfg, eng_cfg, all_active=True)
+    # ... and kernel 3 on it, its floors lowered, every gene that does not
+    # bail active: rounds run in groups one after another on reused slots
+    bucket["trim_phase"] = check_trim_phase_at(
+        F, lm, nmf_cfg, eng_cfg, True, modes=TRIM_MODES[:1], all_active=True)
     del F, lm
     torch.cuda.empty_cache()
     secs["resident768_bucket"] = time.perf_counter() - t0
@@ -4488,7 +4809,8 @@ def panel_resident_fit(nmf_f, runs, secs, nmf_cfg, eng_cfg):
             == counts.get("nmf_masked", 0)
             or not 0 < counts.get("ratio_rowsums[panel,cluster]", 0)
             == counts.get("ratio_rowsums", 0)
-            or not counts.get("trim_loop[panel]", 0)):
+            or not 0 < counts.get("trim_loop[panel,phase]", 0)
+            == counts.get("trim_loop", 0)):
         raise AssertionError(f"panels resident768 fit: resident widths "
                              f"{resident}, launches {counts}")
     del eng
@@ -4529,6 +4851,13 @@ def panel_kernel_records(panels):
         if name == "nmf_masked[panel,phase]":
             recs = dict(kres["nmf_phase"])
             main = f"{PANEL_GENES}x{PANEL_RES_P}x64"
+        elif name == "trim_loop[panel,phase]":
+            # every mode at every shape; the main one the default mode's
+            # bucket step where no gene enters (the p = 768 fit's case)
+            recs = {f"{k}[{mode}]": r[mode]
+                    for k, r in kres["trim_phase"].items()
+                    for mode, _ in TRIM_MODES if mode in r}
+            main = "x".join(map(str, TRIM_PHASE[0][:3])) + "[default]"
         elif name.endswith(",phase]"):
             recs = (dict(kres["phase"]) if name.startswith("nmf_streamed")
                     else {k: r["ratio_rowsums"]
@@ -4812,6 +5141,7 @@ def main(argv=None):
 
     kernels = (kernels_line(kres, launches, launches_wide, launches_pipeline,
                             launches_modes, seqpar) + wide_kernel_records(wide)
+               + cols_wide_records(seqpar, wide)
                + panel_kernel_records(panels))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"phase": "total",

@@ -11,9 +11,9 @@
 // (nmf_panel_kernel, pcl_core, X column by column in the scratch); above,
 // phase.cuh's phased layout, kernel 4's loop (stream_phase.cu's
 // phase_loop) on float32 input with the nmf_tol branch, X row by row in the
-// scratch and ws a workspace of dn_phase_ws_floats(p, ws_slots, G) floats.
-// (Kernel 3 alone keeps the block layout past its cluster layout.)  An
-// inactive gene gets zeros.
+// scratch and ws a workspace of dn_phase_ws_floats(p, ws_slots, G) floats
+// (kernel 3's rounds run the same loop: trim_panel.cu).  An inactive gene
+// gets zeros.
 #include "phase.cuh"
 #include "nmf.cuh"
 

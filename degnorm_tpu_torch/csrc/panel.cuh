@@ -2,9 +2,8 @@
 // (sm_90a, plain float32): the Lagrangian NMF-OA loop of one gene with its
 // p x p Gram cut into row panels of DN_PANEL_ROWS, spread over a cluster of
 // blocks (kernels 1 and 3 up to DN_PCL_MAX_P, kernels 2 and 4 up to
-// DN_PCL_MAX_P_STREAM: dn_pcl_max_p) or held by one block in a workspace in
-// device memory (kernel 3 alone, past its cut; kernels 1, 2 and 4 past
-// theirs run phase.cuh's phased layout, on this file's arithmetic).
+// DN_PCL_MAX_P_STREAM: dn_pcl_max_p); past its cut each kernel runs
+// phase.cuh's phased layout, on this file's arithmetic.
 //
 // Replaces, for studies of more than 128 samples, wide.cuh's core (and so
 // the same TPU code: degnorm_tpu/ops/pallas_nmf.py's _gram, _power,
@@ -46,7 +45,7 @@
 //     (each quarter's 32 rows in order, then the four quarters) and
 //     publishes the partial in its shared memory; after one cluster barrier
 //     every thread adds the T partials of its column in panel order.  (The
-//     block layout runs one chain a quarter over all panels: this order
+//     phased layout runs one chain a quarter over all panels: this order
 //     differs, so the two layouts' fits are not bit-equal.)  Every block
 //     then updates its panels of the tile in place, with the same
 //     arithmetic on the same values, so the blocks agree bit for bit, and
@@ -86,37 +85,12 @@
 //     (dn_pcl_smem_floats: 218,768 bytes at p = 640, 231,056 at 1,152);
 //     kernel 3 adds its W residual scores.
 //
-// THE BLOCK LAYOUT (panel_core, PanelWork, launch_panel: kernel 3 alone,
-// trim_panel_block_kernel, above its cluster layout's p, T = DN_PCL_MAX_C,
-// where no default-width fit launches it.  Kernel 1 there, and kernels 2
-// and 4 past T = 9, the largest cluster whose blocks' shared memory holds
-// the p-vectors, take phase.cuh's phased layout, which keeps this layout's
-// sums and their order: its panel_gram, panel_v, panel_matvec,
-// panel_renormalize, panel_sum and panel_max):
-//   * one block a gene at a time, one pair a pass, stored with its mirror
-//     into B, p x p floats in the block's workspace (device memory), 3
-//     passes a sweep at p = 256, 10 at 512;
-//   * a merged sweep is one pass of its own first: per tile, v = X^T u over
-//     all p rows (a thread's partial over its rows of every panel, then the
-//     four quarters in a fixed order) and the multiplier update of X in the
-//     global scratch; the Gram passes then read the new X back;
-//   * the power step is the block's, on B in the workspace: B's largest
-//     entry by a block reduction, each matvec a thread a row in column
-//     order, B^2 of the squared scheme by the same panel pairs over B's own
-//     rows (into B2 in the workspace), each norm and dot product a block
-//     sum in a fixed order, so u is bit-equal across two runs;
-//   * a block works through genes blockIdx.x, + gridDim.x, ...: the launch
-//     has at most one block an SM (its register tile takes up to 255
-//     registers), so the workspace is sized by the genes in flight, not by
-//     the bucket (`dn_panel_ws_floats` a block);
-//   * what bounds it: float32 operations, with X read T(T+1)/2 + 2 times a
-//     sweep (from L2 where the genes in flight hold it) and the workspace's
-//     B read by every matvec.  Shared memory: two tiles of 64 columns x
-//     (128 + 4) floats, the v partials and 32 floats of scratch, 68,736
-//     bytes whatever p; kernel 3 adds its W residual scores.  The workspace
-//     holds B, B2 and nine vectors of ceil(p / 128) * 128 floats (u, three
-//     matvec results, the previous u, and four for the kernel: kernel 3's
-//     K, rho and DI row sums), zero beyond p.
+// PAST THE CLUSTER LAYOUT every kernel takes phase.cuh's phased layout,
+// which keeps this file's reductions (panel_sum, panel_max,
+// panel_renormalize, panel_stage) and the sums of the block layout it
+// replaced (one block a gene, B in a workspace in device memory), in their
+// order: a gene's pairs a block each over the whole card, the power step on
+// a cluster of blocks a gene.
 //
 // Kept from common.cuh and wide.cuh: sums in a fixed order and no float
 // atomics; plain FP32; no -use_fast_math.
@@ -130,60 +104,12 @@ namespace cg = cooperative_groups;
 
 #define DN_PANEL_ROWS 128                  // rows of a panel (WideGram<128>)
 #define DN_PANEL_LD (DN_PANEL_ROWS + 4)    // floats a row of a staged tile
-#define DN_PANEL_VECS 9                    // p-vectors of a block's workspace
 #define DN_PANEL_MIN_P 129                 // at and below 128: wide.cuh
 
 // Rows of the panels that hold p (a whole number of panels).
 __host__ __device__ inline int dn_panel_np(int p) {
   return (p + DN_PANEL_ROWS - 1) / DN_PANEL_ROWS * DN_PANEL_ROWS;
 }
-
-// Floats of one block's workspace: B and B2, then the vectors.
-__host__ __device__ inline size_t dn_panel_ws_floats(int p) {
-  return 2 * (size_t)p * p + (size_t)DN_PANEL_VECS * dn_panel_np(p);
-}
-
-// Floats of the core's shared memory (dynamic, sized at launch).
-__host__ __device__ constexpr int panel_smem_floats() {
-  return 2 * DN_WIDE_TC * DN_PANEL_LD + 4 * DN_WIDE_TC + 32;
-}
-
-// A block's work of the block layout (kernel 3's trim_panel_block_kernel
-// alone): two tiles and scratch in shared memory, B, B2 and the vectors in
-// its slot of the workspace.
-struct PanelWork {
-  float* SI;     // TC x LD: rows of panel I of a tile (shared)
-  float* SJ;     // TC x LD: rows of panel J
-  float* vpart;  // 4 x TC: the quarters' partials of v
-  float* red;    // 32: block reductions
-  float* B;      // p x p: the gene's Gram (workspace)
-  float* B2;     // p x p: B^2 of the squared scheme
-  float* u;      // np: the left vector (zero beyond p)
-  float* va;     // np: matvec results
-  float* vb;
-  float* vc;
-  float* uo;     // np: the previous u (ADAPT)
-  float* x[4];   // np each: the kernel's own
-  int p, np, T;
-  __device__ __forceinline__ void init(float* smem, float* ws, int p_) {
-    p = p_;
-    np = dn_panel_np(p_);
-    T = np / DN_PANEL_ROWS;
-    SI = smem;
-    SJ = SI + DN_WIDE_TC * DN_PANEL_LD;
-    vpart = SJ + DN_WIDE_TC * DN_PANEL_LD;
-    red = vpart + 4 * DN_WIDE_TC;
-    B = ws;
-    B2 = B + (size_t)p * p;
-    u = B2 + (size_t)p * p;
-    va = u + np;
-    vb = va + np;
-    vc = vb + np;
-    uo = vc + np;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) x[k] = uo + (k + 1) * np;
-  }
-};
 
 // The block's sum of its threads' values in a fixed order (warps, then the
 // warps' sums in order), and its largest value: the same in every thread.
@@ -232,72 +158,6 @@ __device__ __forceinline__ void panel_stage(float* S, int P, int p, bool on,
   }
 }
 
-// The Gram of the n "columns" l < n with on(l) of val(l, i) into M (p x p):
-// each panel pair I <= J one pass over the columns in tiles, stored with its
-// mirror.  ROWSUM: thread t < 128 also sums row I * 128 + t of the diagonal
-// passes over the tiles' columns in order, into rowsum.  Ends with a barrier
-// (M visible).
-template <bool ROWSUM, class On, class Val>
-__device__ __forceinline__ void panel_gram(PanelWork& w, WideGram<128>& g,
-                                           int n, float* M, const On& on_fn,
-                                           const Val& val,
-                                           float* rowsum = nullptr) {
-  constexpr int TC = DN_WIDE_TC, LD = DN_PANEL_LD, R = 8;
-  const int t = threadIdx.x, c = t & (TC - 1), p = w.p;
-  for (int I = 0; I < w.T; ++I) {
-    for (int J = I; J < w.T; ++J) {
-      g.zero();
-      float rs = 0.f;
-      for (int l0 = 0; l0 < n; l0 += TC) {
-        const int l = l0 + c;
-        const bool on = l < n && on_fn(l);
-        panel_stage(w.SI, I, p, on, [&](int i) { return val(l, i); });
-        if (J != I)
-          panel_stage(w.SJ, J, p, on, [&](int i) { return val(l, i); });
-        if (__syncthreads_or(on)) {  // a tile with no active column adds 0
-          if (ROWSUM && J == I && t < DN_PANEL_ROWS)
-            for (int k = 0; k < TC; ++k) rs += w.SI[k * LD + t];
-          g.syrk2<LD>(w.SI, J != I ? w.SJ : w.SI, TC);
-        }
-        __syncthreads();  // S is read before the next tile writes it
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = I * DN_PANEL_ROWS + g.ty * R + r;
-#pragma unroll
-        for (int s = 0; s < R; ++s) {
-          const int col = J * DN_PANEL_ROWS + g.tx * R + s;
-          if (row < p && col < p) {
-            M[(size_t)row * p + col] = g.acc[r][s];
-            if (J != I) M[(size_t)col * p + row] = g.acc[r][s];
-          }
-        }
-      }
-      if (ROWSUM && J == I && t < DN_PANEL_ROWS &&
-          I * DN_PANEL_ROWS + t < p)
-        rowsum[I * DN_PANEL_ROWS + t] = rs;
-    }
-  }
-  __syncthreads();
-}
-
-// y = (scale M) x over p rows, M symmetric (p x p, visible): thread i sums
-// column i (= row i) in order of j, coalesced across the threads.  Ends
-// with a barrier: y is visible.
-__device__ __forceinline__ void panel_matvec(const PanelWork& w,
-                                             const float* M, float scale,
-                                             const float* x, float* y) {
-  const int p = w.p;
-  for (int i = threadIdx.x; i < p; i += DN_WIDE_THREADS) {
-    float v = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < p; ++j)
-      v = fmaf(M[(size_t)j * p + i] * scale, x[j], v);
-    y[i] = v;
-  }
-  __syncthreads();
-}
-
 // u = wv / |wv| over p rows, keeping u where the update collapsed; wv
 // visible, `red` the block's 32 floats of scratch.  Ends with a barrier.
 __device__ __forceinline__ void panel_renormalize(float* red, int p,
@@ -310,203 +170,6 @@ __device__ __forceinline__ void panel_renormalize(float* red, int p,
     for (int i = threadIdx.x; i < p; i += DN_WIDE_THREADS)
       u[i] = wv[i] / (nrm + DN_EPS);
   __syncthreads();
-}
-
-// The power step on the gene's Gram in w.B (visible), from w.u to the refit
-// w.u, as wide.cuh's wide_refit: n_plain > 0 plain matvecs on the
-// normalised Gram and one normalisation, else the squared scheme (B^2 of
-// the normalised Gram into w.B2, max(1, n_squared / 4) bodies of two B^2
-// applications); with `finish`, s = sqrt(max(u^T B u, 0)) too.  The
-// register tile `g` is overwritten.  Every thread returns the same s.
-__device__ __forceinline__ void panel_refit(PanelWork& w, WideGram<128>& g,
-                                            int n_squared, int n_plain,
-                                            bool finish, float& s) {
-  const int p = w.p;
-  float m = 0.f;
-  for (size_t k = threadIdx.x; k < (size_t)p * p; k += DN_WIDE_THREADS)
-    m = fmaxf(m, fabsf(w.B[k]));
-  const float inv = 1.0f / (panel_max(w.red, m) + DN_EPS);
-  if (n_plain > 0) {
-    const float* x = w.u;
-    for (int it = 0; it < n_plain; ++it) {
-      float* y = (it & 1) ? w.vb : w.va;
-      panel_matvec(w, w.B, inv, x, y);
-      x = y;
-    }
-    panel_renormalize(w.red, w.p, x, w.u);
-  } else {
-    // Bn Bn = sum_k Bn[k] Bn[k]^T over B's rows k, by the panel pairs (B
-    // is exactly symmetric: row k read as column k, coalesced)
-    const float* Bm = w.B;
-    panel_gram<false>(
-        w, g, p, w.B2, [](int) { return true; },
-        [&](int k, int i) { return Bm[(size_t)i * p + k] * inv; });
-    int n_bodies = n_squared / 4;
-    if (n_bodies < 1) n_bodies = 1;
-    for (int it = 0; it < n_bodies; ++it) {
-      panel_matvec(w, w.B2, 1.f, w.u, w.va);
-      panel_matvec(w, w.B2, 1.f, w.va, w.vb);
-      panel_renormalize(w.red, w.p, w.vb, w.u);
-    }
-  }
-  if (finish) {
-    panel_matvec(w, w.B, 1.f, w.u, w.vc);
-    float ubu = 0.f;
-    for (int j = threadIdx.x; j < p; j += DN_WIDE_THREADS)
-      ubu = fmaf(w.u[j], w.vc[j], ubu);
-    s = sqrtf(fmaxf(panel_sum(w.red, ubu), 0.f));
-  }
-}
-
-// v_c = sum_i X[i, l] u_i for this thread's column l of a tile: its rows
-// (q * 32 + j of every panel) in order, then the four quarters' partials in
-// a fixed order through w.vpart.  Returns whether the tile has an active
-// column (the same in every thread); v is valid where `on`.  The caller
-// ends a tile that has one with a barrier (vpart is read before the next
-// tile writes it).
-template <class Src>
-__device__ __forceinline__ bool panel_v(const Src& src, PanelWork& w, int l,
-                                        bool on, float& v) {
-  constexpr int TC = DN_WIDE_TC;
-  const int t = threadIdx.x, q = t >> 6, c = t & (TC - 1), p = w.p;
-  float vp = 0.f;
-  if (on) {
-    for (int P = 0; P < w.T; ++P) {
-#pragma unroll 4
-      for (int j = 0; j < 32; ++j) {
-        const int i = P * DN_PANEL_ROWS + q * 32 + j;
-        if (i < p) vp = fmaf(src.x(l, i), w.u[i], vp);
-      }
-    }
-  }
-  w.vpart[q * TC + c] = vp;
-  // (a tile with no active column reads no partial: its caller goes on to
-  // the next tile without a barrier)
-  const bool any = __syncthreads_or(on);
-  if (any)
-    v = ((w.vpart[c] + w.vpart[TC + c]) + w.vpart[2 * TC + c]) +
-        w.vpart[3 * TC + c];
-  return any;
-}
-
-// The whole Lagrangian NMF-OA loop of one gene by a block of
-// DN_WIDE_THREADS threads, as wide.cuh's wide_core (its ADAPT and from_x
-// branches and results): the block layout's, kernel 3's rounds alone since
-// kernel 1 moved to phase.cuh (whose phases keep these sums); u starts in
-// w.u (visible, zero beyond p) and comes back refit there.  `src` as
-// wide_core's.  Returns this thread's share of sum_w E[w].
-template <bool ADAPT, class Src>
-__device__ __forceinline__ float panel_core(const Src& src, PanelWork& w,
-                                            float& s, int nmf_iter,
-                                            int power_cold, int power_warm,
-                                            int warm_plain, float tol = 0.f,
-                                            int* n_run = nullptr,
-                                            bool from_x = false) {
-  constexpr int TC = DN_WIDE_TC;
-  const int t = threadIdx.x, q = t >> 6, c = t & (TC - 1), p = w.p;
-  const int nloc = src.n_local();
-  const float step =
-      nmf_iter > 0 ? (float)(1.0 / sqrt((double)nmf_iter)) : 0.f;
-  WideGram<128> g;
-  const auto on_fn = [&](int l) { return src.on(l); };
-  const auto xval = [&](int l, int i) { return src.x(l, i); };
-  s = 0.f;
-
-  // cold: X = A0 (unless the X held is the start), then the Gram of X
-  if (!from_x) {
-    for (int l0 = 0; l0 < nloc; l0 += TC) {
-      const int l = l0 + c;
-      if (src.on(l))
-        for (int i = q; i < p; i += 4) src.set_x(l, i, src.a0(l, i));
-    }
-    __syncthreads();
-  }
-  panel_gram<false>(w, g, nloc, w.B, on_fn, xval);
-  panel_refit(w, g, power_cold, 0, ADAPT || nmf_iter == 0, s);
-
-  int ran = nmf_iter;
-  for (int it = 0; it < nmf_iter; ++it) {
-    // v = u^T X and the multiplier update, a tile at a time
-    for (int l0 = 0; l0 < nloc; l0 += TC) {
-      const int l = l0 + c;
-      const bool on = src.on(l);
-      float v = 0.f;
-      if (!panel_v(src, w, l, on, v)) continue;
-      if (on) {  // a column outside the mask stays exactly zero
-        const float se = ADAPT ? __fmul_rn(s, v / (s + DN_EPS)) : v;
-        for (int P = 0; P < w.T; ++P) {
-#pragma unroll 4
-          for (int j = 0; j < 32; ++j) {
-            const int i = P * DN_PANEL_ROWS + q * 32 + j;
-            if (i < p) {
-              const float a = src.a0(l, i);
-              const float x = src.x(l, i);
-              src.set_x(l, i, fmaxf(x - step * (w.u[i] * se - a), a));
-            }
-          }
-        }
-      }
-      __syncthreads();  // vpart is read before the next tile writes it
-    }
-    __syncthreads();
-    panel_gram<false>(w, g, nloc, w.B, on_fn, xval);
-    if constexpr (ADAPT) {
-      const float s_old = s;
-      for (int i = t; i < w.np; i += DN_WIDE_THREADS) w.uo[i] = w.u[i];
-      __syncthreads();
-      panel_refit(w, g, power_warm, warm_plain, true, s);
-      float delta = 0.f, ref = 0.f;
-      for (int j = t; j < p; j += DN_WIDE_THREADS) {
-        const float k_new = __fmul_rn(w.u[j], s);
-        delta = fmaxf(delta, fabsf(k_new - __fmul_rn(w.uo[j], s_old)));
-        ref = fmaxf(ref, fabsf(k_new));
-      }
-      delta = panel_max(w.red, delta);
-      ref = fmaxf(panel_max(w.red, ref), DN_EPS);
-      if (delta <= __fmul_rn(tol, ref)) {  // frozen: this update kept
-        ran = it + 1;
-        break;
-      }
-    } else {
-      panel_refit(w, g, power_warm, warm_plain, it == nmf_iter - 1, s);
-    }
-  }
-  if (n_run != nullptr) *n_run = ran;
-
-  // finish: E = X^T u / (s + eps), and this thread's share of its sum
-  float se = 0.f;
-  for (int l0 = 0; l0 < nloc; l0 += TC) {
-    const int l = l0 + c;
-    const bool on = src.on(l);
-    float v = 0.f;
-    panel_v(src, w, l, on, v);
-    if (q == 0) {
-      const float e = on ? v / (s + DN_EPS) : 0.f;
-      src.store_e(l, e);
-      se += e;
-    }
-    __syncthreads();
-  }
-  return se;
-}
-
-// Launch of a kernel of the block layout (kernel 3's trim_panel_block_kernel
-// alone): at most `slots` blocks (each has its slot of the workspace), one
-// an SM at most, each working through genes blockIdx.x, + gridDim.x, ...;
-// `smem_extra` floats of dynamic shared memory beyond the core's.  Returns
-// the CUDA error, 0 on success.
-template <class Kern, class... Args>
-int launch_panel(Kern kern, int G, int slots, size_t smem_extra,
-                 cudaStream_t st, Args... args) {
-  if (slots < 1) return (int)cudaErrorInvalidValue;
-  if (G == 0) return 0;
-  const size_t dyn = sizeof(float) * (panel_smem_floats() + smem_extra);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = G < slots ? G : slots;
-  kern<<<grid, DN_WIDE_THREADS, dyn, st>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 // ---- the cluster layout: a gene's panel pairs over a cluster of blocks -----
@@ -1284,7 +947,8 @@ __device__ __forceinline__ void pcl_refit(PclWork<A>& w, float bmax,
 }
 
 // The whole Lagrangian NMF-OA loop of one gene by its cluster, as
-// panel_core (its ADAPT and from_x branches and results), X in w.X: every
+// wide.cuh's wide_core (its ADAPT and from_x branches and results), X in
+// w.X: every
 // block calls it with the same gene, u starts in each block's u() and comes
 // back refit there, the same in every block (SHARE: see pcl_matvec, kernel
 // 4, whose blocks share the power step past T = 5); E is stored by block 0

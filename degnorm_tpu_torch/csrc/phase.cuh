@@ -1,9 +1,9 @@
 // Shared device code of kernels 4 and 2 past DN_PCL_MAX_P_STREAM samples and
-// of kernel 1 past DN_PCL_MAX_P (sm_90a, plain float32): THE PHASED LAYOUT.
-// A gene's panel pairs spread over the whole card in a short, fixed
-// sequence of launches on the caller's stream, in place of one block a gene
-// (panel.cuh's panel_core, which kernel 3 alone keeps past its cluster
-// layout).
+// of kernels 1 and 3 past DN_PCL_MAX_P (sm_90a, plain float32): THE PHASED
+// LAYOUT.  A gene's panel pairs spread over the whole card in a short,
+// fixed sequence of launches on the caller's stream, in place of one block
+// a gene (the block layout, which this replaced; kernel 3 runs each trim
+// round's loop here: trim_panel.cu).
 //
 // Replaces, past each kernel's cluster layout, its block layout (and so the
 // same TPU code: degnorm_tpu/ops/pallas_stream.py::nmf_masked_streamed,
@@ -50,9 +50,9 @@
 //      writes the iterations it ran;
 //   4. kernel 2 only: its row sums of max(K e, A0) (phase_est_kernel, a
 //      block a (gene, panel)), thread t < 128 its row in column order.
-// Every sum is the block layout's, in its order (panel_gram, panel_v,
-// panel_matvec, panel_renormalize, panel_sum, panel_max, the row sums), so
-// the outputs are bit-equal to it.
+// Every sum is the block layout's, in its order (its Gram passes, v, the
+// matvecs, panel_renormalize, panel_sum, panel_max, the row sums), so the
+// outputs are bit-equal to it.
 //
 // What bounds it on this card: the Gram's float32 operations (T(T+1)/2 x
 // 128^2 fmas a column a sweep, over every SM); the update's bytes (X read
@@ -80,8 +80,8 @@
 #define DN_PHC_RATIO 3
 
 // The phased layout takes a kernel past its cluster layout, a rule by kind
-// (panel.cuh's DN_PCL_*): kernel 1 (DN_PCL_LOOP) past DN_PCL_MAX_P, kernels
-// 2 and 4 (DN_PCL_STREAM) past DN_PCL_MAX_P_STREAM; kernel 3 never asks.
+// (panel.cuh's DN_PCL_*): kernels 1 and 3 (DN_PCL_LOOP) past DN_PCL_MAX_P,
+// kernels 2 and 4 (DN_PCL_STREAM) past DN_PCL_MAX_P_STREAM.
 __host__ __device__ inline bool dn_phase_on(int p, int kind) {
   return p > dn_pcl_max_p(kind);
 }
@@ -132,6 +132,12 @@ struct PhaseArgs {
   int nmf_iter;
   float tol;              // kernel 1's nmf_tol branch where > 0
   int iter;               // the sweep of a warm power step (its freeze)
+  // kernel 3's rounds (trim_panel.cu): `keep` leaves the outputs of the
+  // genes off the list as they are (kernels 4 and 1 zero them); `from_x`
+  // starts the loop from the X each gene holds (trim_fast's later rounds);
+  // `listed`, where > 0, the most genes the list can hold (known on the
+  // host: the groups stop there), else G
+  int keep, from_x, listed;
 };
 
 // A gene's slot of the workspace.
@@ -363,8 +369,9 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
 
 // A column launch: block (k, slot), thread (q, c) column l = 64 k + c of
 // the slot's gene, its rows q * 32 + j of every panel (panel_v's order).
-// KIND (DN_PHC_*): the loop's cold X = A0 (on the mask; the gene's first
-// block also clears its frozen flag and sets its iterations to nmf_iter),
+// KIND (DN_PHC_*): the loop's cold X = A0 (on the mask, unless a.from_x
+// keeps the X held; the gene's first block also clears its frozen flag and
+// sets its iterations to nmf_iter),
 // an iteration's v and multiplier update (under nmf_tol on the (K, E)
 // carry: s (v / (s + eps)) in place of v), the finish's E (every column:
 // zero off the mask) with K, u and the iterations by the gene's first
@@ -394,7 +401,7 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
   };
   const PhaseSlot sl(a.ws, blockIdx.y, p);
   if constexpr (KIND == DN_PHC_XINIT) {
-    if (on)
+    if (on && !a.from_x)
       for (int i = q; i < p; i += 4) Xg[(size_t)i * W] = a0(i);
     if (blockIdx.x == 0 && t == 0) {
       *sl.frozen() = 0;

@@ -1,18 +1,25 @@
 // Kernel 4c's C entry points (and kernel 2c's Gram launch); the kernels are
 // stream_cols.cuh, their template instances compiled in
-// stream_cols_<f32|i16|tol>.cu.  Every launch has G * nb blocks of
+// stream_cols_<f32|i16|tol>.cu, and for 33 <= p <= 128 the wide instances
+// of stream_cols_wide.cuh (stream_cols_wide_<f32|i16|tol>.cu), whose block
+// is DN_WIDE_THREADS threads.  Every launch has G * nb blocks of
 // `threads`: nb blocks a gene.  A gene's packed partial Gram is NG =
 // PMAX (PMAX + 1) / 2 floats (PMAX the template instance of p).
-#include "stream_cols.cuh"
+#include "stream_cols_wide.cuh"
 
 static int cols_dispatch(int f_is_i16, int which, const ColsArgs& a) {
-  if (a.threads % 32 != 0 || a.threads < 32 || a.p < 1 || a.p > 32 ||
-      a.nb < 1 || a.S < 0 || (size_t)a.G * a.nb > 0x7fffffffu)
+  if (a.threads % 32 != 0 || a.threads < 32 || a.p < 1 ||
+      a.p > DN_WIDE_MAX_P || a.nb < 1 || a.S < 0 ||
+      (size_t)a.G * a.nb > 0x7fffffffu)
     return (int)cudaErrorInvalidValue;
   if (a.G == 0) return 0;
   // (a) and (b) sum a gene's blocks through bpart and its ticket
   if (which < 2 && a.nb > 1 && (a.bpart == nullptr || a.tickets == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (a.p >= DN_WIDE_MIN_P) {
+    if (a.tol > 0.f && which > 0) return dn_wcols_tol(f_is_i16, which, a);
+    return f_is_i16 ? dn_wcols_i16(which, a) : dn_wcols_f32(which, a);
+  }
   if (a.tol > 0.f && which > 0) return dn_cols_tol(f_is_i16, which, a);
   return f_is_i16 ? dn_cols_i16(which, a) : dn_cols_f32(which, a);
 }

@@ -1,6 +1,8 @@
 // Kernel 4c: the NMF-OA loop of a COLUMN-SHARDED gene bucket, cut at its
 // reductions, a gene's columns of the shard spread over `nb` thread blocks.
 // Kernel 2c (ratio_cols.cu) shares its Gram launch and its reductions.
+// These are the instances for p <= 32; at 33 <= p <= 128 the wide ones of
+// stream_cols_wide.cuh run the same launches on wide.cuh's layout.
 //
 // Replaces no Pallas kernel: on a mesh the JAX package runs such a bucket
 // on its XLA path (degnorm_tpu/engine.py:75-84, _seqpar_safe), and GSPMD

@@ -23,7 +23,7 @@
 // The list of active genes in order (block 0: act null takes every gene),
 // kernel 4's scales of int16 input and their reciprocals, every
 // slot's largest entry zeroed; each block zeroes the outputs of its
-// inactive genes (kernel 4: K, E, u).
+// inactive genes (kernel 4: K, E, u), unless a.keep (kernel 3's rounds).
 __global__ void __launch_bounds__(DN_WIDE_THREADS)
     phase_prep_kernel(PhaseArgs a, const uint8_t* __restrict__ act,
                       const float* __restrict__ scale, int slots) {
@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(DN_WIDE_THREADS)
     for (int s = t; s < slots; s += DN_WIDE_THREADS)
       *PhaseSlot(a.ws, s, a.p).bmax() = 0;
   }
-  if (act == nullptr) return;
+  if (act == nullptr || a.keep) return;
   for (size_t g = blockIdx.x; g < (size_t)a.G; g += gridDim.x) {
     if (act[g] != 0) continue;
     for (int i = t; i < a.p; i += DN_WIDE_THREADS) {
@@ -109,7 +109,7 @@ struct PhaseMv {
 // launch); with `finish`, s = sqrt(max(u^T B u, 0)) into the slot.  u comes
 // back into the slot, and its largest entry is zeroed for the next Gram.
 // Under nmf_tol (a.tol > 0, a warm step: finish set) the first block also
-// compares K = u s with the slot's last (panel_core's freeze test, its
+// compares K = u s with the slot's last (wide_core's freeze test, its
 // panel_max): a gene that moved by at most tol max|K| is frozen after
 // sweep a.iter, and its iterations set to a.iter + 1.
 __global__ void __launch_bounds__(DN_WIDE_THREADS, 1)
@@ -216,7 +216,8 @@ static int phase_loop_form(PhaseArgs a, const uint8_t* act,
     return phase_launch(phase_gram_kernel<DN_PH_X, false>, pairs, S, gram,
                         false, st, a);
   };
-  for (int base = 0; e == 0 && base < a.G; base += S) {
+  const int listed = a.listed > 0 && a.listed < a.G ? a.listed : a.G;
+  for (int base = 0; e == 0 && base < listed; base += S) {
     a.base = base;
     e = phase_launch(phase_cols_kernel<DN_PHC_XINIT, I16>, cols, S, 0, false,
                      st, a);

@@ -6,8 +6,11 @@
 // X: (G, p, W) float32 scratch; fast != 0 runs the trim_fast branch, else
 // tol > 0 the nmf_tol one; iters: (G) int32 or null.  p > 32 takes the wide
 // instances (trim_wide.cuh), whose block is DN_WIDE_THREADS threads, and
-// p > 128 the panel instance (trim_panel.cu), which also takes ws: ws_slots
-// workspaces of dn_panel_ws_floats(p) floats (null and 0 below).
+// p > 128 the panel instance (trim_panel.cu), which also takes ws: on its
+// cluster layout ws_slots workspaces of dn_pcl_ws_floats(p) floats where a
+// block holds several pairs, past it dn_phase_ws_floats(p, ws_slots, G) +
+// dn_trim_phase_floats(p, W, B, G) floats (null and 0 below); past the
+// cluster layout E is only read (elsewhere each round writes it).
 extern "C" int dn_trim_loop(
     const float* Fm, const int* bin_id, const float* bin_count,
     const float* K0, float* E, const float* rho0, const float* u0,

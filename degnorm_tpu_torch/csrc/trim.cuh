@@ -306,8 +306,8 @@ struct TrimArgs {
   float tol;
   int threads;
   cudaStream_t stream;
-  float* ws = nullptr;  // p > 128: the panel instance's workspace,
-  int ws_slots = 0;     // dn_panel_ws_floats(p) a slot
+  float* ws = nullptr;  // p > 128: the panel instance's workspace and
+  int ws_slots = 0;     // its slots (trim.cu's dn_trim_loop says what)
 };
 
 template <int MODE>

@@ -323,11 +323,12 @@ class DegNormEngine:
         """True where bucket ``b`` is cut along its columns: a mesh of two
         or more shards and ``b.width >= seqpar_width`` (the JAX engine's
         rule, its engine.py:409-426), and at most
-        ``cuda_nmf.COLS_MAX_P`` (32) samples.  The last is the port's shape
-        rule: kernels 4c and 2c, the column-sharded route, have no instance
-        above 32 samples, so a bucket of more is gene-sharded (kernel 4 at
-        its wide instance) and counted in ``colshard_declined``; the plain
-        versions follow the same rule, on every device."""
+        ``cuda_nmf.COLS_MAX_P`` (128) samples.  The last is the port's shape
+        rule: kernels 4c and 2c, the column-sharded route, have narrow and
+        wide instances but no panel instance, so a bucket of more than 128
+        samples is gene-sharded (kernel 4 at its panel instance) and counted
+        in ``colshard_declined``; the plain versions follow the same rule,
+        on every device."""
         return (self._past_seqpar_width(b)
                 and b.F.shape[1] <= cuda_nmf.COLS_MAX_P)
 

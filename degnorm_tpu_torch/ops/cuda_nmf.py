@@ -39,8 +39,10 @@ nmf_panel_phase_launches = 0
 # "stream")``) and on its phased layout past it (``panel_phase(p)``)
 ratio_panel_cluster_launches = 0
 ratio_panel_phase_launches = 0
-# kernel 2c (the column-sharded ratio-SVD row sums): both of its launches
+# kernel 2c (the column-sharded ratio-SVD row sums): both of its launches;
+# of them, those of its wide instances (NARROW_MAX_P < p <= COLS_MAX_P)
 ratio_cols_launches = 0
+ratio_cols_wide_launches = 0
 
 # Shape gate of the resident loop kernels (kernel 1, the NMF loop, and
 # kernel 3, the fused trim loop; ops/cuda_trim.py uses the same gate).  Each
@@ -60,15 +62,16 @@ ratio_cols_launches = 0
 # a block of WIDE_THREADS threads), p above WIDE_MAX_P their panel instance
 # (csrc/panel.cuh: the Gram in row panels of PANEL_ROWS, on a cluster of
 # blocks a gene for kernels 1 and 3 up to PCL_MAX_P and kernels 2 and 4 up
-# to PCL_MAX_P_STREAM, ``panel_cluster``, past that kernel 3 in a
-# workspace in device memory, ``panel_workspace``, kernels 1, 2 and 4 on
-# the phased layout, ``panel_phase``); kernels 4c and 2c have neither and
-# stop at COLS_MAX_P (the engine gene-shards such a bucket:
-# ``engine.DegNormEngine.column_sharded``).
+# to PCL_MAX_P_STREAM, ``panel_cluster``, past that on the phased layout,
+# ``panel_phase``).  Kernels 4c and 2c, the column-sharded forms of kernels
+# 4 and 2, have narrow instances (csrc/stream_cols.cuh) and, above
+# NARROW_MAX_P, wide ones (csrc/stream_cols_wide.cuh) but no panel
+# instance: they stop at COLS_MAX_P (= WIDE_MAX_P), and the engine
+# gene-shards a wider bucket (``engine.DegNormEngine.column_sharded``).
 NARROW_MAX_P = 32
 WIDE_MAX_P = 128
 PANEL_ROWS = 128
-COLS_MAX_P = 32
+COLS_MAX_P = 128
 MAX_W = 8192
 MAX_PW = 65536
 WIDE_THREADS = 256
@@ -240,34 +243,12 @@ def instance_of(p: int) -> str:
     return ("wide" if p > NARROW_MAX_P else "p") + str(pmax_of(p))
 
 
-# The panel instance's workspace a block (``dn_panel_ws_floats`` of
-# csrc/panel.cuh): the gene's Gram B and B^2, p x p each, then PANEL_VECS
-# vectors of ``pmax_of(p)`` floats.
-PANEL_VECS = 9
-
-
-def panel_ws_floats(p: int) -> int:
-    return 2 * p * p + PANEL_VECS * pmax_of(p)
-
-
 def panel_slots(G: int, device) -> int:
-    """Blocks a launch of the panel instance runs, each with its slot of
-    the workspace: one an SM of the card (its launch bound: one block an
-    SM), fewer for fewer genes."""
+    """Genes a group of the phased layout holds, each with its slot of the
+    workspace: one an SM of the card, fewer for fewer genes."""
     if device.type != "cuda":
         return min(G, SMS)
     return min(G, torch.cuda.get_device_properties(device).multi_processor_count)
-
-
-def panel_workspace(G: int, p: int, device):
-    """(workspace, slots) of a launch at p: for p > WIDE_MAX_P the panel
-    instance's ``panel_slots`` workspaces of ``panel_ws_floats(p)`` floats,
-    sized by the genes in flight and not by the bucket; else (None, 0)."""
-    if p <= WIDE_MAX_P or G == 0:
-        return None, 0
-    slots = panel_slots(G, device)
-    return (torch.empty(slots * panel_ws_floats(p), dtype=torch.float32,
-                        device=device), slots)
 
 
 # The kinds of kernel a workspace belongs to: kernel 1 ("nmf"), kernel 3
@@ -292,9 +273,10 @@ def kind_workspace_floats(p: int, kind: str, sms: int, G: int,
     """Floats of the largest workspace a launch of ``kind`` takes at p on a
     card of ``sms`` SMs with a bucket of at most G genes
     (``kernel_workspace``): the phased layout's past the kind's cluster
-    layout (kernels 1, 2 and 4), the cluster layout's where a block holds
-    several pairs (none where it holds one), kernel 3's block layout past
-    its cluster layout; at NARROW_MAX_P < p <= WIDE_MAX_P kernel 2's wide
+    layout (kernel 3's with its trim state, ``trim_phase_floats``, at the
+    widest resident width of ``widths``, None: the gate's MAX_PW // p), the
+    cluster layout's where a block holds several pairs (none where it holds
+    one); at NARROW_MAX_P < p <= WIDE_MAX_P kernel 2's wide
     instance (``ratio_wide_workspace``) at the largest of the buckets'
     ``widths`` (None: RW_WS_FLOATS, its cap where a slot fits); none at
     p <= NARROW_MAX_P."""
@@ -308,10 +290,13 @@ def kind_workspace_floats(p: int, kind: str, sms: int, G: int,
         return max((ratio_wide_slots(G, p, W) * ratio_wide_slot_floats(p, W)
                     for W in widths), default=0)
     if panel_phase(p, kind):
-        return phase_ws_floats(p, min(G, sms), G)
-    if panel_cluster(p, kind):
-        return sms // pcl_size(p) * pcl_ws_floats(p)
-    return sms * panel_ws_floats(p)
+        floats = phase_ws_floats(p, min(G, sms), G)
+        if kind == "loop":
+            res = [W for W in widths or () if W <= MAX_W and p * W <= MAX_PW]
+            floats += trim_phase_floats(
+                p, max(res) if res else MAX_PW // p, TRIM_MAX_BINS, G)
+        return floats
+    return sms // pcl_size(p) * pcl_ws_floats(p)
 
 
 def panel_workspace_bytes(p: int, device: torch.device,
@@ -322,8 +307,7 @@ def panel_workspace_bytes(p: int, device: torch.device,
     buckets of at most ``genes`` genes of ``widths``: what the engine's
     memory guard sets aside on a card (0 at p <= NARROW_MAX_P and off a
     card, where the plain versions run), ``kind_workspace_floats``'
-    largest.  Past PCL_MAX_P kernel 3's block layout sets it where a bucket
-    is resident; the phased layout of kernels 1, 2 and 4 takes less."""
+    largest."""
     if p <= NARROW_MAX_P or device.type != "cuda":
         return 0
     sms = panel_slots(1 << 30, device)
@@ -343,9 +327,7 @@ def panel_workspace_bytes(p: int, device: torch.device,
 # (``pcl_shared_power``).  The cut is a rule by kind (``pcl_max_p``):
 # kernels 1 ("nmf") and 3 ("loop") at PCL_MAX_P, kernels 2 and 4
 # ("stream") at PCL_MAX_P_STREAM (a cluster of 9, not portable, past
-# 1,024); above it kernel 3 keeps the block-a-gene layout and its workspace
-# (``panel_workspace``), kernels 1, 2 and 4 take the phased layout
-# (``panel_phase``).
+# 1,024); above it every kernel takes the phased layout (``panel_phase``).
 PCL_MAX_P = 640
 PCL_MAX_P_STREAM = 1152
 PCL_KINDS = ("loop", "stream")
@@ -445,24 +427,30 @@ def pcl_ldx(p: int) -> int:
     return -(-p // 4) * 4
 
 
-# The phased layout of kernels 2 and 4 past PCL_MAX_P_STREAM and of kernel
-# 1 past PCL_MAX_P (mirror of csrc/phase.cuh's dn_phase_* code): a call
+# The phased layout of kernels 2 and 4 past PCL_MAX_P_STREAM and of kernels
+# 1 and 3 past PCL_MAX_P (mirror of csrc/phase.cuh's dn_phase_* code): a call
 # lists its active genes on the card and runs them in groups of at most
 # ``panel_slots`` genes, each gene of a group with its slot of the
 # workspace (B and B^2, p x ``phase_ldb(p)`` floats each, u and PHASE_SCAL
 # scalars: s, B's largest entry, the nmf_tol branch's frozen flag and
 # iterations), through a fixed sequence of launches (csrc/stream_phase.cu,
-# which kernel 1's csrc/nmf_panel.cu calls, and csrc/ratio_phase.cu).  The
-# launches' geometry is modelled in tests/test_torch_panelphase.py.
+# which kernel 1's csrc/nmf_panel.cu and kernel 3's csrc/trim_panel.cu
+# call, and csrc/ratio_phase.cu).  The launches' geometry is modelled in
+# tests/test_torch_panelphase.py.  Kernel 3 keeps its trim state after the
+# layout's workspace (``trim_phase_floats``, csrc/trim_panel.cu's
+# dn_trim_phase_floats): u, E and the round's scores, TRIM_ST ints a gene,
+# the round's iterations, the round's count, and bytes: the round's list
+# flag and TRIM_MAX_BINS bin flags at most.
 PHASE_SCAL = 4
+TRIM_ST = 6
+TRIM_MAX_BINS = 64     # csrc/trim.cuh's DN_MAX_BINS
 
 
 def panel_phase(p: int, kind: str = "stream") -> bool:
     """True where the kernels of ``kind`` run p on the phased layout
     (``dn_phase_on``, a rule by kernel): kernels 2 and 4 ("stream") past
-    PCL_MAX_P_STREAM, kernel 1 ("nmf") past PCL_MAX_P; kernel 3 ("loop")
-    never (its block layout stays)."""
-    return kind != "loop" and p > pcl_max_p(kind)
+    PCL_MAX_P_STREAM, kernels 1 ("nmf") and 3 ("loop") past PCL_MAX_P."""
+    return p > pcl_max_p(kind)
 
 
 def phase_ldb(p: int) -> int:
@@ -483,6 +471,12 @@ def phase_ws_floats(p: int, slots: int, G: int) -> int:
     return slots * phase_slot_floats(p) + 2 * pmax_of(p) + G + 1
 
 
+def trim_phase_floats(p: int, W: int, B: int, G: int) -> int:
+    """Floats of kernel 3's trim state past PCL_MAX_P
+    (``dn_trim_phase_floats``), after ``phase_ws_floats``."""
+    return G * p + 2 * G * W + G * (TRIM_ST + 1) + 1 + (G * (B + 1) + 3) // 4
+
+
 def scratch_shape(G: int, p: int, W: int,
                   kind: str) -> Tuple[int, int, int]:
     """Shape of the X scratch of kernel 4 (``kind`` "stream") or of kernels
@@ -497,20 +491,23 @@ def loop_scratch_shape(G: int, p: int, W: int) -> Tuple[int, ...]:
     return (0,) if res_core(p) else scratch_shape(G, p, W, "loop")
 
 
-def kernel_workspace(G: int, p: int, device, kind: str):
+def kernel_workspace(G: int, p: int, device, kind: str, W: int = 0,
+                     B: int = 0):
     """(workspace, slots) of a launch at p of kernel 1 (``kind`` "nmf"),
-    kernel 3 ("loop") or kernels 2 and 4 ("stream"): on the kind's cluster
-    layout ``pcl_ws_floats`` a cluster the card can hold at once (one an SM
-    a block; none where a block holds one pair); past it the phased layout
-    of kernels 1, 2 and 4, ``phase_ws_floats`` at ``panel_slots`` genes a
-    group; else (kernel 3) ``panel_workspace``."""
+    kernel 3 ("loop", its bucket W columns wide with B bins) or kernels 2
+    and 4 ("stream"): on the kind's cluster layout ``pcl_ws_floats`` a
+    cluster the card can hold at once (one an SM a block; none where a
+    block holds one pair); past it the phased layout, ``phase_ws_floats``
+    at ``panel_slots`` genes a group (kernel 3: and ``trim_phase_floats``);
+    none at p <= WIDE_MAX_P."""
     if panel_phase(p, kind) and G > 0:
         slots = panel_slots(G, device)
-        return (torch.empty(phase_ws_floats(p, slots, G), dtype=torch.float32,
-                            device=device), slots)
-    if not panel_cluster(p, kind):
-        return panel_workspace(G, p, device)
-    if pcl_held(p) == 1 or G == 0:
+        floats = phase_ws_floats(p, slots, G)
+        if kind == "loop":
+            floats += trim_phase_floats(p, W, B, G)
+        return (torch.empty(floats, dtype=torch.float32, device=device),
+                slots)
+    if not panel_cluster(p, kind) or pcl_held(p) == 1 or G == 0:
         return None, 0
     slots = min(G, panel_slots(1 << 30, device) // pcl_size(p))
     return (torch.empty(slots * pcl_ws_floats(p), dtype=torch.float32,
@@ -979,7 +976,8 @@ def ratio_rowsums_colsharded_cuda(
     every shard's partial (``cols.gather_``: unsummed, in shard order), runs
     the cold power step on the sum and writes the partial row sums of A0
     and of max(K⊗E, A0), which are summed across the shards (``cols.sum_``).
-    Takes float32 coverage or the raw int16 upload as it is; a gene's
+    Takes float32 coverage or the raw int16 upload as it is, 2 <= p <=
+    COLS_MAX_P (above NARROW_MAX_P the wide instance); a gene's
     columns are spread over the blocks of
     ``cuda_stream.pick_cols_geometry`` for the bucket's genes
     (``cols.genes``).  A CPU tensor takes the plain version; a CUDA tensor
@@ -987,7 +985,7 @@ def ratio_rowsums_colsharded_cuda(
     if F.device.type == "cpu":
         return (yield from ratio_rowsums_colsharded_plain(
             F, mask, cols, power_iters=power_iters, method=method))
-    global ratio_cols_launches
+    global ratio_cols_launches, ratio_cols_wide_launches
     from degnorm_tpu_torch.ops import cuda_stream
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "ratio_rowsums_colsharded_cuda"
@@ -1016,6 +1014,7 @@ def ratio_rowsums_colsharded_cuda(
             slots[0, cols.shard].data_ptr(), _ptr(bpart), tickets.data_ptr(),
             ncols.data_ptr(), G, p, W, nb, threads, stream), "dn_cols_gram")
         ratio_cols_launches += 1
+        ratio_cols_wide_launches += p > NARROW_MAX_P
     parts = yield from cols.gather_(slots[0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1025,5 +1024,6 @@ def ratio_rowsums_colsharded_cuda(
             tickets.data_ptr(), G, p, W, int(power_iters), nb, threads,
             stream), "dn_ratio_cols_sums")
         ratio_cols_launches += 1
+        ratio_cols_wide_launches += p > NARROW_MAX_P
     sums = yield from cols.sum_(sums)
     return sums[:, :p], sums[:, p:]

@@ -39,6 +39,9 @@ stream_panel_cluster_launches = 0
 stream_panel_phase_launches = 0
 colsharded_launches = 0
 colsharded_tol_launches = 0
+# ... of them, those of its wide instances (cuda_nmf.NARROW_MAX_P < p <=
+# cuda_nmf.COLS_MAX_P: csrc/stream_cols_wide.cuh)
+colsharded_wide_launches = 0
 
 # Launch geometry of csrc/stream.cuh.  A gene is a cluster of 1, 2, 4 or 8
 # thread blocks (8 is the largest portable cluster); its columns are dealt to
@@ -112,6 +115,12 @@ def pick_geometry(W: int, p: int) -> Tuple[int, int]:
 # Columns a thread of kernels 4c and 2c is dealt where a gene is spread over
 # several blocks (the committed sweep: ``chip_smoke.py --sweep``, PERF.md).
 COLS_A_THREAD = 4
+# The most columns a block of their wide instances is dealt: its register
+# tile sums each Gram entry over the block's columns in one chain, and a
+# chain over a whole shard of the long tail's bucket (32,768 columns) left
+# the row sums of kernel 2c 1.1e-5 from the plain version; chains of at
+# most this many keep it within the 1e-5 the narrow instances hold.
+COLS_WIDE_BLOCK_COLS = 1024
 
 
 def pick_cols_geometry(G: int, p: int, W: int,
@@ -124,9 +133,15 @@ def pick_cols_geometry(G: int, p: int, W: int,
     the SMs (the long tail's 384 slots) and a block an SM for one gene.  A
     block's share of a gene is dealt in chunks round robin
     (``block_columns``); it gets a thread for ``COLS_A_THREAD`` of its
-    columns, in whole warps within the instance's bound."""
+    columns, in whole warps within the instance's bound; p >
+    ``cuda_nmf.NARROW_MAX_P`` (the wide instances,
+    csrc/stream_cols_wide.cuh) WIDE_THREADS, whatever its share, and
+    enough blocks that none is dealt more than COLS_WIDE_BLOCK_COLS."""
     chunks = max(1, -(-W // CHUNK))
     nb = max(1, min(-(-n_sm // max(G, 1)), chunks))
+    if p > cuda_nmf.NARROW_MAX_P:
+        nb = max(nb, -(-chunks // (COLS_WIDE_BLOCK_COLS // CHUNK)))
+        return nb, cuda_nmf.WIDE_THREADS
     share = block_share(W, nb)
     threads = min(cuda_nmf.max_loop_threads(p),
                   max(32, (-(-share // COLS_A_THREAD) + 31) // 32 * 32))
@@ -402,7 +417,10 @@ def nmf_masked_colsharded_cuda(
     (csrc/stream_cols_tol.cu): a gene freezes on the summed Gram's refit, as
     in the plain version, and adds zero partials from then on.  Takes
     float32 coverage, or int16 coverage with or without ``scale``, of any
-    width, 2 <= p <= ``cuda_nmf.COLS_MAX_P`` (32); a gene outside
+    width, 2 <= p <= ``cuda_nmf.COLS_MAX_P`` (128; above
+    ``cuda_nmf.NARROW_MAX_P`` the wide instances of
+    csrc/stream_cols_wide.cuh, a block's columns staged in tiles and its
+    Gram a register tile, wide.cuh's); a gene outside
     ``gene_active`` writes zero partials, so every shard reduces as often.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises
     (``method="eigh"`` has no kernel: ``core/nmf.py`` routes it to the plain
@@ -420,6 +438,7 @@ def nmf_masked_colsharded_cuda(
         return (yield from nmf_masked_colsharded_plain(F, mask, cols,
                                                        **kwargs))
     global colsharded_launches, colsharded_tol_launches
+    global colsharded_wide_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     name = "nmf_masked_colsharded_cuda"
     if method != "power":
@@ -478,6 +497,7 @@ def nmf_masked_colsharded_cuda(
             f_p, i16, m_p, a_p, sc_p, x_p, mine[0], b_p, t_p, n_p, G, p, W,
             nb, threads, stream), "dn_cols_gram")
     colsharded_launches += 1
+    colsharded_wide_launches += p > cuda_nmf.NARROW_MAX_P
     parts = yield from cols.gather_(views[0])
     u_in = None if u0 is None else u0.to(f32).contiguous()
     u_p, s_p = ptr(u_in), None
@@ -493,6 +513,7 @@ def nmf_masked_colsharded_cuda(
                 stream), "dn_cols_sweep")
         colsharded_launches += 1
         colsharded_tol_launches += tol > 0
+        colsharded_wide_launches += p > cuda_nmf.NARROW_MAX_P
         u_p, s_p = u_at[q], s_at[q]
         parts = yield from cols.gather_(views[q])
     n_sq, n_plain = ((power_iters_cold, 0) if nmf_iter == 0
@@ -504,4 +525,5 @@ def nmf_masked_colsharded_cuda(
             int(n_plain), nb, threads, stream), "dn_cols_finish")
     colsharded_launches += 1
     colsharded_tol_launches += tol > 0
+    colsharded_wide_launches += p > cuda_nmf.NARROW_MAX_P
     return K, E, u

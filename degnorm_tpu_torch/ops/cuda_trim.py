@@ -37,8 +37,11 @@ trim_wide_tol_launches = 0
 trim_panel_launches = 0
 trim_panel_fast_launches = 0
 trim_panel_tol_launches = 0
+# ... of them, those on the phased layout past cuda_nmf.PCL_MAX_P
+# (``cuda_nmf.panel_phase(p, "loop")``: every branch)
+trim_panel_phase_launches = 0
 
-MAX_BINS = 64          # the kernel keeps per-bin state in shared memory
+MAX_BINS = cuda_nmf.TRIM_MAX_BINS    # per-bin state in shared memory
 
 
 def fused_trim_supported(shape, dtype) -> bool:
@@ -319,9 +322,12 @@ def trim_loop_cuda(
     (csrc/trim.cu; the trim_fast and nmf_tol branches are the instances of
     csrc/trim_fast.cu and csrc/trim_tol.cu; p > 32 the wide instances of
     csrc/trim_wide.cuh, p > 128 their panel instances, csrc/trim_panel.cu:
-    up to ``cuda_nmf.PCL_MAX_P`` a cluster of blocks a gene, above
-    one block a gene with a workspace).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.  ``_threads``
+    up to ``cuda_nmf.PCL_MAX_P`` a cluster of blocks a gene, above each
+    round in launches over the whole card, its NMF loop on kernel 1's
+    phased layout; the host reads the count of genes going on once a
+    round, and a bucket no gene enters costs one launch and one wait).  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises.  ``_threads``
     overrides ``cuda_nmf.pick_loop_threads`` (the timing sweep of
     ``chip_smoke.py --sweep`` passes it; nothing else does)."""
     kwargs = dict(nmf_iter=nmf_iter, power_iters_cold=power_iters_cold,
@@ -337,7 +343,7 @@ def trim_loop_cuda(
     global trim_launches, trim_fast_launches, trim_tol_launches
     global trim_wide_launches, trim_wide_fast_launches, trim_wide_tol_launches
     global trim_panel_launches, trim_panel_fast_launches
-    global trim_panel_tol_launches
+    global trim_panel_tol_launches, trim_panel_phase_launches
     from degnorm_tpu_torch.ops.build import check_launch, get_lib
     cuda_nmf.check_kernel_input(Fm, "trim_loop_cuda")
     G, p, W = Fm.shape
@@ -356,8 +362,12 @@ def trim_loop_cuda(
     bin_count_c = bin_count.to(f32).contiguous()
     K0c, rho0c, u0c = (t.to(f32).contiguous() for t in (K0, rho0, u0))
     # E is read for the first round's residuals and rewritten by every
-    # round's NMF: the kernel works on a copy so the caller's E0 survives.
-    E = E0.to(f32).clone(memory_format=torch.contiguous_format)
+    # round's NMF: the kernel works on a copy so the caller's E0 survives
+    # (on the phased layout, past PCL_MAX_P, the copy is in its workspace)
+    if cuda_nmf.panel_phase(p, "loop"):
+        E = E0.to(f32).contiguous()
+    else:
+        E = E0.to(f32).clone(memory_format=torch.contiguous_format)
     n_hi_c = n_hi.to(i32).contiguous()
     n_bins_c = n_bins.to(i32).contiguous()
     act8 = cuda_nmf._as_u8(active0)
@@ -371,8 +381,8 @@ def trim_loop_cuda(
     ran_bs = torch.empty((G,), dtype=torch.uint8, device=dev)
     rounds_active = torch.empty((G,), dtype=i32, device=dev)
     if G == 0:
-        return K, rho, ran_bs.bool(), rounds_active
-    ws, slots = cuda_nmf.kernel_workspace(G, p, dev, "loop")
+        return K, rho, ran_bs.view(torch.bool), rounds_active
+    ws, slots = cuda_nmf.kernel_workspace(G, p, dev, "loop", W, B)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = get_lib().dn_trim_loop(
@@ -396,6 +406,7 @@ def trim_loop_cuda(
         trim_tol_launches += 1
     if p > cuda_nmf.WIDE_MAX_P:
         trim_panel_launches += 1
+        trim_panel_phase_launches += cuda_nmf.panel_phase(p, "loop")
         if trim_fast:
             trim_panel_fast_launches += 1
         elif nmf_tol > 0:
@@ -406,4 +417,4 @@ def trim_loop_cuda(
             trim_wide_fast_launches += 1
         elif nmf_tol > 0:
             trim_wide_tol_launches += 1
-    return K, rho, ran_bs.bool(), rounds_active
+    return K, rho, ran_bs.view(torch.bool), rounds_active

@@ -45,29 +45,32 @@ def test_each_kernel_keeps_its_layout_past_its_cut(p):
     (its workspace: a slot a gene in flight and the list of active genes;
     X row by row), kernels 2 and 4 ("stream") keep their cluster layout to
     1,152 samples and take the phased layout past it, kernel 3 ("loop")
-    keeps its block layout (a workspace a block in flight)."""
+    takes it past its own cut with kernel 1, its trim state after the
+    layout's workspace."""
     cpu = torch.device("cpu")
     G = 300
     slots = cuda_nmf.panel_slots(G, cpu)
     assert cuda_nmf.panel_phase(p, "nmf") == (p > cuda_nmf.PCL_MAX_P)
     assert cuda_nmf.panel_phase(p, "stream") == (p > cuda_nmf.PCL_MAX_P_STREAM)
     assert cuda_nmf.panel_phase(p) == cuda_nmf.panel_phase(p, "stream")
-    assert not cuda_nmf.panel_phase(p, "loop")
+    assert cuda_nmf.panel_phase(p, "loop") == (p > cuda_nmf.PCL_MAX_P)
     assert cuda_nmf.panel_cluster(p, "nmf") == cuda_nmf.panel_cluster(
         p, "loop") == (p <= cuda_nmf.PCL_MAX_P)
     for kind in cuda_nmf.WORKSPACE_KINDS:
-        ws, n = cuda_nmf.kernel_workspace(G, p, cpu, kind)
+        Wt = min(64, cuda_nmf.MAX_PW // p)    # a resident width at p
+        ws, n = cuda_nmf.kernel_workspace(G, p, cpu, kind, Wt,
+                                          cuda_nmf.TRIM_MAX_BINS)
         floats = 0 if ws is None else ws.numel()
+        trim = (cuda_nmf.trim_phase_floats(p, Wt, cuda_nmf.TRIM_MAX_BINS, G)
+                if kind == "loop" else 0)
         if cuda_nmf.panel_phase(p, kind):
             assert (n, floats) == (slots, cuda_nmf.phase_ws_floats(p, slots,
-                                                                   G))
-        elif cuda_nmf.panel_cluster(p, kind):
-            assert floats == n * cuda_nmf.pcl_ws_floats(p)
+                                                                   G) + trim)
         else:
-            assert kind == "loop"
-            assert (n, floats) == (slots, slots * cuda_nmf.panel_ws_floats(p))
-        assert floats == cuda_nmf.kind_workspace_floats(p, kind, slots, G) \
-            or cuda_nmf.panel_cluster(p, kind)
+            assert cuda_nmf.panel_cluster(p, kind)
+            assert floats == n * cuda_nmf.pcl_ws_floats(p)
+        assert floats == cuda_nmf.kind_workspace_floats(
+            p, kind, slots, G, [Wt]) or cuda_nmf.panel_cluster(p, kind)
     assert cuda_nmf.loop_scratch_shape(G, p, 64) == (
         (G, 64, cuda_nmf.pcl_ldx(p)) if p <= cuda_nmf.PCL_MAX_P
         else (G, p, 64))
@@ -77,8 +80,9 @@ def test_kernel_1_hands_its_phased_layout_the_loop():
     """In the sources: kernel 1 past its cluster layout checks the phased
     layout's kind (DN_PCL_LOOP) and runs stream_phase.cu's phase_loop on
     float32 input, its nmf_tol branch through PhaseArgs::tol; kernels 2 and
-    4 ask their own kind; kernel 3 keeps its block kernel; kernel 1's block
-    kernel is gone."""
+    4 ask their own kind; kernel 3 runs each round's loop through the same
+    phase_loop, on its round's list, keeping the outputs of the genes off
+    it; the block kernels of kernels 1 and 3 are gone."""
     nmf = _src("nmf_panel.cu")
     assert "dn_phase_on(a.p, DN_PCL_LOOP)" in nmf
     assert "return phase_loop(pa, false, a.act, nullptr, a.ws_slots" in nmf
@@ -86,14 +90,19 @@ def test_kernel_1_hands_its_phased_layout_the_loop():
     assert "pa.iters = a.iters;" in nmf
     assert "dn_phase_on(a.p, DN_PCL_STREAM)" in _src("stream_phase.cu")
     assert "dn_phase_on(a.p, DN_PCL_STREAM)" in _src("ratio_phase.cu")
-    assert "launch_panel(trim_panel_block_kernel" in _src("trim_panel.cu")
+    trim = _src("trim_panel.cu")
+    assert "return dn_trim_phase(a, mode);" in trim
+    assert "e = phase_loop(pa, false, t.in_round, nullptr, S, n_cold," in trim
+    assert "pa.keep = 1;" in trim and "pa.listed = n;" in trim
     phase = _src("phase.cuh")
     # the freeze test of panel_core, and its carry's update
     stream = _src("stream_phase.cu")
     assert "if (delta <= __fmul_rn(a.tol, ref) && t == 0)" in stream
     assert "a.tol > 0.f ? __fmul_rn(s, v / (s + DN_EPS)) : v;" in phase
     for name in os.listdir(CSRC):
-        assert "nmf_panel_block_kernel" not in _src(name), name
+        for gone in ("nmf_panel_block_kernel", "trim_panel_block_kernel",
+                     "launch_panel"):
+            assert gone not in _src(name), (name, gone)
 
 
 class _Null:
@@ -188,16 +197,18 @@ def test_memory_guard_sets_aside_only_launched_kinds(monkeypatch, a_card, p):
     the cluster layout where a block holds one pair, the phased one past
     1,152 samples), one with a resident bucket (genes of 50-64 bases at
     W = 64, inside the gate up to p = 1,024) also kernel 1's, reckoned
-    from ``phase_ws_floats``, and kernel 3's block layout."""
+    from ``phase_ws_floats``, and kernel 3's, that and its trim state at
+    the W = 64 bucket."""
     sms = cuda_nmf.SMS
     streamed = _guard_cap(monkeypatch, a_card, p, (300, 300, 290),
                           RESIDENT_WIDTHS)
     ws_s = 4 * cuda_nmf.kind_workspace_floats(p, "stream", sms, 3)
     assert streamed == max(((80 << 30) - ws_s) // 12, 512 << 20)
-    block = 4 * sms * cuda_nmf.panel_ws_floats(p)
-    assert ws_s < block
+    block = 4 * (cuda_nmf.phase_ws_floats(p, 3, 3)
+                 + cuda_nmf.trim_phase_floats(p, 64, cuda_nmf.TRIM_MAX_BINS,
+                                              3))
     if cuda_nmf.panel_phase(p):
-        assert ws_s == 4 * cuda_nmf.phase_ws_floats(p, 3, 3)
+        assert ws_s == 4 * cuda_nmf.phase_ws_floats(p, 3, 3) < block
     lengths = (50, 64, 57)
     resident = _guard_cap(monkeypatch, a_card, p, lengths, RESIDENT_WIDTHS)
     kinds = cuda_nmf.workspace_kinds(p, [64])
@@ -205,7 +216,8 @@ def test_memory_guard_sets_aside_only_launched_kinds(monkeypatch, a_card, p):
         assert kinds == cuda_nmf.WORKSPACE_KINDS
         assert 4 * cuda_nmf.kind_workspace_floats(p, "nmf", sms, 3) == \
             4 * cuda_nmf.phase_ws_floats(p, 3, 3) < block
-        assert resident == max(((80 << 30) - block) // 12, 512 << 20)
+        assert resident == max(((80 << 30) - max(block, ws_s)) // 12,
+                               512 << 20)
     else:
         assert kinds == ("stream",) and resident == streamed
     assert cuda_nmf.workspace_kinds(p, [64], use_kernels=False) == ()

@@ -157,8 +157,8 @@ def test_every_p_to_1000_fits_a_block_and_a_cluster():
     the kernel's static state and, for kernel 3, the W residual scores of
     its widest bucket) within the card's limit, a workspace only where a
     block holds several pairs (one slot a cluster the card holds), and an
-    X scratch column by column; above it the block-a-gene layout, within
-    the limit too, with its workspace."""
+    X scratch column by column; above it the phased layout, within the
+    limit too, with its workspace (kernel 3: and its trim state)."""
     from tests.test_torch_widep import wide_smem_bytes
     dev = torch.device("cpu")
     for p in range(cuda_nmf.WIDE_MAX_P + 1, 1001):
@@ -170,7 +170,7 @@ def test_every_p_to_1000_fits_a_block_and_a_cluster():
             assert cluster == (p <= cuda_nmf.pcl_max_p(kind))
             smem = wide_smem_bytes(kernel, p, W)
             assert smem <= SMEM_PER_BLOCK, (p, kernel, smem)
-            ws, slots = cuda_nmf.kernel_workspace(24576, p, dev, kind)
+            ws, slots = cuda_nmf.kernel_workspace(24576, p, dev, kind, W, 8)
             if cluster:
                 T = cuda_nmf.pmax_of(p) // cuda_nmf.PANEL_ROWS
                 C, h = cuda_nmf.pcl_size(p), cuda_nmf.pcl_held(p)
@@ -186,8 +186,11 @@ def test_every_p_to_1000_fits_a_block_and_a_cluster():
                 assert cuda_nmf.scratch_shape(3, p, 40, kind) == \
                     (3, 40, -(-p // 4) * 4)
             else:
-                assert slots == cuda_nmf.SMS and ws.numel() == \
-                    slots * cuda_nmf.panel_ws_floats(p)
+                assert cuda_nmf.panel_phase(p, kind)
+                assert slots == cuda_nmf.SMS and ws.numel() == (
+                    cuda_nmf.phase_ws_floats(p, slots, 24576)
+                    + (cuda_nmf.trim_phase_floats(p, W, 8, 24576)
+                       if kind == "loop" else 0))
                 assert cuda_nmf.scratch_shape(3, p, 40, kind) == (3, p, 40)
     for kind in cuda_nmf.PCL_KINDS:
         assert not cuda_nmf.panel_cluster(cuda_nmf.WIDE_MAX_P, kind)
@@ -209,19 +212,20 @@ def a_card(monkeypatch):
 def test_memory_guard_sets_aside_the_largest_workspace(p, a_card,
                                                        monkeypatch):
     """``panel_workspace_bytes`` is the largest workspace any launch at p
-    takes on a card (kernel 3's block layout above its cluster layout, the
-    phased layout of kernels 1, 2 and 4 above theirs, a smaller one on a
-    cluster layout where a block holds several pairs, none where a block
-    holds one: kernel 3 past 640 samples, kernels 2 and 4 below 1,152,
-    past 256 samples), and ``DegNormEngine._pack_host``'s memory guard
+    takes on a card (the phased layout above a kind's cluster layout, kernel
+    3's with its trim state at the gate's widest resident bucket, a smaller
+    one on a cluster layout where a block holds several pairs, none where a
+    block holds one: kernel 3 past 640 samples, kernels 2 and 4 below
+    1,152, past 256 samples), and ``DegNormEngine._pack_host``'s memory guard
     caps a bucket at a twelfth of the card's memory less exactly that of
     the kinds its fit launches (``workspace_kinds``)."""
     slots = cuda_nmf.panel_slots(1 << 30, a_card)
-    one = 4 * slots * cuda_nmf.panel_ws_floats(p)
     cluster = 4 * (slots // cuda_nmf.pcl_size(p)) * cuda_nmf.pcl_ws_floats(p)
     phased = 4 * cuda_nmf.phase_ws_floats(p, slots, 1 << 16)
+    one = phased + 4 * cuda_nmf.trim_phase_floats(
+        p, cuda_nmf.MAX_PW // p, cuda_nmf.TRIM_MAX_BINS, 1 << 16)
     per_launch = {kind: cluster if cuda_nmf.panel_cluster(p, kind)
-                  else phased if cuda_nmf.panel_phase(p, kind) else one
+                  else one if kind == "loop" else phased
                   for kind in ("nmf", "loop", "stream")}
     ws = cuda_nmf.panel_workspace_bytes(p, a_card)
     assert ws == max(per_launch.values())

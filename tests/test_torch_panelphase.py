@@ -199,10 +199,13 @@ def test_phase_groups_hold_every_active_gene_once(p):
     ``panel_slots`` genes, slot by slot: every active gene in exactly one
     group, no inactive one, the groups ceil(G / slots) in number (those
     past the active genes empty), each within its slots.  Both calls step
-    through the groups as ``phase_groups`` does."""
-    for name in ("stream_phase.cu", "ratio_phase.cu"):
-        assert ("for (int base = 0; e == 0 && base < a.G; base += S)"
-                in _src(name)), name
+    through the groups as ``phase_groups`` does (kernel 3's rounds stop
+    at the groups their list fills, ``PhaseArgs::listed``)."""
+    assert ("for (int base = 0; e == 0 && base < a.G; base += S)"
+            in _src("ratio_phase.cu"))
+    assert ("const int listed = a.listed > 0 && a.listed < a.G ? a.listed "
+            ": a.G;\n  for (int base = 0; e == 0 && base < listed; base += S)"
+            in _src("stream_phase.cu"))
     rng = np.random.default_rng(p)
     cpu = torch.device("cpu")
     for G in (1, 4, 64, 132, 133, 300, 512):
@@ -234,14 +237,19 @@ def a_card(monkeypatch):
 def test_phase_workspace_fits_the_guard(p, a_card):
     """The phased layout's workspace (a slot a gene in flight, one an SM at
     most, and the list of active genes) is no larger than what the
-    engine's memory guard sets aside at p (``panel_workspace_bytes``, the
-    block layout's budget, which kernel 3 still takes there) at any
-    bucket up to 100,000 genes; every slot starts 16-byte aligned; the
+    engine's memory guard sets aside at p (``panel_workspace_bytes``:
+    kernel 3's, the phased layout's with its trim state at the gate's
+    widest resident bucket, the largest kind there) at any bucket up to
+    the guard's 65,536 genes; every slot starts 16-byte aligned; the
     launches' shared memory fits a block; the X scratch keeps the (G, p, W)
     form; the wrapper's workspace is the mirror's size."""
     guard = cuda_nmf.panel_workspace_bytes(p, a_card)
-    assert guard == 4 * cuda_nmf.SMS * cuda_nmf.panel_ws_floats(p)
-    for G in (1, 4, 64, 132, 512, 100_000):
+    n = 1 << 16
+    assert guard == 4 * (cuda_nmf.phase_ws_floats(p, cuda_nmf.SMS, n)
+                         + cuda_nmf.trim_phase_floats(
+                             p, cuda_nmf.MAX_PW // p, cuda_nmf.TRIM_MAX_BINS,
+                             n))
+    for G in (1, 4, 64, 132, 512, n):
         slots = cuda_nmf.panel_slots(G, a_card)
         assert 4 * cuda_nmf.phase_ws_floats(p, slots, G) <= guard
     assert cuda_nmf.phase_slot_floats(p) % 4 == 0
@@ -251,9 +259,12 @@ def test_phase_workspace_fits_the_guard(p, a_card):
     assert cuda_nmf.scratch_shape(5, p, 64, "stream") == (5, p, 64)
     ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "stream")
     assert slots == 2 and ws.numel() == cuda_nmf.phase_ws_floats(p, 2, 2)
-    # kernel 3 keeps the block layout past its cut, kernel 1 is phased
-    ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "loop")
-    assert slots == 2 and ws.numel() == 2 * cuda_nmf.panel_ws_floats(p)
+    # kernel 3 is phased too, with its trim state after the layout's
+    ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "loop",
+                                          56, 8)
+    assert slots == 2 and ws.numel() == (cuda_nmf.phase_ws_floats(p, 2, 2)
+                                         + cuda_nmf.trim_phase_floats(
+                                             p, 56, 8, 2))
     ws, slots = cuda_nmf.kernel_workspace(2, p, torch.device("cpu"), "nmf")
     assert slots == 2 and ws.numel() == cuda_nmf.phase_ws_floats(p, 2, 2)
 

@@ -429,6 +429,86 @@ def test_colsharded_ratio_plain_matches_whole_gene(method):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
 
 
+@pytest.mark.parametrize("p,case", [(48, "warm_squared"), (48, "nmf_tol"),
+                                    (128, "warm_squared")])
+def test_wide_colsharded_nmf_plain_matches_whole_gene(p, case):
+    """Kernel 4c's plain version at the wide instances' p (48 and 128; the
+    kernel runs csrc/stream_cols_wide.cuh there) on 2 shards of raw int16 +
+    scale, a ``gene_active`` mask and a warm start, against the whole-gene
+    plain version (``nmf_tol``: kernel 1's adaptive plain loop), float64
+    1e-12; the wrapper on CPU tensors takes the plain version, bit for
+    bit."""
+    rng = np.random.default_rng(p)
+    G, W = 3, 600
+    F = rng.integers(0, 400, (G, p, W)).astype(np.int16)
+    mask = rng.random((G, W)) > 0.3
+    act = torch.tensor([True, False, True])
+    u0 = torch.from_numpy(np.abs(rng.standard_normal((G, p))) + 0.1)
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, p))
+    kw = dict(nmf_iter=5, power_iters_cold=40, power_iters_warm=8,
+              gene_active=act, u0=u0)
+    extra = dict(nmf_tol=1e-3) if case == "nmf_tol" else {}
+    A0 = torch.from_numpy(F).double() / scale[None, :, None]
+    want = cuda_nmf.nmf_masked_plain(A0, torch.from_numpy(mask), **kw,
+                                     **extra)
+    nb, threads = cuda_stream.pick_cols_geometry(G, p, W // 2, 132)
+    assert threads == cuda_nmf.WIDE_THREADS
+    assert cuda_stream.block_share(W // 2, nb) <= \
+        cuda_stream.COLS_WIDE_BLOCK_COLS
+    parts, group = shards_of(F, mask, 2)
+    for fn in (cuda_stream.nmf_masked_colsharded_plain,
+               cuda_stream.nmf_masked_colsharded_cuda):
+        got = run_steps(fn(Fs, ms, c, scale=scale, **kw, **extra)
+                        for (Fs, ms), c in zip(parts, group.columns()))
+        assert torch.equal(got[1][0], got[0][0])
+        E = group.cat_columns([r[1] for r in got])
+        for a, b in zip((got[0][0], E, got[0][2]), want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                       atol=1e-12)
+
+
+@pytest.mark.parametrize("p", [48, 128])
+def test_wide_colsharded_ratio_plain_matches_whole_gene(p):
+    """Kernel 2c's plain version at the wide instances' p on 2 shards of
+    the raw int16 coverage against kernel 2's plain version, float64 1e-12
+    (the wrapper on CPU tensors: the plain version, bit for bit)."""
+    rng = np.random.default_rng(100 + p)
+    G, W = 3, 500
+    F = rng.integers(0, 300, (G, p, W)).astype(np.int16)
+    mask = rng.random((G, W)) > 0.2
+    want = cuda_nmf.ratio_rowsums_plain(torch.from_numpy(F).double(),
+                                        torch.from_numpy(mask),
+                                        power_iters=40)
+    parts, group = shards_of(F, mask, 2)
+    for fn in (cuda_nmf.ratio_rowsums_colsharded_plain,
+               cuda_nmf.ratio_rowsums_colsharded_cuda):
+        got = run_steps(fn(Fs.double(), ms, c, power_iters=40)
+                        for (Fs, ms), c in zip(parts, group.columns()))
+        assert all(torch.equal(a, b) for a, b in zip(got[0], got[1]))
+        for a, b in zip(got[0], want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("p", [40, 64])
+def test_wide_column_sharded_fit_matches_one_device_and_jax(p):
+    """More than 32 samples, every bucket column-sharded on two CPU shards
+    (kernels 4c and 2c's wide instances on the card; nothing declined): the
+    fit against the port's one-device fit (rtol 1e-9, float64) and against
+    the JAX seqpar engine on its 8 CPU devices with the XLA path's warm
+    scheme, at this file's tolerances."""
+    cov, X = small_dataset(seed=6, n=6, p=p)
+    eng, got = fit(cov, X, mesh=make_mesh(["cpu"] * 2), power_warm_plain=0,
+                   **SMALL)
+    assert eng.colshard_declined == 0
+    assert all(sh.cols.sharded for sh in eng._shards)
+    _, one = fit(cov, X, power_warm_plain=0, **SMALL)
+    assert_fits_close(got, one)
+    rj = JEngine(JNmf(**NMF_KW),
+                 JEng(dtype="float64", use_pallas=False, device_loop=False,
+                      **SMALL), mesh=jax_make_mesh()).run(cov, X.copy())
+    assert_fits_close(got, rj)
+
+
 # ---------------------------------------------------------------------------
 # checkpoints across the two forms, and the opt-in modes against JAX
 # ---------------------------------------------------------------------------

@@ -60,11 +60,7 @@ def wide_work_bytes(p):
     ``wide_work_floats`` in csrc/wide.cuh): the two tile buffers and the
     Gram B, rows of PMAX + 4 floats, the v partials, five p-vectors, 32
     floats, eight flags and the copy stage (a slot: PMAX x 64 floats of X
-    and of A0); the panel instance's (``panel_smem_floats`` in
-    csrc/panel.cuh) above 128: two tiles of rows of 128 + 4 floats, the v
-    partials, 32 floats, whatever p."""
-    if p > cuda_nmf.WIDE_MAX_P:
-        return 4 * (2 * WIDE_TC * (cuda_nmf.PANEL_ROWS + 4) + 4 * WIDE_TC + 32)
+    and of A0)."""
     P = cuda_nmf.pmax_of(p)
     ld = P + 4
     return 4 * (2 * WIDE_TC * ld + P * ld + 4 * WIDE_TC + 5 * P + 32 + 8
@@ -93,13 +89,13 @@ def wide_smem_bytes(kernel, p, W):
     each, its vectors are in its workspace), kernel 4's scales (the panel
     instance: its last column alone); kernel 2's wide instance its largest
     launch (tests/test_torch_ratiowide.py::smem_bytes, float32 input),
-    kernel 1's phased layout past its cluster layout its Gram launch's
-    (``dn_phase_gram_floats``: two tiles of two panels, the tile list, 16
-    counters)."""
+    kernels 1 and 3's phased layout past their cluster layout its Gram
+    launch's (``dn_phase_gram_floats``: two tiles of two panels, the tile
+    list, 16 counters), the largest of kernel 3's launches there."""
     if kernel == "ratio" and cuda_nmf.NARROW_MAX_P < p <= cuda_nmf.WIDE_MAX_P:
         from tests.test_torch_ratiowide import smem_bytes
         return max(smem_bytes(p, 4).values())
-    if kernel == "nmf" and cuda_nmf.panel_phase(p, "nmf"):
+    if kernel in ("nmf", "trim") and cuda_nmf.panel_phase(p, "loop"):
         return 4 * (4 * WIDE_TC * (cuda_nmf.PANEL_ROWS + 4) + 2048 + 16)
     panel = p > cuda_nmf.WIDE_MAX_P
     P = 1 if panel else cuda_nmf.pmax_of(p)
@@ -114,8 +110,8 @@ def wide_smem_bytes(kernel, p, W):
                   "trim": 12 * cuda_trim.MAX_BINS + 12}[kernel]
         return (cuda_nmf.pcl_smem_bytes(p) + (4 * W if kernel == "trim"
                                                else 0) + static)
-    core = (wide_work_bytes(p) if panel
-            else wide_work_bytes(p) if kernel == "stream" and P <= PIPE_MAX
+    assert not panel, (kernel, p)
+    core = (wide_work_bytes(p) if kernel == "stream" and P <= PIPE_MAX
             else wide_sync_bytes(p))
     return core + (4 * W if kernel == "trim" else 0) + static
 
@@ -156,19 +152,24 @@ def test_every_p_runs_in_an_instance_that_holds_it(p):
     32 every launch rule picks the wide instances' geometry (above 128 one
     block a gene for kernel 4 too), a block's shared memory (the mirror of
     the kernels' launches) stays within the card's per-block limit at every
-    geometry the rules pick, and the panel instance's workspace is sized by
-    the blocks in flight, not by the bucket."""
+    geometry the rules pick, and kernel 3's workspace past its cluster
+    layout is the phased layout's, sized by the genes a group holds, and
+    its trim state, sized by the bucket."""
     P = cuda_nmf.pmax_of(p)
     if p > cuda_nmf.WIDE_MAX_P:
         assert cuda_nmf.instance_of(p) == "panel"
         assert P % cuda_nmf.PANEL_ROWS == 0
         assert P - cuda_nmf.PANEL_ROWS < p <= P
-        assert cuda_nmf.panel_ws_floats(p) == 2 * p * p + 9 * P
-        ws, slots = cuda_nmf.panel_workspace(24576, p, torch.device("cpu"))
-        assert slots == cuda_nmf.SMS and ws.numel() == \
-            cuda_nmf.SMS * cuda_nmf.panel_ws_floats(p)
-        assert cuda_nmf.panel_workspace(24576, 128, torch.device("cpu")) == \
-            (None, 0)
+        if cuda_nmf.panel_phase(p, "loop"):
+            ws, slots = cuda_nmf.kernel_workspace(
+                24576, p, torch.device("cpu"), "loop", 64, 8)
+            G = 24576
+            assert slots == cuda_nmf.SMS and ws.numel() == (
+                cuda_nmf.phase_ws_floats(p, slots, G)
+                + G * (p + 2 * 64 + cuda_nmf.TRIM_ST + 1) + 1
+                + (G * 9 + 3) // 4)
+        assert cuda_nmf.kernel_workspace(24576, 128, torch.device("cpu"),
+                                         "loop") == (None, 0)
     else:
         assert P >= p and P in INSTANCES
         assert all(q < p for q in INSTANCES if q < P)
@@ -212,7 +213,7 @@ def test_wide_mirror_matches_the_sources():
     block, columns a tile, the largest p of the wide instances and the
     first of the panel instance, the instances of DN_DISPATCH_WIDE_P, the
     core's shared memory (wide_work_floats) at every instance, the panel
-    instance's rows, vectors and shared memory."""
+    instance's rows and the phased layout's Gram launch's shared memory."""
     with open(os.path.join(CSRC, "wide.cuh")) as f:
         src = f.read()
     with open(os.path.join(CSRC, "panel.cuh")) as f:
@@ -223,12 +224,15 @@ def test_wide_mirror_matches_the_sources():
     assert _define(src, "DN_WIDE_MIN_P") == cuda_nmf.NARROW_MAX_P + 1
     assert _define(panel, "DN_PANEL_MIN_P") == cuda_nmf.WIDE_MAX_P + 1
     assert _define(panel, "DN_PANEL_ROWS") == cuda_nmf.PANEL_ROWS
-    assert _define(panel, "DN_PANEL_VECS") == cuda_nmf.PANEL_VECS
-    body = re.search(r"panel_smem_floats\(\) \{\s*return (.*?);", panel,
+    with open(os.path.join(CSRC, "phase.cuh")) as f:
+        phase = f.read()
+    body = re.search(r"dn_phase_gram_floats\(\) \{\s*return (.*?);", phase,
                      re.S).group(1)
     expr = (body.replace("DN_PANEL_LD", f"({cuda_nmf.PANEL_ROWS} + 4)")
-            .replace("DN_WIDE_TC", str(WIDE_TC)))
-    assert 4 * eval(" ".join(expr.split()), {}) == wide_work_bytes(129)
+            .replace("DN_WIDE_TC", str(WIDE_TC))
+            .replace("DN_PHASE_LIST", str(_define(phase, "DN_PHASE_LIST"))))
+    assert 4 * eval(" ".join(expr.split()), {}) == wide_smem_bytes(
+        "trim", cuda_nmf.PCL_MAX_P + 1, 64)
     disp = src[src.index("#define DN_DISPATCH_WIDE_P"):]
     assert [int(x) for x in re.findall(r"CALL\((\d+)\)", disp)[:4]] == \
         [48, 64, 96, 128]
@@ -261,8 +265,9 @@ def test_each_kernel_names_its_own_limit(kind):
     """Kernels 1-4 have no limit on p: p = 129, 256 and 1,000 pass their
     input checks and reach the panel instance through the dispatch and
     launch rules, within the card's shared memory a block.  Kernels 4c and
-    2c stop at 32: p = 33 raises ValueError naming that limit before
-    anything is launched (the engine gene-shards such a bucket instead).
+    2c stop at ``COLS_MAX_P`` (128, their wide instances): p = 129 raises
+    ValueError naming that limit before anything is launched (the engine
+    gene-shards such a bucket instead).
     Meta tensors stand for the card's: they take the wrappers' CUDA
     branch."""
     if not kind.startswith("cols"):
@@ -358,11 +363,13 @@ def test_wide_buckets_take_their_kernels(monkeypatch, p, widths):
         assert ("nmf_masked_cuda", (128, 1024)) not in got
 
 
-@pytest.mark.parametrize("p", [8, 40])
-def test_mesh_gene_shards_buckets_past_the_column_kernels(monkeypatch, p):
+@pytest.mark.parametrize("p", [8, 40, 129])
+def test_mesh_column_shards_buckets_up_to_the_column_kernels_limit(
+        monkeypatch, p):
     """On a two-shard CPU mesh a bucket at least ``seqpar_width`` wide is
-    column-sharded at p = 8 (kernels 4c and 2c); at p = 40, past their
-    limit of 32, the engine's shape rule gene-shards it, counts it in
+    column-sharded at p = 8 and p = 40 (kernels 4c and 2c, narrow and wide
+    instances: ``COLS_MAX_P`` is 128), nothing declined; at p = 129, past
+    their limit, the engine's shape rule gene-shards it, counts it in
     ``colshard_declined`` and never calls 4c or 2c."""
     calls = _record(monkeypatch)
     cov, X = make_dataset(seed=4, n=4, p=p, lengths=(700, 800, 900, 1000))
@@ -373,13 +380,16 @@ def test_mesh_gene_shards_buckets_past_the_column_kernels(monkeypatch, p):
     res = eng.run(cov, X)
     assert np.isfinite(res.rho).all()
     cols = {n for n, _ in calls if "colsharded" in n}
-    if p == 8:
+    assert cuda_nmf.COLS_MAX_P == cuda_nmf.WIDE_MAX_P == 128
+    if p <= cuda_nmf.COLS_MAX_P:
         assert cols == {"nmf_masked_colsharded_cuda",
                         "ratio_rowsums_colsharded_cuda"}
         assert eng.colshard_declined == 0
+        assert eng.column_sharded(eng._buckets[0])
+        assert ("nmf_masked_colsharded_cuda", (p, 512)) in calls
     else:
         assert not cols and eng.colshard_declined == 1
-        assert ("nmf_masked_cuda", (40, 1024)) in calls
+        assert ("nmf_masked_streamed_cuda", (p, 1024)) in calls
         assert not eng.column_sharded(eng._buckets[0])
 
 

@@ -32,9 +32,19 @@ sources as they are.  Prints one JSON line a run: CUDA-event ms of
   at nmf_tol=1e-4 with the iterations each gene ran) on resident genes of
   200-299 bases (LOOP: 512 x 704 x 64, and 256 genes at 768 x 64, 1,024 x
   64 and 1,153 x 56, ``chip_smoke.py`` phase ``panels``' shapes);
+* ``trimphase``: kernel 3 past 640 samples (3p-b, and its trim_fast and
+  nmf_tol rounds, 3ap-b and 3bp-b) on such resident genes: at 512 x 704 x
+  64 with the default floors, where no gene enters (the bucket step alone,
+  over TRIM_LIGHT_REPS calls by CUDA events and by the host's clock), and
+  with the kernel's min_gene_len and min_bins lowered to TRIM_FLOORS and
+  its rounds capped at TRIM_ROUNDS at 256 x 768 x 64 and 256 x 1,024 x 64
+  (every mode) and on 1,024 genes of 50-64 bases at 768 x 64 with every
+  gene that does not bail active (the p = 768 resident fit's bucket; the
+  default mode): ``chip_smoke.py`` phase ``panels``' shapes and data;
 
-each tree's outputs of ``past`` and ``loop`` (K, E, u of kernels 4 and 1,
-the row sums of kernel 2, kernel 1's iterations) saved to a temporary
+each tree's outputs of ``past``, ``loop`` and ``trimphase`` (K, E, u of
+kernels 4 and 1, the row sums of kernel 2, kernel 1's iterations, kernel
+3's K, rho, ran_bs, rounds and iterations) saved to a temporary
 directory and compared bit for bit with this tree's first run
 (``past_bits``);
 
@@ -65,7 +75,13 @@ BIG = ((64, 768, 16384), (4, 700, 2048))
 PAST = ((4, 1153, 2048), (8, 1222, 16384), (64, 1222, 16384),
         (2, 4096, 1024))
 LOOP = ((512, 704, 64), (256, 768, 64), (256, 1024, 64), (256, 1153, 56))
-PARTS = ("resident", "stream", "trim", "ratio", "big", "past", "loop")
+TRIM_PHASE = ((512, 704, 64, False), (256, 768, 64, True),
+              (256, 1024, 64, True))
+TRIM_FLOORS = (8, 2)          # min_gene_len, min_bins where lowered
+TRIM_ROUNDS = 4
+TRIM_LIGHT_REPS = 50
+PARTS = ("resident", "stream", "trim", "ratio", "big", "past", "loop",
+         "trimphase")
 
 
 def time_resident(cs, dev, nmf_cfg, eng, out):
@@ -258,6 +274,76 @@ def time_loop(cs, dev, nmf_cfg, eng, plain, out, arrays):
         torch.cuda.empty_cache()
 
 
+def time_trimphase(cs, dev, nmf_cfg, eng, plain, out, arrays):
+    """Kernel 3 at TRIM_PHASE in each mode (the bucket without rounds in
+    the default one) and on the p = 768 resident fit's bucket, its plain
+    version too where ``plain``; the outputs into ``arrays``."""
+    import time
+    import torch
+    from degnorm_tpu_torch.core import baseline
+    from degnorm_tpu_torch.ops import cuda_trim
+    modes = (("3p", {}), ("3ap", dict(trim_fast=True)),
+             ("3bp", dict(nmf_tol=cs.MODE_TOL)))
+    plain_cfg = dataclasses.replace(eng, use_kernels=False)
+    p_top = max(p for _, p, _, _ in TRIM_PHASE)
+    base = list(cs.synth_dataset(512, p_top, seed=cs.SEED + p_top,
+                                 lengths_fn=cs.short_lengths)[0].values())
+    rng = np.random.default_rng(cs.SEED + 13)
+
+    def run(tag, F, lm, lowered, all_active, modes):
+        ti = baseline.trim_inputs(F, lm, nmf_cfg, plain_cfg)
+        tkw = baseline.trim_kwargs(nmf_cfg, eng)
+        act = ti.active0
+        if lowered:
+            mgl, mb = TRIM_FLOORS
+            act = ~ti.bailed
+            if not all_active:
+                act &= ((ti.n_hi >= mgl) & (ti.rho0.amin(dim=1) <= 0.2)
+                        & (ti.rho0.amax(dim=1) > 0.1))
+            tkw = dict(tkw, min_gene_len=mgl, min_bins=mb,
+                       max_rounds=TRIM_ROUNDS)
+        targs = (ti.Fm, ti.bin_id, ti.bin_count, ti.K0, ti.E0, ti.rho0,
+                 ti.u0, ti.n_hi, ti.n_bins0, act)
+        out[f"entered_{tag}"] = int(act.sum())
+        for k, kw in modes:
+            it = torch.zeros(F.shape[0], dtype=torch.int32, device=dev)
+            res = cuda_trim.trim_loop_cuda(*targs, iters_out=it, **tkw, **kw)
+            for name, r in zip(("K", "rho", "ran_bs", "rounds", "iters"),
+                               (*res, it)):
+                arrays[f"{k}_{tag}.{name}"] = r.cpu().numpy()
+            out[f"rounds_{k}_{tag}"] = int(res[3].sum())
+            fn = (lambda: cuda_trim.trim_loop_cuda(*targs, **tkw, **kw))
+            reps = 1 if lowered else TRIM_LIGHT_REPS
+            out[f"{k}_{tag}"] = cs.time_ms(fn, reps)
+            if not lowered:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                out[f"{k}_host_{tag}"] = (time.perf_counter() - t0) * 1e3 / reps
+            if plain:
+                out[f"{k}_plain_{tag}"] = cs.time_ms(
+                    lambda: cuda_trim.trim_loop_plain(*targs, **tkw, **kw), 1,
+                    warm=False)
+
+    for G, p, W, lowered in TRIM_PHASE:
+        F, lm, _ = cs.resident_bucket(G, p, W, dev, rng, mats=base)
+        run(f"{G}x{p}x{W}", F, lm, lowered, False,
+            modes if lowered else modes[:1])
+        del F, lm
+        torch.cuda.empty_cache()
+    cov, _ = cs.synth_dataset(1024, 768, lengths_fn=cs.resident_lengths)
+    F = np.zeros((1024, 768, 64), np.float32)
+    lens = np.zeros(1024, np.int64)
+    for i, m in enumerate(cov.values()):
+        F[i, :, :m.shape[1]] = m
+        lens[i] = m.shape[1]
+    lm = torch.from_numpy(np.arange(64)[None, :] < lens[:, None]).to(dev)
+    run("1024x768x64", torch.from_numpy(F).to(dev), lm, True, True,
+        modes[:1])
+
+
 def past_bits(a_path, b_path):
     """Per array of two ``time_past`` files: the same bits, or the largest
     difference relative to max(|value|, 1) and how many values differ."""
@@ -305,6 +391,8 @@ def one(tree, plain, parts, save):
         time_past(cs, dev, nmf_cfg, plain, out, arrays)
     if "loop" in parts:
         time_loop(cs, dev, nmf_cfg, eng, plain, out, arrays)
+    if "trimphase" in parts:
+        time_trimphase(cs, dev, nmf_cfg, eng, plain, out, arrays)
     np.savez(save, **arrays)
     out = {k: round(v, 3) if isinstance(v, float) else v
            for k, v in out.items()}
@@ -379,7 +467,8 @@ def main(args):
             rec = {"tree": tree, "rc": r.returncode,
                    "result": json.loads(line) if r.returncode == 0
                    else r.stderr[-2000:]}
-            if ({"past", "loop"} & set(parts) and r.returncode == 0
+            if ({"past", "loop", "trimphase"} & set(parts)
+                    and r.returncode == 0
                     and i > 0):
                 rec["past_bits"] = past_bits(saves[i], saves[0])
             print(json.dumps(rec), flush=True)

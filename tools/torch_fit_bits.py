@@ -30,8 +30,8 @@ on ``chip_smoke.py``'s data, made from its seeds, and saves each fit's DI
 * ``panel_x768_resident``: phase ``panels``' resident fit past 640
   samples, RES_GENES genes of 50-64 bases at 768 samples with RES_WIDTHS
   (one bucket of W = 64, resident: kernel 2 on clusters of six blocks,
-  kernel 1 past its cluster layout, kernel 3 on its block layout; 1
-  iteration).
+  kernels 1 and 3 past their cluster layout; no gene enters the trim
+  rounds; 1 iteration).
 
 Every case by default; naming CASEs saves only those.
 
