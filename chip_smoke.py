@@ -298,16 +298,31 @@ def bound_nmf(F, mask, act, nmf_iter, iters=None, tc=False):
                  + float((cols_g * iters.double()).sum()) * per_it)
 
 
-def bound_stream(F, mask, act, nmf_iter):
+def bound_stream(F, mask, act, nmf_iter, tc=False):
     """Kernel 4: kernel 1's operations on the active columns; each active
     gene's coverage read once in the type it arrives in (2 bytes an element
-    for int16) with its mask row, E and the two p-vectors written."""
+    for int16) with its mask row, E and the two p-vectors written; ``tc``:
+    the Gram by 3xTF32 on the tensor cores (``nmf_ops_per_column``)."""
     G, p, W = F.shape
     ga = int(act.sum())
     cols = int(mask[act].sum())
     byts = (ga * (p * W * F.element_size() + W)
             + G * (W * 4 + 2 * p * 4) + G)
-    return bound(byts, cols * nmf_ops_per_column(p, nmf_iter))
+    return bound(byts, cols * nmf_ops_per_column(p, nmf_iter, tc))
+
+
+def floor_cols_sweeps(F, mask, act, nmf_iter):
+    """Kernel 4c's floor as a launch a sweep (csrc/stream_cols_wide.cuh):
+    every active column's X through device memory each sweep, as the
+    design makes it go, with A0 read again (2 bytes an int16 element):
+    launch (a) reads A0 and writes X, each of the ``nmf_iter`` sweeps reads
+    and writes X and reads A0, the finish reads X; ms at PEAK_BYTES_PER_S,
+    beside ``bound_stream``'s ideal bound (each input read once)."""
+    p = F.shape[1]
+    cols = int(mask[act].sum())
+    a = F.element_size()
+    byts = cols * p * ((a + 4) + nmf_iter * (8 + a) + 4)
+    return byts / PEAK_BYTES_PER_S * 1e3
 
 
 def bound_ratio(F, mask, full=False):
@@ -717,6 +732,7 @@ MODE_TOL = 1e-4
 # (about 32 iterations a gene on the narrow workload): phase kernels holds
 # the nmf_tol branches there too, so that their checks see the freeze
 FREEZE_TOL = 1e-3
+NEVER_TOL = 1e-30     # no gene meets it: the adaptive instances, no freeze
 BRANCHES = {
     "nmf_masked[nmf_tol]": (
         "nmf_masked", dict(nmf_tol=MODE_TOL), "degnorm_tpu_torch/csrc/nmf_tol.cu",
@@ -2808,6 +2824,17 @@ COLS_WIDE_GENES = 64
 COLS_WIDE_W = 65536
 TTN_WIDE_P = 128
 TTN_WIDE_ITER = 1
+# ... and at the edges of their layout at every PMAX, on COLS_EDGE_GENES
+# genes x p x COLS_EDGE_W cut at COLS_EDGE_CUT: a shard of odd width (rows
+# not 16-byte aligned, which the producer warp loads itself) beside one
+# whose rows are, and half the genes with no active column on the second
+COLS_EDGE_P = (41, 64, 96, 128)
+# ... and timed at COLS_ODD_P on COLS_WIDE_GENES x p x COLS_WIDE_W cut into
+# shards of odd widths, beside the engine's cut (multiples of CHUNK)
+COLS_ODD_P = (48, 128)
+COLS_EDGE_GENES = 16
+COLS_EDGE_W = 20001
+COLS_EDGE_CUT = 10001
 
 
 def cut_columns(raw, lm, n):
@@ -2855,6 +2882,12 @@ def synth_wide_bucket(lengths, p, W, seed, device):
 EARLIER_MS = {"p3": (14.382, 0.478), "p8": (22.663, 0.6784),
               "p16": (45.636, 1.5759), "p32": (95.465, 3.6461),
               "outlier": (13.548, 0.645)}
+# ... and of their wide instances on their first design (a block's tiles
+# staged in lockstep, the power step in every block), the same card and
+# limit, the shapes of phase seqpar (none kept for 2c on the TTN-like genes)
+EARLIER_MS.update({"wide33": (66.72, 1.68), "wide48": (69.51, 1.655),
+                   "wide64": (98.07, 2.89), "wide96": (228.57, 4.24),
+                   "wide128": (455.80, 12.93), "ttn128": (79.05, None)})
 
 
 def host_us_a_sweep(run, sweeps):
@@ -2870,15 +2903,16 @@ def host_us_a_sweep(run, sweeps):
 
 
 def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
-                        i16_vs_f32=False, tol_tip=0, ref64=False):
+                        i16_vs_f32=False, tol_tip=0, ref64=False, cut=None,
+                        need_freeze=False, odd_cut=None):
     """Kernels 4c and 2c on a bucket of ``genes`` real genes (the rest of
     its slots padding, as the engine packs it) cut along its columns into
     one shard a ``mesh`` device (both on the card), each against its plain
     version on the same shards: 4c on the raw int16 + scale form with every
     7th slot from the 7th on inactive (zeros out), K, E, u within
-    STREAM_RTOL of max(|value|, 1), K
-    and u bit-equal on every shard; 2c on the raw int16 upload, the row sums
-    bit-equal on every shard and within STREAM_RTOL.  Each kernel runs
+    STREAM_RTOL of max(|value|, 1), K and u bit-equal on every shard (K =
+    u s: so s too); 2c on the raw int16 upload, the row sums bit-equal on
+    every shard and within STREAM_RTOL.  Each kernel runs
     twice and must give the same bits.  Beside them kernel 4 and kernel 2
     on the whole bucket.  Times: one column-sharded call over all shards
     (its launches and reductions, CUDA events) beside the time before the
@@ -2892,14 +2926,25 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
     max(|value|, 1) on >= 99% of the genes (a gene whose freeze falls on
     another iteration in float32 differs more; ``tol_tip``: at least that
     many genes may, as check_nmf_phase_at allows max(2, 1%) of a bucket of
-    a few dozen active genes).  ``i16_vs_f32``: 4c on
+    a few dozen active genes); the genes the kernel froze (its outputs
+    differ from those of the same instances at NEVER_TOL, which no gene
+    meets) must be the plain loop's (found the same way), bar as many, and
+    with ``need_freeze`` some gene must freeze.  ``i16_vs_f32``: 4c on
     the float32 coverage the engine's order gives (raw / scale) and 2c on
     the float32 cast of the raw coverage must give the raw int16 form's
     bits on every shard.  ``ref64``: 2c is held against its plain version
     in float64 (at 33-128 samples the float32 plain version's own est_sums
     drift up to 1.4e-5 from float64, over the 1e-5 the check holds, while
     the kernel's stay under 5e-7), the float32 plain version's gap to it
-    recorded beside."""
+    recorded beside.  ``cut``: the two shards are columns [0, cut) and
+    [cut, W) of the bucket as they are, of widths that need not be
+    multiples of 8 (the wide instances' rows not 16-byte aligned), not
+    ``cut_columns``'s.  Beside the bound, the floor of a launch a sweep
+    (``floor_cols_sweeps``).  Launches and gather asks a call must be
+    ``cuda_stream.cols_calls`` / ``ratio_cols_calls`` a shard.
+    ``odd_cut``: both kernels timed also on the bucket cut at that column
+    into two shards of odd widths (the wide instances' producer warp fills
+    their stages by its own loads), beside ``ms``."""
     import torch
     from degnorm_tpu_torch import EngineConfig, NMFConfig
     from degnorm_tpu_torch.core import baseline
@@ -2909,8 +2954,15 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
     G, p, W = raw.shape
     group = ColumnGroup(mesh, W, genes=genes)
     cols = group.columns()
-    shards = cut_columns(raw, lm, len(cols))
-    geometry = list(cuda_stream.pick_cols_geometry(genes, p, group.width))
+    if cut is None:
+        shards = cut_columns(raw, lm, len(cols))
+    elif len(cols) == 2:
+        shards = [(raw[:, :, :cut].contiguous(), lm[:, :cut].contiguous()),
+                  (raw[:, :, cut:].contiguous(), lm[:, cut:].contiguous())]
+    else:
+        raise ValueError("check_colsharded_at: cut takes two shards")
+    geometry = list(cuda_stream.pick_cols_geometry(genes, p,
+                                                   shards[0][0].shape[2]))
     earlier = EARLIER_MS.get(tag, (None, None))
     scale = torch.linspace(0.8, 1.25, p, device=raw.device)
     act = torch.ones(G, dtype=torch.bool, device=raw.device)
@@ -2940,6 +2992,10 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
     launches, reductions, gathers = (cuda_stream.colsharded_launches - l0,
                                      group.reductions - r0,
                                      group.gathers - q0)
+    calls = cuda_stream.cols_calls(p, NMF_ITER)
+    if (launches, gathers) != (len(cols) * calls[0], calls[1]):
+        raise AssertionError(f"nmf_colsharded p={p}: {launches} launches and "
+                             f"{gathers} gathers, not {calls} a shard")
     same_bits(got, nmf(cuda_stream.nmf_masked_colsharded_cuda),
               "nmf_colsharded")
     if i16_vs_f32:
@@ -2989,23 +3045,49 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
         if int(bad.sum()) > max(tol_tip, 0.01 * n_act):
             raise AssertionError(f"nmf_colsharded[nmf_tol] p={p} W={W}: "
                                  f"{int(bad.sum())} of {n_act} genes differ")
+
+        def froze(a, fn):
+            # the genes whose outputs differ from a loop that freezes none
+            b = run_steps(fn(Fs, ms, c, **dict(tkw, nmf_tol=NEVER_TOL))
+                          for (Fs, ms), c in zip(shards, cols))
+            out = torch.zeros(G, dtype=torch.bool, device=raw.device)
+            for x, y in zip(a, b):
+                for u, v in zip(x, y):
+                    out |= (u != v).flatten(1).any(dim=1)
+            return out
+        fk = froze(got, cuda_stream.nmf_masked_colsharded_cuda)
+        fp = froze(want, cuda_stream.nmf_masked_colsharded_plain)
+        n_fk, n_diff = int(fk.sum()), int((fk ^ fp).sum())
+        if (need_freeze and n_fk == 0) or n_diff > max(tol_tip,
+                                                          0.01 * n_act):
+            raise AssertionError(
+                f"nmf_colsharded[nmf_tol] p={p} W={W}: {n_fk} genes froze "
+                f"(the plain loop: {int(fp.sum())}), {n_diff} differ")
         tol_rec = dict(tol=FREEZE_TOL, launches_per_nmf=tol_launches,
                        genes_off=int(bad.sum()), active_genes=n_act,
-                       genes_off_allowed=max(tol_tip, int(0.01 * n_act)))
+                       genes_off_allowed=max(tol_tip, int(0.01 * n_act)),
+                       frozen=n_fk, frozen_plain=int(fp.sum()),
+                       frozen_differ=n_diff)
         del got, want
     b_ms, b_by = bound_stream(raw, lm, act, NMF_ITER)
+    # the wide instances' Gram runs by 3xTF32 on the tensor cores
+    b_tc = (bound_stream(raw, lm, act, NMF_ITER, tc=True)[0]
+            if p > cuda_nmf.NARROW_MAX_P else None)
+    floor = floor_cols_sweeps(raw, lm, act, NMF_ITER)
     s0, q0 = group.gather_seconds, group.gathers
     host4 = host_us_a_sweep(
         lambda: nmf(cuda_stream.nmf_masked_colsharded_cuda), NMF_ITER + 1)
     answer4 = round((group.gather_seconds - s0) / (group.gathers - q0) * 1e6,
                     2)
     rec4 = dict(
-        shape=[G, p, W], shards=len(cols), shard_width=group.width,
+        shape=[G, p, W], shards=len(cols),
+        shard_width=[int(Fs.shape[2]) for Fs, _ in shards],
         geometry=geometry, i16_bits_of_f32=i16_vs_f32 or None,
         launches_per_nmf=launches,
         gathers_per_nmf=gathers, reductions_per_nmf=reductions,
         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
         kernel4_whole_rel_err=vs4, bound_ms=b_ms, bound_by=b_by,
+        bound_tc_ms=b_tc, floor_ms=floor,
         ms=time_ms(lambda: nmf(cuda_stream.nmf_masked_colsharded_cuda), reps),
         earlier_ms=earlier[0], host_us_a_sweep=host4,
         host_us_an_answer=answer4,
@@ -3018,6 +3100,10 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
     launches, reductions, gathers = (cuda_nmf.ratio_cols_launches - l0,
                                      group.reductions - r0,
                                      group.gathers - q0)
+    calls = cuda_stream.ratio_cols_calls(p)
+    if (launches, gathers) != (len(cols) * calls[0], calls[1]):
+        raise AssertionError(f"ratio_colsharded p={p}: {launches} launches "
+                             f"and {gathers} gathers, not {calls} a shard")
     same_bits(got, ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
               "ratio_colsharded")
     if i16_vs_f32:
@@ -3063,6 +3149,23 @@ def check_colsharded_at(raw, lm, mesh, tag, genes, reps=2, tol_check=False,
             RATIO_REPS),
         plain_ms=time_ms(lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_plain),
                          1, warm=False))
+    if odd_cut is not None:
+        shards = [(raw[:, :, :odd_cut].contiguous(),
+                   lm[:, :odd_cut].contiguous()),
+                  (raw[:, :, odd_cut:].contiguous(),
+                   lm[:, odd_cut:].contiguous())]
+        widths = [int(Fs.shape[2]) for Fs, _ in shards]
+        if not all(w % 2 for w in widths):
+            raise ValueError("check_colsharded_at: odd_cut must leave two "
+                             "shards of odd width")
+        rec4["odd_cut"] = dict(
+            shard_width=widths,
+            ms=time_ms(lambda: nmf(cuda_stream.nmf_masked_colsharded_cuda),
+                       reps))
+        rec2["odd_cut"] = dict(
+            shard_width=widths,
+            ms=time_ms(lambda: ratio(cuda_nmf.ratio_rowsums_colsharded_cuda),
+                       RATIO_REPS))
     del shards
     return {"nmf_colsharded": rec4, "ratio_colsharded": rec2}
 
@@ -3149,9 +3252,28 @@ def phase_seqpar(cov_wide, X_wide, wide, long_tail):
         kres[f"wide{p}"] = check_colsharded_at(
             raw_w[:, :p].contiguous(), lm_w, mesh, f"wide{p}",
             COLS_WIDE_GENES, reps=1, tol_check=True, i16_vs_f32=True,
-            tol_tip=2, ref64=True)
+            tol_tip=2, ref64=True, need_freeze=True,
+            odd_cut=COLS_WIDE_W // 2 + 1 if p in COLS_ODD_P else None)
         torch.cuda.empty_cache()
     del raw_w, lm_w
+    # ... at the edges of their layout
+    rng = np.random.default_rng(SEED + 12)
+    half = COLS_EDGE_GENES // 2
+    lengths = np.concatenate([
+        rng.integers(COLS_EDGE_CUT // 5, COLS_EDGE_CUT + 1, half),
+        rng.integers(COLS_EDGE_CUT + 1, COLS_EDGE_W + 1,
+                     COLS_EDGE_GENES - half)])
+    raw_e, lm_e = synth_wide_bucket(lengths, max(COLS_EDGE_P), COLS_EDGE_W,
+                                    SEED + 12, dev)
+    if not bool((~lm_e[:, COLS_EDGE_CUT:].any(dim=1)).any()):
+        raise AssertionError("seqpar: no gene without a column on shard 1")
+    for p in COLS_EDGE_P:
+        kres[f"edge{p}"] = check_colsharded_at(
+            raw_e[:, :p].contiguous(), lm_e, mesh, f"edge{p}",
+            COLS_EDGE_GENES, reps=1, tol_check=True, i16_vs_f32=True,
+            tol_tip=2, ref64=True, cut=COLS_EDGE_CUT, need_freeze=True)
+    del raw_e, lm_e
+    torch.cuda.empty_cache()
     # ... and the TTN-like genes at TTN_WIDE_P samples, a bucket of three
     cov_t, _ = ttn_dataset(TTN_WIDE_P)
     W = -(-max(m.shape[1] for m in cov_t.values()) // 128) * 128
@@ -3970,6 +4092,7 @@ def phase_wide_p():
         column_sharded_buckets=n_col, bucket_genes=len(cov_e),
         steady_s=rec_two["steady_wall_s"],
         one_device_steady_s=rec_one["steady_wall_s"],
+        cold_s=rec_two["wall_s"], one_device_cold_s=rec_one["wall_s"],
         steady_vs_one_device=round(rec_two["steady_wall_s"]
                                    / rec_one["steady_wall_s"] - 1, 4),
         reductions=eng_two.reductions,
@@ -3983,7 +4106,10 @@ def phase_wide_p():
         rho_within_1e5=bool(np.abs(two.rho - one.rho).max() <= 1e-5))
     print(f"wide_p (e) p={WIDE_P_MESH_P}: column-sharded against one device: "
           f"DI max |diff| {mesh_rec['rho_max_abs_diff']:.3e}, adjusted "
-          f"{mesh_rec['x_adj_max_rel_diff']:.3e} (relative)", flush=True)
+          f"{mesh_rec['x_adj_max_rel_diff']:.3e} (relative); steady "
+          f"{mesh_rec['steady_s']} s (one device "
+          f"{mesh_rec['one_device_steady_s']}), cold {mesh_rec['cold_s']} s "
+          f"(one device {mesh_rec['one_device_cold_s']})", flush=True)
     del cov_e, X_e, one, two, eng_two
     torch.cuda.empty_cache()
     secs["e"] = time.perf_counter() - t0
@@ -4034,13 +4160,14 @@ def cols_wide_records(seqpar, wide):
     from degnorm_tpu_torch.ops import cuda_nmf
     col_kres, _ = seqpar
     _, launches, _ = wide
-    keys = ("shape", "geometry", "ms", "plain_ms", "bound_ms", "bound_by",
+    keys = ("shape", "shard_width", "geometry", "ms",
+            "plain_ms", "bound_ms", "bound_by", "bound_tc_ms", "floor_ms",
             "max_abs_err", "nmf_tol")
     main = f"wide{cuda_nmf.pmax_of(WIDE_P_MESH_P)}"
     out = []
     for name, (key, src) in COLS_WIDE_INSTANCES.items():
         recs = {k: v[key] for k, v in col_kres.items()
-                if k.startswith("wide") or k == f"ttn{TTN_WIDE_P}"}
+                if k.startswith(("wide", "edge")) or k == f"ttn{TTN_WIDE_P}"}
         m = recs[main]
         out.append({
             "name": name, "route": "cuda", "source": src,

@@ -144,23 +144,25 @@ static int ratio_cols_form(const void* F, const uint8_t* mask,
 // launch 1; sums (G, 2p): this shard's row sums of A0, then of max(K E,
 // A0).  nb > 1: bpart (G, nb, 2p) the blocks' partials, tickets (G) zero.
 // 33 <= p <= 128: the wide instance (stream_cols_wide.cuh, compiled in
-// ratio_cols_wide.cu), DN_WIDE_THREADS threads a block.
+// ratio_cols_wide.cu), DN_WCR_THREADS threads a block, two kernels (the cold
+// power step once a gene, then the row sums), ws (G (2p + 1) floats) their
+// u, K and s.
 extern "C" int dn_ratio_cols_sums(const void* F, int f_is_i16,
                                   const uint8_t* mask, const float* parts,
                                   int S, const int* ncols, float* sums,
-                                  float* bpart, int* tickets, int G, int p,
-                                  int W, int power_cold, int nb, int threads,
-                                  void* stream) {
+                                  float* bpart, int* tickets, float* ws,
+                                  int G, int p, int W, int power_cold, int nb,
+                                  int threads, void* stream) {
   if (threads % 32 != 0 || threads < 32 || p < 1 || p > DN_WIDE_MAX_P ||
       nb < 1 || S < 1 || (size_t)G * nb > 0x7fffffffu ||
       (nb > 1 && (bpart == nullptr || tickets == nullptr)) ||
-      (p >= DN_WIDE_MIN_P && threads != DN_WIDE_THREADS))
+      (p >= DN_WIDE_MIN_P && (threads != DN_WCR_THREADS || ws == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (G == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (p >= DN_WIDE_MIN_P)
     return dn_wratio_cols(F, f_is_i16, mask, parts, S, ncols, sums, bpart,
-                          tickets, G, p, W, power_cold, nb, st);
+                          tickets, ws, G, p, W, power_cold, nb, threads, st);
   return f_is_i16 ? ratio_cols_form<true>(F, mask, parts, S, ncols, sums,
                                           bpart, tickets, G, p, W,
                                           power_cold, nb, threads, st)

@@ -1,10 +1,12 @@
 // Kernel 4c's C entry points (and kernel 2c's Gram launch); the kernels are
 // stream_cols.cuh, their template instances compiled in
 // stream_cols_<f32|i16|tol>.cu, and for 33 <= p <= 128 the wide instances
-// of stream_cols_wide.cuh (stream_cols_wide_<f32|i16|tol>.cu), whose block
-// is DN_WIDE_THREADS threads.  Every launch has G * nb blocks of
-// `threads`: nb blocks a gene.  A gene's packed partial Gram is NG =
-// PMAX (PMAX + 1) / 2 floats (PMAX the template instance of p).
+// of stream_cols_wide.cuh (stream_cols_wide_<f32|i16|tol>.cu), whose sweep
+// block is DN_WCR_THREADS threads and whose launches (b) and (c) are two
+// kernels each: the power step once a gene, then the blocks' sweep (or E).
+// Every launch has G * nb blocks of `threads`: nb blocks a gene.  A gene's
+// packed partial Gram is NG = PMAX (PMAX + 1) / 2 floats (PMAX the
+// template instance of p).
 #include "stream_cols_wide.cuh"
 
 static int cols_dispatch(int f_is_i16, int which, const ColsArgs& a) {
@@ -17,6 +19,7 @@ static int cols_dispatch(int f_is_i16, int which, const ColsArgs& a) {
   if (which < 2 && a.nb > 1 && (a.bpart == nullptr || a.tickets == nullptr))
     return (int)cudaErrorInvalidValue;
   if (a.p >= DN_WIDE_MIN_P) {
+    if (which == 2 && a.s_fin == nullptr) return (int)cudaErrorInvalidValue;
     if (a.tol > 0.f && which > 0) return dn_wcols_tol(f_is_i16, which, a);
     return f_is_i16 ? dn_wcols_i16(which, a) : dn_wcols_f32(which, a);
   }
@@ -99,14 +102,15 @@ extern "C" int dn_cols_sweep(const void* F, int f_is_i16, const uint8_t* mask,
 
 // (c) u, s refit from the S shards' partials `parts` summed; K = u s (G,
 // p), E = X^T u / (s + eps) on the shard's columns (G, W), u_out.  tol > 0:
-// a gene frozen in done keeps s_in and u_in.
+// a gene frozen in done keeps s_in and u_in.  s_fin (G): the wide
+// instances' s between their two kernels (unused at p <= 32).
 extern "C" int dn_cols_finish(const uint8_t* mask, const uint8_t* act,
                               const float* X, const float* parts, int S,
                               int* ncols, const float* u_in, float* K,
                               float* E, float* u_out, const float* s_in,
-                              const uint8_t* done, float tol, int G, int p,
-                              int W, int n_squared, int n_plain, int nb,
-                              int threads, void* stream) {
+                              float* s_fin, const uint8_t* done, float tol,
+                              int G, int p, int W, int n_squared, int n_plain,
+                              int nb, int threads, void* stream) {
   ColsArgs a = {};
   a.mask = mask;
   a.act = act;
@@ -119,6 +123,7 @@ extern "C" int dn_cols_finish(const uint8_t* mask, const uint8_t* act,
   a.E = E;
   a.u_out = u_out;
   a.s_in = s_in;
+  a.s_fin = s_fin;
   a.done = (uint8_t*)done;
   a.tol = tol;
   a.G = G;

@@ -558,6 +558,7 @@ struct ColsArgs {
   float* E;
   const float* s_in;  // ADAPT: s carried from launch to launch
   float* s_out;
+  float* s_fin;       // the wide finish: s of its refit (G)
   uint8_t* done;      // ADAPT: the frozen genes
   float tol;
   int it;

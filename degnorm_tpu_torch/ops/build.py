@@ -80,12 +80,12 @@ _SIGNATURES = {
     # n_squared, n_plain, nb, threads, stream
     "dn_cols_sweep": [_P, _I] + [_P] * 5 + [_I] + [_P] * 9 + [_F]
                      + [_I] * 9 + [_P],
-    # mask, act, X, parts, S, ncols, u_in, K, E, u_out, s_in, done, tol, G,
-    # p, W, n_squared, n_plain, nb, threads, stream
-    "dn_cols_finish": [_P] * 4 + [_I] + [_P] * 7 + [_F] + [_I] * 7 + [_P],
+    # mask, act, X, parts, S, ncols, u_in, K, E, u_out, s_in, s_fin, done,
+    # tol, G, p, W, n_squared, n_plain, nb, threads, stream
+    "dn_cols_finish": [_P] * 4 + [_I] + [_P] * 8 + [_F] + [_I] * 7 + [_P],
     # kernel 2c's second launch: F, f_is_i16, mask, parts, S, ncols, sums,
-    # bpart, tickets, G, p, W, power_cold, nb, threads, stream
-    "dn_ratio_cols_sums": [_P, _I, _P, _P, _I] + [_P] * 4 + [_I] * 6 + [_P],
+    # bpart, tickets, ws, G, p, W, power_cold, nb, threads, stream
+    "dn_ratio_cols_sums": [_P, _I, _P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P],
 }
 
 

@@ -975,7 +975,10 @@ def ratio_rowsums_colsharded_cuda(
     the group's buffer (kernel 4c's launch (a), with no X); a second sums
     every shard's partial (``cols.gather_``: unsummed, in shard order), runs
     the cold power step on the sum and writes the partial row sums of A0
-    and of max(K⊗E, A0), which are summed across the shards (``cols.sum_``).
+    and of max(K⊗E, A0), which are summed across the shards (``cols.sum_``);
+    past NARROW_MAX_P the power step is a kernel of its own, once a gene,
+    its u, K and s in a workspace of G (2p + 1) floats
+    (``cuda_stream.ratio_cols_calls``).
     Takes float32 coverage or the raw int16 upload as it is, 2 <= p <=
     COLS_MAX_P (above NARROW_MAX_P the wide instance); a gene's
     columns are spread over the blocks of
@@ -1006,6 +1009,9 @@ def ratio_rowsums_colsharded_cuda(
     ncols, tickets = counts[0], counts[1]
     bpart = (torch.empty((G, nb, max(ng, 2 * p)), dtype=torch.float32,
                          device=dev) if nb > 1 else None)
+    wide = p > NARROW_MAX_P
+    ws = (torch.empty(G * (2 * p + 1), dtype=torch.float32, device=dev)
+          if wide else None)
     lib = get_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1021,9 +1027,10 @@ def ratio_rowsums_colsharded_cuda(
         check_launch(lib.dn_ratio_cols_sums(
             F.data_ptr(), i16, m8.data_ptr(), parts.data_ptr(), cols.count,
             ncols.data_ptr(), sums.data_ptr(), _ptr(bpart),
-            tickets.data_ptr(), G, p, W, int(power_iters), nb, threads,
-            stream), "dn_ratio_cols_sums")
-        ratio_cols_launches += 1
-        ratio_cols_wide_launches += p > NARROW_MAX_P
+            tickets.data_ptr(), _ptr(ws), G, p, W, int(power_iters), nb,
+            threads, stream), "dn_ratio_cols_sums")
+        per = cuda_stream.cols_step_kernels(p)
+        ratio_cols_launches += per
+        ratio_cols_wide_launches += per * wide
     sums = yield from cols.sum_(sums)
     return sums[:, :p], sums[:, p:]

@@ -115,12 +115,38 @@ def pick_geometry(W: int, p: int) -> Tuple[int, int]:
 # Columns a thread of kernels 4c and 2c is dealt where a gene is spread over
 # several blocks (the committed sweep: ``chip_smoke.py --sweep``, PERF.md).
 COLS_A_THREAD = 4
-# The most columns a block of their wide instances is dealt: its register
-# tile sums each Gram entry over the block's columns in one chain, and a
-# chain over a whole shard of the long tail's bucket (32,768 columns) left
-# the row sums of kernel 2c 1.1e-5 from the plain version; chains of at
-# most this many keep it within the 1e-5 the narrow instances hold.
+# The most columns a block of their wide instances is dealt: its Gram sums
+# each entry over the block's columns in one chain, and a chain over a whole
+# shard of the long tail's bucket (32,768 columns) left the row sums of
+# kernel 2c 1.1e-5 from the plain version; chains of at most this many keep
+# it within the 1e-5 the narrow instances hold.
 COLS_WIDE_BLOCK_COLS = 1024
+
+# Threads of a sweep block of kernels 4c and 2c's wide instances
+# (csrc/stream_cols_wide.cuh's DN_WCR_THREADS): eight consumer warps and a
+# producer warp, which streams the block's tiles through a ring of stages
+# (its layout and the static_assert that it fits are in the header).
+COLS_WIDE_THREADS = 288
+
+
+def cols_step_kernels(p: int) -> int:
+    """Kernels a launch of kernel 4c's sweep or finish, or of kernel 2c's
+    row sums, runs: past NARROW_MAX_P two (the power step once a gene, then
+    the blocks), else one."""
+    return 2 if p > cuda_nmf.NARROW_MAX_P else 1
+
+
+def cols_calls(p: int, nmf_iter: int) -> Tuple[int, int]:
+    """(kernel launches, gather asks) of a call of kernel 4c on a shard:
+    (a), a sweep an iteration and the finish (``cols_step_kernels`` each)."""
+    return 1 + cols_step_kernels(p) * (nmf_iter + 1), nmf_iter + 1
+
+
+def ratio_cols_calls(p: int) -> Tuple[int, int]:
+    """(kernel launches, gather asks) of a call of kernel 2c on a shard
+    (one sum of the row sums besides): the Gram, then the row sums
+    (``cols_step_kernels``)."""
+    return 1 + cols_step_kernels(p), 1
 
 
 def pick_cols_geometry(G: int, p: int, W: int,
@@ -135,13 +161,13 @@ def pick_cols_geometry(G: int, p: int, W: int,
     (``block_columns``); it gets a thread for ``COLS_A_THREAD`` of its
     columns, in whole warps within the instance's bound; p >
     ``cuda_nmf.NARROW_MAX_P`` (the wide instances,
-    csrc/stream_cols_wide.cuh) WIDE_THREADS, whatever its share, and
+    csrc/stream_cols_wide.cuh) COLS_WIDE_THREADS, whatever its share, and
     enough blocks that none is dealt more than COLS_WIDE_BLOCK_COLS."""
     chunks = max(1, -(-W // CHUNK))
     nb = max(1, min(-(-n_sm // max(G, 1)), chunks))
     if p > cuda_nmf.NARROW_MAX_P:
         nb = max(nb, -(-chunks // (COLS_WIDE_BLOCK_COLS // CHUNK)))
-        return nb, cuda_nmf.WIDE_THREADS
+        return nb, COLS_WIDE_THREADS
     share = block_share(W, nb)
     threads = min(cuda_nmf.max_loop_threads(p),
                   max(32, (-(-share // COLS_A_THREAD) + 31) // 32 * 32))
@@ -412,17 +438,21 @@ def nmf_masked_colsharded_cuda(
     the sum (every shard the same one, so u is bit-equal everywhere), one
     merged sweep of the shard's columns and the next partial Gram; a
     finishing launch refits u and s and writes K and the shard's columns of
-    E.  ``nmf_iter + 2`` launches and ``nmf_iter + 1`` gathers a call.
+    E.  ``nmf_iter + 2`` launches and ``nmf_iter + 1`` gathers a call; past
+    ``cuda_nmf.NARROW_MAX_P`` each sweep and the finish are two kernels,
+    the power step once a gene and then the blocks, ``2 nmf_iter + 3``
+    (``cols_calls``).
     ``nmf_tol > 0`` launches the adaptive instances
     (csrc/stream_cols_tol.cu): a gene freezes on the summed Gram's refit, as
     in the plain version, and adds zero partials from then on.  Takes
     float32 coverage, or int16 coverage with or without ``scale``, of any
     width, 2 <= p <= ``cuda_nmf.COLS_MAX_P`` (128; above
     ``cuda_nmf.NARROW_MAX_P`` the wide instances of
-    csrc/stream_cols_wide.cuh, a block's columns staged in tiles and its
-    Gram a register tile, wide.cuh's); a gene outside
-    ``gene_active`` writes zero partials, so every shard reduces as often.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises
+    csrc/stream_cols_wide.cuh, a block's tiles streamed through a ring of
+    stages by a producer warp and the Gram's upper triangle on the tensor
+    cores); a gene outside ``gene_active`` writes zero
+    partials, so every shard reduces as often.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises
     (``method="eigh"`` has no kernel: ``core/nmf.py`` routes it to the plain
     version).  A gene's columns are spread over the blocks of
     ``pick_cols_geometry`` for the bucket's genes (``cols.genes``);
@@ -473,10 +503,14 @@ def nmf_masked_colsharded_cuda(
     bpart = (torch.empty((G, nb, ng), dtype=f32, device=dev) if nb > 1
              else None)
     tol = float(nmf_tol)
-    # the adaptive instances carry s and the frozen genes between launches
+    wide = p > cuda_nmf.NARROW_MAX_P
+    per = cols_step_kernels(p)  # kernels a sweep's and the finish's launch
+    # the adaptive instances carry s and the frozen genes between launches;
+    # the wide finish hands s from its power step to its E kernel (row 2)
     ss = done = None
+    if tol > 0 or wide:
+        ss = torch.empty((3, G), dtype=f32, device=dev)
     if tol > 0:
-        ss = torch.empty((2, G), dtype=f32, device=dev)
         done = torch.zeros(G, dtype=torch.uint8, device=dev)
     ncols, tickets = counts[0], counts[1]
     me, S = cols.shard, cols.count
@@ -486,7 +520,9 @@ def nmf_masked_colsharded_cuda(
     views = (slots[0], slots[1])
     mine = (slots[0, me].data_ptr(), slots[1, me].data_ptr())
     u_at = (us[0].data_ptr(), us[1].data_ptr())
-    s_at = (None, None) if ss is None else (ss[0].data_ptr(), ss[1].data_ptr())
+    s_at = ((None, None) if tol <= 0
+            else (ss[0].data_ptr(), ss[1].data_ptr()))
+    s_fin = ss[2].data_ptr() if wide else None
     f_p, m_p, a_p, sc_p, x_p = (F.data_ptr(), m8.data_ptr(), ptr(act8),
                                 ptr(sc), X.data_ptr())
     b_p, t_p, n_p, d_p = (ptr(bpart), tickets.data_ptr(), ncols.data_ptr(),
@@ -497,7 +533,7 @@ def nmf_masked_colsharded_cuda(
             f_p, i16, m_p, a_p, sc_p, x_p, mine[0], b_p, t_p, n_p, G, p, W,
             nb, threads, stream), "dn_cols_gram")
     colsharded_launches += 1
-    colsharded_wide_launches += p > cuda_nmf.NARROW_MAX_P
+    colsharded_wide_launches += wide
     parts = yield from cols.gather_(views[0])
     u_in = None if u0 is None else u0.to(f32).contiguous()
     u_p, s_p = ptr(u_in), None
@@ -511,9 +547,9 @@ def nmf_masked_colsharded_cuda(
                 u_at[q], mine[q], b_p, t_p, s_p, s_at[q], d_p, tol, it, G, p,
                 W, int(nmf_iter), int(n_sq), int(n_plain), nb, threads,
                 stream), "dn_cols_sweep")
-        colsharded_launches += 1
-        colsharded_tol_launches += tol > 0
-        colsharded_wide_launches += p > cuda_nmf.NARROW_MAX_P
+        colsharded_launches += per
+        colsharded_tol_launches += per * (tol > 0)
+        colsharded_wide_launches += per * wide
         u_p, s_p = u_at[q], s_at[q]
         parts = yield from cols.gather_(views[q])
     n_sq, n_plain = ((power_iters_cold, 0) if nmf_iter == 0
@@ -521,9 +557,9 @@ def nmf_masked_colsharded_cuda(
     with torch.cuda.device(dev):
         check_launch(lib.dn_cols_finish(
             m_p, a_p, x_p, parts.data_ptr(), S, n_p, u_p, K.data_ptr(),
-            E.data_ptr(), u.data_ptr(), s_p, d_p, tol, G, p, W, int(n_sq),
-            int(n_plain), nb, threads, stream), "dn_cols_finish")
-    colsharded_launches += 1
-    colsharded_tol_launches += tol > 0
-    colsharded_wide_launches += p > cuda_nmf.NARROW_MAX_P
+            E.data_ptr(), u.data_ptr(), s_p, s_fin, d_p, tol, G, p, W,
+            int(n_sq), int(n_plain), nb, threads, stream), "dn_cols_finish")
+    colsharded_launches += per
+    colsharded_tol_launches += per * (tol > 0)
+    colsharded_wide_launches += per * wide
     return K, E, u

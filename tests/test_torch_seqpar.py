@@ -14,6 +14,8 @@ Tolerances: float64 throughout.  The column-sharded fit sums each reduction
 over the columns in another order than one device, so it is held at rtol
 1e-9 (not bit for bit); the plain versions at 1e-12.
 """
+import os
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -131,6 +133,123 @@ def test_cols_geometry_spreads_one_outlier_gene_over_the_sms(W):
     nb, _ = cuda_stream.pick_cols_geometry(1, 8, W, 132)
     assert nb >= 132
     assert cuda_stream.pick_cols_geometry(3, 8, W, 132)[0] * 3 >= 132
+
+
+CSRC = os.path.join(os.path.dirname(cuda_stream.__file__), os.pardir, "csrc")
+
+
+def _c_to_py(expr):
+    """A C integer expression of ``+ - * /``, comparisons, calls and
+    ``?:`` as Python (``/`` on non-negative ints is ``//``)."""
+    def conv(s):
+        depth = 0
+        for i, ch in enumerate(s):
+            depth += (ch == "(") - (ch == ")")
+            if ch == "?" and depth == 0:       # ?: binds loosest
+                nest = d = 0
+                for j in range(i + 1, len(s)):
+                    d += (s[j] == "(") - (s[j] == ")")
+                    if d == 0 and s[j] == "?":
+                        nest += 1
+                    elif d == 0 and s[j] == ":":
+                        if nest == 0:
+                            break
+                        nest -= 1
+                return (f"(({conv(s[i + 1:j])}) if ({conv(s[:i])}) "
+                        f"else ({conv(s[j + 1:])}))")
+        out, depth, start = [], 0, 0
+        for i, ch in enumerate(s):
+            if ch == "(":
+                if depth == 0:
+                    out.append(s[start:i + 1])
+                    start = i + 1
+                depth += 1
+            elif ch == ")":
+                depth -= 1
+                if depth == 0:
+                    out.append(conv(s[start:i]))
+                    start = i
+        out.append(s[start:])
+        return "".join(out)
+    return conv(" ".join(expr.replace("/", "//").split()))
+
+
+def _wcr_rules():
+    """csrc/stream_cols_wide.cuh's layout rules as the compiler reads them:
+    its ``constexpr int wcr_*`` functions evaluated in Python over the
+    sources' ``#define DN_*`` integers."""
+    ns = {}
+    for name in os.listdir(CSRC):
+        with open(os.path.join(CSRC, name)) as f:
+            for k, v in re.findall(r"^#define (DN_\w+) (\d+)\b", f.read(),
+                                   re.M):
+                ns[k] = int(v)
+    with open(os.path.join(CSRC, "stream_cols_wide.cuh")) as f:
+        src = f.read()
+    for fn, params, body in re.findall(
+            r"constexpr int (wcr_\w+)\(([^)]*)\)\s*\{\s*return\s+(.*?);\s*\}",
+            src, re.S):
+        args = ", ".join(a.split()[-1] for a in params.split(","))
+        ns[fn] = eval(f"lambda {args}: {_c_to_py(body)}", ns)
+    return ns
+
+
+def test_c_to_py_reads_the_conditional_operator():
+    # the translation _wcr_rules relies on, on the forms the header uses
+    assert eval(_c_to_py("3 <= 4 ? 2 : 1")) == 2
+    assert eval(_c_to_py("(1 == 2 ? 10 : 7 / 2) - 1")) == 2
+    assert [eval(_c_to_py(f"{x} <= 1 ? 8 : {x} <= 2 ? 6 : 4"))
+            for x in (1, 2, 3)] == [8, 6, 4]
+
+
+@pytest.mark.parametrize("G,W", [(64, 32768), (1, 55040), (3, 59584),
+                                 (64, 32765), (7, 1003)])
+@pytest.mark.parametrize("p", [48, 64, 96, 128])
+def test_cols_wide_plan_fits_the_sm_and_deals_every_chunk_once(p, G, W):
+    # the wide instances' plan: the geometry the wrapper picks
+    # (pick_cols_geometry, one producer and eight consumer warps, within
+    # the launch's geometry check wcols_geometry_ok) and the header's own
+    # layout rules (a ring of at least four half-tile stages within an
+    # SM's shared memory, the static_assert of its launches), every chunk
+    # dealt once, no block's chain past COLS_WIDE_BLOCK_COLS, the launches
+    # and gathers of a call
+    r = _wcr_rules()
+    pm = cuda_nmf.pmax_of(p)
+    nb, threads = cuda_stream.pick_cols_geometry(G, p, W)
+    assert threads == cuda_stream.COLS_WIDE_THREADS == r["DN_WCR_THREADS"]
+    chunks = -(-W // CHUNK)
+    assert -(-chunks // nb) * CHUNK <= r["DN_WCR_MAX_TILES"] * r["DN_WIDE_TC"]
+    for itemsize in (2, 4):
+        ns = r["wcr_stages"](pm, itemsize)
+        dyn = r["wcr_dyn_bytes"](pm, itemsize, ns)
+        assert ns in (4, 6, 8)
+        assert dyn <= r["wcr_budget"](pm) <= r["DN_SMEM_BLOCK"] - 1024
+        assert r["wcr_blocks"](pm) == (2 if p <= 64 else 1)
+        assert (r["wcr_blocks"](pm) * (dyn + 2048)
+                <= r["DN_WCR_SMEM_SM"] == 233472)
+    shares = [cuda_stream.block_columns(W, W, nb, k) for k in range(nb)]
+    assert max(len(s) for s in shares) <= cuda_stream.COLS_WIDE_BLOCK_COLS
+    dealt = [c for s in shares for c in s]
+    assert sorted(dealt) == list(range(W))
+    assert cuda_stream.cols_calls(p, 50) == (2 * 50 + 3, 51)
+    assert cuda_stream.ratio_cols_calls(p) == (3, 1)
+    assert cuda_stream.cols_calls(8, 50) == (52, 51)
+    assert cuda_stream.ratio_cols_calls(8) == (2, 1)
+
+
+def test_cols_wide_plan_mirrors_the_sources():
+    # the package's constants of the wide instances against the header's
+    # defines, and every wcr_* rule read (a new one is evaluated too)
+    r = _wcr_rules()
+    assert r["DN_WCR_THREADS"] == cuda_stream.COLS_WIDE_THREADS
+    assert r["DN_WCR_CONSUMERS"] == cuda_stream.COLS_WIDE_THREADS - 32
+    assert (r["DN_WCR_MAX_TILES"] * r["DN_WIDE_TC"]
+            == cuda_stream.COLS_WIDE_BLOCK_COLS)
+    assert r["DN_WIDE_TC"] == cuda_nmf.WIDE_TC
+    assert r["DN_SMEM_BLOCK"] == cuda_nmf.SMEM_BLOCK_BYTES
+    assert r["DN_STREAM_CHUNK"] == CHUNK
+    assert {"wcr_blocks", "wcr_stage_bytes", "wcr_ld", "wcr_fixed_bytes",
+            "wcr_dyn_bytes", "wcr_budget", "wcr_stages"} <= set(r)
 
 
 def _gather_and_sum(cols, parts):
@@ -452,7 +571,7 @@ def test_wide_colsharded_nmf_plain_matches_whole_gene(p, case):
     want = cuda_nmf.nmf_masked_plain(A0, torch.from_numpy(mask), **kw,
                                      **extra)
     nb, threads = cuda_stream.pick_cols_geometry(G, p, W // 2, 132)
-    assert threads == cuda_nmf.WIDE_THREADS
+    assert threads == cuda_stream.COLS_WIDE_THREADS
     assert cuda_stream.block_share(W // 2, nb) <= \
         cuda_stream.COLS_WIDE_BLOCK_COLS
     parts, group = shards_of(F, mask, 2)
@@ -489,7 +608,7 @@ def test_wide_colsharded_ratio_plain_matches_whole_gene(p):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12)
 
 
-@pytest.mark.parametrize("p", [40, 64])
+@pytest.mark.parametrize("p", [40, 64, 128])
 def test_wide_column_sharded_fit_matches_one_device_and_jax(p):
     """More than 32 samples, every bucket column-sharded on two CPU shards
     (kernels 4c and 2c's wide instances on the card; nothing declined): the
